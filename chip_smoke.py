@@ -6,19 +6,28 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
-2. build the three CUDA kernels from pulpo_tpu_torch/csrc (one nvcc per
+2. build the seven CUDA kernels from pulpo_tpu_torch/csrc (one nvcc per
    source, all started together);
 3. hold each kernel against its plain PyTorch version (TF32 off) at the
-   main path's shapes, within a stated tolerance;
+   main paths' shapes, within a stated tolerance;
 4. a small-input reference: a UQ request on the card against the same
    weights and draws on the CPU (plain versions), leaf by leaf;
-5. the main path: the flagship config (160x192x224, 5/4 levels, n0=32,
-   bf16, level_res) with seeded random weights answers 3 requests, each
-   `predict_with_uncertainty` with N=32 on one synthetic pair. Every
-   leaf must be finite and each kernel's launch count must equal the
-   count the shapes give;
+4b. a small training step on the card against the same weights, batch
+   and draws on the CPU: losses, gradients and BatchNorm statistics;
+5. the serving path: the flagship config (160x192x224, 5/4 levels,
+   n0=32, bf16, level_res) with seeded random weights answers 3
+   requests, each `predict_with_uncertainty` with N=32 on one synthetic
+   pair. Every leaf must be finite and each kernel's launch count must
+   equal the count the shapes give;
+5b. the training path: the same flagship config (NCC + KL + L2, Adam lr
+   1e-4, B = 1) takes 1 warm-up and 5 timed `make_train_step` steps on a
+   synthetic pair: finite losses, no NaN flag, changed weights, and the
+   launch counts the shapes give;
 6. per-kernel times (CUDA events) beside their bounds, the plain
    versions' times and one library call's time.
+
+Each path's launch counts are set to 0 just before it runs and read
+just after.
 
 It prints one JSON line of kernel records, the card line, and as its
 last line ``{"ok": true, "device": {...}}``.
@@ -35,22 +44,49 @@ import time
 
 N_SAMPLES = 32
 N_REQUESTS = 3
+TRAIN_STEPS = 5                # timed, after one warm-up step
 FLAGSHIP = dict(input_size=(160, 192, 224), total_levels=5, latent_levels=4,
                 n0=32, compute_dtype="bfloat16", df_resolution="level_res",
                 dataset="synthetic")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # dense tensor-core peak, published
 
+KERNELS = ("warp", "squaring", "vel_head", "warp_dfgrad", "warp_mgrad",
+           "squaring_bwd", "box_sum")
 REPLACES = {
     "warp": "pulpo_tpu/kernels/warp_halo.py:322",
     "squaring": "pulpo_tpu/kernels/warp_local.py:142",
     "vel_head": "pulpo_tpu/kernels/vel_head.py:185",
+    "warp_dfgrad": "pulpo_tpu/kernels/warp_halo.py:822",
+    "warp_mgrad": "pulpo_tpu/kernels/warp_halo.py:1004",
+    "squaring_bwd": "pulpo_tpu/kernels/warp_local.py:309",
+    "box_sum": "pulpo_tpu/kernels/box_sum.py:61",
 }
 SOURCES = {
     "warp": "pulpo_tpu_torch/csrc/warp.cu",
     "squaring": "pulpo_tpu_torch/csrc/squaring.cu",
     "vel_head": "pulpo_tpu_torch/csrc/vel_head.cu",
+    "warp_dfgrad": "pulpo_tpu_torch/csrc/warp_bwd.cu",
+    "warp_mgrad": "pulpo_tpu_torch/csrc/warp_bwd.cu",
+    "squaring_bwd": "pulpo_tpu_torch/csrc/squaring_bwd.cu",
+    "box_sum": "pulpo_tpu_torch/csrc/box_sum.cu",
 }
+
+
+def reset_counts() -> None:
+    from pulpo_tpu_torch.kernels import box_sum, squaring, vel_head, warp
+
+    for mod in (warp, squaring, vel_head, box_sum):
+        mod.reset_count()
+
+
+def read_counts() -> dict[str, int]:
+    from pulpo_tpu_torch.kernels import box_sum, squaring, vel_head, warp
+
+    return {"warp": warp.launches, "squaring": squaring.launches,
+            "vel_head": vel_head.launches, "warp_dfgrad": warp.dfgrad_launches,
+            "warp_mgrad": warp.mgrad_launches, "squaring_bwd": squaring.bwd_launches,
+            "box_sum": box_sum.launches}
 
 
 def log(msg: str) -> None:
@@ -107,25 +143,39 @@ def head_params(zdim, n0, seed, device):
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
 
-def check_kernels(dev, full, level0, rows=4):
-    """Each kernel against its plain version; returns the max abs error
-    per kernel. `full`: input size; `level0`: latent level-0 size."""
+class Checks:
+    """The kernel-versus-plain comparisons: the worst error per kernel and
+    the cases that failed."""
+
+    def __init__(self):
+        self.worst = {k: 0.0 for k in KERNELS}
+        self.failures = []
+
+    def record(self, name, case, got, ref, tol):
+        import torch
+
+        err = float((got.float() - ref.float()).abs().max())
+        self.worst[name] = max(self.worst[name], err)
+        ok = err <= tol and bool(torch.isfinite(got).all())
+        log(f"check {name:12s} {case:44s} max_abs_err {err:.3e}  tol {tol:.1e}  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(f"{name} {case}")
+
+
+def scaled(ref, rel):
+    """A tolerance of `rel` times the reference's scale (at least 1)."""
+    return rel * max(1.0, float(ref.float().abs().max()))
+
+
+def check_kernels(dev, full, level0, checks, rows=4):
+    """The serving path's kernels against their plain versions. `full`:
+    input size; `level0`: latent level-0 size."""
     import torch
 
     from pulpo_tpu_torch.kernels import squaring, vel_head, warp
 
-    worst = {"warp": 0.0, "squaring": 0.0, "vel_head": 0.0}
-    failures = []
-
-    def record(name, case, got, ref, tol):
-        err = float((got.float() - ref.float()).abs().max())
-        worst[name] = max(worst[name], err)
-        ok = err <= tol and bool(torch.isfinite(got).all())
-        log(f"check {name:9s} {case:44s} max_abs_err {err:.3e}  tol {tol:.1e}  "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"{name} {case}")
-
+    record = checks.record
     g = torch.Generator().manual_seed(0)
     img = torch.rand((1, *full, 1), generator=g).to(dev)
     img3 = torch.rand((1, *level0, 3), generator=g).to(dev)
@@ -173,9 +223,93 @@ def check_kernels(dev, full, level0, rows=4):
         got = vel_head.velocity_head(z, p)
         scale = max(1.0, float(ref.float().abs().max()))
         record("vel_head", f"{name} 2 rows n0=32", got, ref, rel * scale)
-    if failures:
-        raise SystemExit(f"kernel checks failed: {failures}")
-    return worst
+
+
+def check_backward_kernels(dev, cfg, checks):
+    """The training path's kernels against their plain versions at its
+    shapes (B = 1): tolerance 1e-5 of the output's scale. `warp_mgrad`
+    and `squaring_bwd` scatter with float32 atomics, whose order is not
+    fixed; `warp_dfgrad` and `box_sum` repeat the plain version's
+    operations."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import box_sum, squaring, warp
+
+    record = checks.record
+    full, level0 = cfg.input_size, cfg.level_sizes[0]
+    g = torch.Generator().manual_seed(1)
+    img = torch.rand((1, *full, 1), generator=g).to(dev)
+
+    # df-cotangent at level 0: full-res image, full-res df (level_res
+    # resizes the level-0 df to the input size), C = 1
+    for mag in (0.3, 3.0, 15.0):
+        df = smooth_field(1, full, mag, seed=int(mag * 10) + 1, device=dev)
+        cot = torch.randn((1, *full, 1), generator=g).to(dev)
+        ref = warp.warp_dfgrad_plain(img, df, cot)
+        record("warp_dfgrad", f"C=1 full res |d|<={mag}", warp.warp_dfgrad(img, df, cot),
+               ref, scaled(ref, 1e-5))
+    df[..., 0] += 60.0
+    df[:, :, :8, :, 2] -= 80.0
+    ref = warp.warp_dfgrad_plain(img, df, cot)
+    record("warp_dfgrad", "C=1 full res border clamp", warp.warp_dfgrad(img, df, cot),
+           ref, scaled(ref, 1e-5))
+    df = permuted(smooth_field(2, full, 3.0, seed=21, device=dev))
+    cot = torch.randn((2, *full, 1), generator=g).to(dev)
+    ref = warp.warp_dfgrad_plain(img, df, cot)
+    record("warp_dfgrad", "C=1 2 rows permuted-memory df", warp.warp_dfgrad(img, df, cot),
+           ref, scaled(ref, 1e-5))
+    del df, cot, ref
+
+    # moving-cotangent: level 0 with C = 3 (its role in the squaring
+    # backward), and full res with C = 1
+    for size, c, rows in ((level0, 3, 1), (level0, 3, 2), (full, 1, 1)):
+        df = smooth_field(rows, size, 3.0, seed=22 + rows, device=dev)
+        cot = torch.randn((rows, *size, c), generator=g).to(dev)
+        ref = warp.warp_mgrad_plain((1, *size, c), df, cot)
+        record("warp_mgrad", f"C={c} {rows} rows {'x'.join(map(str, size))}",
+               warp.warp_mgrad((1, *size, c), df, cot), ref, scaled(ref, 1e-5))
+    ref = warp.warp_mgrad_plain((1, *size, c), permuted(df), cot)
+    record("warp_mgrad", "C=1 full res permuted-memory df",
+           warp.warp_mgrad((1, *size, c), permuted(df), cot), ref, scaled(ref, 1e-5))
+    del df, cot, ref
+
+    # squaring backward at level 0: the 7 step inputs of one integration
+    # (up to 8 voxels, past the TPU stencil's sub-voxel bound), then the
+    # whole backward through IntegrateSVF against the plain chain
+    v = smooth_field(1, level0, 8.0, seed=24, device=dev)
+    step_in = [v * (1.0 / 2**cfg.nsteps)]
+    for _ in range(cfg.nsteps - 1):
+        step_in.append(squaring.squaring_step_plain(step_in[-1]))
+    cot = torch.randn((1, *level0, 3), generator=g).to(dev)
+    for k, vk in enumerate(step_in):
+        ref = squaring.squaring_step_bwd_plain(vk, cot)
+        record("squaring_bwd", f"step {k} |v|<={float(vk.abs().max()):.2f}",
+               squaring.squaring_step_bwd(vk, cot), ref, scaled(ref, 1e-5))
+    ref = squaring.squaring_step_bwd_plain(step_in[-1], cot)
+    record("squaring_bwd", "step 6 permuted-memory field",
+           squaring.squaring_step_bwd(permuted(step_in[-1]), cot), ref, scaled(ref, 1e-5))
+    ref = cot
+    for vk in reversed(step_in):
+        ref = squaring.squaring_step_bwd_plain(vk, ref)
+    ref = ref * (1.0 / 2**cfg.nsteps)
+    vg = v.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(squaring.integrate_svf(vg, cfg.nsteps), vg, cot)
+    record("squaring_bwd", "IntegrateSVF backward, 7 steps", got, ref, scaled(ref, 1e-4))
+    del v, vg, step_in, cot, ref, got
+
+    # box sum: full res with window 9, then each level's recon size with
+    # its own window, and a permuted-memory input
+    for l in range(cfg.latent_levels):
+        size, win = cfg.df_size(l), cfg.window_size[l]
+        x = torch.rand((1, *size), generator=g).to(dev)
+        ref = box_sum.box_sum_plain(x, win)
+        record("box_sum", f"level {l} {'x'.join(map(str, size))} win {win}",
+               box_sum.box_sum(x, win), ref, scaled(ref, 1e-5))
+    x = torch.rand((1, *full), generator=g).to(dev)
+    xp = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    ref = box_sum.box_sum_plain(x, 9)
+    record("box_sum", "full res win 9 permuted-memory input", box_sum.box_sum(xp, 9), ref,
+           scaled(ref, 1e-5))
 
 
 # ----------------------------------------------------------------------
@@ -219,6 +353,54 @@ def check_small_reference(dev, size=(32, 40, 48), n=4):
     log(f"check small UQ card vs cpu {size} N={n}: worst scaled err {worst:.3e} (tol 1e-3) ok")
 
 
+def check_small_train(dev, size=(32, 40, 48)):
+    """One training step's forward and backward on the card (kernels)
+    against the CPU (plain versions): same weights, batch (B = 2) and
+    draws, float32. Losses within 1e-3 relative; each gradient within
+    1e-3 of its leaf's scale (of 1 % of the largest gradient for the
+    conv biases that feed a train BatchNorm: their gradient is 0 in
+    exact arithmetic, so both sides hold rounding noise); the new
+    BatchNorm statistics within 1e-5."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train.step import compute_grads
+
+    cfg = PULPoConfig(input_size=size, total_levels=3, latent_levels=2, n0=8, batch_size=2)
+    ref_model = PULPoModel(cfg, device="cpu")
+    ref_model.init(6)
+    model = PULPoModel(cfg, device=dev)
+    model.load_state_dict(ref_model.state_dict())
+    rng = np.random.default_rng(3)
+    batch = {k: rng.random((2, *size, 1), dtype=np.float32) for k in ("x", "y")}
+    noise = {l: torch.from_numpy(rng.standard_normal((2, *cfg.level_sizes[l], 3),
+                                                     dtype=np.float32))
+             for l in range(cfg.latent_levels)}
+    ref_g, ref_s, ref_m = compute_grads(ref_model, batch, noise=noise)
+    got_g, got_s, got_m = compute_grads(model, batch, noise=noise)
+    worst_loss = 0.0
+    for k in ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss"):
+        r, gv = float(ref_m[k]), float(got_m[k])
+        err = abs(gv - r) / max(abs(r), 1e-6)
+        worst_loss = max(worst_loss, err)
+        if not err <= 1e-3:
+            raise SystemExit(f"small train step: {k} {gv} vs cpu {r}")
+    top = max(float(v.abs().max()) for v in ref_g.values())
+    worst = 0.0
+    for n, r in ref_g.items():
+        err = float((got_g[n].cpu() - r).abs().max()) / max(float(r.abs().max()), 1e-2 * top)
+        worst = max(worst, err)
+        if not err <= 1e-3:
+            raise SystemExit(f"small train step: gradient {n} off by {err:.3e} of its scale")
+    for n, r in ref_s.items():
+        if not float((got_s[n].cpu() - r).abs().max()) <= 1e-5:
+            raise SystemExit(f"small train step: BatchNorm statistic {n} differs")
+    log(f"check small train step card vs cpu {size} B=2: losses rel err {worst_loss:.3e}, "
+        f"gradients worst scaled err {worst:.3e} (tol 1e-3), statistics ok")
+
+
 # ----------------------------------------------------------------------
 # phase 5: the main path
 # ----------------------------------------------------------------------
@@ -229,7 +411,6 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests):
 
     from pulpo_tpu_torch import PULPoConfig
     from pulpo_tpu_torch.data.synthetic import SyntheticDataset
-    from pulpo_tpu_torch.kernels import squaring, vel_head, warp
     from pulpo_tpu_torch.models import PULPoModel
     from pulpo_tpu_torch.uq.predict import predict_with_uncertainty
 
@@ -239,15 +420,14 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests):
     model.init(seed=0)
     ds = SyntheticDataset(shape=cfg.input_size, n=n_requests + 1, seed=0)
     pairs = [ds.get_pair(i, np.random.default_rng(i)) for i in range(n_requests)]
-    log(f"main path: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
+    log(f"serving path: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
         f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.df_resolution}, "
         f"{model.param_count} params, set-up {time.perf_counter() - t0:.1f} s")
 
     K = cfg.latent_levels
     decodes = 0
     chunks = []
-    for mod in (warp, squaring, vel_head):
-        mod.reset_count()
+    reset_counts()
     for i, pair in enumerate(pairs):
         x, y = pair["x"][None], pair["y"][None]
         calibrated = len(model.decode_bytes)
@@ -270,21 +450,96 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests):
             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
             f"decode bytes/sample {max(model.decode_bytes.values(), default=0) / 2**30:.2f} GiB  "
             "all leaves finite")
-    counts = {"warp": warp.launches, "squaring": squaring.launches,
-              "vel_head": vel_head.launches}
+    counts = read_counts()
     expected = {
         # each decode: one image warp and one integration per level, and a
         # head per level; each request's mean-SVF tail: one integration
-        # and one warp per level
+        # and one warp per level; no backward and no loss
         "warp": K * (decodes + n_requests),
         "squaring": cfg.nsteps * K * (decodes + n_requests),
         "vel_head": K * decodes,
+        "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
     }
-    log(f"launches {counts} expected {expected} ({decodes} decodes)")
+    log(f"serving path launches {counts} expected {expected} ({decodes} decodes)")
     for k in counts:
-        if counts[k] != expected[k] or counts[k] == 0:
+        if counts[k] != expected[k]:
             raise SystemExit(f"launch count of {k}: {counts[k]}, expected {expected[k]}")
     return counts, max(chunks)
+
+
+# ----------------------------------------------------------------------
+# phase 5b: the training path
+# ----------------------------------------------------------------------
+
+def run_train_path(dev, cfg_kw, steps):
+    """The flagship training step: 1 warm-up and `steps` timed steps of
+    `make_train_step` on one synthetic pair (B = 1)."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train import create_train_state, make_train_step
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1)
+    model = PULPoModel(cfg, device=dev)
+    state, tx = create_train_state(model, seed=0)
+    step = make_train_step(model, tx)
+    pair = SyntheticDataset(shape=cfg.input_size, n=2, seed=1).get_pair(
+        0, np.random.default_rng(1))
+    batch = {k: torch.as_tensor(pair[k][None]).to(dev) for k in ("x", "y")}
+    before = {n: p.detach().clone() for n, p in model.module.named_parameters()}
+    log(f"training path: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
+        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.df_resolution} {cfg.recon_loss} "
+        f"{cfg.regularizer} lr {cfg.lr} B 1")
+
+    K = cfg.latent_levels
+    times = []
+    reset_counts()
+    for i in range(1 + steps):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        losses = {k: float(metrics[k]) for k in
+                  ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss")}
+        if not all(math.isfinite(v) for v in losses.values()) or state.nan_flag:
+            raise SystemExit(f"train step {i}: losses {losses}, nan_flag {state.nan_flag}")
+        if i:
+            times.append(dt)
+        log(f"train step {i}{' (warm-up)' if i == 0 else ''}: {dt:.3f} s  "
+            + "  ".join(f"{k} {v:.4f}" for k, v in losses.items()))
+    counts = read_counts()
+    n = 1 + steps
+    expected = {
+        # per step and level: one integration forward (nsteps launches)
+        # and backward (nsteps), one image warp and its df-cotangent (the
+        # moving image needs no gradient, so no moving-cotangent), the
+        # NCC's 5 box sums forward and 3 backward (of j, j^2 and ij; the
+        # target's sums need none); the velocity head runs its plain
+        # chain in train mode
+        "warp": K * n, "squaring": cfg.nsteps * K * n, "vel_head": 0,
+        "warp_dfgrad": K * n, "warp_mgrad": 0, "squaring_bwd": cfg.nsteps * K * n,
+        "box_sum": (5 + 3) * K * n,
+    }
+    log(f"training path launches {counts} expected {expected} ({n} steps)")
+    for k in counts:
+        if counts[k] != expected[k]:
+            raise SystemExit(f"launch count of {k}: {counts[k]}, expected {expected[k]}")
+    changed = sum(not torch.equal(p.detach(), before[n])
+                  for n, p in model.module.named_parameters())
+    if changed == 0:
+        raise SystemExit("training path: no parameter changed")
+    peak = torch.cuda.max_memory_allocated()
+    mean = sum(times) / len(times)
+    log(f"training path: step {mean:.3f} s mean of {steps} ({' '.join(f'{t:.3f}' for t in times)}), "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB, {changed} of {len(before)} "
+        f"parameter tensors changed, {model.param_count} params")
+    return counts, {"step_s": mean, "peak_gib": peak / 2**30}
 
 
 # ----------------------------------------------------------------------
@@ -381,10 +636,80 @@ def time_kernels(dev, full, level0, rows, zdim, n0):
                            bound_ms=max(flops / BF16_FLOP_PER_S, bytes_ / HBM_BYTES_PER_S) * 1e3,
                            bound_by="operations" if flops / BF16_FLOP_PER_S > bytes_ / HBM_BYTES_PER_S else "bytes",
                            shape=f"z ({rows},{','.join(map(str, level0))},{zdim}) bf16, n0 {n0}")
-    for k, r in res.items():
-        log(f"time {k:9s} {r['shape']}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
-            f"library {'-' if r['library_ms'] is None else format(r['library_ms'], '.3f')} ms  "
-            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    return res
+
+
+def time_backward_kernels(dev, cfg):
+    """The training path's kernels at its shapes (B = 1). Bounds count
+    each input read once and each output written once; every one of
+    these kernels does far fewer float32 operations per byte than the
+    card's 67 TFLOP/s against 3.35 TB/s, so bytes bound them."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import box_sum, squaring, warp
+
+    res = {}
+    full, level0 = cfg.input_size, cfg.level_sizes[0]
+    n, nl = math.prod(full), math.prod(level0)
+    fmt = lambda size: ",".join(map(str, size))
+
+    # df-cotangent at level 0: moving, df, g at full res, C = 1
+    img = torch.rand((1, *full, 1), device=dev)
+    df = smooth_field(1, full, 3.0, seed=31, device=dev)
+    cot = torch.randn((1, *full, 1), device=dev)
+    ms = time_ms(lambda: warp.warp_dfgrad(img, df, cot), 10)
+    plain = time_ms(lambda: warp.warp_dfgrad_plain(img, df, cot), 2, warmup=1)
+    grid = grid_for(df).requires_grad_(True)
+    out = F.grid_sample(img.permute(0, 4, 1, 2, 3), grid, mode="bilinear",
+                        padding_mode="border", align_corners=False)
+    gcf = cot.permute(0, 4, 1, 2, 3)
+    lib = time_ms(lambda: torch.autograd.grad(out, grid, gcf, retain_graph=True), 10)
+    res["warp_dfgrad"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              bound_ms=n * (4 + 12 + 4 + 12) / HBM_BYTES_PER_S * 1e3,
+                              bound_by="bytes",
+                              shape=f"moving (1,{fmt(full)},1) df/g (1,{fmt(full)},3/1) f32")
+    del img, df, cot, grid, out, gcf
+    torch.cuda.empty_cache()
+
+    # moving-cotangent at level 0, C = 3 (its role in the squaring backward)
+    df = smooth_field(1, level0, 3.0, seed=32, device=dev)
+    cot = torch.randn((1, *level0, 3), device=dev)
+    shape = (1, *level0, 3)
+    ms = time_ms(lambda: warp.warp_mgrad(shape, df, cot), 20)
+    plain = time_ms(lambda: warp.warp_mgrad_plain(shape, df, cot), 2, warmup=1)
+    mov = torch.rand((1, 3, *level0), device=dev, requires_grad=True)
+    out = F.grid_sample(mov, grid_for(df), mode="bilinear", padding_mode="border",
+                        align_corners=False)
+    gcf = cot.permute(0, 4, 1, 2, 3)
+    lib = time_ms(lambda: torch.autograd.grad(out, mov, gcf, retain_graph=True), 20)
+    res["warp_mgrad"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                             bound_ms=nl * (12 + 12 + 12) / HBM_BYTES_PER_S * 1e3,
+                             bound_by="bytes", shape=f"df/g/out (1,{fmt(level0)},3) f32")
+    del df, cot, mov, out, gcf
+
+    # squaring backward: one step at level 0
+    v = smooth_field(1, level0, 3.0, seed=33, device=dev)
+    cot = torch.randn((1, *level0, 3), device=dev)
+    ms = time_ms(lambda: squaring.squaring_step_bwd(v, cot), 20)
+    plain = time_ms(lambda: squaring.squaring_step_bwd_plain(v, cot), 2, warmup=1)
+    res["squaring_bwd"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                               bound_ms=nl * (12 + 12 + 12) / HBM_BYTES_PER_S * 1e3,
+                               bound_by="bytes", shape=f"v/g (1,{fmt(level0)},3) f32, one step")
+    del v, cot
+
+    # box sum at level 0's recon size (full res), window 9
+    x = torch.rand((1, *full), device=dev)
+    ms = time_ms(lambda: box_sum.box_sum(x, 9), 20)
+    plain = time_ms(lambda: box_sum.box_sum_plain(x, 9), 2, warmup=1)
+    x5 = x[:, None]
+    lib = time_ms(lambda: F.avg_pool3d(x5, 9, stride=1, padding=4,
+                                       count_include_pad=True) * 729.0, 10)
+    res["box_sum"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=n * (4 + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                          shape=f"(1,{fmt(full)}) f32, window 9")
+    del x, x5
+    torch.cuda.empty_cache()
     return res
 
 
@@ -416,24 +741,41 @@ def main() -> int:
     cfg = PULPoConfig(**FLAGSHIP)
     full, level0 = cfg.input_size, cfg.level_sizes[0]
     t = time.perf_counter()
-    errs = check_kernels(dev, full, level0)
+    checks = Checks()
+    check_kernels(dev, full, level0, checks)
+    torch.cuda.empty_cache()
+    check_backward_kernels(dev, cfg, checks)
+    torch.cuda.empty_cache()
+    if checks.failures:
+        raise SystemExit(f"kernel checks failed: {checks.failures}")
     log(f"kernel checks passed in {time.perf_counter() - t:.1f} s")
     check_small_reference(dev)
+    check_small_train(dev)
 
-    counts, chunk = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
+    uq_counts, chunk = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
+    torch.cuda.empty_cache()
+    train_counts, train = run_train_path(dev, FLAGSHIP, TRAIN_STEPS)
     torch.cuda.empty_cache()
 
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
+    times.update(time_backward_kernels(dev, cfg))
+    for k, r in times.items():
+        log(f"time {k:12s} {r['shape']}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+            f"library {'-' if r['library_ms'] is None else format(r['library_ms'], '.3f')} ms  "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
     kernels = []
-    for name in ("warp", "squaring", "vel_head"):
+    for name in KERNELS:
         r = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": counts[name],
-            "max_abs_err": errs[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "replaces": REPLACES[name],
+            "launches": uq_counts[name] + train_counts[name],
+            "launches_by_path": {"serving": uq_counts[name], "training": train_counts[name]},
+            "max_abs_err": checks.worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    log(f"training step {train['step_s']:.3f} s, peak {train['peak_gib']:.2f} GiB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

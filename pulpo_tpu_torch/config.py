@@ -4,9 +4,10 @@ The port keeps its own copy of the JAX package's `PULPoConfig`
 (pulpo_tpu/config.py:51-255), so that it imports nothing of that
 package. Field names, defaults and derived sizes are the same, and a
 config JSON written by the JAX package loads unchanged. The TPU
-routing knobs (`use_pallas`, `routing`, `remat`, `remat_down`,
-`debug_nans`) are kept as inert fields for that reason only: the port
-routes by device, not by knob.
+routing knobs (`use_pallas`, `routing`, `debug_nans`) are kept as
+inert fields for that reason only: the port routes by device, not by
+knob. `remat` and `remat_down` are not ported yet: a train forward with
+either set raises.
 """
 
 from __future__ import annotations
@@ -95,7 +96,8 @@ class PULPoConfig:
 
     # --- numerics ---
     compute_dtype: str = "float32"  # "bfloat16" for mixed precision
-    # inert in the port (TPU routing knobs of the JAX config JSON)
+    # inert in the port (TPU routing knobs of the JAX config JSON), except
+    # remat / remat_down, which a train forward refuses (not ported yet)
     use_pallas: bool = True
     remat: bool = False
     remat_down: tuple[int, ...] = ()

@@ -26,14 +26,18 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-lineinfo", "-Xptxas", "-v", ARCH]
 
-# The gathers (warp, squaring) are compiled without FMA contraction so
-# that their coordinate arithmetic rounds exactly as the plain PyTorch
-# version's separate multiply and add do: a source coordinate one ulp
-# off can land on the other side of a voxel boundary.
+# The gathers (warp, squaring and their backward) are compiled without
+# FMA contraction so that their coordinate arithmetic rounds exactly as
+# the plain PyTorch version's separate multiply and add do: a source
+# coordinate one ulp off can land on the other side of a voxel
+# boundary. The box sum only adds; it takes the same flag.
 SOURCES = {
     "warp": ("warp.cu", ["-fmad=false"]),
     "squaring": ("squaring.cu", ["-fmad=false"]),
     "vel_head": ("vel_head.cu", []),
+    "warp_bwd": ("warp_bwd.cu", ["-fmad=false"]),
+    "squaring_bwd": ("squaring_bwd.cu", ["-fmad=false"]),
+    "box_sum": ("box_sum.cu", ["-fmad=false"]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

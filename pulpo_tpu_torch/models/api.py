@@ -1,9 +1,12 @@
-"""High-level model API: construction, init, prediction, df composition.
+"""High-level model API: construction, init, forward, prediction, df
+composition.
 
-Port of pulpo_tpu/models/api.py:34-76, 147-267 (eval only). The model
-holds its weights (a `PULPoModule`); `state_dict()` uses the reference
+Port of pulpo_tpu/models/api.py:34-76, 127-267. The model holds its
+weights (a `PULPoModule`); `state_dict()` uses the reference
 checkpoint's names. Everything runs on `cuda` unless the caller passes
 `device="cpu"`; without a card and without that, construction raises.
+The prediction entry points run under `torch.inference_mode`;
+`apply_train` builds the autograd graph (train/step.py drives it).
 """
 
 from __future__ import annotations
@@ -11,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from pulpo_tpu_torch.config import PULPoConfig
+from pulpo_tpu_torch.models.blocks import BatchNorm
 from pulpo_tpu_torch.models.pulpo import PULPoModule
+from pulpo_tpu_torch.ops.resize import avg_pool_ceil
 from pulpo_tpu_torch.ops.warp import (
     batched_level_warp,
     integrate_svf,
@@ -66,12 +71,31 @@ def combine_dfs(cfg: PULPoConfig, individual_dfs: LevelDict) -> tuple[LevelDict,
     return combined, final
 
 
+def transform_segmentation(cfg: PULPoConfig, dfs: LevelDict, seg: torch.Tensor) -> LevelDict:
+    """Warp a segmentation pyramid by the per-level final dfs
+    (pulpo_tpu/models/api.py:127-144): level 0 at the input resolution,
+    level l > 0 the ceil-mode average-pooled pyramid under level_res."""
+    if cfg.df_resolution == "full_res":
+        return _warp_levels(seg, dfs)
+    level_seg: LevelDict = {}
+    h = seg
+    for _ in range(cfg.lk_offset):
+        h = avg_pool_ceil(h)
+    prev = h
+    for l in range(1, cfg.latent_levels):
+        prev = avg_pool_ceil(prev)
+        level_seg[l] = prev
+    level_seg[0] = seg
+    return {l: warp_image(level_seg[l].float(), dfs[l]) for l in dfs}
+
+
 def _as_tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a).to(device=device, dtype=torch.float32)
 
 
 class PULPoModel:
-    """The eval model: config, weights and the prediction entry points.
+    """The model: config, weights, the train forward and the prediction
+    entry points.
 
     `dtype` defaults to the config's compute_dtype. Inputs are
     channels-last (B, *input_size, 1), numpy arrays or tensors."""
@@ -116,12 +140,49 @@ class PULPoModel:
         self.decode_bytes.clear()
 
     # ------------------------------------------------------------------
+    def batch_norms(self) -> dict[str, BatchNorm]:
+        """Every BatchNorm of the network, by its state_dict prefix."""
+        return {name: m for name, m in self.module.named_modules()
+                if isinstance(m, BatchNorm)}
+
+    def apply_train(self, x, y, seed: int = 0, noise: LevelDict | None = None):
+        """The stochastic train forward (batch statistics), with autograd.
+
+        Returns (the 8 per-level output dicts, the new BatchNorm running
+        statistics keyed by state_dict name). The buffers are left as they
+        were: `commit_batch_stats` applies the new statistics, which the
+        training step does only when its NaN guard has not fired."""
+        x, y = _as_tensor(x, self.device), _as_tensor(y, self.device)
+        bns = self.batch_norms()
+        for bn in bns.values():
+            bn.pending = None
+        try:
+            outs = self.module(x, y, deterministic=False, seed=seed, noise=noise,
+                               train=True)
+            stats = {}
+            for name, bn in bns.items():
+                stats[f"{name}.running_mean"], stats[f"{name}.running_var"] = bn.pending
+        finally:
+            for bn in bns.values():
+                bn.pending = None
+        return outs, stats
+
+    @torch.no_grad()
+    def commit_batch_stats(self, stats: dict[str, torch.Tensor]) -> None:
+        """Copy new running statistics (from `apply_train`) into the buffers."""
+        buffers = dict(self.module.named_buffers())
+        for name, value in stats.items():
+            buffers[name].copy_(value)
+
     @torch.inference_mode()
     def apply_eval(self, x, y, deterministic: bool = False, seed: int = 0,
                    noise: LevelDict | None = None):
         """The eval forward; returns the 8 per-level output dicts."""
         x, y = _as_tensor(x, self.device), _as_tensor(y, self.device)
         return self.module(x, y, deterministic=deterministic, seed=seed, noise=noise)
+
+    def transform_segmentation(self, dfs: LevelDict, seg) -> LevelDict:
+        return transform_segmentation(self.cfg, dfs, _as_tensor(seg, self.device))
 
     def predict_deterministic(self, x, y):
         """Decode the posterior means; returns (transformed, individual_dfs)."""

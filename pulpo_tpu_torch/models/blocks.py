@@ -1,11 +1,14 @@
-"""Network building blocks (eval only, channels-last at their boundaries).
+"""Network building blocks (channels-last at their boundaries).
 
-Port of pulpo_tpu/models/blocks.py:171-318. Module and parameter names
+Port of pulpo_tpu/models/blocks.py:171-318. Each block takes `train`:
+False applies BatchNorm with its running statistics, True with the
+batch's (and records the running statistics' update without applying
+it; see `BatchNorm`). Module and parameter names
 follow the reference state_dict (`_op.{i}` sequences, `_op.0` the conv
 and `_op.1` the BatchNorm of a ConvUnit), so that `state_dict()` is a
 reference checkpoint. Parameters are float32; each block computes in
 its `dtype`, with the JAX package's rounding points: a conv's sum is
-rounded to the compute type before its bias add, eval BatchNorm runs in
+rounded to the compute type before its bias add, BatchNorm runs in
 float32 in flax's order, LeakyReLU in the compute type.
 
 Convs run on NCDHW views of channels-last tensors (a free permute: the
@@ -47,9 +50,19 @@ def tile_rows(y2: torch.Tensor, rows: int) -> torch.Tensor:
     return y2.unsqueeze(0).expand(s, *y2.shape).reshape(rows, *y2.shape[1:])
 
 
-class EvalBatchNorm(nn.Module):
-    """BatchNorm with running statistics, applied as flax's eval
-    BatchNorm: ``(f32(x) - mean) * (rsqrt(var + eps) * scale) + bias``."""
+class BatchNorm(nn.Module):
+    """flax's BatchNorm (momentum 0.9, epsilon 1e-5) on a channels-last x,
+    applied as ``(f32(x) - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    float32 and cast back to x's dtype.
+
+    Eval: the running statistics. Train: the batch's, in float32 over
+    (B, *spatial), with flax's fast variance ``max(0, E[x^2] - E[x]^2)``
+    (biased; `nn.BatchNorm3d` would take the unbiased one). A train call
+    does not touch the buffers: it leaves the running statistics' update
+    ``0.9 * old + 0.1 * batch`` in `pending`, which the training step
+    commits (or drops, when its NaN guard fires)."""
+
+    momentum = 0.9
 
     def __init__(self, c: int):
         super().__init__()
@@ -57,10 +70,21 @@ class EvalBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
+        self.pending: tuple[torch.Tensor, torch.Tensor] | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return eval_bn(x, *bn_affine(self.running_mean, self.running_var,
-                                     self.weight, self.bias))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return eval_bn(x, *bn_affine(self.running_mean, self.running_var,
+                                         self.weight, self.bias))
+        dims = tuple(range(x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(dims)
+        var = torch.clamp_min(torch.mean(xf * xf, dims) - mean * mean, 0.0)
+        assert self.pending is None, "a BatchNorm ran twice in one train forward"
+        m = self.momentum
+        self.pending = (m * self.running_mean + (1 - m) * mean.detach(),
+                        m * self.running_var + (1 - m) * var.detach())
+        return eval_bn(x, *bn_affine(mean, var, self.weight, self.bias))
 
 
 class ConvUnit(nn.Module):
@@ -76,9 +100,10 @@ class ConvUnit(nn.Module):
         super().__init__()
         self.dtype = dtype
         self._op = nn.ModuleList([nn.Conv3d(cin, cout, 3, padding=1),
-                                  EvalBatchNorm(cout)])
+                                  BatchNorm(cout)])
 
-    def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
         conv, bn = self._op
         dt = self.dtype
         x = x.to(dt)
@@ -92,7 +117,7 @@ class ConvUnit(nn.Module):
                 y2 = tile_rows(y2, y.shape[0])
             y = y + y2
         y = y + conv.bias.to(dt)
-        return leaky(bn(y))
+        return leaky(bn(y, train))
 
 
 class ConvSequence(nn.Module):
@@ -104,9 +129,10 @@ class ConvSequence(nn.Module):
         self._op = nn.ModuleList(
             [ConvUnit(cin if i == 0 else cout, cout, dtype) for i in range(depth)])
 
-    def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
         for i, unit in enumerate(self._op):
-            x = unit(x, x2 if i == 0 else None)
+            x = unit(x, x2 if i == 0 else None, train)
         return x
 
 
@@ -134,8 +160,10 @@ class VelocityField(nn.Module):
 
     depth >= 2: ConvUnit(z -> n0), (depth - 2) ConvUnits, 1x1 conv
     (n0 -> ndims). depth 1: one unpadded k=3 conv. depth 0: identity.
-    A depth-3 head runs as one fused kernel on the card
-    (kernels/vel_head.py) and as its plain version on the CPU."""
+    In eval, a depth-3 head runs as one fused kernel on the card
+    (kernels/vel_head.py) and as its plain version on the CPU; in train
+    it runs the plain chain of ConvUnits (batch statistics), as the JAX
+    package does (its fused head is eval only)."""
 
     def __init__(self, zdim: int, ndims: int, n0: int, depth: int, dtype: torch.dtype):
         super().__init__()
@@ -162,17 +190,17 @@ class VelocityField(nn.Module):
         p["k3"], p["b3"] = self._op[2].weight, self._op[2].bias
         return p
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype
         if self.depth == 0:
             return z
         if self.depth == 1:
             conv = self._op[0]
             return conv3d_cl(z.to(dt), conv.weight, 0) + conv.bias.to(dt)
-        if self.depth == 3:
+        if self.depth == 3 and not train:
             return velocity_head(z.to(dt), self.head_params())
         x = z
         for unit in self._op[:-1]:
-            x = unit(x)
+            x = unit(x, train=train)
         head = self._op[-1]
         return conv1x1_cl(x, head.weight) + head.bias.to(dt)

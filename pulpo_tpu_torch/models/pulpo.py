@@ -1,4 +1,4 @@
-"""The PULPo hierarchical probabilistic registration network (eval only).
+"""The PULPo hierarchical probabilistic registration network.
 
 Port of pulpo_tpu/models/pulpo.py:45-502:
 
@@ -19,6 +19,12 @@ Noise: each sample's draw at each level comes from its own generator,
 seeded from (seed, sample index, level) only, so a result does not
 depend on how a caller chunks its samples. `noise` overrides the draws
 (a test hook: the tests feed the JAX package's draws).
+
+`train` selects BatchNorm's batch statistics (and their pending
+running update) over the running ones, and the plain velocity head over
+the fused kernel, as in the JAX package. `cfg.remat` / `cfg.remat_down`
+(recompute activations in the backward) are not ported yet: a train
+forward with either set raises.
 
 Outputs are dicts keyed by latent level, channels-last.
 """
@@ -86,13 +92,13 @@ class DownPath(nn.Module):
         self.down_blocks = nn.ModuleList(
             [ConvSequence(cin[k], ch[k], 3, dtype) for k in range(cfg.total_levels)])
 
-    def forward(self, x: torch.Tensor, y: torch.Tensor) -> LevelDict:
+    def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False) -> LevelDict:
         h = torch.cat([x, y], dim=-1)
         acts: LevelDict = {}
         for k, block in enumerate(self.down_blocks):
             if k > 0:
                 h = avg_pool_ceil(h)
-            h = block(h)
+            h = block(h, train=train)
             acts[k] = h
         return acts
 
@@ -108,12 +114,13 @@ class PULPoEncoder(nn.Module):
             self.sample_merge_block = ConvSequence(cfg.n0 * cfg.zdim + c, c, 2, dtype)
         self.mu_sigma = MuSigmaBlock(c, cfg.zdim, dtype)
 
-    def forward(self, down_activation: torch.Tensor, feedback: torch.Tensor | None = None):
+    def forward(self, down_activation: torch.Tensor, feedback: torch.Tensor | None = None,
+                train: bool = False):
         h = down_activation
         if feedback is not None:
             # == ConvSequence(concat([feedback, activation])), the
             # activation half convolved once per pair
-            h = self.sample_merge_block(feedback, x2=down_activation)
+            h = self.sample_merge_block(feedback, x2=down_activation, train=train)
         return self.mu_sigma(h)
 
 
@@ -126,14 +133,15 @@ class SVFDecoder(nn.Module):
         self.level = level
         self.velocity_field = VelocityField(cfg.zdim, cfg.ndims, cfg.n0, cfg.cp_depth, dtype)
 
-    def forward(self, z, input_image, combined_df=None, do_warp: bool = True):
+    def forward(self, z, input_image, combined_df=None, do_warp: bool = True,
+                train: bool = False):
         """Returns (velocity_field, individual_df, combined_df, final_df,
         transformed); `do_warp=False` leaves the image warp to the caller
         (None in its slot)."""
         cfg = self.cfg
         insize = cfg.level_sizes[self.level]
         outsize = cfg.df_size(self.level)
-        individual_df = self.velocity_field(z)
+        individual_df = self.velocity_field(z, train)
         if combined_df is None:
             combined = individual_df
         else:
@@ -185,7 +193,8 @@ class Autoencoder(nn.Module):
     def forward(self, x: torch.Tensor, down_activations: LevelDict,
                 deterministic: bool = False, n_samples: int = 1,
                 seed: int = 0, sample_ids=None,
-                noise: LevelDict | None = None) -> tuple[LevelDict, ...]:
+                noise: LevelDict | None = None,
+                train: bool = False) -> tuple[LevelDict, ...]:
         """Decode S = n_samples posterior draws folded into the batch axis.
 
         `sample_ids`: the global index of each of the S samples (default
@@ -230,7 +239,7 @@ class Autoencoder(nn.Module):
         for l in reversed(range(cfg.latent_levels)):
             k = l + cfg.lk_offset
             if l == cfg.latent_levels - 1:
-                mu_pp, sigma_pp = self.encoders[l](down_activations[k], None)
+                mu_pp, sigma_pp = self.encoders[l](down_activations[k], None, train)
                 mus[l], sigmas[l] = tile_rows(mu_pp, S * B), tile_rows(sigma_pp, S * B)
                 parent_combined = None
             else:
@@ -245,8 +254,8 @@ class Autoencoder(nn.Module):
                     else:
                         runs.append([t])
                 fb = _cat([resize_linear(_cat(ts), down_size) for ts in runs])
-                fb = self.up_blocks[str(k)](fb)
-                mus[l], sigmas[l] = self.encoders[l](down_activations[k], fb)
+                fb = self.up_blocks[str(k)](fb, train=train)
+                mus[l], sigmas[l] = self.encoders[l](down_activations[k], fb, train)
                 parent_combined = combined_dfs[l + 1]
 
             if deterministic:
@@ -257,7 +266,7 @@ class Autoencoder(nn.Module):
 
             (velocity_fields[l], individual_dfs[l], combined_dfs[l],
              final_dfs[l], transformed[l]) = self.decoders[l](
-                samples[l], level_x[l], parent_combined, not batch_warp)
+                samples[l], level_x[l], parent_combined, not batch_warp, train)
 
         if batch_warp:
             transformed.update(batched_level_warp(x, final_dfs))
@@ -266,8 +275,14 @@ class Autoencoder(nn.Module):
                 individual_dfs, combined_dfs, final_dfs, transformed)
 
 
+def prior_like(posterior_mus: LevelDict, posterior_sigmas: LevelDict):
+    """Standard-normal prior moments shaped like the posterior."""
+    return ({l: torch.zeros_like(m) for l, m in posterior_mus.items()},
+            {l: torch.ones_like(s) for l, s in posterior_sigmas.items()})
+
+
 class PULPoModule(nn.Module):
-    """Full network: DownPath + Autoencoder (eval only)."""
+    """Full network: DownPath + Autoencoder."""
 
     def __init__(self, cfg: PULPoConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -276,10 +291,15 @@ class PULPoModule(nn.Module):
         self.autoencoder = Autoencoder(cfg, dtype)
 
     def forward(self, x, y, deterministic: bool = False, seed: int = 0,
-                noise: LevelDict | None = None):
-        acts = self.downpath(x, y)
+                noise: LevelDict | None = None, train: bool = False):
+        cfg = self.cfg
+        if train and (cfg.remat or cfg.remat_down):
+            raise NotImplementedError(
+                "cfg.remat / cfg.remat_down (recomputing activations in the "
+                "backward) are not ported yet; see ROADMAP.md Queue 1")
+        acts = self.downpath(x, y, train=train)
         return self.autoencoder(x, acts, deterministic=deterministic,
-                                seed=seed, noise=noise)
+                                seed=seed, noise=noise, train=train)
 
     def encode(self, x, y) -> LevelDict:
         return self.downpath(x, y)

@@ -58,7 +58,10 @@ def _device_matrix(key: tuple, device: torch.device, dtype: torch.dtype) -> torc
     the host per call would synchronise the host with the card."""
     kind, *args = key
     m = _linear_matrix(*args) if kind == "linear" else _avgpool_matrix(*args)
-    return torch.as_tensor(m.T.copy()).to(device=device, dtype=dtype)
+    # a normal tensor even when first built under inference_mode (the UQ
+    # path): autograd refuses to save an inference tensor for backward
+    with torch.inference_mode(False):
+        return torch.as_tensor(m.T.copy()).to(device=device, dtype=dtype)
 
 
 def _apply_axis_matrix(x: torch.Tensor, key: tuple, axis: int) -> torch.Tensor:

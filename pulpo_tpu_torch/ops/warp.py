@@ -7,7 +7,9 @@ displacement.
 
 `warp_image` and `integrate_svf` run the hand-written CUDA kernels for
 tensors on the card (kernels/warp.py, kernels/squaring.py) and their
-plain PyTorch versions for tensors on the CPU.
+plain PyTorch versions for tensors on the CPU. Both are differentiable:
+they go through the kernels' autograd Functions (`Warp`,
+`IntegrateSVF`), whose backward passes are kernels too.
 
 Layout: images (B, *spatial, C); displacement fields (B, *spatial, ndims)
 with channel i = displacement along spatial axis i in voxels.
