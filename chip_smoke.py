@@ -10,6 +10,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    source, all started together);
 3. hold each kernel against its plain PyTorch version (TF32 off) at the
    main paths' shapes, within a stated tolerance;
+3c. the same under LungCT's large displacements: a respiratory field
+   (a superior-inferior ramp to 16 voxels and an in-plane drift to 4)
+   at 192x192x208 for the warp and its df-cotangent (bit-equal), at the
+   level-0 size 96x96x104 for the moving-cotangent and the squaring
+   backward (1e-5 of scale, float32 atomics), a squaring integration
+   whose last step moves ~8 voxels (bit-equal), and the box sum at each
+   LungCT level's size and window and the velocity head at its level 0
+   (the tolerances of phase 3);
 4. a small-input reference: a UQ request on the card against the same
    weights and draws on the CPU (plain versions), leaf by leaf;
 4b. a small training step on the card against the same weights, batch
@@ -23,8 +31,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1e-4, B = 1) takes 1 warm-up and 5 timed `make_train_step` steps on a
    synthetic pair: finite losses, no NaN flag, changed weights, and the
    launch counts the shapes give;
-6. per-kernel times (CUDA events) beside their bounds, the plain
-   versions' times and one library call's time.
+6. per-kernel times (CUDA events, the median of 5 repeats) beside their
+   bounds, the plain versions' times and one library call's time; the
+   warp also at the LungCT shape under the respiratory field;
+7. the LungCT path: the full-width LungCT config (192x192x208, 5/4
+   levels, n0=32, bf16) trains for 4 steps through the port's `Trainer`
+   (B = 1, validation, the two best checkpoints, `latest` and metrics
+   after every step) on an in-memory dataset with `LungCT.get_pair`'s
+   schema, served by the port's `DataLoader`; `Evaluate` reloads the run
+   directory and writes the performance table and the N = 10
+   uncertainty table with the landmark columns. The reloaded state must
+   equal the saved one bit for bit, every loss and table entry must be
+   finite (but where the zero-scrub gives NaN), and the launch counts
+   must equal what the shapes give.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -38,8 +57,12 @@ from __future__ import annotations
 import json
 import math
 import os
+import pathlib
+import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_SAMPLES = 32
@@ -48,13 +71,25 @@ TRAIN_STEPS = 5                # timed, after one warm-up step
 FLAGSHIP = dict(input_size=(160, 192, 224), total_levels=5, latent_levels=4,
                 n0=32, compute_dtype="bfloat16", df_resolution="level_res",
                 dataset="synthetic")
+# the LungCT configuration: the flagship network (the CLI defaults) on
+# the converted store's volume (pulpo_tpu/data/lungct.py:70), with the
+# routing pair the JAX CLI writes for it (inert in the port)
+LUNGCT = dict(FLAGSHIP, input_size=(192, 192, 208), dataset="lungct", lms=True,
+              routing=(("PULPO_WARP_COARSE", "1"),))
+LUNGCT_PAIRS = 2               # pairs per split
+LUNGCT_LANDMARKS = 8           # on the test split
+LUNGCT_STEPS = 4               # Trainer steps
+LUNGCT_SAMPLES = 10            # N of the uncertainty table
+TIME_REPEATS = 5               # timed repeats per kernel time (the median)
+SI_RAMP = 16.0                 # voxels, toward the last slices
+DRIFT = 4.0                    # voxels, in plane
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # dense tensor-core peak, published
 
 KERNELS = ("warp", "squaring", "vel_head", "warp_dfgrad", "warp_mgrad",
            "squaring_bwd", "box_sum")
 REPLACES = {
-    "warp": "pulpo_tpu/kernels/warp_halo.py:322",
+    "warp": "pulpo_tpu/kernels/warp_halo.py:322, pulpo_tpu/kernels/warp_halo.py:554",
     "squaring": "pulpo_tpu/kernels/warp_local.py:142",
     "vel_head": "pulpo_tpu/kernels/vel_head.py:185",
     "warp_dfgrad": "pulpo_tpu/kernels/warp_halo.py:822",
@@ -123,6 +158,30 @@ def permuted(v):
     return v.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
 
 
+def respiratory_displacement(points, size, si, drift):
+    """A breathing motion at voxel coordinates `points` (..., 3) of a
+    volume of `size`: along axis 0 a superior-inferior ramp
+    -si * (z / (S0 - 1))**2, strongest at the centre of each slice, so
+    the last slices read up to `si` voxels back; in plane a drift of up
+    to `drift` voxels that grows with z."""
+    import torch
+
+    z, y, x = (points[..., i] / (size[i] - 1) for i in range(3))
+    centre = 0.75 + 0.25 * torch.cos(math.pi * (y - 0.5)) * torch.cos(math.pi * (x - 0.5))
+    return torch.stack([-si * z**2 * centre,
+                        drift * z * torch.sin(2 * math.pi * x),
+                        drift * z * torch.cos(math.pi * y)], -1)
+
+
+def respiratory_field(size, si, drift, device):
+    """The breathing motion on the voxel grid: a df (1, *size, 3)."""
+    import torch
+
+    axes = [torch.arange(s, device=device, dtype=torch.float32) for s in size]
+    grid = torch.stack(torch.meshgrid(*axes, indexing="ij"), -1)
+    return respiratory_displacement(grid, size, si, drift)[None].contiguous()
+
+
 def head_params(zdim, n0, seed, device):
     import torch
 
@@ -173,7 +232,7 @@ def check_kernels(dev, full, level0, checks, rows=4):
     input size; `level0`: latent level-0 size."""
     import torch
 
-    from pulpo_tpu_torch.kernels import squaring, vel_head, warp
+    from pulpo_tpu_torch.kernels import squaring, warp
 
     record = checks.record
     g = torch.Generator().manual_seed(0)
@@ -211,18 +270,26 @@ def check_kernels(dev, full, level0, checks, rows=4):
            ref, 1e-4 * float(ref.abs().max()) + 1e-4)
     df = permuted(smooth_field(rows, full, 3.0, seed=6, device=dev))
     record("warp", "C=1 permuted-memory df", warp.warp(img, df), warp.warp_plain(img, df), 1e-5)
+    check_vel_head(dev, level0, checks, g)
 
-    # velocity head at level 0, n0 = 32, zdim = 3. f32: summation order
-    # only -> 1e-4 of the output scale; bf16: an intermediate that rounds
-    # the other way moves an output by a few bf16 ulps (2**-8 of the
-    # output scale each) -> 2% of the output scale
+
+def check_vel_head(dev, level0, checks, g):
+    """The velocity head at latent level 0, n0 = 32, zdim = 3. f32:
+    summation order only -> 1e-4 of the output scale; bf16: an
+    intermediate that rounds the other way moves an output by a few bf16
+    ulps (2**-8 of the output scale each) -> 2% of the output scale."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import vel_head
+
     p = head_params(3, 32, seed=3, device=dev)
     for dt, name, rel in ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 0.02)):
         z = torch.randn((2, *level0, 3), generator=g).to(dev, dt)
         ref = vel_head.velocity_head_plain(z, p)
         got = vel_head.velocity_head(z, p)
         scale = max(1.0, float(ref.float().abs().max()))
-        record("vel_head", f"{name} 2 rows n0=32", got, ref, rel * scale)
+        checks.record("vel_head", f"{name} 2 rows n0=32 {'x'.join(map(str, level0))}", got, ref,
+                      rel * scale)
 
 
 def check_backward_kernels(dev, cfg, checks):
@@ -233,7 +300,7 @@ def check_backward_kernels(dev, cfg, checks):
     operations."""
     import torch
 
-    from pulpo_tpu_torch.kernels import box_sum, squaring, warp
+    from pulpo_tpu_torch.kernels import squaring, warp
 
     record = checks.record
     full, level0 = cfg.input_size, cfg.level_sizes[0]
@@ -296,20 +363,91 @@ def check_backward_kernels(dev, cfg, checks):
     (got,) = torch.autograd.grad(squaring.integrate_svf(vg, cfg.nsteps), vg, cot)
     record("squaring_bwd", "IntegrateSVF backward, 7 steps", got, ref, scaled(ref, 1e-4))
     del v, vg, step_in, cot, ref, got
+    check_box_sums(dev, cfg, checks, g)
 
-    # box sum: full res with window 9, then each level's recon size with
-    # its own window, and a permuted-memory input
+
+def check_box_sums(dev, cfg, checks, g):
+    """The NCC's box sum at each level's recon size with its own window
+    (full res with window 9 at level 0), and a permuted-memory input."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import box_sum
+
+    fmt = lambda size: "x".join(map(str, size))
     for l in range(cfg.latent_levels):
         size, win = cfg.df_size(l), cfg.window_size[l]
         x = torch.rand((1, *size), generator=g).to(dev)
         ref = box_sum.box_sum_plain(x, win)
-        record("box_sum", f"level {l} {'x'.join(map(str, size))} win {win}",
-               box_sum.box_sum(x, win), ref, scaled(ref, 1e-5))
-    x = torch.rand((1, *full), generator=g).to(dev)
+        checks.record("box_sum", f"level {l} {fmt(size)} win {win}", box_sum.box_sum(x, win),
+                      ref, scaled(ref, 1e-5))
+    x = torch.rand((1, *cfg.input_size), generator=g).to(dev)
     xp = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     ref = box_sum.box_sum_plain(x, 9)
-    record("box_sum", "full res win 9 permuted-memory input", box_sum.box_sum(xp, 9), ref,
-           scaled(ref, 1e-5))
+    checks.record("box_sum", f"{fmt(cfg.input_size)} win 9 permuted-memory input",
+                  box_sum.box_sum(xp, 9), ref, scaled(ref, 1e-5))
+
+
+def check_large_displacement(dev, cfg, checks):
+    """Phase 3c: the kernels of the LungCT path under its displacements
+    and at its shapes. The warp and its df-cotangent repeat the plain
+    version's operations (bit-equal, tolerance 0); the moving-cotangent
+    and the squaring backward scatter with float32 atomics (1e-5 of
+    scale); the squaring integration is bit-equal; the box sums and the
+    velocity head are held as at the flagship's shapes."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import squaring, warp
+
+    record = checks.record
+    full, level0 = cfg.input_size, cfg.level_sizes[0]
+    g = torch.Generator().manual_seed(3)
+    img = torch.rand((1, *full, 1), generator=g).to(dev)
+    df = respiratory_field(full, SI_RAMP, DRIFT, dev)
+    tag = f"{'x'.join(map(str, full))} ramp {SI_RAMP:g}"
+    record("warp", f"C=1 {tag}", warp.warp(img, df), warp.warp_plain(img, df), 0.0)
+    record("warp", f"C=1 {tag} permuted-memory df", warp.warp(img, permuted(df)),
+           warp.warp_plain(img, df), 0.0)
+    cot = torch.randn((1, *full, 1), generator=g).to(dev)
+    ref = warp.warp_dfgrad_plain(img, df, cot)
+    record("warp_dfgrad", f"C=1 {tag}", warp.warp_dfgrad(img, df, cot), ref, 0.0)
+    record("warp_dfgrad", f"C=1 {tag} permuted-memory df",
+           warp.warp_dfgrad(img, permuted(df), cot), ref, 0.0)
+    del img, df, cot, ref
+
+    # level 0: moving-cotangent (C = 3, its role in the squaring backward)
+    tag0 = f"{'x'.join(map(str, level0))} ramp {SI_RAMP:g}"
+    df = respiratory_field(level0, SI_RAMP, DRIFT, dev)
+    cot = torch.randn((1, *level0, 3), generator=g).to(dev)
+    shape = (1, *level0, 3)
+    ref = warp.warp_mgrad_plain(shape, df, cot)
+    record("warp_mgrad", f"C=3 {tag0}", warp.warp_mgrad(shape, df, cot), ref, scaled(ref, 1e-5))
+    record("warp_mgrad", f"C=3 {tag0} permuted-memory df",
+           warp.warp_mgrad(shape, permuted(df), cot), ref, scaled(ref, 1e-5))
+
+    # an SVF whose last squaring step moves ~8 voxels: its 7 step inputs,
+    # the integration (bit-equal) and the backward of each step
+    v = respiratory_field(level0, SI_RAMP / 2, DRIFT / 2, dev)
+    ref = squaring.integrate_svf_plain(v, cfg.nsteps)
+    record("squaring", f"7 steps {'x'.join(map(str, level0))} |phi|<={float(ref.abs().max()):.2f}",
+           squaring.integrate_svf(v, cfg.nsteps), ref, 0.0)
+    record("squaring", "7 steps ramp permuted-memory input",
+           squaring.integrate_svf(permuted(v), cfg.nsteps), ref, 0.0)
+    step_in = [v * (1.0 / 2**cfg.nsteps)]
+    for _ in range(cfg.nsteps - 1):
+        step_in.append(squaring.squaring_step_plain(step_in[-1]))
+    for k, vk in enumerate(step_in):
+        ref = squaring.squaring_step_bwd_plain(vk, cot)
+        record("squaring_bwd", f"ramp step {k} |v|<={float(vk.abs().max()):.2f}",
+               squaring.squaring_step_bwd(vk, cot), ref, scaled(ref, 1e-5))
+    ref = squaring.squaring_step_bwd_plain(step_in[-1], cot)
+    record("squaring_bwd", "ramp step 6 permuted-memory field",
+           squaring.squaring_step_bwd(permuted(step_in[-1]), cot), ref, scaled(ref, 1e-5))
+    del v, step_in, cot, ref
+
+    # the NCC's box sums and the eval head at the LungCT levels' sizes,
+    # whose odd depths (208 down to 13) the flagship never has
+    check_box_sums(dev, cfg, checks, g)
+    check_vel_head(dev, level0, checks, g)
 
 
 # ----------------------------------------------------------------------
@@ -543,22 +681,265 @@ def run_train_path(dev, cfg_kw, steps):
 
 
 # ----------------------------------------------------------------------
+# phase 7: the LungCT path
+# ----------------------------------------------------------------------
+
+class RespiratoryPairs:
+    """An in-memory LungCT split with `LungCT.get_pair`'s schema (the card's
+    machine has no h5py): `n` inhale volumes (moving) made from a seed
+    with numpy, smooth noise upsampled to `size`, and their exhale
+    volumes (fixed), the inhale warped on the CPU by the plain warp under
+    `respiratory_field`. With `lms`, 8 landmarks per pair: drawn in the
+    exhale, and moved by the same field into the inhale."""
+
+    def __init__(self, size, n, seed, lms=False):
+        import numpy as np
+        import torch
+        import torch.nn.functional as F
+
+        from pulpo_tpu_torch.kernels.warp import warp_plain
+
+        rng = np.random.default_rng(seed)
+        self.input_size = tuple(size)
+        self.lms = lms
+        df = respiratory_field(size, SI_RAMP, DRIFT, "cpu")
+        self.pairs = []
+        for _ in range(n):
+            coarse = torch.from_numpy(rng.random([s // 8 for s in size], dtype=np.float32))
+            vol = F.interpolate(coarse[None, None], size=tuple(size), mode="trilinear",
+                                align_corners=True)[0, 0]
+            vol = (vol - vol.min()) / (vol.max() - vol.min())
+            exhale = warp_plain(vol[None, ..., None], df)[0, ..., 0]
+            lm_y = rng.uniform(8, np.asarray(size) - 8, (LUNGCT_LANDMARKS, 3)).astype(np.float32)
+            lm_x = lm_y + respiratory_displacement(torch.from_numpy(lm_y), size, SI_RAMP,
+                                                   DRIFT).numpy()
+            self.pairs.append((vol.numpy(), exhale.numpy(), lm_x, lm_y))
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def get_pair(self, index, rng):
+        inhale, exhale, lm_x, lm_y = self.pairs[index]
+        return {"x": inhale[..., None], "y": exhale[..., None], "seg_x": None, "seg_y": None,
+                "lm_x": lm_x if self.lms else None, "lm_y": lm_y if self.lms else None,
+                "mask_x": None, "mask_y": None}
+
+
+def payload_difference(a, b):
+    """The first difference between two checkpoint payloads
+    (train/checkpoint.py:state_payload), bit for bit, or None."""
+    import torch
+
+    for k in ("step", "nan_flag"):
+        if a[k] != b[k]:
+            return f"{k} {a[k]} != {b[k]}"
+    if a["adam"]["count"] != b["adam"]["count"] or not torch.equal(a["rng"], b["rng"]):
+        return "Adam count or generator state"
+    for group, da, db in (("model", a["model"], b["model"]),
+                          ("adam.mu", a["adam"]["mu"], b["adam"]["mu"]),
+                          ("adam.nu", a["adam"]["nu"], b["adam"]["nu"])):
+        if sorted(da) != sorted(db):
+            return f"{group} keys"
+        for k in da:
+            if not torch.equal(da[k].cpu(), db[k].cpu()):
+                return f"{group} {k}"
+    return None
+
+
+def equal_payloads(a, b, what):
+    diff = payload_difference(a, b)
+    if diff is not None:
+        raise SystemExit(f"{what}: {diff} differs")
+
+
+def check_table(table, may_be_nan, what):
+    """Every entry finite, but where `may_be_nan(set, metric, row)` allows
+    the zero-scrub's (or an absent modality's) NaN."""
+    import numpy as np
+
+    for c, (set_, metric) in enumerate(table.columns):
+        for r, v in enumerate(table.values[:, c]):
+            if np.isnan(v) and may_be_nan(set_, metric, r):
+                continue
+            if not np.isfinite(v):
+                raise SystemExit(f"{what}: ({set_}, {metric}) row {r} is {v}")
+
+
+def expect(counts, expected, what):
+    log(f"{what} launches {counts} expected {expected}")
+    for k in counts:
+        if counts[k] != expected[k]:
+            raise SystemExit(f"{what}: launch count of {k}: {counts[k]}, expected {expected[k]}")
+
+
+def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
+    """The Trainer, the checkpoints and the evaluation tables on the
+    full-width LungCT configuration."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data.lungct import split_loaders
+    from pulpo_tpu_torch.eval import evaluator
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train import create_train_state
+    from pulpo_tpu_torch.train.checkpoint import load_payload, read_checkpoint, state_payload
+    from pulpo_tpu_torch.train.loop import Trainer
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1, max_epochs=steps, log_every_n_steps=2)
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    t = time.perf_counter()
+    splits = [RespiratoryPairs(cfg.input_size, LUNGCT_PAIRS, seed=40 + i, lms=(i == 2))
+              for i in range(3)]
+    log(f"lungct path: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
+        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.df_resolution}, {LUNGCT_PAIRS} pairs per "
+        f"split, {LUNGCT_LANDMARKS} test landmarks, data {time.perf_counter() - t:.1f} s")
+
+    # training: the Trainer validates, keeps the best checkpoints and
+    # `latest`, and logs after every step (len(train) * 0.1 < 1)
+    train_loader, val_loader, _ = split_loaders(*splits, cfg.batch_size, cfg.random_seed)
+    trainer = Trainer(cfg, run_dir=run_root, experiment="lungct", device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    state = trainer.fit(train_loader, val_loader, max_steps=steps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    trainer.close()
+    run_dir = trainer.run_dir
+    train_counts = read_counts()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    times = trainer.times
+    n_steps, n_val = len(times["step"]), len(times["validate"]) * len(val_loader.dataset)
+    if n_steps != steps or state.nan_flag:
+        raise SystemExit(f"lungct training: {n_steps} steps, nan_flag {state.nan_flag}")
+    expect(train_counts, {
+        # per step as the training path; per validation pair one eval
+        # forward (a decode with the head kernel) and its 5 NCC box sums
+        # per level, no backward
+        "warp": K * (n_steps + n_val), "squaring": nsteps * K * (n_steps + n_val),
+        "vel_head": K * n_val, "warp_dfgrad": K * n_steps, "warp_mgrad": 0,
+        "squaring_bwd": nsteps * K * n_steps, "box_sum": 8 * K * n_steps + 5 * K * n_val,
+    }, "lungct training")
+    rows = read_metrics(run_dir)
+    tags = set().union(*rows)
+    for tag in ("train/total_loss", "train_levels/kl/0", "train_distribution_levels/"
+                "mean_posterior_mu/0", "val/total_loss", "val/reconstruction_loss"):
+        if tag not in tags:
+            raise SystemExit(f"metrics.jsonl has no {tag}")
+    for row in rows:
+        bad = [k for k, v in row.items() if not (isinstance(v, (int, float)) and math.isfinite(v))]
+        if bad:
+            raise SystemExit(f"metrics.jsonl step {row['step']}: not finite {bad}")
+    last = {k: v for k, v in rows[-1].items() if k.startswith("val/")}
+    with_io = [a + b + c for a, b, c in zip(times["step"], times["validate"], times["checkpoint"])]
+    ck = trainer.ckpt.last_save
+    log(f"lungct training: {n_steps} steps in {fit_s:.2f} s; step "
+        f"{' '.join(f'{x:.3f}' for x in times['step'])} s; with validation and checkpoints "
+        f"{' '.join(f'{x:.3f}' for x in with_io)} s; validation "
+        f"{' '.join(f'{x:.3f}' for x in times['validate'])} s; checkpoint rounds "
+        f"{' '.join(f'{x:.3f}' for x in times['checkpoint'])} s")
+    log(f"lungct training: checkpoint {ck['bytes']} bytes written in {ck['seconds']:.3f} s; "
+        f"max_memory_allocated {train_peak:.2f} GiB; last validation {last}")
+
+    # the checkpoint round trip on the card
+    saved = read_checkpoint(run_dir, "latest")
+    equal_payloads(state_payload(state), saved, "latest vs the trained state")
+    fresh, _ = create_train_state(PULPoModel(cfg, device=dev), seed=1)
+    load_payload(fresh, saved)
+    equal_payloads(state_payload(fresh), state_payload(state), "restored vs the trained state")
+    del fresh, saved, trainer, state
+    torch.cuda.empty_cache()
+
+    # evaluation: the tables on the reloaded run, landmarks on the test split
+    ev = evaluator.Evaluate(device=dev)
+    ev.load_model(run_dir)
+    stored = read_checkpoint(run_dir, ev.loaded_checkpoint)["model"]
+    for k, v in ev.model.state_dict().items():
+        if not torch.equal(v.cpu(), stored[k]):
+            raise SystemExit(f"reloaded {k} differs from {ev.loaded_checkpoint}")
+    ev.set_data(split_loaders(*splits, 1), ["train", "val", "test"], segs=False, lms=True,
+                mask=False)
+    pairs = sum(len(dl.dataset) for dl in ev.loaders)
+    chunks = []
+    uq = evaluator.predict_with_uncertainty
+
+    def recorded(*args, **kw):  # notes each request's chunk, for the counts
+        res = uq(*args, **kw)
+        chunks.append(res.outputs[0].shape[1])
+        return res
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    perf = ev.performance()
+    torch.cuda.synchronize()
+    perf_s = time.perf_counter() - t
+    calibrated = len(ev.model.decode_bytes)
+    evaluator.predict_with_uncertainty = recorded
+    try:
+        t = time.perf_counter()
+        unc = ev.uncertainty(num_samples=n_samples)
+        torch.cuda.synchronize()
+        unc_s = time.perf_counter() - t
+    finally:
+        evaluator.predict_with_uncertainty = uq
+    eval_counts = read_counts()
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    decodes = sum(n_samples // c for c in chunks) + len(ev.model.decode_bytes) - calibrated
+    expect(eval_counts, {
+        # performance: per pair one deterministic decode and the K
+        # integrations of combine_dfs; uncertainty: as the serving path
+        "warp": K * pairs + K * (decodes + pairs),
+        "squaring": 2 * nsteps * K * pairs + nsteps * K * (decodes + pairs),
+        "vel_head": K * pairs + K * decodes,
+        "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
+    }, f"lungct evaluation ({decodes} decodes, chunks {chunks})")
+    lm_cols = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
+    check_table(perf, lambda s, m, r: m == "JDetLeq0" or (m in lm_cols and (s != "test" or r > 0)),
+                "performance table")
+    check_table(unc, lambda s, m, r: m in lm_cols and s != "test", "uncertainty table")
+    for table, need in ((perf, ("LM_MAE", "LM_Euclid")), (unc, ("LM_VAR", "LM_NCC"))):
+        for m in need:
+            if ("test", m) not in table or not np.isfinite(table[("test", m)][0]):
+                raise SystemExit(f"no finite (test, {m}) in the tables")
+    log(f"lungct evaluation: performance table {perf_s:.3f} s, uncertainty table (N={n_samples}) "
+        f"{unc_s:.3f} s, max_memory_allocated {eval_peak:.2f} GiB, checkpoint "
+        f"{ev.loaded_checkpoint}")
+    log("performance table (deterministic):\n" + str(perf))
+    log("uncertainty table:\n" + str(unc))
+    info = {"step_s": sum(times["step"][1:]) / max(1, n_steps - 1),
+            "step_with_io_s": sum(with_io[1:]) / max(1, n_steps - 1),
+            "ckpt_bytes": ck["bytes"], "ckpt_s": ck["seconds"], "train_peak_gib": train_peak,
+            "eval_peak_gib": eval_peak, "perf_s": perf_s, "unc_s": unc_s}
+    return train_counts, eval_counts, info
+
+
+# ----------------------------------------------------------------------
 # phase 6: times
 # ----------------------------------------------------------------------
 
 def time_ms(fn, iters, warmup=2):
+    """ms per call: the median of TIME_REPEATS CUDA-event timings of
+    `iters` calls each (one timing alone moves by up to 2x between runs)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    runs = []
+    for _ in range(TIME_REPEATS):
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b) / iters)
+    return statistics.median(runs)
 
 
 def grid_for(df):
@@ -637,6 +1018,34 @@ def time_kernels(dev, full, level0, rows, zdim, n0):
                            bound_by="operations" if flops / BF16_FLOP_PER_S > bytes_ / HBM_BYTES_PER_S else "bytes",
                            shape=f"z ({rows},{','.join(map(str, level0))},{zdim}) bf16, n0 {n0}")
     return res
+
+
+def time_lungct_warp(dev, full):
+    """The warp at the LungCT shape: one moving image and one df under
+    the respiratory field, and the same under a smooth 3-voxel field for
+    the time per voxel at small displacements."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import warp
+
+    img = torch.rand((1, *full, 1), device=dev)
+    df = respiratory_field(full, SI_RAMP, DRIFT, dev)
+    n = math.prod(full)
+    ms = time_ms(lambda: warp.warp(img, df), 20)
+    plain = time_ms(lambda: warp.warp_plain(img, df), 2, warmup=1)
+    grid = grid_for(df)
+    mov = img.permute(0, 4, 1, 2, 3)
+    lib = time_ms(lambda: F.grid_sample(mov, grid, mode="bilinear", padding_mode="border",
+                                        align_corners=False), 20)
+    small = smooth_field(1, full, 3.0, seed=14, device=dev)
+    small_ms = time_ms(lambda: warp.warp(img, small), 20)
+    del df, grid, small
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, small_displacement_ms=small_ms,
+                bound_ms=4 * n * (3 + 1 + 1) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                shape=f"moving (1,{','.join(map(str, full))},1) df (1,{','.join(map(str, full))},3) "
+                      f"f32, ramp {SI_RAMP:g} drift {DRIFT:g}")
 
 
 def time_backward_kernels(dev, cfg):
@@ -746,6 +1155,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_backward_kernels(dev, cfg, checks)
     torch.cuda.empty_cache()
+    check_large_displacement(dev, PULPoConfig(**LUNGCT), checks)
+    torch.cuda.empty_cache()
     if checks.failures:
         raise SystemExit(f"kernel checks failed: {checks.failures}")
     log(f"kernel checks passed in {time.perf_counter() - t:.1f} s")
@@ -756,9 +1167,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts, train = run_train_path(dev, FLAGSHIP, TRAIN_STEPS)
     torch.cuda.empty_cache()
+    run_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_lungct_"))
+    try:
+        lungct_train, lungct_eval, lungct = run_lungct_path(
+            dev, LUNGCT, LUNGCT_STEPS, LUNGCT_SAMPLES, run_root)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
     times.update(time_backward_kernels(dev, cfg))
+    times["warp_lungct"] = time_lungct_warp(dev, PULPoConfig(**LUNGCT).input_size)
+    log(f"warp per voxel-row: LungCT ramp {times['warp_lungct']['ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps, "
+        f"3-voxel field {times['warp_lungct']['small_displacement_ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps "
+        f"(same shape), flagship 32 rows {times['warp']['ms'] * 1e9 / (chunk * math.prod(full)):.2f} ps")
     for k, r in times.items():
         log(f"time {k:12s} {r['shape']}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
             f"library {'-' if r['library_ms'] is None else format(r['library_ms'], '.3f')} ms  "
@@ -766,16 +1188,25 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         r = times[name]
-        kernels.append({
+        by_path = {"serving": uq_counts[name], "training": train_counts[name],
+                   "lungct_train": lungct_train[name], "lungct_eval": lungct_eval[name]}
+        record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": uq_counts[name] + train_counts[name],
-            "launches_by_path": {"serving": uq_counts[name], "training": train_counts[name]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": checks.worst[name], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-        })
+        }
+        if name == "warp":
+            record["lungct"] = {k: v for k, v in times["warp_lungct"].items() if k != "shape"}
+        kernels.append(record)
     log(f"training step {train['step_s']:.3f} s, peak {train['peak_gib']:.2f} GiB")
+    log(f"lungct: Trainer step {lungct['step_s']:.3f} s, with validation and checkpoints "
+        f"{lungct['step_with_io_s']:.3f} s, checkpoint {lungct['ckpt_bytes']} B in "
+        f"{lungct['ckpt_s']:.3f} s, training peak {lungct['train_peak_gib']:.2f} GiB, "
+        f"performance table {lungct['perf_s']:.3f} s, uncertainty table {lungct['unc_s']:.3f} s, "
+        f"evaluation peak {lungct['eval_peak_gib']:.2f} GiB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

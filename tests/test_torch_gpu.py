@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import respiratory_field
 from pulpo_tpu_torch.kernels import box_sum, squaring, vel_head, warp
 
 pytestmark = pytest.mark.gpu
@@ -273,3 +274,102 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
         assert float((got_g[n].cpu() - r).abs().max()) <= 1e-3 * scale, n
     for n, r in ref_s.items():
         torch.testing.assert_close(got_s[n].cpu(), r, rtol=0, atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# the LungCT path: large displacements, the Trainer and the evaluation
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("si", [8.0, 16.0, 24.0])
+def test_warp_and_dfgrad_bit_equal_under_large_displacement(cuda_device, si):
+    rng = np.random.default_rng(40)
+    shape = (37, 30, 42)  # ragged
+    m = torch.from_numpy(rng.random((1, *shape, 1), dtype=np.float32)).to(cuda_device)
+    d = respiratory_field(shape, si, 4.0, cuda_device)
+    g = torch.from_numpy(rng.standard_normal((1, *shape, 1)).astype(np.float32)).to(cuda_device)
+    torch.testing.assert_close(warp.warp(m, d), warp.warp_plain(m, d), rtol=0, atol=0)
+    torch.testing.assert_close(warp.warp(m, _permuted(d)), warp.warp_plain(m, d), rtol=0, atol=0)
+    torch.testing.assert_close(warp.warp_dfgrad(m, d, g), warp.warp_dfgrad_plain(m, d, g),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("si", [8.0, 16.0])
+def test_mgrad_and_squaring_under_large_displacement(cuda_device, si):
+    rng = np.random.default_rng(41)
+    shape = (19, 15, 21)  # ragged
+    d = respiratory_field(shape, si, 4.0, cuda_device)
+    g = torch.from_numpy(rng.standard_normal((1, *shape, 3)).astype(np.float32)).to(cuda_device)
+    _close_scaled(warp.warp_mgrad((1, *shape, 3), d, g),
+                  warp.warp_mgrad_plain((1, *shape, 3), d, g), 1e-5)
+    v = respiratory_field(shape, si / 2, 2.0, cuda_device)
+    torch.testing.assert_close(squaring.integrate_svf(v, 7), squaring.integrate_svf_plain(v, 7),
+                               rtol=0, atol=0)
+    vk = v * (1.0 / 2**7)
+    for _ in range(7):
+        _close_scaled(squaring.squaring_step_bwd(vk, g), squaring.squaring_step_bwd_plain(vk, g),
+                      1e-5)
+        vk = squaring.squaring_step_plain(vk)
+
+
+def _cpu_draws(monkeypatch):
+    """Posterior draws made on the CPU and moved to the device, so that a
+    run on the card and one on the CPU see the same noise."""
+    from pulpo_tpu_torch.models import pulpo
+
+    plain = pulpo.draw_normal
+    monkeypatch.setattr(pulpo, "draw_normal",
+                        lambda seed, samples, level, shape, device:
+                        plain(seed, samples, level, shape, "cpu").to(device))
+
+
+def test_trainer_on_the_card_matches_the_cpu(cuda_device, monkeypatch, tmp_path):
+    """Two Trainer steps (validation, checkpoints and logging after each)
+    on the card and on the CPU from the same seed: every logged loss
+    within 1e-3 relative."""
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data.loader import DataLoader
+    from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+    from pulpo_tpu_torch.train.loop import Trainer
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    _cpu_draws(monkeypatch)
+    cfg = PULPoConfig(input_size=(24, 28, 32), total_levels=3, latent_levels=2, n0=8,
+                      log_every_n_steps=1, dataset="synthetic")
+    ds = SyntheticDataset(shape=cfg.input_size, n=4, seed=3)
+    rows = {}
+    for dev in ("cpu", cuda_device):
+        trainer = Trainer(cfg, run_dir=tmp_path, experiment=str(dev), device=dev)
+        state = trainer.fit(DataLoader(ds, 1, shuffle=True, seed=0),
+                            DataLoader(ds, 1, seed=1), max_steps=2)
+        trainer.close()
+        assert state.step == 2 and not state.nan_flag
+        rows[str(dev)] = read_metrics(trainer.run_dir)
+    ref, got = rows["cpu"], rows[str(cuda_device)]
+    assert [r["step"] for r in got] == [1, 2] and [sorted(r) for r in got] == [sorted(r) for r in ref]
+    for r, g in zip(ref, got):
+        for k in r:
+            np.testing.assert_allclose(g[k], r[k], rtol=1e-3, atol=1e-6, err_msg=k)
+
+
+def test_evaluate_performance_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """The deterministic performance table on the card and on the CPU for
+    the same weights: the same NaN pattern, entries within 1e-3 (both
+    rounded to 3 decimals)."""
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.eval.evaluator import Evaluate
+    from pulpo_tpu_torch.models import PULPoModel
+
+    cfg = PULPoConfig(input_size=(24, 28, 32), total_levels=3, latent_levels=2, n0=8,
+                      dataset="synthetic")
+    tables = []
+    for dev in ("cpu", cuda_device):
+        model = PULPoModel(cfg, device=dev)
+        model.init(7)
+        ev = Evaluate(device=dev)
+        ev.set_model(model, output_dir=tmp_path / str(dev))
+        ev.load_data("synthetic", segs=True, lms=True, mask=False)
+        tables.append(ev.performance())
+    ref, got = tables
+    assert got.columns == ref.columns
+    np.testing.assert_array_equal(np.isnan(got.values), np.isnan(ref.values))
+    np.testing.assert_allclose(got.values, ref.values, rtol=0, atol=1e-3 + 1e-9)
