@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
-2. build the seven CUDA kernels from pulpo_tpu_torch/csrc (one nvcc per
+2. build the CUDA kernels from pulpo_tpu_torch/csrc (one nvcc per
    source, all started together);
 3. hold each kernel against its plain PyTorch version (TF32 off) at the
    main paths' shapes, within a stated tolerance;
@@ -18,6 +18,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whose last step moves ~8 voxels (bit-equal), and the box sum at each
    LungCT level's size and window and the velocity head at its level 0
    (the tolerances of phase 3);
+3d. the eval conv chains on the conv-unit kernel against their plain
+   versions in bfloat16 and float32: the posterior head at each
+   non-coarsest latent level of the flagship and of LungCT (4 rows over
+   1 pair, so the y2 row broadcast runs; one permuted-memory input),
+   the narrow-input chain on down_block_0 at both full sizes, random
+   weights with non-trivial BatchNorm statistics; and the gradient
+   through each eval kernel (velocity head, posterior head, conv chain)
+   against its plain version's;
 4. a small-input reference: a UQ request on the card against the same
    weights and draws on the CPU (plain versions), leaf by leaf;
 4b. a small training step on the card against the same weights, batch
@@ -27,13 +35,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    requests, each `predict_with_uncertainty` with N=32 on one synthetic
    pair. Every leaf must be finite and each kernel's launch count must
    equal the count the shapes give;
+5c. the serve entry: the flagship model (random weights from seed 0)
+   exported to a `.pulpo` artifact and loaded by `ServedModel` answers
+   `predict_deterministic` once, `predict_mean` at N = 32 once and `uq`
+   at N = 32 three times; the served outputs equal the live model's on
+   the same inputs, seed, N and chunk bit for bit (the forward kernels
+   use no atomics), with the launch counts the shapes give;
 5b. the training path: the same flagship config (NCC + KL + L2, Adam lr
    1e-4, B = 1) takes 1 warm-up and 5 timed `make_train_step` steps on a
    synthetic pair: finite losses, no NaN flag, changed weights, and the
    launch counts the shapes give;
 6. per-kernel times (CUDA events, the median of 5 repeats) beside their
    bounds, the plain versions' times and one library call's time; the
-   warp also at the LungCT shape under the respiratory field;
+   warp also at the LungCT shape under the respiratory field; the
+   posterior head at each flagship level at R = chunk and the conv chain
+   at full resolution, against the port's unfused eval chain (cuDNN
+   convs with PyTorch epilogues) as the library yardstick;
 7. the LungCT path: the full-width LungCT config (192x192x208, 5/4
    levels, n0=32, bf16) trains for 4 steps through the port's `Trainer`
    (B = 1, validation, the two best checkpoints, `latest` and metrics
@@ -87,7 +104,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # dense tensor-core peak, published
 
 KERNELS = ("warp", "squaring", "vel_head", "warp_dfgrad", "warp_mgrad",
-           "squaring_bwd", "box_sum")
+           "squaring_bwd", "box_sum", "pos_head", "conv_chain")
+# bf16 tolerance of the eval conv chains: an intermediate of a chained
+# unit that rounds the other way moves an output by about a bf16 ulp at
+# its scale (2**-7 of it at most); 4 such ulps
+BF16_CHAIN_REL = 4 * 2.0**-7
 REPLACES = {
     "warp": "pulpo_tpu/kernels/warp_halo.py:322, pulpo_tpu/kernels/warp_halo.py:554",
     "squaring": "pulpo_tpu/kernels/warp_local.py:142",
@@ -96,6 +117,8 @@ REPLACES = {
     "warp_mgrad": "pulpo_tpu/kernels/warp_halo.py:1004",
     "squaring_bwd": "pulpo_tpu/kernels/warp_local.py:309",
     "box_sum": "pulpo_tpu/kernels/box_sum.py:61",
+    "pos_head": "pulpo_tpu/kernels/pos_head.py:272",
+    "conv_chain": "pulpo_tpu/attic/conv_chain.py:202",
 }
 SOURCES = {
     "warp": "pulpo_tpu_torch/csrc/warp.cu",
@@ -105,23 +128,39 @@ SOURCES = {
     "warp_mgrad": "pulpo_tpu_torch/csrc/warp_bwd.cu",
     "squaring_bwd": "pulpo_tpu_torch/csrc/squaring_bwd.cu",
     "box_sum": "pulpo_tpu_torch/csrc/box_sum.cu",
+    "pos_head": "pulpo_tpu_torch/csrc/conv_unit.cu",
+    "conv_chain": "pulpo_tpu_torch/csrc/conv_unit.cu",
 }
 
 
 def reset_counts() -> None:
-    from pulpo_tpu_torch.kernels import box_sum, squaring, vel_head, warp
+    from pulpo_tpu_torch.kernels import box_sum, conv_chain, pos_head, squaring, vel_head, warp
 
-    for mod in (warp, squaring, vel_head, box_sum):
+    for mod in (warp, squaring, vel_head, box_sum, pos_head, conv_chain):
         mod.reset_count()
 
 
 def read_counts() -> dict[str, int]:
-    from pulpo_tpu_torch.kernels import box_sum, squaring, vel_head, warp
+    from pulpo_tpu_torch.kernels import box_sum, conv_chain, pos_head, squaring, vel_head, warp
 
     return {"warp": warp.launches, "squaring": squaring.launches,
             "vel_head": vel_head.launches, "warp_dfgrad": warp.dfgrad_launches,
             "warp_mgrad": warp.mgrad_launches, "squaring_bwd": squaring.bwd_launches,
-            "box_sum": box_sum.launches}
+            "box_sum": box_sum.launches, "pos_head": pos_head.launches,
+            "conv_chain": conv_chain.launches}
+
+
+def eval_launches(cfg, encodes, decodes):
+    """Launches of the eval conv-chain kernels: per decode 4 for each
+    non-coarsest latent level's posterior head; per encode one per unit
+    of each down block whose input has at most 8 channels (down_block_0,
+    3 units, in the flagship and LungCT configurations)."""
+    from pulpo_tpu_torch.kernels import conv_chain
+
+    cins = [2] + [cfg.num_channels[k] for k in range(cfg.total_levels - 1)]
+    narrow = sum(c <= conv_chain.MAX_CIN for c in cins)
+    return {"pos_head": 4 * (cfg.latent_levels - 1) * decodes,
+            "conv_chain": 3 * narrow * encodes}
 
 
 def log(msg: str) -> None:
@@ -451,6 +490,163 @@ def check_large_displacement(dev, cfg, checks):
 
 
 # ----------------------------------------------------------------------
+# phase 3d: the eval conv chains (conv-unit kernel)
+# ----------------------------------------------------------------------
+
+def eval_unit(cin, cout, g, dev):
+    """One ConvUnit's parameters (PyTorch layout): a unit-variance conv
+    and BatchNorm statistics away from the default init's 0 and 1, which
+    would hide an error in the BatchNorm."""
+    import torch
+
+    r = lambda shape, s=1.0: (torch.randn(shape, generator=g) * s).to(dev)
+    return {"k": r((cout, cin, 3, 3, 3), 1.0 / math.sqrt(27 * cin)), "b": r((cout,), 0.1),
+            "mean": r((cout,), 0.3), "var": r((cout,)).abs() + 0.2,
+            "scale": r((cout,)) + 1.0, "bias": r((cout,), 0.2)}
+
+
+def pos_head_widths(cfg, l):
+    """(c_fb, n_up, n_merge) of latent level l's posterior head."""
+    from pulpo_tpu_torch.models.pulpo import feedback_channels
+
+    return feedback_channels(cfg), cfg.n0 * cfg.zdim, cfg.num_channels[cfg.lk_offset + l]
+
+
+def pos_head_params(widths, zdim, seed, dev):
+    import torch
+
+    c_fb, n_up, n_merge = widths
+    g = torch.Generator().manual_seed(seed)
+    p = {}
+    for pre, n, cin, cout in (("u", 1, c_fb, n_up), ("u", 2, n_up, n_up),
+                              ("m", 1, n_up, n_merge), ("m", 2, n_merge, n_merge)):
+        p.update({f"{pre}{k}{n}": v for k, v in eval_unit(cin, cout, g, dev).items()})
+    for h in ("mu", "sig"):
+        p[f"hk{h}"] = (torch.randn((zdim, n_merge, 1, 1, 1), generator=g)
+                       / math.sqrt(n_merge)).to(dev)
+        p[f"hb{h}"] = (torch.randn((zdim,), generator=g) * 0.1).to(dev)
+    return p
+
+
+def chain_stages(widths, seed, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return [eval_unit(widths[i], widths[i + 1], g, dev) for i in range(len(widths) - 1)]
+
+
+def eval_tolerances():
+    """(dtype, name, relative tolerance): float32 sums in another order
+    only, 1e-4 of the output's scale; bfloat16 BF16_CHAIN_REL."""
+    import torch
+
+    return ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", BF16_CHAIN_REL))
+
+
+def check_eval_kernels(dev, checks):
+    """Phase 3d: the posterior head at every non-coarsest latent level of
+    the flagship and LungCT (R = 4 rows over B = 1), the conv chain on
+    down_block_0 at both full sizes, both dtypes; the eval kernels'
+    gradients."""
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import conv_chain, pos_head
+
+    fmt = lambda size: "x".join(map(str, size))
+    gd = torch.Generator(device=dev).manual_seed(60)
+    for seed, cfg_kw in enumerate((FLAGSHIP, LUNGCT)):
+        cfg = PULPoConfig(**cfg_kw)
+        for l in range(cfg.latent_levels - 1):
+            widths = pos_head_widths(cfg, l)
+            size = cfg.level_sizes[l]
+            p = pos_head_params(widths, cfg.zdim, 61 + 10 * seed + l, dev)
+            for dt, name, rel in eval_tolerances():
+                fb = torch.randn((4, *size, widths[0]), generator=gd, device=dev).to(dt)
+                y2 = torch.randn((1, *size, widths[2]), generator=gd, device=dev).to(dt)
+                got = pos_head.posterior_head(fb, y2, p)
+                ref = pos_head.posterior_head_plain(fb, y2, p)
+                for what, a, b in zip(("mu", "sigma"), got, ref):
+                    checks.record("pos_head", f"{name} {what} 4 rows {fmt(size)} "
+                                  f"{'/'.join(map(str, widths))}", a, b, scaled(b, rel))
+                del fb, y2, got, ref
+        torch.cuda.empty_cache()
+    cfg = PULPoConfig(**FLAGSHIP)
+    widths, size = pos_head_widths(cfg, 1), cfg.level_sizes[1]
+    p = pos_head_params(widths, cfg.zdim, 70, dev)
+    fb = torch.randn((4, *size, widths[0]), generator=gd, device=dev)
+    y2 = torch.randn((1, *size, widths[2]), generator=gd, device=dev)
+    for what, a, b in zip(("mu", "sigma"), pos_head.posterior_head(permuted(fb), permuted(y2), p),
+                          pos_head.posterior_head_plain(fb, y2, p)):
+        checks.record("pos_head", f"f32 {what} permuted-memory fb and y2 {fmt(size)}", a, b,
+                      scaled(b, 1e-4))
+    del fb, y2
+
+    for cfg_kw in (FLAGSHIP, LUNGCT):
+        cfg = PULPoConfig(**cfg_kw)
+        stages = chain_stages((2, cfg.n0, cfg.n0, cfg.n0), 71, dev)
+        for dt, name, rel in eval_tolerances():
+            x = torch.rand((1, *cfg.input_size, 2), generator=gd, device=dev).to(dt)
+            ref = conv_chain.conv_chain_plain(x, stages)
+            checks.record("conv_chain", f"{name} down_block_0 {fmt(cfg.input_size)}x2",
+                          conv_chain.conv_chain(x, stages), ref, scaled(ref, rel))
+            del x, ref
+        torch.cuda.empty_cache()
+    check_eval_gradients(dev, checks)
+
+
+def check_eval_gradients(dev, checks):
+    """The gradient of sum(out * g) through each eval kernel's wrapper on
+    the card, for the input and every weight, against the plain
+    version's (float32; 1e-5 of each gradient's scale: the backward
+    replays the plain version, so only the forward's sums differ)."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import conv_chain, pos_head, vel_head
+    from pulpo_tpu_torch.kernels.conv_unit import UNIT_KEYS
+
+    def grads(fn, tensors):
+        xs = [t.detach().clone().requires_grad_(True) for t in tensors]
+        out = fn(*xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        g = torch.Generator(device=dev).manual_seed(80)
+        loss = sum((o * torch.randn(o.shape, generator=g, device=dev)).sum() for o in outs)
+        return torch.autograd.grad(loss, xs)
+
+    gd = torch.Generator(device=dev).manual_seed(81)
+    cases = []
+    p = head_params(3, 32, seed=82, device=dev)
+    vk = sorted(p)
+    cases.append(("vel_head", lambda z, *v: vel_head.velocity_head(z, dict(zip(vk, v))),
+                  lambda z, *v: vel_head.velocity_head_plain(z, dict(zip(vk, v))),
+                  [torch.randn((2, 10, 12, 14, 3), generator=gd, device=dev)]
+                  + [p[k] for k in vk]))
+    p = pos_head_params((16, 96, 64), 3, 83, dev)
+    pk = pos_head.KEYS
+    cases.append(("pos_head", lambda f, y, *v: pos_head.posterior_head(f, y, dict(zip(pk, v))),
+                  lambda f, y, *v: pos_head.posterior_head_plain(f, y, dict(zip(pk, v))),
+                  [torch.randn((4, 10, 12, 14, 16), generator=gd, device=dev),
+                   torch.randn((1, 10, 12, 14, 64), generator=gd, device=dev)]
+                  + [p[k] for k in pk]))
+    stages = chain_stages((2, 32, 32, 32), 84, dev)
+    n = len(UNIT_KEYS)
+    st = lambda v: [dict(zip(UNIT_KEYS, v[i:i + n])) for i in range(0, len(v), n)]
+    cases.append(("conv_chain", lambda x, *v: conv_chain.conv_chain(x, st(v)),
+                  lambda x, *v: conv_chain.conv_chain_plain(x, st(v)),
+                  [torch.rand((1, 10, 12, 14, 2), generator=gd, device=dev)]
+                  + [u[k] for u in stages for k in UNIT_KEYS]))
+    for name, kernel, plain, tensors in cases:
+        got, ref = grads(kernel, tensors), grads(plain, tensors)
+        worst = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(got, ref))
+        ok = all(a is not None for a in got) and worst <= 1e-5
+        log(f"check {name:12s} gradient of {len(tensors)} inputs vs plain: worst scaled "
+            f"err {worst:.3e}  tol 1.0e-05  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            checks.failures.append(f"{name} gradient")
+
+
+# ----------------------------------------------------------------------
 # phase 4: small input, card against CPU
 # ----------------------------------------------------------------------
 
@@ -597,6 +793,7 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests):
         "squaring": cfg.nsteps * K * (decodes + n_requests),
         "vel_head": K * decodes,
         "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
+        **eval_launches(cfg, n_requests, decodes),
     }
     log(f"serving path launches {counts} expected {expected} ({decodes} decodes)")
     for k in counts:
@@ -662,7 +859,7 @@ def run_train_path(dev, cfg_kw, steps):
         # chain in train mode
         "warp": K * n, "squaring": cfg.nsteps * K * n, "vel_head": 0,
         "warp_dfgrad": K * n, "warp_mgrad": 0, "squaring_bwd": cfg.nsteps * K * n,
-        "box_sum": (5 + 3) * K * n,
+        "box_sum": (5 + 3) * K * n, "pos_head": 0, "conv_chain": 0,
     }
     log(f"training path launches {counts} expected {expected} ({n} steps)")
     for k in counts:
@@ -678,6 +875,83 @@ def run_train_path(dev, cfg_kw, steps):
         f"max_memory_allocated {peak / 2**30:.2f} GiB, {changed} of {len(before)} "
         f"parameter tensors changed, {model.param_count} params")
     return counts, {"step_s": mean, "peak_gib": peak / 2**30}
+
+
+# ----------------------------------------------------------------------
+# phase 5c: the serve entry
+# ----------------------------------------------------------------------
+
+def run_serve_path(dev, cfg_kw, n_samples, chunk, n_uq, tmpdir):
+    """The flagship model exported to an artifact and served from it:
+    each entry's time, its outputs against the live model's bit for bit,
+    and the launch counts."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.serve import ServedModel, export_model
+    from pulpo_tpu_torch.uq.predict import predict_with_uncertainty
+
+    cfg = PULPoConfig(**cfg_kw)
+    model = PULPoModel(cfg, device=dev)
+    model.init(seed=0)
+    path = pathlib.Path(tmpdir) / "flagship.pulpo"
+    t = time.perf_counter()
+    export_model(model, str(path), batch_size=1, N=n_samples, chunk=chunk)
+    export_s = time.perf_counter() - t
+    t = time.perf_counter()
+    served = ServedModel(str(path), device=dev)
+    load_s = time.perf_counter() - t
+    pair = SyntheticDataset(shape=cfg.input_size, n=2, seed=5).get_pair(
+        0, np.random.default_rng(5))
+    x, y = (torch.as_tensor(pair[k][None]).to(dev) for k in ("x", "y"))
+    log(f"serve path: artifact {path.stat().st_size} bytes, kernels "
+        f"{sorted(served.manifest['kernels'])}, export {export_s:.2f} s, load {load_s:.2f} s")
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    reset_counts()
+    det, det_s = timed(served.predict_deterministic, x, y)
+    mean, mean_s = timed(served.predict_mean, x, y, 11)
+    uqs, uq_s = [], []
+    for i in range(n_uq):
+        out, dt = timed(served.uq, x, y, 11)
+        uqs.append(out)
+        uq_s.append(dt)
+    counts = read_counts()
+    K = cfg.latent_levels
+    decodes = 1 + (1 + n_uq) * (n_samples // chunk)
+    tails = 1 + n_uq  # each UQ entry's mean-SVF integration and warp per level
+    expect(counts, {
+        "warp": K * (decodes + tails), "squaring": cfg.nsteps * K * (decodes + tails),
+        "vel_head": K * decodes, "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0,
+        "box_sum": 0, **eval_launches(cfg, 2 + n_uq, decodes),
+    }, f"serve path ({decodes} decodes)")
+    log(f"serve path: predict_deterministic {det_s:.3f} s, predict_mean (N={n_samples}) "
+        f"{mean_s:.3f} s, uq (N={n_samples}) {' '.join(f'{t:.3f}' for t in uq_s)} s")
+
+    live = model.apply_eval(x, y, deterministic=True)
+    res = predict_with_uncertainty(model, x, y, n_samples, seed=11, chunk=chunk)
+    want = {"predict_deterministic": (live[7][0], live[6][0]),
+            "predict_mean": (res.mean_outputs[0], res.final_dfs[0]),
+            "uq": (res.mean_outputs[0], res.final_dfs[0], res.output_std[0],
+                   res.output_entropy[0])}
+    for name, got in [("predict_deterministic", det), ("predict_mean", mean)] + [
+            ("uq", u) for u in uqs]:
+        for i, (a, b) in enumerate(zip(got, want[name])):
+            if not (bool(torch.isfinite(a).all()) and torch.equal(a, b)):
+                raise SystemExit(f"serve path: {name} output {i} differs from the live model "
+                                 f"(max abs {float((a.float() - b.float()).abs().max()):.3e})")
+    log("serve path: every served output equals the live model's bit for bit, all finite")
+    return counts, {"bytes": path.stat().st_size, "det_s": det_s, "mean_s": mean_s,
+                    "uq_s": uq_s}
 
 
 # ----------------------------------------------------------------------
@@ -822,6 +1096,7 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
         "warp": K * (n_steps + n_val), "squaring": nsteps * K * (n_steps + n_val),
         "vel_head": K * n_val, "warp_dfgrad": K * n_steps, "warp_mgrad": 0,
         "squaring_bwd": nsteps * K * n_steps, "box_sum": 8 * K * n_steps + 5 * K * n_val,
+        **eval_launches(cfg, n_val, n_val),
     }, "lungct training")
     rows = read_metrics(run_dir)
     tags = set().union(*rows)
@@ -897,6 +1172,8 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
         "squaring": 2 * nsteps * K * pairs + nsteps * K * (decodes + pairs),
         "vel_head": K * pairs + K * decodes,
         "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
+        # performance: one encode per pair; uncertainty: one per request
+        **eval_launches(cfg, 2 * pairs, pairs + decodes),
     }, f"lungct evaluation ({decodes} decodes, chunks {chunks})")
     lm_cols = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
     check_table(perf, lambda s, m, r: m == "JDetLeq0" or (m in lm_cols and (s != "test" or r > 0)),
@@ -1122,6 +1399,96 @@ def time_backward_kernels(dev, cfg):
     return res
 
 
+def library_unit(x, u, y2=None):
+    """One eval ConvUnit as models/blocks.py ran it before the conv-unit
+    kernel: a cuDNN conv, then the PyTorch epilogue passes (the library
+    yardstick; the port never calls this)."""
+    from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky
+    from pulpo_tpu_torch.models.blocks import conv3d_cl, tile_rows
+
+    y = conv3d_cl(x, u["k"], 1)
+    if y2 is not None:
+        y = y + tile_rows(y2, y.shape[0])
+    y = y + u["b"].to(x.dtype)
+    return leaky(eval_bn(y, *bn_affine(u["mean"], u["var"], u["scale"], u["bias"])))
+
+
+def library_head(fb, y2, p):
+    from pulpo_tpu_torch.kernels import pos_head
+    from pulpo_tpu_torch.models.blocks import conv1x1_cl, softplus
+
+    u1, u2, m1, m2 = pos_head.units(p)
+    x = library_unit(library_unit(fb, u1), u2)
+    x = library_unit(library_unit(x, m1, y2), m2)
+    dt = x.dtype
+    return (conv1x1_cl(x, p["hkmu"]) + p["hbmu"].to(dt),
+            softplus(conv1x1_cl(x, p["hksig"]) + p["hbsig"].to(dt)))
+
+
+def chain_flop_per_voxel(widths):
+    return sum(2 * 27 * a * b for a, b in zip(widths[:-1], widths[1:]))
+
+
+def time_eval_kernels(dev, cfg, rows):
+    """The posterior head at each non-coarsest flagship level at R = rows
+    (one pair), and the conv chain on down_block_0 at full resolution, in
+    bf16. Bounds: the conv FLOPs (and the heads') over 989 TFLOP/s, or
+    each input and output once over 3.35 TB/s where that is larger."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import conv_chain, pos_head
+
+    res, levels = {}, {}
+    bf = torch.bfloat16
+    gd = torch.Generator(device=dev).manual_seed(90)
+    for l in range(cfg.latent_levels - 1):
+        c_fb, n_up, n_merge = widths = pos_head_widths(cfg, l)
+        size = cfg.level_sizes[l]
+        p = pos_head_params(widths, cfg.zdim, 91 + l, dev)
+        fb = torch.randn((rows, *size, c_fb), generator=gd, device=dev).to(bf)
+        y2 = torch.randn((1, *size, n_merge), generator=gd, device=dev).to(bf)
+        nv = rows * math.prod(size)
+        flops = nv * (chain_flop_per_voxel((c_fb, n_up, n_up, n_merge, n_merge))
+                      + 2 * 2 * cfg.zdim * n_merge)
+        bytes_ = 2 * (nv * c_fb + math.prod(size) * n_merge + nv * 2 * cfg.zdim)
+        ms = time_ms(lambda: pos_head.posterior_head(fb, y2, p), 1, warmup=1)
+        torch.cuda.empty_cache()
+        lib = time_ms(lambda: library_head(fb, y2, p), 1, warmup=1)
+        torch.cuda.empty_cache()
+        plain = time_ms(lambda: pos_head.posterior_head_plain(fb, y2, p), 1, warmup=1)
+        torch.cuda.empty_cache()
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+        levels[l] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         tflop_per_s=flops / ms * 1e-9,
+                         shape=f"fb ({rows},{','.join(map(str, size))},{c_fb}) y2 (1,...,"
+                               f"{n_merge}) bf16, {c_fb}/{n_up}/{n_merge}, {rows} rows")
+        del fb, y2
+        torch.cuda.empty_cache()
+    res["pos_head"] = dict(levels[0], levels=levels)
+
+    size = cfg.input_size
+    widths = (2, cfg.n0, cfg.n0, cfg.n0)
+    stages = chain_stages(widths, 95, dev)
+    x = torch.rand((1, *size, 2), generator=gd, device=dev).to(bf)
+    nv = math.prod(size)
+    flops = nv * chain_flop_per_voxel(widths)
+    bytes_ = 2 * nv * (widths[0] + widths[-1])
+    ms = time_ms(lambda: conv_chain.conv_chain(x, stages), 3)
+    lib = time_ms(lambda: library_unit(library_unit(library_unit(x, stages[0]), stages[1]),
+                                       stages[2]), 3)
+    plain = time_ms(lambda: conv_chain.conv_chain_plain(x, stages), 1, warmup=1)
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    res["conv_chain"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
+                             bound_by="operations" if t_ops >= t_bytes else "bytes",
+                             tflop_per_s=flops / ms * 1e-9,
+                             shape=f"x (1,{','.join(map(str, size))},2) bf16, "
+                                   f"{'/'.join(map(str, widths))}")
+    del x
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1157,6 +1524,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_large_displacement(dev, PULPoConfig(**LUNGCT), checks)
     torch.cuda.empty_cache()
+    check_eval_kernels(dev, checks)
+    torch.cuda.empty_cache()
     if checks.failures:
         raise SystemExit(f"kernel checks failed: {checks.failures}")
     log(f"kernel checks passed in {time.perf_counter() - t:.1f} s")
@@ -1164,6 +1533,13 @@ def main() -> int:
     check_small_train(dev)
 
     uq_counts, chunk = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
+    torch.cuda.empty_cache()
+    serve_root = tempfile.mkdtemp(prefix="pulpo_serve_")
+    try:
+        serve_counts, serve = run_serve_path(dev, FLAGSHIP, N_SAMPLES, chunk, N_REQUESTS,
+                                             serve_root)
+    finally:
+        shutil.rmtree(serve_root, ignore_errors=True)
     torch.cuda.empty_cache()
     train_counts, train = run_train_path(dev, FLAGSHIP, TRAIN_STEPS)
     torch.cuda.empty_cache()
@@ -1178,6 +1554,12 @@ def main() -> int:
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
     times.update(time_backward_kernels(dev, cfg))
     times["warp_lungct"] = time_lungct_warp(dev, PULPoConfig(**LUNGCT).input_size)
+    times.update(time_eval_kernels(dev, cfg, chunk))
+    for l, r in times["pos_head"]["levels"].items():
+        log(f"time pos_head l{l} {r['shape']}: kernel {r['ms']:.3f} ms ({r['tflop_per_s']:.1f} "
+            f"TFLOP/s)  plain {r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+    log(f"conv_chain kernel {times['conv_chain']['tflop_per_s']:.1f} TFLOP/s")
     log(f"warp per voxel-row: LungCT ramp {times['warp_lungct']['ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps, "
         f"3-voxel field {times['warp_lungct']['small_displacement_ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps "
         f"(same shape), flagship 32 rows {times['warp']['ms'] * 1e9 / (chunk * math.prod(full)):.2f} ps")
@@ -1188,8 +1570,9 @@ def main() -> int:
     kernels = []
     for name in KERNELS:
         r = times[name]
-        by_path = {"serving": uq_counts[name], "training": train_counts[name],
-                   "lungct_train": lungct_train[name], "lungct_eval": lungct_eval[name]}
+        by_path = {"serving": uq_counts[name], "serve": serve_counts[name],
+                   "training": train_counts[name], "lungct_train": lungct_train[name],
+                   "lungct_eval": lungct_eval[name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1200,7 +1583,12 @@ def main() -> int:
         }
         if name == "warp":
             record["lungct"] = {k: v for k, v in times["warp_lungct"].items() if k != "shape"}
+        if name == "pos_head":
+            record["levels"] = {l: {k: v for k, v in lv.items() if k != "shape"}
+                                for l, lv in r["levels"].items()}
         kernels.append(record)
+    log(f"serve: artifact {serve['bytes']} B, predict_deterministic {serve['det_s']:.3f} s, "
+        f"predict_mean {serve['mean_s']:.3f} s, uq {' '.join(f'{t:.3f}' for t in serve['uq_s'])} s")
     log(f"training step {train['step_s']:.3f} s, peak {train['peak_gib']:.2f} GiB")
     log(f"lungct: Trainer step {lungct['step_s']:.3f} s, with validation and checkpoints "
         f"{lungct['step_with_io_s']:.3f} s, checkpoint {lungct['ckpt_bytes']} B in "

@@ -78,3 +78,18 @@ def from_jax_variables(variables, cfg: PULPoConfig) -> dict[str, torch.Tensor]:
         elif cfg.cp_depth == 1:
             _conv(out, f"{pre}._op.0", vf["TorchConv_0"])
     return out
+
+
+def pos_head_params_from_jax(p: dict) -> dict[str, torch.Tensor]:
+    """The JAX posterior-head kernel's parameter dict
+    (pulpo_tpu/kernels/pos_head.py:286-299: flax (3, 3, 3, I, O) and
+    (1, 1, 1, I, O) kernels) as kernels/pos_head.py takes it (PyTorch
+    (O, I, *K) kernels, the same keys)."""
+    return {k: _kernel(v) if np.ndim(v) == 5 else _t(v) for k, v in p.items()}
+
+
+def conv_chain_stages_from_jax(stages: list[dict]) -> list[dict[str, torch.Tensor]]:
+    """The JAX conv-chain kernel's stages (pulpo_tpu/attic/conv_chain.py:
+    k (3, 3, 3, I, O), b, mean, var, scale, bias) as kernels/conv_chain.py
+    takes them."""
+    return [{k: _kernel(v) if k == "k" else _t(v) for k, v in s.items()} for s in stages]

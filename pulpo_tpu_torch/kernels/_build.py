@@ -38,6 +38,7 @@ SOURCES = {
     "warp_bwd": ("warp_bwd.cu", ["-fmad=false"]),
     "squaring_bwd": ("squaring_bwd.cu", ["-fmad=false"]),
     "box_sum": ("box_sum.cu", ["-fmad=false"]),
+    "conv_unit": ("conv_unit.cu", []),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

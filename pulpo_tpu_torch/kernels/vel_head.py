@@ -9,7 +9,8 @@ with every intermediate kept on chip (`csrc/vel_head.cu`).
 Parameters use PyTorch's layout: k1 (n0, zdim, 3, 3, 3), k2 (n0, n0, 3,
 3, 3), k3 (3, n0, 1, 1, 1), biases b1, b2, b3, and for each BatchNorm
 scale{i}, bias{i}, mean{i}, var{i} (i = 1, 2). z: (B, S0, S1, S2, zdim)
-channels-last, bfloat16 or float32; the output has z's dtype.
+channels-last, bfloat16 or float32; the output has z's dtype. A
+gradient through the kernel is the plain version's (kernels/plain_vjp.py).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from pulpo_tpu_torch.kernels import _build
+from pulpo_tpu_torch.kernels import _build, plain_vjp
 
 MAX_ZDIM = 4
 MAX_N0 = 64
@@ -113,12 +114,7 @@ def _check(z: torch.Tensor, p: dict) -> int:
     return next(w for w in _N0_BUILDS if w >= n0)
 
 
-def velocity_head(z: torch.Tensor, p: dict) -> torch.Tensor:
-    """The fused head: the CUDA kernel for a tensor on the card, the plain
-    version on the CPU. Raises for widths the kernel does not take."""
-    if z.device.type == "cpu":
-        return velocity_head_plain(z, p)
-    n0p = _check(z, p)
+def _kernel(z: torch.Tensor, p: dict, n0p: int) -> torch.Tensor:
     z = z.contiguous()
     ops = _pack(p, z.dtype, n0p, z.device)
     out = torch.empty((*z.shape[:4], 3), device=z.device, dtype=z.dtype)
@@ -133,3 +129,15 @@ def velocity_head(z: torch.Tensor, p: dict) -> torch.Tensor:
         launches += 1
     _build.check(rc, "velocity_head")
     return out
+
+
+def velocity_head(z: torch.Tensor, p: dict) -> torch.Tensor:
+    """The fused head: the CUDA kernel for a tensor on the card, the plain
+    version on the CPU. Raises for widths the kernel does not take."""
+    if z.device.type == "cpu":
+        return velocity_head_plain(z, p)
+    n0p = _check(z, p)
+    keys = sorted(p)
+    return plain_vjp.apply(lambda z, *v: _kernel(z, dict(zip(keys, v)), n0p),
+                           lambda z, *v: velocity_head_plain(z, dict(zip(keys, v))),
+                           z, *(p[k] for k in keys))

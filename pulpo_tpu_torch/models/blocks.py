@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pulpo_tpu_torch.kernels import conv_chain
 from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky, velocity_head
 
 
@@ -122,15 +123,33 @@ class ConvUnit(nn.Module):
 
 class ConvSequence(nn.Module):
     """`depth` chained ConvUnits; the first changes the channel count and
-    takes the optional split operand x2."""
+    takes the optional split operand x2.
+
+    An eval call without x2 whose input the conv-chain kernel takes (at
+    most 8 channels: the encoder's down_block_0) runs as one
+    `kernels/conv_chain.conv_chain` (pulpo_tpu/models/blocks.py:216-244)."""
 
     def __init__(self, cin: int, cout: int, depth: int, dtype: torch.dtype):
         super().__init__()
         self._op = nn.ModuleList(
             [ConvUnit(cin if i == 0 else cout, cout, dtype) for i in range(depth)])
 
+    def stages(self) -> list[dict]:
+        """Each unit's parameters, keyed as kernels/conv_unit.py takes them."""
+        out = []
+        for unit in self._op:
+            conv, bn = unit._op
+            out.append({"k": conv.weight, "b": conv.bias, "mean": bn.running_mean,
+                        "var": bn.running_var, "scale": bn.weight, "bias": bn.bias})
+        return out
+
     def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
                 train: bool = False) -> torch.Tensor:
+        if x2 is None and not train:
+            xt = x.to(self._op[0].dtype)
+            stages = self.stages()
+            if conv_chain.takes(xt, stages):
+                return conv_chain.conv_chain(xt, stages)
         for i, unit in enumerate(self._op):
             x = unit(x, x2 if i == 0 else None, train)
         return x

@@ -22,7 +22,10 @@ depend on how a caller chunks its samples. `noise` overrides the draws
 
 `train` selects BatchNorm's batch statistics (and their pending
 running update) over the running ones, and the plain velocity head over
-the fused kernel, as in the JAX package. `cfg.remat` / `cfg.remat_down`
+the fused kernel, as in the JAX package. In eval, each non-coarsest
+level's up_block, merge block and mu/sigma heads run as one
+`kernels/pos_head.posterior_head` call where its kernel takes the
+widths (pulpo_tpu/models/pulpo.py:368-392). `cfg.remat` / `cfg.remat_down`
 (recompute activations in the backward) are not ported yet: a train
 forward with either set raises.
 
@@ -35,7 +38,14 @@ import torch
 from torch import nn
 
 from pulpo_tpu_torch.config import PULPoConfig
-from pulpo_tpu_torch.models.blocks import ConvSequence, MuSigmaBlock, VelocityField, tile_rows
+from pulpo_tpu_torch.kernels import pos_head
+from pulpo_tpu_torch.models.blocks import (
+    ConvSequence,
+    MuSigmaBlock,
+    VelocityField,
+    conv3d_cl,
+    tile_rows,
+)
 from pulpo_tpu_torch.ops.resize import avg_pool_ceil, resize_linear
 from pulpo_tpu_torch.ops.warp import (
     batched_level_warp,
@@ -110,9 +120,30 @@ class PULPoEncoder(nn.Module):
     def __init__(self, cfg: PULPoConfig, level: int, dtype: torch.dtype):
         super().__init__()
         c = cfg.num_channels[cfg.lk_offset + level]
+        self.dtype = dtype
+        self.n_feedback = cfg.n0 * cfg.zdim
         if level < cfg.latent_levels - 1:
-            self.sample_merge_block = ConvSequence(cfg.n0 * cfg.zdim + c, c, 2, dtype)
+            self.sample_merge_block = ConvSequence(self.n_feedback + c, c, 2, dtype)
         self.mu_sigma = MuSigmaBlock(c, cfg.zdim, dtype)
+
+    def merge_half(self, down_activation: torch.Tensor) -> torch.Tensor:
+        """The merge conv's activation half, once per pair, without bias."""
+        w = self.sample_merge_block._op[0]._op[0].weight[:, self.n_feedback:]
+        return conv3d_cl(down_activation.to(self.dtype), w, 1)
+
+    def head_params(self, up_block: ConvSequence) -> dict:
+        """This level's posterior head (`up_block`, the merge block, the
+        heads), keyed as kernels/pos_head.py takes them; mk1 is the
+        feedback half of the split merge kernel."""
+        p = {}
+        for pre, seq in (("u", up_block), ("m", self.sample_merge_block)):
+            for n, st in enumerate(seq.stages(), 1):
+                p.update({f"{pre}{k}{n}": v for k, v in st.items()})
+        p["mk1"] = p["mk1"][:, :self.n_feedback]
+        ms = self.mu_sigma
+        p["hkmu"], p["hbmu"] = ms._conv_mu.weight, ms._conv_mu.bias
+        p["hksig"], p["hbsig"] = ms._conv_sigma[0].weight, ms._conv_sigma[0].bias
+        return p
 
     def forward(self, down_activation: torch.Tensor, feedback: torch.Tensor | None = None,
                 train: bool = False):
@@ -164,6 +195,7 @@ class Autoencoder(nn.Module):
     def __init__(self, cfg: PULPoConfig, dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
+        self.dtype = dtype
         K = cfg.latent_levels
         self.encoders = nn.ModuleList([PULPoEncoder(cfg, l, dtype) for l in range(K)])
         self.decoders = nn.ModuleList([SVFDecoder(cfg, l, dtype) for l in range(K)])
@@ -254,8 +286,15 @@ class Autoencoder(nn.Module):
                     else:
                         runs.append([t])
                 fb = _cat([resize_linear(_cat(ts), down_size) for ts in runs])
-                fb = self.up_blocks[str(k)](fb, train=train)
-                mus[l], sigmas[l] = self.encoders[l](down_activations[k], fb, train)
+                enc, up = self.encoders[l], self.up_blocks[str(k)]
+                p = None if train else enc.head_params(up)
+                fbt = fb.to(self.dtype)
+                if p is not None and pos_head.takes(fbt, p):
+                    mus[l], sigmas[l] = pos_head.posterior_head(
+                        fbt, enc.merge_half(down_activations[k]), p)
+                else:
+                    fb = up(fb, train=train)
+                    mus[l], sigmas[l] = enc(down_activations[k], fb, train)
                 parent_combined = combined_dfs[l + 1]
 
             if deterministic:

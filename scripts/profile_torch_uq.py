@@ -5,10 +5,13 @@
 
 Builds the flagship model (160x192x224, 5/4 levels, n0=32, bf16,
 level_res) with seeded random weights, answers one warm-up request,
-then profiles `--requests` more with torch.profiler. Prints the card,
+times `--requests` more on the host clock, then profiles `--requests`
+more with torch.profiler. Prints the card,
 each request's host-clock time, the device's busy time (the union of
-kernel intervals on the card) and idle share, and the kernels by device
-time. Needs a CUDA device.
+kernel intervals on the card) and idle share, the device time by group
+of kernels (GROUPS, by kernel name; the first group whose pattern
+matches takes a kernel) and the kernels by device time. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -18,6 +21,26 @@ import os
 import subprocess
 import sys
 import time
+
+
+# (group, substrings of the kernel name); the port's own kernels first
+GROUPS = (
+    ("conv-unit kernel (pos_head, conv_chain)", ("conv_unit_kernel",)),
+    ("velocity-head kernel", ("vel_head_kernel",)),
+    ("warp and squaring kernels", ("warp_kernel", "squaring_kernel", "dfgrad_kernel",
+                                   "mgrad_kernel", "box_axis_kernel")),
+    ("cuDNN convs and transposes", ("conv", "cudnn", "implicit", "fprop", "nchw", "nhwc",
+                                    "transpose")),
+    ("GEMMs (resize matmuls, 1x1 convs)", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),
+    ("reductions", ("reduce",)),
+    ("elementwise glue", ("elementwise", "vectorized", "unrolled", "catarray", "copy",
+                          "fill", "index")),
+)
+
+
+def group_of(name: str) -> str:
+    low = name.lower()
+    return next((g for g, pats in GROUPS if any(p in low for p in pats)), "other")
 
 
 def busy_ms(events) -> float:
@@ -71,6 +94,15 @@ def main() -> int:
     y = torch.as_tensor(pair["y"][None]).cuda()
     predict_with_uncertainty(model, x, y, 32, seed=0)  # warm-up (+ chunk calibration)
     torch.cuda.synchronize()
+    plain_walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(args.requests):
+        t = time.perf_counter()
+        predict_with_uncertainty(model, x, y, 32, seed=i + 1)
+        torch.cuda.synchronize()
+        plain_walls.append((time.perf_counter() - t) * 1e3)
+    print(f"requests (ms, host clock, not profiled): {' '.join(f'{w:.1f}' for w in plain_walls)}; "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     walls = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -89,6 +121,12 @@ def main() -> int:
         by_name.setdefault(e.name, []).append((e.time_range.end - e.time_range.start) / 1e3)
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     total = sum(sum(v) for _, v in rows)
+    groups: dict[str, float] = {}
+    for name, ts in rows:
+        groups[group_of(name)] = groups.get(group_of(name), 0.0) + sum(ts)
+    print(f"{'device ms/request':>18s} {'share':>6s}  group")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"{t / args.requests:18.2f} {t / total:6.3f}  {g}")
     print(f"{'device ms/request':>18s} {'share':>6s} {'calls/req':>9s}  kernel")
     for name, ts in rows[:args.top]:
         print(f"{sum(ts) / args.requests:18.2f} {sum(ts) / total:6.3f} "

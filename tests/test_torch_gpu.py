@@ -16,8 +16,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import respiratory_field
-from pulpo_tpu_torch.kernels import box_sum, squaring, vel_head, warp
+from chip_smoke import (
+    BF16_CHAIN_REL,
+    Checks,
+    chain_stages,
+    check_eval_gradients,
+    pos_head_params,
+    respiratory_field,
+)
+from pulpo_tpu_torch.kernels import box_sum, conv_chain, pos_head, squaring, vel_head, warp
 
 pytestmark = pytest.mark.gpu
 
@@ -373,3 +380,68 @@ def test_evaluate_performance_on_the_card_matches_the_cpu(cuda_device, tmp_path)
     assert got.columns == ref.columns
     np.testing.assert_array_equal(np.isnan(got.values), np.isnan(ref.values))
     np.testing.assert_allclose(got.values, ref.values, rtol=0, atol=1e-3 + 1e-9)
+
+
+# ----------------------------------------------------------------------
+# eval conv chains: the posterior head and the narrow-input ConvSequence
+# ----------------------------------------------------------------------
+
+# f32: summation order only, 1e-4 of scale; bf16: 4 bf16 ulps at the
+# output's scale (an intermediate that rounds the other way moves an
+# output by about one)
+EVAL_TOL = [(torch.float32, 1e-4), (torch.bfloat16, BF16_CHAIN_REL)]
+
+
+@pytest.mark.parametrize("dtype,rel", EVAL_TOL)
+@pytest.mark.parametrize("c_fb,n_up,n_merge", [(5, 8, 8), (16, 96, 64), (16, 96, 192)])
+def test_pos_head_kernel_matches_plain(cuda_device, dtype, rel, c_fb, n_up, n_merge):
+    """R = 4 rows over B = 2 pairs (row r reads y2[r % 2]), a ragged
+    volume, the scalar (c_fb 5) and 16-byte (c_fb 16) input gathers."""
+    p = pos_head_params((c_fb, n_up, n_merge), 3, 40, cuda_device)
+    fb = torch.randn((4, 5, 7, 9, c_fb), device=cuda_device).to(dtype)
+    y2 = torch.randn((2, 5, 7, 9, n_merge), device=cuda_device).to(dtype)
+    assert pos_head.takes(fb, p)
+    before = pos_head.launches
+    got = pos_head.posterior_head(fb, y2, p)
+    torch.cuda.synchronize()
+    assert pos_head.launches == before + 4
+    for g, r in zip(got, pos_head.posterior_head_plain(fb, y2, p)):
+        assert g.dtype == dtype and g.shape == r.shape
+        _close_scaled(g.float(), r.float(), rel)
+
+
+@pytest.mark.parametrize("dtype,rel", EVAL_TOL)
+@pytest.mark.parametrize("widths", [(2, 32, 32, 32), (3, 8, 16), (8, 16, 16, 16, 16)])
+def test_conv_chain_kernel_matches_plain(cuda_device, dtype, rel, widths):
+    stages = chain_stages(widths, 41, cuda_device)
+    x = torch.randn((2, 11, 13, 30, widths[0]), device=cuda_device).to(dtype)
+    before = conv_chain.launches
+    got = conv_chain.conv_chain(_permuted(x), stages)
+    torch.cuda.synchronize()
+    assert conv_chain.launches == before + len(stages) and got.dtype == dtype
+    _close_scaled(got.float(), conv_chain.conv_chain_plain(x, stages).float(), rel)
+
+
+def test_eval_kernels_raise_for_shapes_they_do_not_take(cuda_device):
+    p = pos_head_params((16, 192, 384), 3, 42, cuda_device)
+    fb = torch.zeros((2, 4, 4, 4, 16), device=cuda_device)
+    with pytest.raises(ValueError):
+        pos_head.posterior_head(fb, torch.zeros((1, 4, 4, 4, 384), device=cuda_device), p)
+    p = pos_head_params((16, 96, 64), 3, 42, cuda_device)
+    with pytest.raises(ValueError):  # y2 of the wrong width
+        pos_head.posterior_head(fb, torch.zeros((1, 4, 4, 4, 32), device=cuda_device), p)
+    with pytest.raises(ValueError):
+        pos_head.posterior_head(fb.half(), torch.zeros((1, 4, 4, 4, 64), device=cuda_device), p)
+    stages = chain_stages((16, 32), 42, cuda_device)
+    with pytest.raises(ValueError):  # 16 input channels: not the narrow chain
+        conv_chain.conv_chain(torch.zeros((1, 4, 4, 4, 16), device=cuda_device), stages)
+
+
+def test_eval_kernel_gradients_are_the_plain_versions(cuda_device):
+    """A gradient through each eval kernel's wrapper on the card (input and
+    weights) equals the plain version's within 1e-5 of its scale (float32):
+    before the autograd Functions, the card's velocity head returned no
+    graph at all."""
+    checks = Checks()
+    check_eval_gradients(cuda_device, checks)
+    assert not checks.failures
