@@ -26,8 +26,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights with non-trivial BatchNorm statistics; and the gradient
    through each eval kernel (velocity head, posterior head, conv chain)
    against its plain version's;
+3e. the channels-first kernels against their channels-last twins bit
+   for bit and against their plain versions: the CF integration on 32
+   rows at 80x96x112 and under LungCT's respiratory field at 96x96x104,
+   the CF image warp on 4 x 32 rows at 160x192x224 and a C = 3 CF warp;
+   the narrow conv (bf16, f32) at 2 -> 32 on both full sizes and 3 -> 32
+   on both level-0 sizes, and its gradient against the plain version's
+   autograd; each case again with a non-contiguous input;
 4. a small-input reference: a UQ request on the card against the same
-   weights and draws on the CPU (plain versions), leaf by leaf;
+   weights and draws on the CPU (plain versions), leaf by leaf, at
+   level_res and at full_res (the channels-first path);
 4b. a small training step on the card against the same weights, batch
    and draws on the CPU: losses, gradients and BatchNorm statistics;
 5. the serving path: the flagship config (160x192x224, 5/4 levels,
@@ -41,16 +49,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at N = 32 three times; the served outputs equal the live model's on
    the same inputs, seed, N and chunk bit for bit (the forward kernels
    use no atomics), with the launch counts the shapes give;
+5d. the full-resolution request: the flagship network at
+   df_resolution="full_res" with the default feedback less
+   "transformed" (`flagship-fullres`) answers 3 UQ-32 requests on the
+   channels-first field path: every leaf finite, the CF kernels' launch
+   counts as the shapes give (per decode 4 levels x 7 squaring steps
+   and one batched warp; per request the mean tail's the same), the
+   request times and peaks logged;
 5b. the training path: the same flagship config (NCC + KL + L2, Adam lr
    1e-4, B = 1) takes 1 warm-up and 5 timed `make_train_step` steps on a
    synthetic pair: finite losses, no NaN flag, changed weights, and the
-   launch counts the shapes give;
+   launch counts the shapes give (5 narrow convs a step);
 6. per-kernel times (CUDA events, the median of 5 repeats) beside their
    bounds, the plain versions' times and one library call's time; the
    warp also at the LungCT shape under the respiratory field; the
    posterior head at each flagship level at R = chunk and the conv chain
    at full resolution, against the port's unfused eval chain (cuDNN
-   convs with PyTorch epilogues) as the library yardstick;
+   convs with PyTorch epilogues) as the library yardstick; the CF
+   kernels at the full-res request's shapes beside their channels-last
+   twins (and `F.grid_sample` for the warp), the narrow conv at the
+   training step's shapes beside cuDNN's `F.conv3d`;
 7. the LungCT path: the full-width LungCT config (192x192x208, 5/4
    levels, n0=32, bf16) trains for 4 steps through the port's `Trainer`
    (B = 1, validation, the two best checkpoints, `latest` and metrics
@@ -103,8 +121,19 @@ DRIFT = 4.0                    # voxels, in plane
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # dense tensor-core peak, published
 
+# the full-resolution UQ request on the channels-first field layout: the
+# flagship network with full-res dfs and the default feedback less
+# "transformed" (the configuration in which the JAX package's batched
+# post-loop warp and CF pipeline run)
+FULLRES_FEEDBACK = ("samples", "velocity_fields", "individual_dfs", "combined_dfs",
+                    "final_dfs")
+FULLRES_KW = dict(df_resolution="full_res", feedback=FULLRES_FEEDBACK)
+FLAGSHIP_FULLRES = dict(FLAGSHIP, **FULLRES_KW)
+F32_FLOP_PER_S = 67e12         # CUDA-core float32 peak, published
+
 KERNELS = ("warp", "squaring", "vel_head", "warp_dfgrad", "warp_mgrad",
-           "squaring_bwd", "box_sum", "pos_head", "conv_chain")
+           "squaring_bwd", "box_sum", "pos_head", "conv_chain", "squaring_cf", "warp_cf",
+           "conv_narrow")
 # bf16 tolerance of the eval conv chains: an intermediate of a chained
 # unit that rounds the other way moves an output by about a bf16 ulp at
 # its scale (2**-7 of it at most); 4 such ulps
@@ -119,6 +148,9 @@ REPLACES = {
     "box_sum": "pulpo_tpu/kernels/box_sum.py:61",
     "pos_head": "pulpo_tpu/kernels/pos_head.py:272",
     "conv_chain": "pulpo_tpu/attic/conv_chain.py:202",
+    "squaring_cf": "pulpo_tpu/kernels/warp_local.py:603",
+    "warp_cf": "pulpo_tpu/kernels/warp_halo.py:1560",
+    "conv_narrow": "pulpo_tpu/attic/conv_narrow.py:125",
 }
 SOURCES = {
     "warp": "pulpo_tpu_torch/csrc/warp.cu",
@@ -130,24 +162,30 @@ SOURCES = {
     "box_sum": "pulpo_tpu_torch/csrc/box_sum.cu",
     "pos_head": "pulpo_tpu_torch/csrc/conv_unit.cu",
     "conv_chain": "pulpo_tpu_torch/csrc/conv_unit.cu",
+    "squaring_cf": "pulpo_tpu_torch/csrc/squaring.cu",
+    "warp_cf": "pulpo_tpu_torch/csrc/warp.cu",
+    "conv_narrow": "pulpo_tpu_torch/csrc/conv_narrow.cu",
 }
 
 
 def reset_counts() -> None:
-    from pulpo_tpu_torch.kernels import box_sum, conv_chain, pos_head, squaring, vel_head, warp
+    from pulpo_tpu_torch.kernels import (box_sum, conv_chain, conv_narrow, pos_head, squaring,
+                                         vel_head, warp)
 
-    for mod in (warp, squaring, vel_head, box_sum, pos_head, conv_chain):
+    for mod in (warp, squaring, vel_head, box_sum, pos_head, conv_chain, conv_narrow):
         mod.reset_count()
 
 
 def read_counts() -> dict[str, int]:
-    from pulpo_tpu_torch.kernels import box_sum, conv_chain, pos_head, squaring, vel_head, warp
+    from pulpo_tpu_torch.kernels import (box_sum, conv_chain, conv_narrow, pos_head, squaring,
+                                         vel_head, warp)
 
     return {"warp": warp.launches, "squaring": squaring.launches,
             "vel_head": vel_head.launches, "warp_dfgrad": warp.dfgrad_launches,
             "warp_mgrad": warp.mgrad_launches, "squaring_bwd": squaring.bwd_launches,
             "box_sum": box_sum.launches, "pos_head": pos_head.launches,
-            "conv_chain": conv_chain.launches}
+            "conv_chain": conv_chain.launches, "squaring_cf": squaring.cf_launches,
+            "warp_cf": warp.cf_launches, "conv_narrow": conv_narrow.launches}
 
 
 def eval_launches(cfg, encodes, decodes):
@@ -161,6 +199,19 @@ def eval_launches(cfg, encodes, decodes):
     narrow = sum(c <= conv_chain.MAX_CIN for c in cins)
     return {"pos_head": 4 * (cfg.latent_levels - 1) * decodes,
             "conv_chain": 3 * narrow * encodes}
+
+
+def train_narrow_launches(cfg):
+    """Launches of the narrow-conv kernel per training step: the first
+    conv of each down block whose input has at most 4 channels
+    (down_block_0, the concatenated pair) and of each latent level's
+    velocity head (zdim -> n0), which runs its plain ConvUnit chain in
+    train mode. In eval both sit inside the fused kernels: 0."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    cins = [2] + [cfg.num_channels[k] for k in range(cfg.total_levels - 1)]
+    heads = cfg.latent_levels if (cfg.cp_depth >= 2 and cfg.zdim <= conv_narrow.MAX_CIN) else 0
+    return sum(c <= conv_narrow.MAX_CIN for c in cins) + heads
 
 
 def log(msg: str) -> None:
@@ -647,12 +698,160 @@ def check_eval_gradients(dev, checks):
 
 
 # ----------------------------------------------------------------------
+# phase 3e: the channels-first kernels and the narrow conv
+# ----------------------------------------------------------------------
+
+def check_cf_kernels(dev, checks, chunk=N_SAMPLES):
+    """The CF squaring and the CF warp against their channels-last twins,
+    bit for bit (tolerance 0: the same operations in the same order), and
+    against their plain versions: the integration on `chunk` rows at the
+    flagship's level 0 (80x96x112) and under LungCT's respiratory field
+    at its level 0 (96x96x104); the batched image warp on 4 x `chunk`
+    rows at 160x192x224. Each again with non-contiguous inputs (CF
+    shapes over channels-last memory)."""
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import squaring, warp
+
+    record = checks.record
+    fmt = lambda size: "x".join(map(str, size))
+    cfg = PULPoConfig(**FLAGSHIP_FULLRES)
+    full, level0 = cfg.input_size, cfg.level_sizes[0]
+    cf = lambda v: v.permute(0, 4, 1, 2, 3)
+    cl = lambda v: v.permute(0, 2, 3, 4, 1)
+
+    v = smooth_field(chunk, level0, 2.0, seed=100, device=dev)  # channels-last memory
+    v_cf = cf(v).contiguous()
+    ref = squaring.integrate_svf(v, cfg.nsteps)
+    record("squaring_cf", f"7 steps {chunk} rows {fmt(level0)} vs CL kernel",
+           cl(squaring.integrate_svf_cf(v_cf, cfg.nsteps)), ref, 0.0)
+    record("squaring_cf", "7 steps non-contiguous CF input vs CL kernel",
+           cl(squaring.integrate_svf_cf(cf(v), cfg.nsteps)), ref, 0.0)
+    one = v_cf[:4] * (1.0 / 2**cfg.nsteps)
+    record("squaring_cf", "one step 4 rows vs plain", squaring.squaring_step_cf(one),
+           squaring.squaring_step_cf_plain(one), 0.0)
+    del v, v_cf, ref, one
+    lung = PULPoConfig(**LUNGCT)
+    v = respiratory_field(lung.level_sizes[0], SI_RAMP / 2, DRIFT / 2, dev)
+    ref = squaring.integrate_svf_plain(v, lung.nsteps)
+    tag = f"7 steps {fmt(lung.level_sizes[0])} ramp |phi|<={float(ref.abs().max()):.2f}"
+    record("squaring_cf", f"{tag} vs plain", cl(squaring.integrate_svf_cf(cf(v).contiguous(),
+                                                                          lung.nsteps)), ref, 0.0)
+    record("squaring_cf", f"{tag} non-contiguous vs CL kernel",
+           cl(squaring.integrate_svf_cf(cf(v), lung.nsteps)),
+           squaring.integrate_svf(v, lung.nsteps), 0.0)
+    del v, ref
+    torch.cuda.empty_cache()
+
+    # the decode's batched image warp: 4 levels x `chunk` rows of full-res
+    # dfs, one moving image; each level's rows at another magnitude
+    g = torch.Generator().manual_seed(101)
+    img = torch.rand((1, *full, 1), generator=g).to(dev)
+    base = smooth_field(chunk, full, 1.0, seed=102, device=dev)
+    df_cf = torch.cat([cf(base * m) for m in (0.3, 1.0, 3.0, 15.0)]).contiguous()
+    del base
+    got = warp.warp_cf(cf(img), df_cf)
+    ref = warp.warp(img, cl(df_cf))  # the CL kernel copies the view to CL memory
+    record("warp_cf", f"C=1 {df_cf.shape[0]} rows {fmt(full)} vs CL kernel", cl(got), ref, 0.0)
+    del ref
+    record("warp_cf", "C=1 4 rows vs plain", got[::chunk], warp.warp_cf_plain(cf(img), df_cf[::chunk]),
+           0.0)
+    df_cl = cl(df_cf).contiguous()
+    del df_cf
+    torch.cuda.empty_cache()
+    record("warp_cf", f"C=1 {df_cl.shape[0]} rows non-contiguous df vs CF kernel",
+           warp.warp_cf(cf(img), cf(df_cl)), got, 0.0)
+    del df_cl, got
+    torch.cuda.empty_cache()
+    # C = 3 (a field warped by a field, as the squaring's inner warp)
+    m = smooth_field(2, level0, 1.0, seed=103, device=dev)
+    d = smooth_field(4, level0, 6.0, seed=104, device=dev)
+    ref = warp.warp(m, d)
+    record("warp_cf", f"C=3 4 rows {fmt(level0)} vs CL kernel",
+           cl(warp.warp_cf(cf(m).contiguous(), cf(d).contiguous())), ref, 0.0)
+    record("warp_cf", "C=3 non-contiguous moving and df vs CL kernel",
+           cl(warp.warp_cf(cf(m), cf(d))), ref, 0.0)
+    record("warp_cf", "C=3 vs plain", cl(warp.warp_cf(cf(m), cf(d))),
+           warp.warp_plain(m, d), 0.0)
+    del m, d, ref, img
+    torch.cuda.empty_cache()
+
+
+def narrow_weight(cin, cout, seed, dev):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((cout, cin, 3, 3, 3), generator=g) / math.sqrt(27 * cin)).to(dev)
+
+
+def check_conv_narrow(dev, checks):
+    """The narrow conv against its plain version, bf16 and f32: 2 -> n0 at
+    both full sizes (down_block_0), 3 -> n0 at both level-0 sizes (the
+    velocity head's first conv), and with a non-contiguous input. The
+    kernel repeats the plain version's operations in its order (module
+    doc of csrc/conv_narrow.cu), so it is bit-equal; the tolerance, one
+    bf16 ulp at the output's scale (f32: 1e-6 of it), states what a
+    reordered sum would be allowed. Then the gradient (dx, dW) through
+    `NarrowConv` against the plain version's autograd (f32, 1e-5 of
+    scale: the library conv backward sums in another order)."""
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    fmt = lambda size: "x".join(map(str, size))
+    cases = []
+    for cfg_kw in (FLAGSHIP, LUNGCT):
+        cfg = PULPoConfig(**cfg_kw)
+        cases += [(2, cfg.input_size), (cfg.zdim, cfg.level_sizes[0])]
+    g = torch.Generator(device=dev).manual_seed(110)
+    for i, (cin, size) in enumerate(cases):
+        w = narrow_weight(cin, 32, 111 + i, dev)
+        for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = torch.randn((1, *size, cin), generator=g, device=dev).to(dt)
+            ref = conv_narrow.conv_narrow_plain(x, w)
+            scale = max(1.0, float(ref.float().abs().max()))
+            tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if dt == torch.bfloat16 else 1e-6 * scale
+            with torch.no_grad():
+                checks.record("conv_narrow", f"{name} {cin}->32 {fmt(size)}",
+                              conv_narrow.conv_narrow(x, w), ref, tol)
+                if i == 0:
+                    xp = x.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+                    checks.record("conv_narrow", f"{name} {cin}->32 {fmt(size)} permuted input",
+                                  conv_narrow.conv_narrow(xp, w), ref, tol)
+            del x, ref
+        torch.cuda.empty_cache()
+
+    x = torch.randn((2, 10, 12, 14, 3), generator=g, device=dev)
+    w = narrow_weight(3, 32, 119, dev)
+    cot = torch.randn((2, 10, 12, 14, 32), generator=g, device=dev)
+
+    def grads(fn, need_x=True):
+        xs = x.detach().clone().requires_grad_(need_x)
+        ws = w.detach().clone().requires_grad_(True)
+        return torch.autograd.grad((fn(xs, ws) * cot).sum(), (xs, ws) if need_x else (ws,))
+
+    for need_x in (True, False):
+        got, ref = grads(conv_narrow.conv_narrow, need_x), grads(conv_narrow.conv_narrow_plain,
+                                                                 need_x)
+        worst = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for a, b in zip(got, ref))
+        ok = worst <= 1e-5
+        log(f"check {'conv_narrow':12s} gradient ({'dx, dW' if need_x else 'dW'}) vs plain "
+            f"autograd: worst scaled err {worst:.3e}  tol 1.0e-05  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            checks.failures.append("conv_narrow gradient")
+
+
+# ----------------------------------------------------------------------
 # phase 4: small input, card against CPU
 # ----------------------------------------------------------------------
 
-def check_small_reference(dev, size=(32, 40, 48), n=4):
+def check_small_reference(dev, size=(32, 40, 48), n=4, **cfg_kw):
     """UQ on the card (kernels) against the CPU (plain versions), same
-    weights, same draws; every leaf within 1e-3 of its scale."""
+    weights, same draws; every leaf within 1e-3 of its scale. `cfg_kw`
+    adds to the small config (the full_res CF path: FULLRES_KW)."""
     import numpy as np
     import torch
 
@@ -661,7 +860,7 @@ def check_small_reference(dev, size=(32, 40, 48), n=4):
     from pulpo_tpu_torch.models import PULPoModel
     from pulpo_tpu_torch.uq.predict import predict_with_uncertainty
 
-    cfg = PULPoConfig(input_size=size, total_levels=3, latent_levels=2, n0=8)
+    cfg = PULPoConfig(input_size=size, total_levels=3, latent_levels=2, n0=8, **cfg_kw)
     ref_model = PULPoModel(cfg, device="cpu")
     ref_model.init(5)
     model = PULPoModel(cfg, device=dev)
@@ -684,7 +883,8 @@ def check_small_reference(dev, size=(32, 40, 48), n=4):
             worst = max(worst, err)
             if not err <= 1e-3:
                 raise SystemExit(f"small reference: {field}[{l}] off by {err:.3e}")
-    log(f"check small UQ card vs cpu {size} N={n}: worst scaled err {worst:.3e} (tol 1e-3) ok")
+    log(f"check small UQ card vs cpu {size} {cfg.df_resolution} N={n}: worst scaled err "
+        f"{worst:.3e} (tol 1e-3) ok")
 
 
 def check_small_train(dev, size=(32, 40, 48)):
@@ -739,7 +939,36 @@ def check_small_train(dev, size=(32, 40, 48)):
 # phase 5: the main path
 # ----------------------------------------------------------------------
 
-def run_main_path(dev, cfg_kw, n_samples, n_requests):
+def serving_launches(cfg, decodes, requests):
+    """Launches of a UQ request stream: `decodes` decodes (the chunks
+    and the one-sample calibration decode) and `requests` mean-SVF tails
+    and encodes. Per decode: a head per level, a posterior head per
+    non-coarsest level, one integration per level and the image warp
+    (one per level, or one batched launch for all levels on the
+    channels-first path); per tail: one integration per level and the
+    image warp. No backward, no loss, no narrow conv."""
+    from pulpo_tpu_torch.models.pulpo import cf_fields
+
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    integrations = nsteps * K * (decodes + requests)
+    cf = cf_fields(cfg)
+    return {
+        "warp": 0 if cf else K * (decodes + requests),
+        "squaring": 0 if cf else integrations,
+        "squaring_cf": integrations if cf else 0,
+        "warp_cf": decodes + requests if cf else 0,
+        "vel_head": K * decodes,
+        "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
+        "conv_narrow": 0,
+        **eval_launches(cfg, requests, decodes),
+    }
+
+
+def run_main_path(dev, cfg_kw, n_samples, n_requests, name="serving path"):
+    """`n_requests` UQ requests of `n_samples` on the configuration
+    `cfg_kw` (random weights from seed 0, one synthetic pair each): every
+    leaf finite, exact launch counts; returns the counts and the request
+    times, peaks and chunk."""
     import numpy as np
     import torch
 
@@ -754,13 +983,12 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests):
     model.init(seed=0)
     ds = SyntheticDataset(shape=cfg.input_size, n=n_requests + 1, seed=0)
     pairs = [ds.get_pair(i, np.random.default_rng(i)) for i in range(n_requests)]
-    log(f"serving path: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
-        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.df_resolution}, "
+    log(f"{name}: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
+        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.df_resolution} feedback {list(cfg.feedback)}, "
         f"{model.param_count} params, set-up {time.perf_counter() - t0:.1f} s")
 
-    K = cfg.latent_levels
     decodes = 0
-    chunks = []
+    chunks, times, peaks = [], [], []
     reset_counts()
     for i, pair in enumerate(pairs):
         x, y = pair["x"][None], pair["y"][None]
@@ -773,33 +1001,22 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests):
         dt = time.perf_counter() - t
         chunk = res.outputs[0].shape[1]
         chunks.append(chunk)
+        times.append(dt)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         decodes += n_samples // chunk + (len(model.decode_bytes) - calibrated)
         for field, d in res._asdict().items():
             if d is None:
                 continue
             for l, v in d.items():
                 if not bool(torch.isfinite(v).all()):
-                    raise SystemExit(f"request {i}: {field}[{l}] not finite")
-        log(f"request {i}: {dt:.3f} s  chunk {chunk}  "
-            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  "
+                    raise SystemExit(f"{name} request {i}: {field}[{l}] not finite")
+        log(f"{name} request {i}: {dt:.3f} s  chunk {chunk}  "
+            f"max_memory_allocated {peaks[-1]:.2f} GiB  "
             f"decode bytes/sample {max(model.decode_bytes.values(), default=0) / 2**30:.2f} GiB  "
             "all leaves finite")
     counts = read_counts()
-    expected = {
-        # each decode: one image warp and one integration per level, and a
-        # head per level; each request's mean-SVF tail: one integration
-        # and one warp per level; no backward and no loss
-        "warp": K * (decodes + n_requests),
-        "squaring": cfg.nsteps * K * (decodes + n_requests),
-        "vel_head": K * decodes,
-        "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
-        **eval_launches(cfg, n_requests, decodes),
-    }
-    log(f"serving path launches {counts} expected {expected} ({decodes} decodes)")
-    for k in counts:
-        if counts[k] != expected[k]:
-            raise SystemExit(f"launch count of {k}: {counts[k]}, expected {expected[k]}")
-    return counts, max(chunks)
+    expect(counts, serving_launches(cfg, decodes, n_requests), f"{name} ({decodes} decodes)")
+    return counts, {"chunk": max(chunks), "times": times, "peaks": peaks}
 
 
 # ----------------------------------------------------------------------
@@ -856,15 +1073,14 @@ def run_train_path(dev, cfg_kw, steps):
         # moving image needs no gradient, so no moving-cotangent), the
         # NCC's 5 box sums forward and 3 backward (of j, j^2 and ij; the
         # target's sums need none); the velocity head runs its plain
-        # chain in train mode
+        # chain in train mode, its first conv and down_block_0's on the
+        # narrow-conv kernel
         "warp": K * n, "squaring": cfg.nsteps * K * n, "vel_head": 0,
         "warp_dfgrad": K * n, "warp_mgrad": 0, "squaring_bwd": cfg.nsteps * K * n,
         "box_sum": (5 + 3) * K * n, "pos_head": 0, "conv_chain": 0,
+        "squaring_cf": 0, "warp_cf": 0, "conv_narrow": train_narrow_launches(cfg) * n,
     }
-    log(f"training path launches {counts} expected {expected} ({n} steps)")
-    for k in counts:
-        if counts[k] != expected[k]:
-            raise SystemExit(f"launch count of {k}: {counts[k]}, expected {expected[k]}")
+    expect(counts, expected, f"training path ({n} steps)")
     changed = sum(not torch.equal(p.detach(), before[n])
                   for n, p in model.module.named_parameters())
     if changed == 0:
@@ -932,7 +1148,8 @@ def run_serve_path(dev, cfg_kw, n_samples, chunk, n_uq, tmpdir):
     expect(counts, {
         "warp": K * (decodes + tails), "squaring": cfg.nsteps * K * (decodes + tails),
         "vel_head": K * decodes, "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0,
-        "box_sum": 0, **eval_launches(cfg, 2 + n_uq, decodes),
+        "box_sum": 0, "squaring_cf": 0, "warp_cf": 0, "conv_narrow": 0,
+        **eval_launches(cfg, 2 + n_uq, decodes),
     }, f"serve path ({decodes} decodes)")
     log(f"serve path: predict_deterministic {det_s:.3f} s, predict_mean (N={n_samples}) "
         f"{mean_s:.3f} s, uq (N={n_samples}) {' '.join(f'{t:.3f}' for t in uq_s)} s")
@@ -1096,6 +1313,7 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
         "warp": K * (n_steps + n_val), "squaring": nsteps * K * (n_steps + n_val),
         "vel_head": K * n_val, "warp_dfgrad": K * n_steps, "warp_mgrad": 0,
         "squaring_bwd": nsteps * K * n_steps, "box_sum": 8 * K * n_steps + 5 * K * n_val,
+        "squaring_cf": 0, "warp_cf": 0, "conv_narrow": train_narrow_launches(cfg) * n_steps,
         **eval_launches(cfg, n_val, n_val),
     }, "lungct training")
     rows = read_metrics(run_dir)
@@ -1172,6 +1390,7 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
         "squaring": 2 * nsteps * K * pairs + nsteps * K * (decodes + pairs),
         "vel_head": K * pairs + K * decodes,
         "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0, "box_sum": 0,
+        "squaring_cf": 0, "warp_cf": 0, "conv_narrow": 0,
         # performance: one encode per pair; uncertainty: one per request
         **eval_launches(cfg, 2 * pairs, pairs + decodes),
     }, f"lungct evaluation ({decodes} decodes, chunks {chunks})")
@@ -1403,10 +1622,14 @@ def library_unit(x, u, y2=None):
     """One eval ConvUnit as models/blocks.py ran it before the conv-unit
     kernel: a cuDNN conv, then the PyTorch epilogue passes (the library
     yardstick; the port never calls this)."""
-    from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky
-    from pulpo_tpu_torch.models.blocks import conv3d_cl, tile_rows
+    import torch.nn.functional as F
 
-    y = conv3d_cl(x, u["k"], 1)
+    from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky
+    from pulpo_tpu_torch.models.blocks import tile_rows
+
+    # cuDNN at every width (models/blocks.conv3d_cl now takes a narrow
+    # input to the narrow-conv kernel)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), u["k"].to(x.dtype), padding=1).permute(0, 2, 3, 4, 1)
     if y2 is not None:
         y = y + tile_rows(y2, y.shape[0])
     y = y + u["b"].to(x.dtype)
@@ -1489,6 +1712,92 @@ def time_eval_kernels(dev, cfg, rows):
     return res
 
 
+def time_fullres_kernels(dev, cfg, chunk):
+    """The channels-first kernels at the full-res request's shapes and the
+    narrow conv at the training step's, each beside its channels-last twin
+    or cuDNN. `cfg`: the flagship-fullres config; `chunk`: its request's.
+    Bounds: each input read once and each output written once over 3.35
+    TB/s (the gathers do ~100 float32 operations per voxel: bytes bound
+    them); the narrow conv's operations at the input type's peak (bf16
+    989 TFLOP/s) where that is larger."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import conv_narrow, squaring, warp
+
+    res = {}
+    full, level0 = cfg.input_size, cfg.level_sizes[0]
+    fmt = lambda size: ",".join(map(str, size))
+    cf = lambda v: v.permute(0, 4, 1, 2, 3)
+    n, nl = math.prod(full), math.prod(level0)
+
+    # squaring: one step at level 0 on `chunk` fields, CF and its CL twin
+    v = cf(smooth_field(chunk, level0, 3.0, seed=120, device=dev)).contiguous()
+    out = torch.empty_like(v)
+    v_cl = v.permute(0, 2, 3, 4, 1).contiguous()
+    out_cl = torch.empty_like(v_cl)
+    ms = time_ms(lambda: squaring.squaring_step_cf(v, out), 20)
+    twin = time_ms(lambda: squaring.squaring_step(v_cl, out_cl), 20)
+    plain = time_ms(lambda: squaring.squaring_step_cf_plain(v), 3, warmup=1)
+    res["squaring_cf"] = dict(ms=ms, plain_ms=plain, library_ms=None, cl_twin_ms=twin,
+                              bound_ms=2 * chunk * nl * 3 * 4 / HBM_BYTES_PER_S * 1e3,
+                              bound_by="bytes",
+                              shape=f"({chunk},3,{fmt(level0)}) f32, one step")
+    del v, out, v_cl, out_cl
+    torch.cuda.empty_cache()
+
+    # the decode's batched image warp: 4 levels x `chunk` rows at full res
+    rows = cfg.latent_levels * chunk
+    img = torch.rand((1, *full, 1), device=dev)
+    df_cl = smooth_field(rows, full, 3.0, seed=121, device=dev)
+    df = cf(df_cl).contiguous()
+    ms = time_ms(lambda: warp.warp_cf(cf(img), df), 5)
+    twin = time_ms(lambda: warp.warp(img, df_cl), 5)
+    del df_cl
+    torch.cuda.empty_cache()
+    # the plain version in `chunk`-row slices (its index temporaries for
+    # all rows at once would not fit): the sum of the slices' times
+    plain = sum(time_ms(lambda i=i: warp.warp_cf_plain(cf(img), df[i:i + chunk]), 1, warmup=1)
+                for i in range(0, rows, chunk))
+    grid = grid_for(df.permute(0, 2, 3, 4, 1))
+    mov = cf(img).expand(rows, -1, -1, -1, -1)
+    lib = time_ms(lambda: F.grid_sample(mov, grid, mode="bilinear", padding_mode="border",
+                                        align_corners=False), 5)
+    res["warp_cf"] = dict(ms=ms, plain_ms=plain, library_ms=lib, cl_twin_ms=twin,
+                          bound_ms=4 * (rows * n * 3 + rows * n + n) / HBM_BYTES_PER_S * 1e3,
+                          bound_by="bytes",
+                          shape=f"moving (1,1,{fmt(full)}) df ({rows},3,{fmt(full)}) f32")
+    del img, df, grid, mov
+    torch.cuda.empty_cache()
+
+    # the narrow conv: down_block_0's 2 -> n0 at full res and a velocity
+    # head's zdim -> n0 at level 0, B = 1, bf16 (the training step's)
+    shapes = {}
+    for cin, size in ((2, full), (cfg.zdim, level0)):
+        w = narrow_weight(cin, cfg.n0, 122 + cin, dev).to(torch.bfloat16)
+        x = torch.randn((1, *size, cin), device=dev).to(torch.bfloat16)
+        nv = math.prod(size)
+        flops = 2 * 27 * cin * cfg.n0 * nv
+        bytes_ = 2 * nv * (cin + cfg.n0)
+        with torch.no_grad():
+            ms = time_ms(lambda: conv_narrow.conv_narrow(x, w), 10)
+            plain = time_ms(lambda: conv_narrow.conv_narrow_plain(x, w), 1, warmup=1)
+            xc = x.permute(0, 4, 1, 2, 3)
+            lib = time_ms(lambda: F.conv3d(xc, w, padding=1), 10)
+        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+        shapes[f"{cin}->{cfg.n0} {'x'.join(map(str, size))}"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            f32_core_ms=flops / F32_FLOP_PER_S * 1e3,
+            shape=f"x (1,{fmt(size)},{cin}) bf16 -> {cfg.n0}")
+        del w, x
+        torch.cuda.empty_cache()
+    first = next(iter(shapes.values()))
+    res["conv_narrow"] = dict(first, shapes={k: {a: b for a, b in r.items() if a != "shape"}
+                                             for k, r in shapes.items()})
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1526,13 +1835,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_eval_kernels(dev, checks)
     torch.cuda.empty_cache()
+    check_cf_kernels(dev, checks)
+    torch.cuda.empty_cache()
+    check_conv_narrow(dev, checks)
+    torch.cuda.empty_cache()
     if checks.failures:
         raise SystemExit(f"kernel checks failed: {checks.failures}")
     log(f"kernel checks passed in {time.perf_counter() - t:.1f} s")
     check_small_reference(dev)
+    check_small_reference(dev, **FULLRES_KW)
     check_small_train(dev)
 
-    uq_counts, chunk = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
+    uq_counts, uq = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
+    chunk = uq["chunk"]
     torch.cuda.empty_cache()
     serve_root = tempfile.mkdtemp(prefix="pulpo_serve_")
     try:
@@ -1540,6 +1855,9 @@ def main() -> int:
                                              serve_root)
     finally:
         shutil.rmtree(serve_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    fullres_counts, fullres = run_main_path(dev, FLAGSHIP_FULLRES, N_SAMPLES, N_REQUESTS,
+                                            name="fullres serving path")
     torch.cuda.empty_cache()
     train_counts, train = run_train_path(dev, FLAGSHIP, TRAIN_STEPS)
     torch.cuda.empty_cache()
@@ -1555,6 +1873,14 @@ def main() -> int:
     times.update(time_backward_kernels(dev, cfg))
     times["warp_lungct"] = time_lungct_warp(dev, PULPoConfig(**LUNGCT).input_size)
     times.update(time_eval_kernels(dev, cfg, chunk))
+    times.update(time_fullres_kernels(dev, PULPoConfig(**FLAGSHIP_FULLRES), fullres["chunk"]))
+    for k in ("squaring_cf", "warp_cf"):
+        log(f"time {k} channels-last twin on the same field: {times[k]['cl_twin_ms']:.3f} ms "
+            f"(CF {times[k]['ms']:.3f} ms)")
+    for shape, r in times["conv_narrow"]["shapes"].items():
+        log(f"time conv_narrow {shape} bf16: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+            f"cuDNN {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']}; "
+            f"f32 CUDA-core peak {r['f32_core_ms']:.3f} ms)")
     for l, r in times["pos_head"]["levels"].items():
         log(f"time pos_head l{l} {r['shape']}: kernel {r['ms']:.3f} ms ({r['tflop_per_s']:.1f} "
             f"TFLOP/s)  plain {r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  "
@@ -1571,6 +1897,7 @@ def main() -> int:
     for name in KERNELS:
         r = times[name]
         by_path = {"serving": uq_counts[name], "serve": serve_counts[name],
+                   "serving_fullres": fullres_counts[name],
                    "training": train_counts[name], "lungct_train": lungct_train[name],
                    "lungct_eval": lungct_eval[name]}
         record = {
@@ -1586,9 +1913,17 @@ def main() -> int:
         if name == "pos_head":
             record["levels"] = {l: {k: v for k, v in lv.items() if k != "shape"}
                                 for l, lv in r["levels"].items()}
+        if name in ("squaring_cf", "warp_cf"):
+            record["cl_twin_ms"] = r["cl_twin_ms"]
+        if name == "conv_narrow":
+            record["shapes"] = r["shapes"]
         kernels.append(record)
     log(f"serve: artifact {serve['bytes']} B, predict_deterministic {serve['det_s']:.3f} s, "
         f"predict_mean {serve['mean_s']:.3f} s, uq {' '.join(f'{t:.3f}' for t in serve['uq_s'])} s")
+    for what, info in (("flagship", uq), ("flagship-fullres", fullres)):
+        log(f"{what} UQ-{N_SAMPLES} requests {' '.join(f'{t:.3f}' for t in info['times'])} s "
+            f"(warm {min(info['times'][1:]):.3f} s), peaks "
+            f"{' '.join(f'{p:.2f}' for p in info['peaks'])} GiB, chunk {info['chunk']}")
     log(f"training step {train['step_s']:.3f} s, peak {train['peak_gib']:.2f} GiB")
     log(f"lungct: Trainer step {lungct['step_s']:.3f} s, with validation and checkpoints "
         f"{lungct['step_with_io_s']:.3f} s, checkpoint {lungct['ckpt_bytes']} B in "

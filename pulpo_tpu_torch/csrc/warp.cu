@@ -22,6 +22,22 @@
 // as the plain PyTorch version's separate operations do; weights are
 // multiplied along the axes in order and the corners summed in order,
 // as in pulpo_tpu/ops/warp.py:warp_image.
+//
+// Layouts: one kernel body, two instantiations that differ only in the
+// addressing (n = voxels of one row):
+//   channels-last:  moving (B, *S_in, C), df (B_df, *S_out, 3),
+//                   out (B_df, *S_out, C); element (r, v, c) at (r * n + v) * C + c
+//   channels-first: moving (B, C, *S_in), df (B_df, 3, *S_out),
+//                   out (B_df, C, *S_out); element (r, v, c) at (r * C + c) * n + v
+// The channels-first one replaces pulpo_tpu/kernels/warp_halo.py:
+// _warp_halo_pallas_cf with its tier ladder, sparse repair and
+// terminal fallback (warp_halo.py:1560-1685, 1722-1736), which warp the
+// decode's image (C = 1) or field (C = 3) by a df on the TPU's
+// tile-padded CF layout. Here the fields are unpadded: a gather needs
+// no halo. Same operations in the same order, so the two
+// instantiations are bit-equal; at C = 1 the CF output is the CL one
+// reshaped. In CF each df component plane and each output plane is
+// read or written with unit stride between neighbouring threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +50,7 @@ __device__ __forceinline__ float src_coord(int g, float d, float f, int s_in) {
   return fminf(fmaxf(src, 0.0f), (float)(s_in - 1));
 }
 
+template <bool CF>
 __global__ void warp_kernel(const float* __restrict__ mov,
                             const float* __restrict__ df,
                             float* __restrict__ out,
@@ -52,9 +69,13 @@ __global__ void warp_kernel(const float* __restrict__ mov,
   const int y = (int)((v / O2) % O1);
   const int z = (int)(v / ((long long)O1 * O2));
 
-  const float* d = df + idx * 3;
-  const float c[3] = {src_coord(z, d[0], f0, I0), src_coord(y, d[1], f1, I1),
-                      src_coord(x, d[2], f2, I2)};
+  // df component a of this voxel: d[a * ds]; channel c of a moving or
+  // output voxel: p[c * cs_in] / o[c * cs_out]; a moving voxel at
+  // offset off: m + off * vs
+  const float* d = CF ? df + r * 3 * n_out + v : df + idx * 3;
+  const long long ds = CF ? n_out : 1;
+  const float c[3] = {src_coord(z, d[0], f0, I0), src_coord(y, d[ds], f1, I1),
+                      src_coord(x, d[2 * ds], f2, I2)};
   const int S[3] = {I0, I1, I2};
   int i0[3], i1[3];
   float w[3];
@@ -66,7 +87,10 @@ __global__ void warp_kernel(const float* __restrict__ mov,
   }
   const long long stride[3] = {(long long)I1 * I2, (long long)I2, 1};
   const float* m = mov + (r % B) * n_in * C;
-  float* o = out + idx * C;
+  const long long vs = CF ? 1 : C;
+  const long long cs_in = CF ? n_in : 1;
+  const long long cs_out = CF ? n_out : 1;
+  float* o = CF ? out + r * C * n_out + v : out + idx * C;
   for (int ch = 0; ch < C; ++ch) {
     float acc = 0.0f;
 #pragma unroll
@@ -80,11 +104,25 @@ __global__ void warp_kernel(const float* __restrict__ mov,
         const float wa = hi ? w[a] : 1.0f - w[a];
         weight = (a == 0) ? wa : weight * wa;
       }
-      const float contrib = __ldg(m + off * C + ch) * weight;
+      const float contrib = __ldg(m + off * vs + ch * cs_in) * weight;
       acc = (corner == 0) ? contrib : acc + contrib;
     }
-    o[ch] = acc;
+    o[ch * cs_out] = acc;
   }
+}
+
+template <bool CF>
+int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
+           int I0, int I1, int I2, int O0, int O1, int O2,
+           float f0, float f1, float f2, void* stream) {
+  const long long total = (long long)B_df * O0 * O1 * O2;
+  if (total == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  warp_kernel<CF><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const float*)mov, (const float*)df, (float*)out, B, C, I0, I1, I2,
+      O0, O1, O2, f0, f1, f2, total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -93,12 +131,16 @@ extern "C" int pulpo_warp(const void* mov, const void* df, void* out,
                           int B, int B_df, int C,
                           int I0, int I1, int I2, int O0, int O1, int O2,
                           float f0, float f1, float f2, void* stream) {
-  const long long total = (long long)B_df * O0 * O1 * O2;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  warp_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)mov, (const float*)df, (float*)out, B, C, I0, I1, I2,
-      O0, O1, O2, f0, f1, f2, total);
-  return (int)cudaGetLastError();
+  return launch<false>(mov, df, out, B, B_df, C, I0, I1, I2, O0, O1, O2,
+                       f0, f1, f2, stream);
+}
+
+// The same warp on channels-first tensors: moving (B, C, *S_in),
+// df (B_df, 3, *S_out), out (B_df, C, *S_out).
+extern "C" int pulpo_warp_cf(const void* mov, const void* df, void* out,
+                             int B, int B_df, int C,
+                             int I0, int I1, int I2, int O0, int O1, int O2,
+                             float f0, float f1, float f2, void* stream) {
+  return launch<true>(mov, df, out, B, B_df, C, I0, I1, I2, O0, O1, O2,
+                      f0, f1, f2, stream);
 }

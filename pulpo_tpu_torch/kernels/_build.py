@@ -30,7 +30,8 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 # FMA contraction so that their coordinate arithmetic rounds exactly as
 # the plain PyTorch version's separate multiply and add do: a source
 # coordinate one ulp off can land on the other side of a voxel
-# boundary. The box sum only adds; it takes the same flag.
+# boundary. The box sum only adds; it takes the same flag. The narrow
+# conv takes it so that its float32 taps round as the plain version's.
 SOURCES = {
     "warp": ("warp.cu", ["-fmad=false"]),
     "squaring": ("squaring.cu", ["-fmad=false"]),
@@ -39,6 +40,7 @@ SOURCES = {
     "squaring_bwd": ("squaring_bwd.cu", ["-fmad=false"]),
     "box_sum": ("box_sum.cu", ["-fmad=false"]),
     "conv_unit": ("conv_unit.cu", []),
+    "conv_narrow": ("conv_narrow.cu", ["-fmad=false"]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -18,7 +18,16 @@ Without a gradient to keep, the steps alternate two buffers; with one,
 each step writes a fresh buffer, and the backward runs the steps'
 backward in reverse over the kept inputs.
 
-Layout: (B, *S, 3) channels-last float32.
+The channels-first step `squaring_step_cf` (the CF instantiation of
+`csrc/squaring.cu`) replaces `_squaring_step_cf_pallas`
+(warp_local.py:603) and the `squaring_beyond_cf` cascade past its
+bound (warp_local.py:629-649, warp_halo.py:1687): the same step on a
+(B, 3, S0, S1, S2) field, without the TPU's tile padding, bit-equal to
+the channels-last kernel. `integrate_svf_cf` chains it; like the JAX
+package's `integrate_svf_cf` (warp_local.py:664-689) it is an eval
+path whose gradient replays the plain version (`plain_vjp`).
+
+Layout: (B, *S, 3) channels-last float32; the CF functions (B, 3, *S).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import ctypes
 
 import torch
 
-from pulpo_tpu_torch.kernels import _build
+from pulpo_tpu_torch.kernels import _build, plain_vjp
 from pulpo_tpu_torch.kernels.warp import (
     _factor,
     warp_dfgrad_plain,
@@ -37,11 +46,12 @@ from pulpo_tpu_torch.kernels.warp import (
 
 launches = 0      # kernel launches of `squaring_step` (one per step)
 bwd_launches = 0  # kernel launches of `squaring_step_bwd` (one per step)
+cf_launches = 0   # kernel launches of `squaring_step_cf` (one per step)
 
 
 def reset_count() -> None:
-    global launches, bwd_launches
-    launches = bwd_launches = 0
+    global launches, bwd_launches, cf_launches
+    launches = bwd_launches = cf_launches = 0
 
 
 def squaring_step_plain(vec: torch.Tensor) -> torch.Tensor:
@@ -66,6 +76,25 @@ def integrate_svf_plain(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
     return vec
 
 
+def _cl(vec_cf: torch.Tensor) -> torch.Tensor:
+    return vec_cf.permute(0, 2, 3, 4, 1)
+
+
+def _cf(vec: torch.Tensor) -> torch.Tensor:
+    return vec.permute(0, 4, 1, 2, 3)
+
+
+def squaring_step_cf_plain(vec_cf: torch.Tensor) -> torch.Tensor:
+    """The CF kernel's plain version: the channels-last step on the same
+    values, returned as a (B, 3, *S) view."""
+    return _cf(squaring_step_plain(_cl(vec_cf)))
+
+
+def integrate_svf_cf_plain(vec_cf: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
+    """Scaling and squaring of a (B, 3, *S) field in plain PyTorch."""
+    return _cf(integrate_svf_plain(_cl(vec_cf), nsteps))
+
+
 def _check(vec: torch.Tensor, what: str) -> None:
     if vec.dim() != 5 or vec.shape[-1] != 3 or vec.dtype != torch.float32:
         raise ValueError(f"{what} takes (B, S0, S1, S2, 3) float32, "
@@ -77,6 +106,27 @@ def _factors(vec: torch.Tensor) -> list[float]:
     return [_factor(s[i], s[i]) for i in range(3)]
 
 
+def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool) -> torch.Tensor:
+    """One launch of C entry `entry` of the squaring library on a CUDA
+    field (channels-last, or channels-first with `cf`)."""
+    _check(_cl(vec) if cf else vec, "squaring kernel")
+    vec = vec.contiguous()
+    if out is None:
+        out = torch.empty_like(vec, memory_format=torch.contiguous_format)
+    if out.shape != vec.shape or out.dtype != vec.dtype or not out.is_contiguous():
+        raise ValueError("squaring kernel writes a contiguous float32 `out` "
+                         f"of the input's shape, got {tuple(out.shape)} {out.stride()}")
+    cl = _cl(vec) if cf else vec
+    fn = getattr(_build.load("squaring"), entry)
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(vec.device):
+        rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *cl.shape[1:4], *_factors(cl),
+                float(scale), _build.stream_ptr(vec))
+    _build.check(rc, entry)
+    return out
+
+
 def squaring_step(vec: torch.Tensor, out: torch.Tensor | None = None,
                   scale: float = 1.0) -> torch.Tensor:
     """One step ``v + warp(v, v)`` with ``v = scale * vec``: the CUDA
@@ -84,25 +134,49 @@ def squaring_step(vec: torch.Tensor, out: torch.Tensor | None = None,
     `scale` must be a power of two (it is then exact)."""
     if vec.device.type == "cpu":
         return squaring_step_plain(vec * scale if scale != 1.0 else vec)
-    _check(vec, "squaring kernel")
-    vec = vec.contiguous()
-    if out is None:
-        out = torch.empty_like(vec, memory_format=torch.contiguous_format)
-    if out.shape != vec.shape or out.dtype != vec.dtype or not out.is_contiguous():
-        raise ValueError("squaring kernel writes a contiguous float32 `out` "
-                         f"of the input's shape, got {tuple(out.shape)} {out.stride()}")
-    b, s = vec.shape[0], vec.shape[1:4]
-    lib = _build.load("squaring")
-    fn = lib.pulpo_squaring_step
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     global launches
-    with torch.cuda.device(vec.device):
-        rc = fn(vec.data_ptr(), out.data_ptr(), b, *s, *_factors(vec), float(scale),
-                _build.stream_ptr(vec))
-        launches += 1
-    _build.check(rc, "squaring_step")
+    out = _launch_step("pulpo_squaring_step", vec, out, scale, cf=False)
+    launches += 1
     return out
+
+
+def squaring_step_cf(vec: torch.Tensor, out: torch.Tensor | None = None,
+                     scale: float = 1.0) -> torch.Tensor:
+    """`squaring_step` on a channels-first field (B, 3, S0, S1, S2)
+    float32: the CF kernel for a tensor on the card, the plain version on
+    the CPU. Bit-equal to the channels-last kernel on the same field."""
+    if vec.device.type == "cpu":
+        return squaring_step_cf_plain(vec * scale if scale != 1.0 else vec)
+    global cf_launches
+    out = _launch_step("pulpo_squaring_step_cf", vec, out, scale, cf=True)
+    cf_launches += 1
+    return out
+
+
+def _integrate_cf_kernel(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """nsteps CF kernel launches, the 1/2**nsteps scale folded into the
+    first, alternating two contiguous buffers."""
+    vec = vec.contiguous()
+    bufs = [torch.empty_like(vec, memory_format=torch.contiguous_format) for _ in range(2)]
+    cur = squaring_step_cf(vec, bufs[0], scale=1.0 / (2**nsteps))
+    for k in range(1, nsteps):
+        cur = squaring_step_cf(cur, bufs[k % 2])
+    return cur
+
+
+def integrate_svf_cf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
+    """Scaling and squaring of a channels-first field (B, 3, S0, S1, S2)
+    float32: the CF kernel on the card (a gradient through it is the plain
+    version's), the plain version on the CPU. Returns a (B, 3, *S) tensor
+    equal bit for bit to `integrate_svf` of the channels-last field."""
+    assert nsteps >= 0
+    if nsteps == 0:
+        return vec.clone()
+    if vec.device.type == "cpu":
+        return integrate_svf_cf_plain(vec, nsteps)
+    _check(_cl(vec), "CF squaring kernel")
+    return plain_vjp.apply(lambda v: _integrate_cf_kernel(v, nsteps),
+                           lambda v: integrate_svf_cf_plain(v, nsteps), vec)
 
 
 def squaring_step_bwd(vec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -25,9 +25,18 @@ floor(c)``, derivative 1). The plain versions and the kernels use the
 same convention; the Pallas kernels use a strict mask (0 at a tie),
 which differs only on that measure-zero set.
 
+`warp_cf` (the channels-first instantiation of `csrc/warp.cu`)
+replaces `_warp_halo_pallas_cf` (warp_halo.py:1560) with its tier
+ladder, sparse repair and terminal fallback (warp_halo.py:1560-1685,
+1722-1736): the same warp of a (B, C, *S_in) moving by a (B_df, 3,
+*S_out) df, without the TPU's tile padding, bit-equal to the
+channels-last kernel. Like the JAX package's CF warp it serves the eval
+decode; a gradient through it replays the plain version (`plain_vjp`).
+
 Layout: moving (B, *S_in, C) and df (B_df, *S_out, 3) channels-last
-float32, df channel i = displacement along spatial axis i; df row r
-reads moving row r % B (samples folded into the df's batch).
+float32 (the CF functions: (B, C, *S_in), (B_df, 3, *S_out)), df
+channel i = displacement along spatial axis i; df row r reads moving
+row r % B (samples folded into the df's batch).
 """
 
 from __future__ import annotations
@@ -36,16 +45,17 @@ import ctypes
 
 import torch
 
-from pulpo_tpu_torch.kernels import _build
+from pulpo_tpu_torch.kernels import _build, plain_vjp
 
 launches = 0         # kernel launches of `warp` (never of the plain version)
 dfgrad_launches = 0  # kernel launches of `warp_dfgrad`
 mgrad_launches = 0   # kernel launches of `warp_mgrad`
+cf_launches = 0      # kernel launches of `warp_cf`
 
 
 def reset_count() -> None:
-    global launches, dfgrad_launches, mgrad_launches
-    launches = dfgrad_launches = mgrad_launches = 0
+    global launches, dfgrad_launches, mgrad_launches, cf_launches
+    launches = dfgrad_launches = mgrad_launches = cf_launches = 0
 
 
 def _factor(s_in: int, s_out: int) -> float:
@@ -228,11 +238,15 @@ def _check_g(g: torch.Tensor, df: torch.Tensor, c: int) -> None:
                          f"{df.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
-def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor):
+def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False):
     """Call the C entry `entry(ptrs..., B, B_df, C, I0..2, O0..2, f0..2,
-    stream)` of kernel library `lib`."""
-    b, c = moving_shape[0], moving_shape[-1]
-    s_in, s_out = tuple(moving_shape[1:4]), tuple(df.shape[1:4])
+    stream)` of kernel library `lib`; `cf`: the shapes are channels-first."""
+    if cf:
+        b, c = moving_shape[0], moving_shape[1]
+        s_in, s_out = tuple(moving_shape[2:5]), tuple(df.shape[2:5])
+    else:
+        b, c = moving_shape[0], moving_shape[-1]
+        s_in, s_out = tuple(moving_shape[1:4]), tuple(df.shape[1:4])
     f = [_factor(s_in[i], s_out[i]) for i in range(3)]
     fn = getattr(_build.load(lib), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9
@@ -256,6 +270,35 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
             moving.shape, df)
     launches += 1
     return out
+
+
+def warp_cf_plain(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """The CF kernel's plain version: the channels-last warp of the same
+    values, returned as a (B_df, C, *S_out) view."""
+    out = warp_plain(moving.permute(0, 2, 3, 4, 1), df.permute(0, 2, 3, 4, 1))
+    return out.permute(0, 4, 1, 2, 3)
+
+
+def _warp_cf_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    _check(moving.permute(0, 2, 3, 4, 1), df.permute(0, 2, 3, 4, 1))
+    moving, df = moving.contiguous(), df.contiguous()
+    out = torch.empty((df.shape[0], moving.shape[1], *df.shape[2:5]),
+                      device=df.device, dtype=torch.float32)
+    global cf_launches
+    _launch("warp", "pulpo_warp_cf", [moving.data_ptr(), df.data_ptr(), out.data_ptr()],
+            moving.shape, df, cf=True)
+    cf_launches += 1
+    return out
+
+
+def warp_cf(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """Warp a channels-first moving (B, C, *S_in) by a channels-first df
+    (B_df, 3, *S_out) into (B_df, C, *S_out) float32: the CF kernel for
+    tensors on the card (a gradient through it is the plain version's),
+    the plain version on the CPU. Bit-equal to `warp` on the same values."""
+    if moving.device.type == "cpu":
+        return warp_cf_plain(moving, df)
+    return plain_vjp.apply(_warp_cf_kernel, warp_cf_plain, moving, df)
 
 
 def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

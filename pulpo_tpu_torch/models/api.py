@@ -20,7 +20,9 @@ from pulpo_tpu_torch.ops.resize import avg_pool_ceil
 from pulpo_tpu_torch.ops.warp import (
     batched_level_warp,
     integrate_svf,
+    integrate_svf_cf,
     resize_vecfield,
+    resize_vecfield_cf,
     warp_image,
 )
 
@@ -44,10 +46,9 @@ def _warp_levels(moving: torch.Tensor, dfs: LevelDict) -> LevelDict:
     return {l: warp_image(moving.float(), dfs[l]) for l in dfs}
 
 
-def combine_dfs(cfg: PULPoConfig, individual_dfs: LevelDict) -> tuple[LevelDict, LevelDict]:
-    """Coarse-to-fine accumulate, then integrate each level. The mean SVF
-    is integrated, not the mean of integrated fields: callers average the
-    individual dfs first."""
+def _accumulate(cfg: PULPoConfig, individual_dfs: LevelDict) -> LevelDict:
+    """Coarse-to-fine: each level's df plus its parent's combined df,
+    resized to the level."""
     combined: LevelDict = {}
     K = cfg.latent_levels
     for l in reversed(range(K)):
@@ -59,15 +60,38 @@ def combine_dfs(cfg: PULPoConfig, individual_dfs: LevelDict) -> tuple[LevelDict,
                 combined[l + 1], vel_resize, out_size=tuple(in_sz))
         else:
             combined[l] = individual_dfs[l]
+    return combined
 
+
+def combine_dfs(cfg: PULPoConfig, individual_dfs: LevelDict) -> tuple[LevelDict, LevelDict]:
+    """Coarse-to-fine accumulate, then integrate each level. The mean SVF
+    is integrated, not the mean of integrated fields: callers average the
+    individual dfs first."""
+    combined = _accumulate(cfg, individual_dfs)
     final: LevelDict = {}
-    for l in reversed(range(K)):
+    for l in reversed(range(cfg.latent_levels)):
         integ = integrate_svf(combined[l].float(), nsteps=cfg.nsteps)
         cur_sz = integ.shape[1:-1]
         target = (cfg.input_size if (l == 0 or cfg.df_resolution == "full_res")
                   else tuple(cur_sz))
         vel_resize = 1.0 / (target[0] / cur_sz[0])
         final[l] = resize_vecfield(integ, vel_resize, out_size=target)
+    return combined, final
+
+
+def combine_dfs_cf(cfg: PULPoConfig, individual_dfs: LevelDict) -> tuple[LevelDict, LevelDict]:
+    """`combine_dfs` with every level integrated and resized on
+    channels-first memory (pulpo_tpu/models/api.py:79-124; full_res
+    only): the finals are (B, 3, *input_size), ready for
+    `batched_level_warp_cf`. Equal bit for bit to `combine_dfs`'s."""
+    assert cfg.df_resolution == "full_res", "CF finals need full_res dfs"
+    combined = _accumulate(cfg, individual_dfs)
+    final: LevelDict = {}
+    for l in reversed(range(cfg.latent_levels)):
+        cur_sz = combined[l].shape[1:-1]
+        integ = integrate_svf_cf(combined[l].float().permute(0, 4, 1, 2, 3), nsteps=cfg.nsteps)
+        final[l] = resize_vecfield_cf(integ, 1.0 / (cfg.input_size[0] / cur_sz[0]),
+                                      cfg.input_size)
     return combined, final
 
 

@@ -12,7 +12,9 @@ rounded to the compute type before its bias add, BatchNorm runs in
 float32 in flax's order, LeakyReLU in the compute type.
 
 Convs run on NCDHW views of channels-last tensors (a free permute: the
-memory is PyTorch's channels_last_3d layout).
+memory is PyTorch's channels_last_3d layout), but a k = 3, pad = 1 conv
+of at most 4 input channels, which runs on the narrow-conv kernel
+(`conv3d_cl`).
 
 Not ported: the 96->128 channel pad and the tap-sum conv backward of
 the JAX `_RawConv` (TPU workarounds that compute the same function).
@@ -24,13 +26,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pulpo_tpu_torch.kernels import conv_chain
+from pulpo_tpu_torch.kernels import conv_chain, conv_narrow
 from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky, velocity_head
 
 
 def conv3d_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
-    """conv3d of a channels-last x by a (O, I, *K) weight, in x's dtype."""
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w.to(x.dtype), padding=pad)
+    """conv3d of a channels-last x by a (O, I, *K) weight, in x's dtype.
+    A k = 3, pad = 1 conv of an input with at most 4 channels is the
+    narrow-conv kernel's (kernels/conv_narrow.py), on every device."""
+    w = w.to(x.dtype)
+    if pad == 1 and conv_narrow.takes(x, w):
+        return conv_narrow.conv_narrow(x, w)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=pad)
     return y.permute(0, 2, 3, 4, 1)
 
 

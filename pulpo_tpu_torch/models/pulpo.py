@@ -29,7 +29,16 @@ widths (pulpo_tpu/models/pulpo.py:368-392). `cfg.remat` / `cfg.remat_down`
 (recompute activations in the backward) are not ported yet: a train
 forward with either set raises.
 
-Outputs are dicts keyed by latent level, channels-last.
+At `df_resolution="full_res"` without `"transformed"` feedback, the
+eval decode runs its fields channels-first (`cf_fields`; JAX
+pulpo.py:158-181, 292-298, 414-421): every level integrates on
+(B, 3, *S) memory, the resize repeats the channels-last one on a view,
+and one CF warp moves the image by all levels' final dfs at once (their
+stack is the one copy into (B, 3, *S) memory). Train and `level_res`
+keep channels-last.
+
+Outputs are dicts keyed by latent level, channels-last: a CF final df
+leaves as a view (a permute, no copy) of the resize's output.
 """
 
 from __future__ import annotations
@@ -49,8 +58,11 @@ from pulpo_tpu_torch.models.blocks import (
 from pulpo_tpu_torch.ops.resize import avg_pool_ceil, resize_linear
 from pulpo_tpu_torch.ops.warp import (
     batched_level_warp,
+    batched_level_warp_cf,
     integrate_svf,
+    integrate_svf_cf,
     resize_vecfield,
+    resize_vecfield_cf,
     warp_image,
 )
 
@@ -63,6 +75,18 @@ def feedback_channels(cfg: PULPoConfig) -> int:
     """Channels of the concatenated feedback tensors (up_block input)."""
     per = {"samples": cfg.zdim, "transformed": _IMAGE_CHANNELS}
     return sum(per.get(item, cfg.ndims) for item in cfg.feedback)
+
+
+def batch_warp(cfg: PULPoConfig) -> bool:
+    """Every level warps the same full-res image after the level loop:
+    full_res dfs, and no level feeds its warped image to the next."""
+    return cfg.df_resolution == "full_res" and "transformed" not in cfg.feedback
+
+
+def cf_fields(cfg: PULPoConfig) -> bool:
+    """The eval decode (and the UQ tail) keeps its fields channels-first:
+    fixed by the configuration, as the batched warp is."""
+    return batch_warp(cfg) and cfg.ndims == 3
 
 
 def sample_seed(seed: int, sample: int, level: int) -> int:
@@ -165,10 +189,12 @@ class SVFDecoder(nn.Module):
         self.velocity_field = VelocityField(cfg.zdim, cfg.ndims, cfg.n0, cfg.cp_depth, dtype)
 
     def forward(self, z, input_image, combined_df=None, do_warp: bool = True,
-                train: bool = False):
+                train: bool = False, cf: bool = False):
         """Returns (velocity_field, individual_df, combined_df, final_df,
         transformed); `do_warp=False` leaves the image warp to the caller
-        (None in its slot)."""
+        (None in its slot). `cf` (with do_warp=False): integrate
+        channels-first; final_df is then a channels-last view of the
+        CF resize's output."""
         cfg = self.cfg
         insize = cfg.level_sizes[self.level]
         outsize = cfg.df_size(self.level)
@@ -180,8 +206,14 @@ class SVFDecoder(nn.Module):
             combined = parent + individual_df
         # float32 integration whatever the compute dtype: the 7-step
         # self-warp compounds rounding error
-        integrated = integrate_svf(combined.float(), nsteps=cfg.nsteps)
         vel_resize_output = 1.0 / (outsize[0] / insize[0])
+        if cf:
+            assert not do_warp, "the CF decode leaves the image warp to the caller"
+            integ = integrate_svf_cf(combined.float().permute(0, 4, 1, 2, 3), nsteps=cfg.nsteps)
+            final_cf = resize_vecfield_cf(integ, vel_resize_output, out_size=outsize)
+            return (individual_df, individual_df, combined, final_cf.permute(0, 2, 3, 4, 1),
+                    None)
+        integrated = integrate_svf(combined.float(), nsteps=cfg.nsteps)
         final_df = resize_vecfield(integrated, vel_resize_output, out_size=outsize)
         if not do_warp:
             return individual_df, individual_df, combined, final_df, None
@@ -240,8 +272,8 @@ class Autoencoder(nn.Module):
             sample_ids = range(S)
         assert len(sample_ids) == S, (len(sample_ids), S)
         level_x = self._level_x_pyramid(x)
-        batch_warp = (cfg.df_resolution == "full_res"
-                      and "transformed" not in cfg.feedback)
+        batched = batch_warp(cfg)
+        cf = cf_fields(cfg) and not train
 
         def draw_eps(l: int, shape, dtype) -> torch.Tensor:
             if noise is not None:
@@ -305,9 +337,12 @@ class Autoencoder(nn.Module):
 
             (velocity_fields[l], individual_dfs[l], combined_dfs[l],
              final_dfs[l], transformed[l]) = self.decoders[l](
-                samples[l], level_x[l], parent_combined, not batch_warp, train)
+                samples[l], level_x[l], parent_combined, not batched, train, cf)
 
-        if batch_warp:
+        if cf:
+            transformed.update(batched_level_warp_cf(
+                x, {l: d.permute(0, 4, 1, 2, 3) for l, d in final_dfs.items()}))
+        elif batched:
             transformed.update(batched_level_warp(x, final_dfs))
 
         return (mus, sigmas, samples, velocity_fields,

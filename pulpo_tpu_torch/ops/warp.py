@@ -11,8 +11,17 @@ plain PyTorch versions for tensors on the CPU. Both are differentiable:
 they go through the kernels' autograd Functions (`Warp`,
 `IntegrateSVF`), whose backward passes are kernels too.
 
+The channels-first functions (`integrate_svf_cf`, `resize_vecfield_cf`,
+`batched_level_warp_cf`; pulpo_tpu/ops/warp.py:236-295) serve the eval
+decode at full resolution: the integration and the batched image warp
+read and write (B, 3, *spatial) memory, and the resize between them
+repeats the channels-last resize on a view. Unlike the JAX package's
+fields they hold no tile padding and no halo: those exist for the
+TPU's layout.
+
 Layout: images (B, *spatial, C); displacement fields (B, *spatial, ndims)
-with channel i = displacement along spatial axis i in voxels.
+with channel i = displacement along spatial axis i in voxels; the CF
+fields (B, ndims, *spatial).
 """
 
 from __future__ import annotations
@@ -40,6 +49,11 @@ def integrate_svf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
     return squaring.integrate_svf(vec, nsteps)
 
 
+def integrate_svf_cf(vec_cf: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
+    """`integrate_svf` of a channels-first field (B, 3, *spatial)."""
+    return squaring.integrate_svf_cf(vec_cf, nsteps)
+
+
 def batched_level_warp(moving: torch.Tensor,
                        dfs: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
     """Warp ONE moving image by every level's same-shaped df in a single
@@ -51,6 +65,23 @@ def batched_level_warp(moving: torch.Tensor,
     stacked = torch.cat([dfs[l] for l in levels], dim=0)
     warped = warp_image(moving.float(), stacked)
     per = dfs[levels[0]].shape[0]
+    return {l: warped[i * per:(i + 1) * per] for i, l in enumerate(levels)}
+
+
+def batched_level_warp_cf(moving: torch.Tensor,
+                          dfs_cf: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
+    """`batched_level_warp` with the per-level dfs channels-first
+    (B_df, 3, *spatial): one CF kernel launch for all levels
+    (pulpo_tpu/ops/warp.py:274-295). `moving` is channels-last (B,
+    *spatial, C); each level's output is channels-last (B_df, *spatial,
+    C), a view of the CF output (at C = 1 the same memory order)."""
+    levels = sorted(dfs_cf)
+    shapes = {tuple(dfs_cf[l].shape) for l in levels}
+    assert len(shapes) == 1, f"batched_level_warp_cf needs equal shapes, got {shapes}"
+    stacked = torch.cat([dfs_cf[l] for l in levels], dim=0)
+    warped = warp_kernel.warp_cf(moving.float().permute(0, 4, 1, 2, 3), stacked)
+    warped = warped.permute(0, 2, 3, 4, 1)
+    per = dfs_cf[levels[0]].shape[0]
     return {l: warped[i * per:(i + 1) * per] for i, l in enumerate(levels)}
 
 
@@ -77,6 +108,20 @@ def resize_vecfield(
         x = x * factor
         x = resize_linear(x, out_size, scales=scales)
     return x
+
+
+def resize_vecfield_cf(x: torch.Tensor, vel_resize: float,
+                       out_size: tuple[int, ...]) -> torch.Tensor:
+    """`resize_vecfield` of a channels-first field (B, 3, *spatial)
+    (pulpo_tpu/ops/warp.py:236-271, without its tile pads): the
+    channels-last resize's operations on a view of the same values, so
+    the two are equal bit for bit. A matmul's rounding depends on where
+    a row sits in its operand (the CPU's GEMM rounds its edge rows
+    otherwise), so a resize that contracted the CF memory directly
+    would differ from the CL one in the last bit. Returns a (B, 3,
+    *out_size) view of the last axis' matmul output."""
+    out = resize_vecfield(x.permute(0, 2, 3, 4, 1), vel_resize, out_size)
+    return out.permute(0, 4, 1, 2, 3)
 
 
 def warp_landmarks(lm: torch.Tensor, df: torch.Tensor) -> torch.Tensor:

@@ -43,12 +43,13 @@ import torch
 from pulpo_tpu_torch.config import PULPoConfig
 from pulpo_tpu_torch.kernels import _build, conv_chain, pos_head
 from pulpo_tpu_torch.models.api import PULPoModel, _as_tensor
-from pulpo_tpu_torch.models.pulpo import feedback_channels
+from pulpo_tpu_torch.models.pulpo import cf_fields, feedback_channels
 from pulpo_tpu_torch.uq.predict import predict_with_uncertainty
 
 FORMAT_VERSION = 1
 ENTRIES = {"predict_deterministic": False, "predict_mean": True, "uq": True}
-_SOURCE = {"warp": "warp", "squaring": "squaring", "vel_head": "vel_head",
+_SOURCE = {"warp": "warp", "squaring": "squaring", "warp_cf": "warp",
+           "squaring_cf": "squaring", "vel_head": "vel_head",
            "pos_head": "conv_unit", "conv_chain": "conv_unit"}
 
 
@@ -57,7 +58,7 @@ def _kernels(model: PULPoModel, rows: int) -> dict[str, str]:
     source, from the kernels' own shape predicates (no data is touched)."""
     cfg, m = model.cfg, model.module
     meta = lambda *shape: torch.empty(shape, dtype=model.dtype, device="meta")
-    names = ["warp", "squaring"]
+    names = ["warp_cf", "squaring_cf"] if cf_fields(cfg) else ["warp", "squaring"]
     if cfg.cp_depth == 3:
         names.append("vel_head")
     cin = 2

@@ -15,6 +15,14 @@ parallel moments, so no (N, full-res) buffer exists unless
 - `output_mse` (level 0) and `output_entropy` from the same moments;
 - `lm` warps landmarks by every draw's level-0 final df.
 
+With channels-first decode fields (`models/pulpo.cf_fields`: full_res,
+no `"transformed"` feedback; JAX predict.py:205-215, 332-352) the
+per-sample final dfs arrive as channels-last views of the CF resize's
+output, which the moments, the kept samples and the landmarks read as
+they are; the mean-SVF tail integrates and resizes through
+`combine_dfs_cf` and re-warps the image (and a mask) with one
+`batched_level_warp_cf`.
+
 Draws depend only on (seed, sample index, level), so the result does
 not depend on `chunk`. On the card, `chunk=None` picks the largest
 divisor of N whose decode fits the free device memory, using the peak
@@ -28,8 +36,15 @@ from typing import NamedTuple
 
 import torch
 
-from pulpo_tpu_torch.models.api import PULPoModel, _as_tensor, _warp_levels, combine_dfs
-from pulpo_tpu_torch.ops.warp import warp_landmarks
+from pulpo_tpu_torch.models.api import (
+    PULPoModel,
+    _as_tensor,
+    _warp_levels,
+    combine_dfs,
+    combine_dfs_cf,
+)
+from pulpo_tpu_torch.models.pulpo import cf_fields
+from pulpo_tpu_torch.ops.warp import batched_level_warp_cf, warp_landmarks
 
 LevelDict = dict[int, torch.Tensor]
 
@@ -213,15 +228,21 @@ def predict_with_uncertainty(
 
     # mean-SVF combine + integrate + re-warp
     avg_dfs = {l: m[0] for l, m in stats["ind"].items()}
-    _, mean_final = combine_dfs(cfg, avg_dfs)
-    mean_outputs = _warp_levels(x, mean_final)
+    if cf_fields(cfg):
+        _, mean_final_cf = combine_dfs_cf(cfg, avg_dfs)
+        warp_levels = lambda moving: batched_level_warp_cf(moving, mean_final_cf)
+        mean_final = {l: v.permute(0, 2, 3, 4, 1) for l, v in mean_final_cf.items()}
+    else:
+        _, mean_final = combine_dfs(cfg, avg_dfs)
+        warp_levels = lambda moving: _warp_levels(moving, mean_final)
+    mean_outputs = warp_levels(x)
 
     output_std = {l: _finalize_std(m, N) for l, m in stats["out"].items()}
     output_entropy = {l: _finalize_entropy(m, N) for l, m in stats["out"].items()}
     individual_df_std = {l: _finalize_std(m, N) for l, m in stats["ind"].items()}
     final_df_std = {l: _finalize_std(m, N) for l, m in stats["fin"].items()}
     if mask is not None:
-        wms = _warp_levels(_as_tensor(mask, dev), mean_final)
+        wms = warp_levels(_as_tensor(mask, dev))
         for l in final_df_std:
             final_df_std[l] = final_df_std[l] * torch.abs(wms[l][..., 0])
     output_mse = {l: stats["mse"][l] / N for l in stats["mse"]}

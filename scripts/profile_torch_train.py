@@ -23,7 +23,7 @@ import time
 
 # device-kernel names of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = ("warp_kernel", "squaring_kernel", "vel_head", "dfgrad_kernel",
-               "mgrad_kernel", "squaring_bwd_kernel", "box_axis_kernel")
+               "mgrad_kernel", "squaring_bwd_kernel", "box_axis_kernel", "conv_narrow_kernel")
 
 
 def busy_ms(events) -> float:

@@ -445,3 +445,150 @@ def test_eval_kernel_gradients_are_the_plain_versions(cuda_device):
     checks = Checks()
     check_eval_gradients(cuda_device, checks)
     assert not checks.failures
+
+
+# ----------------------------------------------------------------------
+# the channels-first kernels and the narrow conv
+# ----------------------------------------------------------------------
+
+def _cf(v):
+    """A channels-last tensor's values in contiguous channels-first memory."""
+    return v.permute(0, 4, 1, 2, 3).contiguous()
+
+
+@pytest.mark.parametrize("mag", [0.3, 6.0, 40.0])
+def test_cf_squaring_bit_equal_to_cl_and_plain(cuda_device, mag):
+    v = _field((3, 20, 24, 28, 3), mag, 90).to(cuda_device)
+    before = squaring.cf_launches
+    got = squaring.integrate_svf_cf(_cf(v), 7)
+    torch.cuda.synchronize()
+    assert squaring.cf_launches == before + 7 and got.shape == (3, 3, 20, 24, 28)
+    cl = got.permute(0, 2, 3, 4, 1)
+    assert torch.equal(cl, squaring.integrate_svf(v, 7))
+    assert torch.equal(cl, squaring.integrate_svf_plain(v, 7))
+    # a non-contiguous CF input (channels-last memory)
+    assert torch.equal(squaring.integrate_svf_cf(v.permute(0, 4, 1, 2, 3), 7), got)
+    one = squaring.squaring_step_cf(_cf(v), scale=0.125)
+    assert torch.equal(one, squaring.squaring_step_cf_plain(_cf(v) * 0.125))
+
+
+@pytest.mark.parametrize("c", [1, 3])
+def test_cf_warp_bit_equal_to_cl_and_plain(cuda_device, c):
+    rng = np.random.default_rng(91)
+    m = torch.from_numpy(rng.random((2, 20, 24, 28, c), dtype=np.float32)).to(cuda_device)
+    d = _field((6, 20, 24, 28, 3), 9.0, 92).to(cuda_device)  # row r reads r % 2
+    before = warp.cf_launches
+    got = warp.warp_cf(_cf(m), _cf(d))
+    torch.cuda.synchronize()
+    assert warp.cf_launches == before + 1 and got.shape == (6, c, 20, 24, 28)
+    assert torch.equal(got.permute(0, 2, 3, 4, 1), warp.warp(m, d))
+    assert torch.equal(got, warp.warp_cf_plain(_cf(m), _cf(d)))
+    assert torch.equal(warp.warp_cf(m.permute(0, 4, 1, 2, 3), d.permute(0, 4, 1, 2, 3)), got)
+    # cross resolution: a full-size moving, a half-size df
+    mc = torch.from_numpy(rng.random((2, 40, 48, 56, c), dtype=np.float32)).to(cuda_device)
+    assert torch.equal(warp.warp_cf(_cf(mc), _cf(d)).permute(0, 2, 3, 4, 1), warp.warp(mc, d))
+
+
+def test_cf_kernel_gradients_are_the_plain_versions(cuda_device):
+    """A gradient through the CF kernels on the card is the plain
+    version's (never a silent zero): float32, 1e-5 of its scale."""
+    v = _field((1, 10, 12, 14, 3), 3.0, 93).to(cuda_device)
+    m = torch.rand((1, 1, 10, 12, 14), device=cuda_device)
+    cases = [(lambda a: squaring.integrate_svf_cf(a, 4),
+              lambda a: squaring.integrate_svf_cf_plain(a, 4), [_cf(v)]),
+             (warp.warp_cf, warp.warp_cf_plain, [m, _cf(v)])]
+    for kernel, plain, inputs in cases:
+        got_in = [t.clone().requires_grad_(True) for t in inputs]
+        ref_in = [t.clone().requires_grad_(True) for t in inputs]
+        g = torch.randn(kernel(*inputs).shape, device=cuda_device)
+        got = torch.autograd.grad((kernel(*got_in) * g).sum(), got_in)
+        ref = torch.autograd.grad((plain(*ref_in) * g).sum(), ref_in)
+        for a, b in zip(got, ref):
+            assert float(b.abs().max()) > 0
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+def test_fullres_uq_on_the_card_matches_the_cpu(cuda_device):
+    """A small full_res request (the channels-first decode and mean tail):
+    kernels on the card against plain versions on the CPU, every leaf
+    within 1e-3 of its scale."""
+    from chip_smoke import FULLRES_KW, check_small_reference
+
+    check_small_reference(cuda_device, size=(24, 28, 32), n=4, **FULLRES_KW)
+
+
+def _narrow_weight(cin, cout, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal((cout, cin, 3, 3, 3))
+                             / np.sqrt(27 * cin)).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout", [(1, 8), (2, 32), (3, 32), (4, 16), (3, 12)])
+def test_conv_narrow_kernel_bit_equal_to_plain(cuda_device, dtype, cin, cout):
+    """Ragged tiles (9 x 11 x 37), every cin, a cout that is not a multiple
+    of the kernel's 8-channel chunk, a permuted-memory input: the kernel
+    repeats the plain version's operations, so the outputs are equal."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    w = _narrow_weight(cin, cout, cin * 100 + cout).to(cuda_device)
+    x = torch.randn((2, 9, 11, 37, cin), device=cuda_device).to(dtype)
+    before = conv_narrow.launches
+    with torch.no_grad():
+        got = conv_narrow.conv_narrow(x, w)
+        torch.cuda.synchronize()
+        assert conv_narrow.launches == before + 1
+        assert got.dtype == dtype and got.shape == (2, 9, 11, 37, cout)
+        assert torch.equal(got, conv_narrow.conv_narrow_plain(x, w))
+        assert torch.equal(conv_narrow.conv_narrow(_permuted(x), w), got)
+
+
+def test_conv_narrow_gradient_matches_plain(cuda_device):
+    """dx and dW through `NarrowConv` (the library conv backward) against
+    the plain version's autograd, float32, 1e-5 of scale; dx only when
+    asked for."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    x = torch.randn((2, 10, 12, 14, 3), device=cuda_device)
+    w = _narrow_weight(3, 32, 94).to(cuda_device)
+    g = torch.randn((2, 10, 12, 14, 32), device=cuda_device)
+    for fn_x in (True, False):
+        grads = []
+        for fn in (conv_narrow.conv_narrow, conv_narrow.conv_narrow_plain):
+            xs, ws = x.clone().requires_grad_(fn_x), w.clone().requires_grad_(True)
+            grads.append(torch.autograd.grad((fn(xs, ws) * g).sum(),
+                                             (xs, ws) if fn_x else (ws,)))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(1.0, float(b.abs().max())))
+
+
+def test_conv_narrow_raises_for_shapes_it_does_not_take(cuda_device):
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    w5 = _narrow_weight(5, 8, 95).to(cuda_device)
+    with pytest.raises(ValueError):
+        conv_narrow.conv_narrow(torch.zeros((1, 4, 4, 4, 5), device=cuda_device), w5)
+    w = _narrow_weight(2, 8, 96).to(cuda_device)
+    with pytest.raises(TypeError):
+        conv_narrow.conv_narrow(torch.zeros((1, 4, 4, 4, 2), device=cuda_device).half(), w)
+
+
+def test_train_step_runs_the_narrow_conv(cuda_device):
+    """A small training step on the card launches the narrow conv once
+    for each narrow down-block input and each velocity head."""
+    from chip_smoke import train_narrow_launches
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import conv_narrow
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train.step import compute_grads
+
+    cfg = PULPoConfig(input_size=(24, 28, 32), total_levels=3, latent_levels=2, n0=8,
+                      batch_size=1)
+    model = PULPoModel(cfg, device=cuda_device)
+    model.init(5)
+    rng = np.random.default_rng(2)
+    batch = {k: rng.random((1, *cfg.input_size, 1), dtype=np.float32) for k in ("x", "y")}
+    before = conv_narrow.launches
+    compute_grads(model, batch)
+    torch.cuda.synchronize()
+    assert conv_narrow.launches - before == train_narrow_launches(cfg) == 1 + cfg.latent_levels

@@ -17,7 +17,7 @@ import torch
 
 from pulpo_tpu_torch import PULPoConfig
 from pulpo_tpu_torch.compat import conv_chain_stages_from_jax, pos_head_params_from_jax
-from pulpo_tpu_torch.kernels import conv_chain, conv_unit, plain_vjp, pos_head
+from pulpo_tpu_torch.kernels import conv_chain, conv_narrow, conv_unit, plain_vjp, pos_head
 from pulpo_tpu_torch.models import PULPoModel
 
 
@@ -240,6 +240,10 @@ def test_eval_decode_routes_through_the_kernels(monkeypatch):
 
     monkeypatch.setattr(pos_head, "takes", lambda *a: False)
     monkeypatch.setattr(conv_chain, "takes", lambda *a: False)
+    # the unfused units' convs on F.conv3d, as the kernels' plain versions
+    # compute them (models/blocks.py would take down_block_0's 2-channel
+    # conv to the narrow-conv kernel, whose sum runs in another order)
+    monkeypatch.setattr(conv_narrow, "takes", lambda *a: False)
     n_calls = len(calls["pos_head"])
     ref = model.predict_output_samples(x, y, N=2, seed=3)
     assert len(calls["pos_head"]) == n_calls
