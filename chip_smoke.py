@@ -33,11 +33,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the narrow conv (bf16, f32) at 2 -> 32 on both full sizes and 3 -> 32
    on both level-0 sizes, and its gradient against the plain version's
    autograd; each case again with a non-contiguous input;
+3f. the 2D kernels bit for bit against their plain versions at the
+   `flagship-2d` path's shapes (the flagship network on a 160x192
+   slice): the 2D squaring step on 32 rows at each level size, sub-voxel
+   and under the LungCT ramp scaled to the slice, a 7-step integration
+   and a permuted-memory input; the 2D warp of the 160x192 image by 32
+   dfs at the full size and at each level's size, a border clamp, a
+   permuted df and a C = 2 field warp; the 2D box sum at each level's
+   NCC size and window;
 4. a small-input reference: a UQ request on the card against the same
    weights and draws on the CPU (plain versions), leaf by leaf, at
    level_res and at full_res (the channels-first path);
 4b. a small training step on the card against the same weights, batch
    and draws on the CPU: losses, gradients and BatchNorm statistics;
+4c. phases 4 and 4b on a small 2D input (32x40);
 5. the serving path: the flagship config (160x192x224, 5/4 levels,
    n0=32, bf16, level_res) with seeded random weights answers 3
    requests, each `predict_with_uncertainty` with N=32 on one synthetic
@@ -60,6 +69,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1e-4, B = 1) takes 1 warm-up and 5 timed `make_train_step` steps on a
    synthetic pair: finite losses, no NaN flag, changed weights, and the
    launch counts the shapes give (5 narrow convs a step);
+5e. the 2D serving path: `flagship-2d` (160x192, 5/4 levels, n0=32,
+   bf16, level_res) answers 3 UQ-32 requests: every leaf finite, exact
+   launch counts of the 2D squaring and warp, 0 of every 3D kernel;
+5f. the 2D training path: `flagship-2d` takes 1 + 5 steps as in 5b,
+   with exact counts of the 2D box sum (32 a step), squaring and warp;
 6. per-kernel times (CUDA events, the median of 5 repeats) beside their
    bounds, the plain versions' times and one library call's time; the
    warp also at the LungCT shape under the respiratory field; the
@@ -68,7 +82,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    convs with PyTorch epilogues) as the library yardstick; the CF
    kernels at the full-res request's shapes beside their channels-last
    twins (and `F.grid_sample` for the warp), the narrow conv at the
-   training step's shapes beside cuDNN's `F.conv3d`;
+   training step's shapes beside cuDNN's `F.conv3d`; the 2D kernels at
+   the `flagship-2d` paths' shapes beside `F.grid_sample` and
+   `F.avg_pool2d`;
 7. the LungCT path: the full-width LungCT config (192x192x208, 5/4
    levels, n0=32, bf16) trains for 4 steps through the port's `Trainer`
    (B = 1, validation, the two best checkpoints, `latest` and metrics
@@ -78,7 +94,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    uncertainty table with the landmark columns. The reloaded state must
    equal the saved one bit for bit, every loss and table entry must be
    finite (but where the zero-scrub gives NaN), and the launch counts
-   must equal what the shapes give.
+   must equal what the shapes give;
+7b. `train_cli --ndims 2 --dataset synthetic` (its 64x64 default) for 2
+   steps on the card in a temporary run directory: finite validation
+   losses, exact launch counts, and a `latest` checkpoint that reloads
+   bit for bit.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -131,9 +151,15 @@ FULLRES_KW = dict(df_resolution="full_res", feedback=FULLRES_FEEDBACK)
 FLAGSHIP_FULLRES = dict(FLAGSHIP, **FULLRES_KW)
 F32_FLOP_PER_S = 67e12         # CUDA-core float32 peak, published
 
+# the 2D configuration (`flagship-2d`): the flagship network on the
+# 160x192 slice of the public neurite-OASIS 2D release (the 2D form of
+# the flagship's OASIS volumes); synthetic pairs from the seed
+FLAGSHIP_2D = dict(FLAGSHIP, input_size=(160, 192))
+CLI_2D_STEPS = 2               # train_cli steps on its synthetic 2D default (64x64)
+
 KERNELS = ("warp", "squaring", "vel_head", "warp_dfgrad", "warp_mgrad",
            "squaring_bwd", "box_sum", "pos_head", "conv_chain", "squaring_cf", "warp_cf",
-           "conv_narrow")
+           "conv_narrow", "squaring_2d", "warp_2d", "box_sum_2d")
 # bf16 tolerance of the eval conv chains: an intermediate of a chained
 # unit that rounds the other way moves an output by about a bf16 ulp at
 # its scale (2**-7 of it at most); 4 such ulps
@@ -151,6 +177,10 @@ REPLACES = {
     "squaring_cf": "pulpo_tpu/kernels/warp_local.py:603",
     "warp_cf": "pulpo_tpu/kernels/warp_halo.py:1560",
     "conv_narrow": "pulpo_tpu/attic/conv_narrow.py:125",
+    "squaring_2d": "pulpo_tpu/kernels/warp_local.py:190",
+    # no Pallas kernel: the JAX package's 2D warp is an XLA gather
+    "warp_2d": "pulpo_tpu/ops/warp.py:154",
+    "box_sum_2d": "pulpo_tpu/kernels/box_sum.py:65",
 }
 SOURCES = {
     "warp": "pulpo_tpu_torch/csrc/warp.cu",
@@ -165,6 +195,9 @@ SOURCES = {
     "squaring_cf": "pulpo_tpu_torch/csrc/squaring.cu",
     "warp_cf": "pulpo_tpu_torch/csrc/warp.cu",
     "conv_narrow": "pulpo_tpu_torch/csrc/conv_narrow.cu",
+    "squaring_2d": "pulpo_tpu_torch/csrc/squaring.cu",
+    "warp_2d": "pulpo_tpu_torch/csrc/warp.cu",
+    "box_sum_2d": "pulpo_tpu_torch/csrc/box_sum.cu",
 }
 
 
@@ -185,7 +218,9 @@ def read_counts() -> dict[str, int]:
             "warp_mgrad": warp.mgrad_launches, "squaring_bwd": squaring.bwd_launches,
             "box_sum": box_sum.launches, "pos_head": pos_head.launches,
             "conv_chain": conv_chain.launches, "squaring_cf": squaring.cf_launches,
-            "warp_cf": warp.cf_launches, "conv_narrow": conv_narrow.launches}
+            "warp_cf": warp.cf_launches, "conv_narrow": conv_narrow.launches,
+            "squaring_2d": squaring.launches_2d, "warp_2d": warp.launches_2d,
+            "box_sum_2d": box_sum.launches_2d}
 
 
 def eval_launches(cfg, encodes, decodes):
@@ -206,9 +241,12 @@ def train_narrow_launches(cfg):
     conv of each down block whose input has at most 4 channels
     (down_block_0, the concatenated pair) and of each latent level's
     velocity head (zdim -> n0), which runs its plain ConvUnit chain in
-    train mode. In eval both sit inside the fused kernels: 0."""
+    train mode. In eval both sit inside the fused kernels: 0. The kernel
+    is 3D: a 2D network runs none."""
     from pulpo_tpu_torch.kernels import conv_narrow
 
+    if cfg.ndims != 3:
+        return 0
     cins = [2] + [cfg.num_channels[k] for k in range(cfg.total_levels - 1)]
     heads = cfg.latent_levels if (cfg.cp_depth >= 2 and cfg.zdim <= conv_narrow.MAX_CIN) else 0
     return sum(c <= conv_narrow.MAX_CIN for c in cins) + heads
@@ -245,7 +283,7 @@ def smooth_field(rows, size, magnitude, seed, device, channels=3):
 
 def permuted(v):
     """The same values with channels-first memory (strides of a view)."""
-    return v.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
+    return v.movedim(-1, 1).contiguous().movedim(1, -1)
 
 
 def respiratory_displacement(points, size, si, drift):
@@ -261,6 +299,20 @@ def respiratory_displacement(points, size, si, drift):
     return torch.stack([-si * z**2 * centre,
                         drift * z * torch.sin(2 * math.pi * x),
                         drift * z * torch.cos(math.pi * y)], -1)
+
+
+def respiratory_field_2d(size, si, drift, device):
+    """The breathing motion of a coronal slice (axis 0 superior-inferior,
+    axis 1 left-right) of `size`: a df (1, *size, 2) with the ramp
+    -si * (z / (S0 - 1))**2 * (0.75 + 0.25 * cos(pi * (y - 0.5))) and an
+    in-plane drift of up to `drift` voxels that grows with z."""
+    import torch
+
+    z, y = (torch.arange(s, device=device, dtype=torch.float32) / (s - 1) for s in size)
+    z, y = z[:, None], y[None, :]
+    centre = 0.75 + 0.25 * torch.cos(math.pi * (y - 0.5))
+    return torch.stack([-si * z**2 * centre, drift * z * torch.sin(2 * math.pi * y)],
+                       -1)[None].contiguous()
 
 
 def respiratory_field(size, si, drift, device):
@@ -845,6 +897,74 @@ def check_conv_narrow(dev, checks):
 
 
 # ----------------------------------------------------------------------
+# phase 3f: the 2D kernels
+# ----------------------------------------------------------------------
+
+def check_2d_kernels(dev, cfg, checks, rows=N_SAMPLES):
+    """The 2D squaring step, warp and box sum against their plain
+    versions at the `flagship-2d` path's shapes: each is bit-equal (the
+    same operations in the same order, -fmad=false), tolerance 0. The
+    squaring step on `rows` fields at each level size, sub-voxel and past
+    the TPU stencil's bound (the LungCT ramp scaled to the slice), with
+    a 7-step integration and a permuted-memory input; the warp of the
+    full-size image by `rows` dfs at the full size and at each level's
+    (cross-resolution), with a border clamp and a permuted df; the box
+    sum at each level's NCC image size and window."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import box_sum, squaring, warp
+
+    record = checks.record
+    full = cfg.input_size
+    fmt = lambda size: "x".join(map(str, size))
+    ramp = lambda size: respiratory_field_2d(size, SI_RAMP * size[0] / full[0],
+                                             DRIFT * size[0] / full[0], dev)
+    for l, size in cfg.level_sizes.items():
+        for tag, v in (("|v|<=0.3", smooth_field(rows, size, 0.3, seed=200 + l, device=dev,
+                                                  channels=2)),
+                       (f"ramp {SI_RAMP * size[0] / full[0]:g}",
+                        ramp(size).expand(rows, -1, -1, -1).contiguous())):
+            record("squaring_2d", f"step {rows} rows {fmt(size)} {tag}",
+                   squaring.squaring_step(v), squaring.squaring_step_plain(v), 0.0)
+        v = ramp(size) * 0.5
+        ref = squaring.integrate_svf_plain(v, cfg.nsteps)
+        record("squaring_2d", f"7 steps {fmt(size)} ramp/2", squaring.integrate_svf(v, cfg.nsteps),
+               ref, 0.0)
+        record("squaring_2d", f"7 steps {fmt(size)} ramp/2 permuted-memory input",
+               squaring.integrate_svf(permuted(v), cfg.nsteps), ref, 0.0)
+
+    g = torch.Generator().manual_seed(20)
+    img = torch.rand((1, *full, 1), generator=g).to(dev)
+    for mag in (0.3, 3.0, 15.0):
+        df = smooth_field(rows, full, mag, seed=210 + int(mag), device=dev, channels=2)
+        record("warp_2d", f"C=1 {rows} rows {fmt(full)} |d|<={mag}", warp.warp(img, df),
+               warp.warp_plain(img, df), 0.0)
+    df[..., 0] += 40.0
+    df[:, :, :8, 1] -= 50.0
+    record("warp_2d", "C=1 border clamp", warp.warp(img, df), warp.warp_plain(img, df), 0.0)
+    df = permuted(ramp(full).expand(rows, -1, -1, -1))
+    record("warp_2d", f"C=1 {fmt(full)} ramp permuted-memory df", warp.warp(img, df),
+           warp.warp_plain(img, df), 0.0)
+    for l, size in cfg.level_sizes.items():
+        df = smooth_field(rows, size, 3.0, seed=220 + l, device=dev, channels=2)
+        record("warp_2d", f"cross-res {fmt(full)} -> {fmt(size)} {rows} rows",
+               warp.warp(img, df), warp.warp_plain(img, df), 0.0)
+    fields = smooth_field(2, cfg.level_sizes[0], 3.0, seed=230, device=dev, channels=2)
+    record("warp_2d", "C=2 field by field", warp.warp(fields, fields),
+           warp.warp_plain(fields, fields), 0.0)
+
+    for l in range(cfg.latent_levels):
+        size, win = cfg.df_size(l), cfg.window_size[l]
+        x = torch.rand((1, *size), generator=g).to(dev)
+        record("box_sum_2d", f"level {l} {fmt(size)} win {win}", box_sum.box_sum(x, win),
+               box_sum.box_sum_plain(x, win), 0.0)
+    x = torch.rand((2, *full), generator=g).to(dev)
+    record("box_sum_2d", f"2 rows {fmt(full)} win 9 permuted-memory input",
+           box_sum.box_sum(x.transpose(1, 2).contiguous().transpose(1, 2), 9),
+           box_sum.box_sum_plain(x, 9), 0.0)
+
+
+# ----------------------------------------------------------------------
 # phase 4: small input, card against CPU
 # ----------------------------------------------------------------------
 
@@ -868,7 +988,7 @@ def check_small_reference(dev, size=(32, 40, 48), n=4, **cfg_kw):
     pair = SyntheticDataset(shape=size, n=2, seed=1).get_pair(0, np.random.default_rng(0))
     x, y = pair["x"][None], pair["y"][None]
     rng = np.random.default_rng(2)
-    noise = {l: torch.from_numpy(rng.standard_normal((n, 1, *cfg.level_sizes[l], 3),
+    noise = {l: torch.from_numpy(rng.standard_normal((n, 1, *cfg.level_sizes[l], cfg.zdim),
                                                      dtype=np.float32))
              for l in range(cfg.latent_levels)}
     ref = predict_with_uncertainty(ref_model, x, y, n, chunk=2, noise=noise)
@@ -909,7 +1029,7 @@ def check_small_train(dev, size=(32, 40, 48)):
     model.load_state_dict(ref_model.state_dict())
     rng = np.random.default_rng(3)
     batch = {k: rng.random((2, *size, 1), dtype=np.float32) for k in ("x", "y")}
-    noise = {l: torch.from_numpy(rng.standard_normal((2, *cfg.level_sizes[l], 3),
+    noise = {l: torch.from_numpy(rng.standard_normal((2, *cfg.level_sizes[l], cfg.zdim),
                                                      dtype=np.float32))
              for l in range(cfg.latent_levels)}
     ref_g, ref_s, ref_m = compute_grads(ref_model, batch, noise=noise)
@@ -946,11 +1066,15 @@ def serving_launches(cfg, decodes, requests):
     non-coarsest level, one integration per level and the image warp
     (one per level, or one batched launch for all levels on the
     channels-first path); per tail: one integration per level and the
-    image warp. No backward, no loss, no narrow conv."""
+    image warp. No backward, no loss, no narrow conv. In 2D the fused
+    eval kernels take nothing (the library convs run): the 2D squaring
+    and warp only."""
     from pulpo_tpu_torch.models.pulpo import cf_fields
 
     K, nsteps = cfg.latent_levels, cfg.nsteps
     integrations = nsteps * K * (decodes + requests)
+    if cfg.ndims == 2:
+        return {"squaring_2d": integrations, "warp_2d": K * (decodes + requests)}
     cf = cf_fields(cfg)
     return {
         "warp": 0 if cf else K * (decodes + requests),
@@ -1023,6 +1147,21 @@ def run_main_path(dev, cfg_kw, n_samples, n_requests, name="serving path"):
 # phase 5b: the training path
 # ----------------------------------------------------------------------
 
+def train_launches(cfg, steps, val_forwards=0):
+    """Launches of `steps` 2D training steps and `val_forwards` eval
+    forwards with their losses. Per step and level: one integration
+    (nsteps 2D squaring launches; its backward replays the plain version,
+    as the JAX package's 2D backward is XLA's VJP), one image warp (its
+    cotangents likewise), the NCC's 5 box sums forward and 3 backward;
+    per eval forward and level: the integration, the warp and 5 box
+    sums. The fused eval kernels and the narrow conv are 3D only."""
+    assert cfg.ndims == 2
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    forwards = steps + val_forwards
+    return {"squaring_2d": nsteps * K * forwards, "warp_2d": K * forwards,
+            "box_sum_2d": (5 + 3) * K * steps + 5 * K * val_forwards}
+
+
 def run_train_path(dev, cfg_kw, steps):
     """The flagship training step: 1 warm-up and `steps` timed steps of
     `make_train_step` on one synthetic pair (B = 1)."""
@@ -1067,7 +1206,7 @@ def run_train_path(dev, cfg_kw, steps):
             + "  ".join(f"{k} {v:.4f}" for k, v in losses.items()))
     counts = read_counts()
     n = 1 + steps
-    expected = {
+    expected = train_launches(cfg, n) if cfg.ndims == 2 else {
         # per step and level: one integration forward (nsteps launches)
         # and backward (nsteps), one image warp and its df-cotangent (the
         # moving image needs no gradient, so no moving-cotangent), the
@@ -1257,10 +1396,13 @@ def check_table(table, may_be_nan, what):
 
 
 def expect(counts, expected, what):
-    log(f"{what} launches {counts} expected {expected}")
+    """Every kernel's count equals `expected`'s; a kernel it leaves out
+    must not have launched."""
+    log(f"{what} launches {counts} expected {expected} (0 for the others)")
     for k in counts:
-        if counts[k] != expected[k]:
-            raise SystemExit(f"{what}: launch count of {k}: {counts[k]}, expected {expected[k]}")
+        if counts[k] != expected.get(k, 0):
+            raise SystemExit(f"{what}: launch count of {k}: {counts[k]}, "
+                             f"expected {expected.get(k, 0)}")
 
 
 def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
@@ -1415,6 +1557,61 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
 
 
 # ----------------------------------------------------------------------
+# phase 7b: train_cli on the 2D configuration
+# ----------------------------------------------------------------------
+
+def run_train_cli_2d(dev, steps, run_root):
+    """`train_cli --ndims 2 --dataset synthetic` (its 64x64 default, the
+    CLI's default network) for `steps` steps on the card: finite
+    validation losses after every step, exact launch counts, and a
+    `latest` checkpoint that reloads into a fresh state bit for bit."""
+    import torch
+
+    from pulpo_tpu_torch import train_cli
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train import create_train_state
+    from pulpo_tpu_torch.train.checkpoint import (
+        CheckpointManager,
+        load_payload,
+        read_checkpoint,
+        state_payload,
+    )
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    accelerator = "gpu" if dev.type == "cuda" else "cpu"
+    reset_counts()
+    t = time.perf_counter()
+    run_dir = train_cli.main(["--ndims", "2", "--dataset", "synthetic", "--max_steps",
+                              str(steps), "--skip_eval", "--run_dir", str(run_root),
+                              "--accelerator", accelerator])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    counts = read_counts()
+    cfg = CheckpointManager.load_config(run_dir)
+    rows = read_metrics(run_dir)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise SystemExit(f"train_cli 2D: validation rows {[r['step'] for r in rows]}")
+    for r in rows:
+        for k in ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss"):
+            if not math.isfinite(r[f"val/{k}"]):
+                raise SystemExit(f"train_cli 2D: step {r['step']} val/{k} {r[f'val/{k}']}")
+    # validation after every step (8 pairs x 0.1 < 1), over the 8 pairs
+    expect(counts, train_launches(cfg, steps, val_forwards=8 * steps),
+           f"train_cli 2D ({steps} steps)")
+    saved = read_checkpoint(run_dir, "latest")
+    if saved["step"] != steps:
+        raise SystemExit(f"train_cli 2D: latest checkpoint at step {saved['step']}")
+    fresh, _ = create_train_state(PULPoModel(cfg, device=dev), seed=1)
+    load_payload(fresh, saved)
+    equal_payloads(state_payload(fresh), saved, "train_cli 2D: restored vs latest")
+    log(f"train_cli 2D: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
+        f"n0 {cfg.n0} {cfg.compute_dtype}, {steps} steps with validation in {fit_s:.3f} s, "
+        f"val total_loss {' '.join(str(r['val/total_loss']) for r in rows)}, checkpoint "
+        "reloads bit for bit")
+    return counts
+
+
+# ----------------------------------------------------------------------
 # phase 6: times
 # ----------------------------------------------------------------------
 
@@ -1438,16 +1635,46 @@ def time_ms(fn, iters, warmup=2):
     return statistics.median(runs)
 
 
-def grid_for(df):
-    """grid_sample's normalized (x, y, z) grid for a df: the reference
-    SpatialTransformer's 2 * (loc / (size - 1) - 0.5)."""
+def graph_ms(fn, iters=20):
+    """ms per call of `fn` on the device alone: `iters` calls captured in
+    one CUDA graph, replayed (the median of TIME_REPEATS CUDA-event
+    timings). For calls whose kernels take less device time than the
+    host needs to issue them, where `time_ms` measures the host."""
     import torch
 
-    size = df.shape[1:4]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(TIME_REPEATS):
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b) / iters)
+    return statistics.median(runs)
+
+
+def grid_for(df):
+    """grid_sample's normalized (x, y, z) grid for a df ((x, y) in 2D):
+    the reference SpatialTransformer's 2 * (loc / (size - 1) - 0.5)."""
+    import torch
+
+    size = df.shape[1:-1]
     axes = [torch.arange(s, device=df.device, dtype=torch.float32) for s in size]
     mesh = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
     loc = mesh[None] + df
-    norm = torch.stack([2 * (loc[..., i] / (size[i] - 1) - 0.5) for i in range(3)], -1)
+    norm = torch.stack([2 * (loc[..., i] / (size[i] - 1) - 0.5) for i in range(len(size))], -1)
     return norm.flip(-1).contiguous()
 
 
@@ -1627,7 +1854,7 @@ def library_unit(x, u, y2=None):
     from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky
     from pulpo_tpu_torch.models.blocks import tile_rows
 
-    # cuDNN at every width (models/blocks.conv3d_cl now takes a narrow
+    # cuDNN at every width (models/blocks.conv_cl now takes a narrow
     # input to the narrow-conv kernel)
     y = F.conv3d(x.permute(0, 4, 1, 2, 3), u["k"].to(x.dtype), padding=1).permute(0, 2, 3, 4, 1)
     if y2 is not None:
@@ -1798,6 +2025,74 @@ def time_fullres_kernels(dev, cfg, chunk):
     return res
 
 
+def time_2d_kernels(dev, cfg, rows):
+    """The 2D kernels at the `flagship-2d` paths' shapes: the squaring
+    step on `rows` fields at level 0 (the request's chunk), the warp of
+    the full-size image by `rows` full-size dfs (the level-0 warp of a
+    decode chunk), the box sum at level 0's NCC size with window 9. Each
+    reads its input once and writes its output once; bytes bound them.
+    At these sizes a call's kernels take less device time than its host
+    side takes to issue them, so `ms` and `library_ms` are device times
+    (`graph_ms`) and `eager_ms` / `library_eager_ms` the per-call times
+    of a loop of eager calls (`time_ms`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import box_sum, squaring, warp
+
+    res = {}
+    full, level0 = cfg.input_size, cfg.level_sizes[0]
+    fmt = lambda size: ",".join(map(str, size))
+    n, nl = math.prod(full), math.prod(level0)
+
+    v = smooth_field(rows, level0, 3.0, seed=240, device=dev, channels=2)
+    out = torch.empty_like(v)
+    eager = time_ms(lambda: squaring.squaring_step(v, out), 50)
+    ms = graph_ms(lambda: squaring.squaring_step(v, out))
+    plain = time_ms(lambda: squaring.squaring_step_plain(v), 5, warmup=1)
+    res["squaring_2d"] = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
+                              bound_ms=2 * rows * nl * 2 * 4 / HBM_BYTES_PER_S * 1e3,
+                              bound_by="bytes", shape=f"({rows},{fmt(level0)},2) f32, one step")
+
+    img = torch.rand((1, *full, 1), device=dev)
+    df = smooth_field(rows, full, 3.0, seed=241, device=dev, channels=2)
+    eager = time_ms(lambda: warp.warp(img, df), 20)
+    ms = graph_ms(lambda: warp.warp(img, df))
+    plain = time_ms(lambda: warp.warp_plain(img, df), 3, warmup=1)
+    grid = grid_for(df)
+    mov = img.movedim(-1, 1).expand(rows, -1, -1, -1)
+    library = lambda: F.grid_sample(mov, grid, mode="bilinear", padding_mode="border",
+                                    align_corners=False)
+    lib_eager = time_ms(library, 20)
+    lib = graph_ms(library)
+    gs = F.grid_sample(mov, grid, mode="bilinear", padding_mode="border", align_corners=False)
+    log(f"grid_sample 2D vs warp_2d kernel max abs diff "
+        f"{float((gs.movedim(1, -1) - warp.warp(img, df)).abs().max()):.3e}")
+    res["warp_2d"] = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                          library_eager_ms=lib_eager,
+                          bound_ms=4 * (rows * n * 2 + rows * n + n) / HBM_BYTES_PER_S * 1e3,
+                          bound_by="bytes",
+                          shape=f"moving (1,{fmt(full)},1) df ({rows},{fmt(full)},2) f32")
+
+    x = torch.rand((1, *full), device=dev)
+    win = cfg.window_size[0]
+    eager = time_ms(lambda: box_sum.box_sum(x, win), 50)
+    ms = graph_ms(lambda: box_sum.box_sum(x, win))
+    plain = time_ms(lambda: box_sum.box_sum_plain(x, win), 5, warmup=1)
+    x4 = x[:, None]
+    library = lambda: F.avg_pool2d(x4, win, stride=1, padding=win // 2,
+                                   count_include_pad=True) * float(win * win)
+    lib_eager = time_ms(library, 50)
+    lib = graph_ms(library)
+    res["box_sum_2d"] = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                             library_eager_ms=lib_eager,
+                             bound_ms=n * (4 + 4) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                             shape=f"(1,{fmt(full)}) f32, window {win}")
+    del v, out, img, df, grid, mov, gs, x, x4
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1839,12 +2134,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_conv_narrow(dev, checks)
     torch.cuda.empty_cache()
+    cfg_2d = PULPoConfig(**FLAGSHIP_2D)
+    check_2d_kernels(dev, cfg_2d, checks)
+    torch.cuda.empty_cache()
     if checks.failures:
         raise SystemExit(f"kernel checks failed: {checks.failures}")
     log(f"kernel checks passed in {time.perf_counter() - t:.1f} s")
     check_small_reference(dev)
     check_small_reference(dev, **FULLRES_KW)
     check_small_train(dev)
+    check_small_reference(dev, size=(32, 40))
+    check_small_train(dev, size=(32, 40))
 
     uq_counts, uq = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
     chunk = uq["chunk"]
@@ -1861,6 +2161,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts, train = run_train_path(dev, FLAGSHIP, TRAIN_STEPS)
     torch.cuda.empty_cache()
+    uq2d_counts, uq2d = run_main_path(dev, FLAGSHIP_2D, N_SAMPLES, N_REQUESTS,
+                                      name="2D serving path")
+    torch.cuda.empty_cache()
+    train2d_counts, train2d = run_train_path(dev, FLAGSHIP_2D, TRAIN_STEPS)
+    torch.cuda.empty_cache()
     run_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_lungct_"))
     try:
         lungct_train, lungct_eval, lungct = run_lungct_path(
@@ -1868,12 +2173,19 @@ def main() -> int:
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     torch.cuda.empty_cache()
+    cli_root = tempfile.mkdtemp(prefix="pulpo_cli2d_")
+    try:
+        cli2d_counts = run_train_cli_2d(dev, CLI_2D_STEPS, cli_root)
+    finally:
+        shutil.rmtree(cli_root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
     times.update(time_backward_kernels(dev, cfg))
     times["warp_lungct"] = time_lungct_warp(dev, PULPoConfig(**LUNGCT).input_size)
     times.update(time_eval_kernels(dev, cfg, chunk))
     times.update(time_fullres_kernels(dev, PULPoConfig(**FLAGSHIP_FULLRES), fullres["chunk"]))
+    times.update(time_2d_kernels(dev, cfg_2d, uq2d["chunk"]))
     for k in ("squaring_cf", "warp_cf"):
         log(f"time {k} channels-last twin on the same field: {times[k]['cl_twin_ms']:.3f} ms "
             f"(CF {times[k]['ms']:.3f} ms)")
@@ -1889,6 +2201,12 @@ def main() -> int:
     log(f"warp per voxel-row: LungCT ramp {times['warp_lungct']['ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps, "
         f"3-voxel field {times['warp_lungct']['small_displacement_ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps "
         f"(same shape), flagship 32 rows {times['warp']['ms'] * 1e9 / (chunk * math.prod(full)):.2f} ps")
+    for k in ("squaring_2d", "warp_2d", "box_sum_2d"):
+        r = times[k]
+        lib = ("-" if r["library_ms"] is None else
+               f"{r['library_ms']:.5f} ms (eager {r['library_eager_ms']:.5f} ms)")
+        log(f"time {k} device (CUDA graph) {r['ms']:.5f} ms, eager {r['eager_ms']:.5f} ms; "
+            f"library {lib}; bound {r['bound_ms']:.5f} ms")
     for k, r in times.items():
         log(f"time {k:12s} {r['shape']}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
             f"library {'-' if r['library_ms'] is None else format(r['library_ms'], '.3f')} ms  "
@@ -1899,7 +2217,8 @@ def main() -> int:
         by_path = {"serving": uq_counts[name], "serve": serve_counts[name],
                    "serving_fullres": fullres_counts[name],
                    "training": train_counts[name], "lungct_train": lungct_train[name],
-                   "lungct_eval": lungct_eval[name]}
+                   "lungct_eval": lungct_eval[name], "serving_2d": uq2d_counts[name],
+                   "training_2d": train2d_counts[name], "train_cli_2d": cli2d_counts[name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1917,14 +2236,19 @@ def main() -> int:
             record["cl_twin_ms"] = r["cl_twin_ms"]
         if name == "conv_narrow":
             record["shapes"] = r["shapes"]
+        for k in ("eager_ms", "library_eager_ms"):
+            if k in r:
+                record[k] = r[k]
         kernels.append(record)
     log(f"serve: artifact {serve['bytes']} B, predict_deterministic {serve['det_s']:.3f} s, "
         f"predict_mean {serve['mean_s']:.3f} s, uq {' '.join(f'{t:.3f}' for t in serve['uq_s'])} s")
-    for what, info in (("flagship", uq), ("flagship-fullres", fullres)):
-        log(f"{what} UQ-{N_SAMPLES} requests {' '.join(f'{t:.3f}' for t in info['times'])} s "
-            f"(warm {min(info['times'][1:]):.3f} s), peaks "
+    for what, info in (("flagship", uq), ("flagship-fullres", fullres), ("flagship-2d", uq2d)):
+        log(f"{what} UQ-{N_SAMPLES} requests {' '.join(f'{t:.5f}' for t in info['times'])} s "
+            f"(warm {min(info['times'][1:]):.5f} s), peaks "
             f"{' '.join(f'{p:.2f}' for p in info['peaks'])} GiB, chunk {info['chunk']}")
     log(f"training step {train['step_s']:.3f} s, peak {train['peak_gib']:.2f} GiB")
+    log(f"flagship-2d training step {train2d['step_s']:.5f} s, peak "
+        f"{train2d['peak_gib']:.3f} GiB")
     log(f"lungct: Trainer step {lungct['step_s']:.3f} s, with validation and checkpoints "
         f"{lungct['step_with_io_s']:.3f} s, checkpoint {lungct['ckpt_bytes']} B in "
         f"{lungct['ckpt_s']:.3f} s, training peak {lungct['train_peak_gib']:.2f} GiB, "

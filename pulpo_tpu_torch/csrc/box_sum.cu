@@ -17,6 +17,12 @@
 // The box sum is symmetric and zero-padded, hence self-adjoint: the
 // backward is this same function on the cotangent.
 //
+// 2D: `pulpo_box_sum_2d` runs the H and W passes over (B, H, W) (x ->
+// tmp -> out), in the order of _hw_kernel (box_sum.py:42-49). It
+// replaces the x.ndim == 3 arm of _box_sum_pallas (box_sum.py:63-74),
+// which holds one whole (H, W) slice in VMEM per grid step: the NCC's
+// window sums of the 2D configuration.
+//
 // Bound: memory. The function reads x once and writes out once (8 B
 // per element); the three passes move 24 B per element, and the
 // window's re-reads come from L1/L2 (neighbouring threads read
@@ -62,5 +68,22 @@ extern "C" int pulpo_box_sum(const void* x, void* out, void* tmp,
   if (err != cudaSuccess) return (int)err;
   box_axis_kernel<<<blocks, threads, 0, s>>>((const float*)tmp, (float*)out, total,
                                              (long long)H * W, D, p);
+  return (int)cudaGetLastError();
+}
+
+// x, out, tmp: (B, H, W) float32, contiguous, pairwise distinct: the H
+// pass, then the W pass. Returns the first CUDA error, or 0.
+extern "C" int pulpo_box_sum_2d(const void* x, void* out, void* tmp,
+                                int B, int H, int W, int win, void* stream) {
+  const long long total = (long long)B * H * W;
+  if (total == 0) return 0;
+  const int p = win / 2;
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  cudaStream_t s = (cudaStream_t)stream;
+  box_axis_kernel<<<blocks, threads, 0, s>>>((const float*)x, (float*)tmp, total, W, H, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  box_axis_kernel<<<blocks, threads, 0, s>>>((const float*)tmp, (float*)out, total, 1, W, p);
   return (int)cudaGetLastError();
 }

@@ -36,6 +36,15 @@
 // bit-equal on the same field. In CF each component plane is read
 // with unit stride between neighbouring threads (coalesced), where CL
 // reads every third float.
+//
+// Dimensions: the body is also templated on the number of spatial axes
+// ND. The 2D instantiation (channels-last (B, S0, S1, 2), 4 corners x 2
+// components) replaces the ndims == 2 arm of _squaring_step_pallas
+// (warp_local.py:186-202, _step_kernel_2d: a 3x3 hat-weight stencil
+// over the whole padded slice, one grid step per row) and the XLA
+// gather that _squaring_step_tiered takes for a 2D field past the
+// sub-voxel bound (warp_local.py:397-401). The 3D instantiations are
+// the same operations as before the template gained ND.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +57,13 @@ __device__ __forceinline__ float src_coord(int g, float d, float f, int s) {
   return fminf(fmaxf(src, 0.0f), (float)(s - 1));
 }
 
-template <bool CF>
+// One thread per voxel of a field with ND spatial axes (ND = 3: the
+// volumes; ND = 2: the slices of the 2D configuration) and ND
+// components: it gathers the 2^ND corners around its source coordinate.
+// Axis a of voxel v is its a-th row-major index; corner bit a picks the
+// upper neighbour along axis a; weights multiply along the axes in
+// order and the corners add in order, as the plain version does.
+template <bool CF, int ND>
 __global__ void squaring_kernel(const float* __restrict__ vin,
                                 float* __restrict__ vout,
                                 int S0, int S1, int S2,
@@ -56,38 +71,50 @@ __global__ void squaring_kernel(const float* __restrict__ vin,
                                 long long total) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const long long n = (long long)S0 * S1 * S2;
+  const int S[3] = {S0, S1, S2};
+  const float f[3] = {f0, f1, f2};
+  long long n = 1;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) n *= S[a];
   const long long b = idx / n;
   const long long v = idx - b * n;
-  const int x = (int)(v % S2);
-  const int y = (int)((v / S2) % S1);
-  const int z = (int)(v / ((long long)S1 * S2));
+  int g[ND];
+  long long rem = v;
+#pragma unroll
+  for (int a = ND - 1; a >= 0; --a) {
+    g[a] = (int)(rem % S[a]);
+    rem /= S[a];
+  }
   // element (b, voxel, ch) = row + voxel * vs + ch * cs
-  const long long vs = CF ? 1 : 3;
+  const long long vs = CF ? 1 : ND;
   const long long cs = CF ? n : 1;
 
-  const float* row = vin + b * n * 3;
-  const float d[3] = {row[v * vs] * scale, row[v * vs + cs] * scale,
-                      row[v * vs + 2 * cs] * scale};
-  const float c[3] = {src_coord(z, d[0], f0, S0), src_coord(y, d[1], f1, S1),
-                      src_coord(x, d[2], f2, S2)};
-  const int S[3] = {S0, S1, S2};
-  int i0[3], i1[3];
-  float w[3];
-  for (int a = 0; a < 3; ++a) {
+  const float* row = vin + b * n * ND;
+  float d[ND], c[ND];
+#pragma unroll
+  for (int a = 0; a < ND; ++a) {
+    d[a] = row[v * vs + a * cs] * scale;
+    c[a] = src_coord(g[a], d[a], f[a], S[a]);
+  }
+  int i0[ND], i1[ND];
+  float w[ND];
+  for (int a = 0; a < ND; ++a) {
     float fl = floorf(c[a]);
     i0[a] = (int)fl;
     i1[a] = min(i0[a] + 1, S[a] - 1);
     w[a] = c[a] - fl;
   }
-  const long long stride[3] = {(long long)S1 * S2, (long long)S2, 1};
-  float acc[3];
+  long long stride[ND];
+  stride[ND - 1] = 1;
 #pragma unroll
-  for (int corner = 0; corner < 8; ++corner) {
+  for (int a = ND - 2; a >= 0; --a) stride[a] = stride[a + 1] * S[a + 1];
+  float acc[ND];
+#pragma unroll
+  for (int corner = 0; corner < (1 << ND); ++corner) {
     long long off = 0;
     float weight = 1.0f;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
+    for (int a = 0; a < ND; ++a) {
       const int hi = (corner >> a) & 1;
       off += (long long)(hi ? i1[a] : i0[a]) * stride[a];
       const float wa = hi ? w[a] : 1.0f - w[a];
@@ -95,24 +122,24 @@ __global__ void squaring_kernel(const float* __restrict__ vin,
     }
     const float* p = row + off * vs;
 #pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
+    for (int ch = 0; ch < ND; ++ch) {
       const float contrib = (__ldg(p + ch * cs) * scale) * weight;
       acc[ch] = (corner == 0) ? contrib : acc[ch] + contrib;
     }
   }
-  float* o = vout + b * n * 3 + v * vs;
+  float* o = vout + b * n * ND + v * vs;
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) o[ch * cs] = d[ch] + acc[ch];
+  for (int ch = 0; ch < ND; ++ch) o[ch * cs] = d[ch] + acc[ch];
 }
 
-template <bool CF>
+template <bool CF, int ND>
 int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
            float f0, float f1, float f2, float scale, void* stream) {
   const long long total = (long long)B * S0 * S1 * S2;
   if (total == 0) return 0;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  squaring_kernel<CF><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
+  squaring_kernel<CF, ND><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)vin, (float*)vout, S0, S1, S2, f0, f1, f2, scale, total);
   return (int)cudaGetLastError();
 }
@@ -123,7 +150,7 @@ extern "C" int pulpo_squaring_step(const void* vin, void* vout, int B,
                                    int S0, int S1, int S2,
                                    float f0, float f1, float f2, float scale,
                                    void* stream) {
-  return launch<false>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, stream);
+  return launch<false, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, stream);
 }
 
 // The same step on a channels-first field (B, 3, S0, S1, S2).
@@ -131,5 +158,13 @@ extern "C" int pulpo_squaring_step_cf(const void* vin, void* vout, int B,
                                       int S0, int S1, int S2,
                                       float f0, float f1, float f2, float scale,
                                       void* stream) {
-  return launch<true>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, stream);
+  return launch<true, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, stream);
+}
+
+// The same step on a 2D channels-last field (B, S0, S1, 2): the 4
+// bilinear corners of each pixel.
+extern "C" int pulpo_squaring_step_2d(const void* vin, void* vout, int B,
+                                      int S0, int S1, float f0, float f1,
+                                      float scale, void* stream) {
+  return launch<false, 2>(vin, vout, B, S0, S1, 1, f0, f1, 0.0f, scale, stream);
 }

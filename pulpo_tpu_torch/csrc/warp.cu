@@ -38,6 +38,14 @@
 // instantiations are bit-equal; at C = 1 the CF output is the CL one
 // reshaped. In CF each df component plane and each output plane is
 // read or written with unit stride between neighbouring threads.
+//
+// Dimensions: the body is also templated on the number of spatial axes
+// ND. The 2D instantiation (channels-last, 4 bilinear corners) is the
+// 2D image and field warp of the 2D configuration, which the JAX
+// package computes as an XLA gather (pulpo_tpu/ops/warp.py:154-171,
+// "2D fall through to the gather path"): a kernel here, so that no
+// plain version runs on the card's forward path. The 3D instantiations
+// are the same operations as before the template gained ND.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,7 +58,11 @@ __device__ __forceinline__ float src_coord(int g, float d, float f, int s_in) {
   return fminf(fmaxf(src, 0.0f), (float)(s_in - 1));
 }
 
-template <bool CF>
+// ND spatial axes (3: volumes; 2: the slices of the 2D configuration);
+// the df has ND components, the 2^ND corners are gathered. Axis a of an
+// output voxel is its a-th row-major index; corner bit a picks the upper
+// neighbour along axis a.
+template <bool CF, int ND>
 __global__ void warp_kernel(const float* __restrict__ mov,
                             const float* __restrict__ df,
                             float* __restrict__ out,
@@ -61,31 +73,45 @@ __global__ void warp_kernel(const float* __restrict__ mov,
                             long long total) {
   long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
-  const long long n_out = (long long)O0 * O1 * O2;
-  const long long n_in = (long long)I0 * I1 * I2;
+  const int S[3] = {I0, I1, I2};
+  const int O[3] = {O0, O1, O2};
+  const float f[3] = {f0, f1, f2};
+  long long n_out = 1, n_in = 1;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) {
+    n_out *= O[a];
+    n_in *= S[a];
+  }
   const long long r = idx / n_out;
   const long long v = idx - r * n_out;
-  const int x = (int)(v % O2);
-  const int y = (int)((v / O2) % O1);
-  const int z = (int)(v / ((long long)O1 * O2));
+  int g[ND];
+  long long rem = v;
+#pragma unroll
+  for (int a = ND - 1; a >= 0; --a) {
+    g[a] = (int)(rem % O[a]);
+    rem /= O[a];
+  }
 
   // df component a of this voxel: d[a * ds]; channel c of a moving or
   // output voxel: p[c * cs_in] / o[c * cs_out]; a moving voxel at
   // offset off: m + off * vs
-  const float* d = CF ? df + r * 3 * n_out + v : df + idx * 3;
+  const float* d = CF ? df + r * ND * n_out + v : df + idx * ND;
   const long long ds = CF ? n_out : 1;
-  const float c[3] = {src_coord(z, d[0], f0, I0), src_coord(y, d[ds], f1, I1),
-                      src_coord(x, d[2 * ds], f2, I2)};
-  const int S[3] = {I0, I1, I2};
-  int i0[3], i1[3];
-  float w[3];
-  for (int a = 0; a < 3; ++a) {
+  float c[ND];
+#pragma unroll
+  for (int a = 0; a < ND; ++a) c[a] = src_coord(g[a], d[a * ds], f[a], S[a]);
+  int i0[ND], i1[ND];
+  float w[ND];
+  for (int a = 0; a < ND; ++a) {
     float fl = floorf(c[a]);
     i0[a] = (int)fl;
     i1[a] = min(i0[a] + 1, S[a] - 1);
     w[a] = c[a] - fl;
   }
-  const long long stride[3] = {(long long)I1 * I2, (long long)I2, 1};
+  long long stride[ND];
+  stride[ND - 1] = 1;
+#pragma unroll
+  for (int a = ND - 2; a >= 0; --a) stride[a] = stride[a + 1] * S[a + 1];
   const float* m = mov + (r % B) * n_in * C;
   const long long vs = CF ? 1 : C;
   const long long cs_in = CF ? n_in : 1;
@@ -94,11 +120,11 @@ __global__ void warp_kernel(const float* __restrict__ mov,
   for (int ch = 0; ch < C; ++ch) {
     float acc = 0.0f;
 #pragma unroll
-    for (int corner = 0; corner < 8; ++corner) {
+    for (int corner = 0; corner < (1 << ND); ++corner) {
       long long off = 0;
       float weight = 1.0f;
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
+      for (int a = 0; a < ND; ++a) {
         const int hi = (corner >> a) & 1;
         off += (long long)(hi ? i1[a] : i0[a]) * stride[a];
         const float wa = hi ? w[a] : 1.0f - w[a];
@@ -111,7 +137,7 @@ __global__ void warp_kernel(const float* __restrict__ mov,
   }
 }
 
-template <bool CF>
+template <bool CF, int ND>
 int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
            int I0, int I1, int I2, int O0, int O1, int O2,
            float f0, float f1, float f2, void* stream) {
@@ -119,7 +145,7 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
   if (total == 0) return 0;
   const int threads = 256;
   const long long blocks = (total + threads - 1) / threads;
-  warp_kernel<CF><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
+  warp_kernel<CF, ND><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)mov, (const float*)df, (float*)out, B, C, I0, I1, I2,
       O0, O1, O2, f0, f1, f2, total);
   return (int)cudaGetLastError();
@@ -131,7 +157,7 @@ extern "C" int pulpo_warp(const void* mov, const void* df, void* out,
                           int B, int B_df, int C,
                           int I0, int I1, int I2, int O0, int O1, int O2,
                           float f0, float f1, float f2, void* stream) {
-  return launch<false>(mov, df, out, B, B_df, C, I0, I1, I2, O0, O1, O2,
+  return launch<false, 3>(mov, df, out, B, B_df, C, I0, I1, I2, O0, O1, O2,
                        f0, f1, f2, stream);
 }
 
@@ -141,6 +167,15 @@ extern "C" int pulpo_warp_cf(const void* mov, const void* df, void* out,
                              int B, int B_df, int C,
                              int I0, int I1, int I2, int O0, int O1, int O2,
                              float f0, float f1, float f2, void* stream) {
-  return launch<true>(mov, df, out, B, B_df, C, I0, I1, I2, O0, O1, O2,
+  return launch<true, 3>(mov, df, out, B, B_df, C, I0, I1, I2, O0, O1, O2,
                       f0, f1, f2, stream);
+}
+
+// The same warp in 2D, channels-last: moving (B, I0, I1, C), df
+// (B_df, O0, O1, 2), out (B_df, O0, O1, C).
+extern "C" int pulpo_warp_2d(const void* mov, const void* df, void* out,
+                             int B, int B_df, int C, int I0, int I1, int O0, int O1,
+                             float f0, float f1, void* stream) {
+  return launch<false, 2>(mov, df, out, B, B_df, C, I0, I1, 1, O0, O1, 1,
+                          f0, f1, 0.0f, stream);
 }

@@ -5,10 +5,11 @@ reference's evaluate.py __main__, evaluate.py:1806-1840) and
     python -m pulpo_tpu_torch.evaluate_cli --run_dir runs/<exp>/version_0 \
         --task lungct --lms --N 10 --no_visualize
 
-`--accelerator gpu` (the default) runs on `cuda`, `cpu` on the CPU. The
-figures wait for `eval/visualize` and the serving artifact for
-`serve.py` (ROADMAP Queue 1 items 4 and 8): without `--no_visualize`,
-and with `--export`, the command raises.
+`--accelerator gpu` (the default) runs on `cuda`, `cpu` on the CPU.
+`--export PATH` writes the loaded model's serving artifact
+(`serve.export_model`, at `--export_batch` pairs and `--N` samples) and
+returns, as the JAX CLI does. The figures wait for `eval/visualize`
+(ROADMAP Queue 1 item 1): without `--no_visualize` the command raises.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_path", type=str, default=None)
     p.add_argument("--no_visualize", action="store_true", default=False)
     p.add_argument("--export", type=str, default=None, metavar="PATH",
-                   help="export a serving artifact (not ported yet: raises)")
+                   help="export the model's serving artifact (serve.py) to PATH and exit")
     p.add_argument("--export_batch", type=int, default=1)
     p.add_argument("--accelerator", type=str, default="gpu",
                    help="gpu (cuda, the default) or cpu")
@@ -45,9 +46,6 @@ def main(args=None):
     from pulpo_tpu_torch.train_cli import device_of
 
     device = device_of(args.accelerator)
-    if args.export:
-        raise NotImplementedError(
-            "the serving artifact (serve.py) is not ported yet (ROADMAP Queue 1 item 8)")
     from pulpo_tpu_torch.eval.evaluator import Evaluate
 
     run_dir = args.run_dir
@@ -63,6 +61,12 @@ def main(args=None):
 
     ev = Evaluate(device=device)
     ev.load_model(run_dir)
+    if args.export:
+        from pulpo_tpu_torch.serve import export_model
+
+        export_model(ev.model, args.export, batch_size=args.export_batch, N=args.N)
+        print(f"exported serving artifact -> {args.export}")
+        return None
     perf, unc = ev.run_one_model(
         segs=args.segs, lms=args.lms, mask=args.mask, N=args.N, task=args.task,
         data_path=args.data_path, visualize=not args.no_visualize)

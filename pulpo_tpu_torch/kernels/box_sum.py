@@ -8,11 +8,16 @@ reference's ones-kernel convs with padding win // 2). `csrc/box_sum.cu`
 runs the three axis passes in the TPU kernel's order (H, W, D) as
 shifted adds, as the plain version does, so the two agree bit for bit.
 
+In 2D (`box_sum_2d` launches, the NCC of the 2D configuration) it
+replaces the x.ndim == 3 arm of `_box_sum_pallas` (box_sum.py:63-74):
+the win x win box sum of a (B, H, W) slice, the H pass then the W pass
+(`_hw_kernel`), from the same source's `pulpo_box_sum_2d` entry.
+
 `BoxSum` is the autograd Function: the box sum is symmetric and zero-
 padded, so it is self-adjoint and its backward is the same kernel on
 the cotangent (pulpo_tpu/kernels/box_sum.py:121-137).
 
-Layout: (B, D, H, W) float32.
+Layout: (B, D, H, W) or, in 2D, (B, H, W) float32.
 """
 
 from __future__ import annotations
@@ -23,12 +28,13 @@ import torch
 
 from pulpo_tpu_torch.kernels import _build
 
-launches = 0  # kernel launches of `box_sum` (one per call, three passes)
+launches = 0     # kernel launches of `box_sum` on (B, D, H, W) (three passes)
+launches_2d = 0  # kernel launches of `box_sum` on (B, H, W) (two passes)
 
 
 def reset_count() -> None:
-    global launches
-    launches = 0
+    global launches, launches_2d
+    launches = launches_2d = 0
 
 
 def _box_axis(x: torch.Tensor, win: int, axis: int) -> torch.Tensor:
@@ -50,8 +56,9 @@ def _box_axis(x: torch.Tensor, win: int, axis: int) -> torch.Tensor:
 
 
 def box_sum_plain(x: torch.Tensor, win: int) -> torch.Tensor:
-    """The kernel's plain PyTorch version: H, W, then D passes."""
-    for axis in (2, 3, 1):
+    """The kernel's plain PyTorch version: H, W, then D passes on
+    (B, D, H, W); H then W on (B, H, W)."""
+    for axis in ((2, 3, 1) if x.dim() == 4 else (1, 2)):
         x = _box_axis(x, win, axis)
     return x
 
@@ -59,21 +66,25 @@ def box_sum_plain(x: torch.Tensor, win: int) -> torch.Tensor:
 def _box_sum_kernel(x: torch.Tensor, win: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return box_sum_plain(x, win)
-    if x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"box_sum kernel takes (B, D, H, W) float32, "
+    if x.dim() not in (3, 4) or x.dtype != torch.float32:
+        raise ValueError(f"box_sum kernel takes (B, D, H, W) or (B, H, W) float32, "
                          f"got {tuple(x.shape)} {x.dtype}")
     x = x.contiguous()
     out = torch.empty_like(x)
     tmp = torch.empty_like(x)
-    fn = _build.load("box_sum").pulpo_box_sum
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    entry = "pulpo_box_sum" if x.dim() == 4 else "pulpo_box_sum_2d"
+    fn = getattr(_build.load("box_sum"), entry)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (x.dim() + 1) + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    global launches
+    global launches, launches_2d
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), tmp.data_ptr(), *x.shape, int(win),
                 _build.stream_ptr(x))
-        launches += 1
-    _build.check(rc, "box_sum")
+        if x.dim() == 4:
+            launches += 1
+        else:
+            launches_2d += 1
+    _build.check(rc, entry)
     return out
 
 
@@ -91,7 +102,7 @@ class BoxSum(torch.autograd.Function):
 
 
 def box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
-    """Zero-padded box sum of x (B, D, H, W) with window `win` (odd),
+    """Zero-padded box sum of x (B, D, H, W) or (B, H, W) with window `win` (odd),
     differentiable: the CUDA kernel on the card, the plain version on
     the CPU."""
     if win % 2 != 1:

@@ -5,7 +5,7 @@ Replaces the TPU's `pulpo_tpu/attic/conv_narrow.py:conv3d_narrow_mxu`:
 a 3x3x3 conv, stride 1, zero padding 1, no bias, of a channels-last
 input with at most `MAX_CIN` channels, summed in float32 and rounded
 once to the input's type. In the port it is the one implementation of
-the model's narrow convs (`models/blocks.py:conv3d_cl` routes every
+the model's narrow convs (`models/blocks.py:conv_cl` routes every
 k = 3, pad = 1 conv whose input has <= 4 channels here): on the train
 path `down_block_0`'s first conv (2 -> n0, the concatenated pair) and
 each latent level's velocity head's first conv (zdim = 3 -> n0). In

@@ -27,7 +27,18 @@ the channels-last kernel. `integrate_svf_cf` chains it; like the JAX
 package's `integrate_svf_cf` (warp_local.py:664-689) it is an eval
 path whose gradient replays the plain version (`plain_vjp`).
 
-Layout: (B, *S, 3) channels-last float32; the CF functions (B, 3, *S).
+The 2D step (the 2D instantiation of `csrc/squaring.cu`, counted in
+`launches_2d`) replaces the ndims == 2 arm of `_squaring_step_pallas`
+(warp_local.py:186-202, `_step_kernel_2d`) and the XLA gather that
+`_squaring_step_tiered` takes past its bound (warp_local.py:397-401):
+the same step on a (B, S0, S1, 2) field, 4 bilinear corners, exact at
+any displacement. The JAX package's 2D backward is XLA's VJP
+(`_squaring_step_bwd` takes its Pallas kernel only for 3 components,
+warp_local.py:439-446), so a 2D `integrate_svf` is differentiated as
+its plain version (`plain_vjp`); `csrc/squaring_bwd.cu` stays 3D.
+
+Layout: (B, *S, nd) channels-last float32 (nd = 3, or 2 in 2D); the CF
+functions (B, 3, *S).
 """
 
 from __future__ import annotations
@@ -44,14 +55,15 @@ from pulpo_tpu_torch.kernels.warp import (
     warp_plain,
 )
 
-launches = 0      # kernel launches of `squaring_step` (one per step)
+launches = 0      # kernel launches of `squaring_step` on 3D fields (one per step)
+launches_2d = 0   # kernel launches of `squaring_step` on 2D fields (one per step)
 bwd_launches = 0  # kernel launches of `squaring_step_bwd` (one per step)
 cf_launches = 0   # kernel launches of `squaring_step_cf` (one per step)
 
 
 def reset_count() -> None:
-    global launches, bwd_launches, cf_launches
-    launches = bwd_launches = cf_launches = 0
+    global launches, launches_2d, bwd_launches, cf_launches
+    launches = launches_2d = bwd_launches = cf_launches = 0
 
 
 def squaring_step_plain(vec: torch.Tensor) -> torch.Tensor:
@@ -95,21 +107,24 @@ def integrate_svf_cf_plain(vec_cf: torch.Tensor, nsteps: int = 7) -> torch.Tenso
     return _cf(integrate_svf_plain(_cl(vec_cf), nsteps))
 
 
-def _check(vec: torch.Tensor, what: str) -> None:
-    if vec.dim() != 5 or vec.shape[-1] != 3 or vec.dtype != torch.float32:
-        raise ValueError(f"{what} takes (B, S0, S1, S2, 3) float32, "
+def _check(vec: torch.Tensor, what: str, ndims: int = 3) -> None:
+    if vec.dim() != ndims + 2 or vec.shape[-1] != ndims or vec.dtype != torch.float32:
+        shape = ", ".join([f"S{i}" for i in range(ndims)] + [str(ndims)])
+        raise ValueError(f"{what} takes (B, {shape}) float32, "
                          f"got {tuple(vec.shape)} {vec.dtype}")
 
 
 def _factors(vec: torch.Tensor) -> list[float]:
-    s = vec.shape[1:4]
-    return [_factor(s[i], s[i]) for i in range(3)]
+    s = vec.shape[1:-1]
+    return [_factor(s[i], s[i]) for i in range(len(s))]
 
 
-def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool) -> torch.Tensor:
+def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
+                 ndims: int = 3) -> torch.Tensor:
     """One launch of C entry `entry` of the squaring library on a CUDA
-    field (channels-last, or channels-first with `cf`)."""
-    _check(_cl(vec) if cf else vec, "squaring kernel")
+    field of `ndims` spatial axes (channels-last, or channels-first with
+    `cf`)."""
+    _check(_cl(vec) if cf else vec, "squaring kernel", ndims)
     vec = vec.contiguous()
     if out is None:
         out = torch.empty_like(vec, memory_format=torch.contiguous_format)
@@ -118,10 +133,11 @@ def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool) -> 
                          f"of the input's shape, got {tuple(out.shape)} {out.stride()}")
     cl = _cl(vec) if cf else vec
     fn = getattr(_build.load("squaring"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float] * 4 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (ndims + 1)
+                   + [ctypes.c_float] * (ndims + 1) + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(vec.device):
-        rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *cl.shape[1:4], *_factors(cl),
+        rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *cl.shape[1:-1], *_factors(cl),
                 float(scale), _build.stream_ptr(vec))
     _build.check(rc, entry)
     return out
@@ -129,12 +145,17 @@ def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool) -> 
 
 def squaring_step(vec: torch.Tensor, out: torch.Tensor | None = None,
                   scale: float = 1.0) -> torch.Tensor:
-    """One step ``v + warp(v, v)`` with ``v = scale * vec``: the CUDA
-    kernel for a tensor on the card, the plain version on the CPU.
-    `scale` must be a power of two (it is then exact)."""
+    """One step ``v + warp(v, v)`` with ``v = scale * vec`` on a 3D
+    (B, S0, S1, S2, 3) or 2D (B, S0, S1, 2) field: the CUDA kernel for a
+    tensor on the card, the plain version on the CPU. `scale` must be a
+    power of two (it is then exact)."""
     if vec.device.type == "cpu":
         return squaring_step_plain(vec * scale if scale != 1.0 else vec)
-    global launches
+    global launches, launches_2d
+    if vec.dim() == 4:
+        out = _launch_step("pulpo_squaring_step_2d", vec, out, scale, cf=False, ndims=2)
+        launches_2d += 1
+        return out
     out = _launch_step("pulpo_squaring_step", vec, out, scale, cf=False)
     launches += 1
     return out
@@ -153,14 +174,15 @@ def squaring_step_cf(vec: torch.Tensor, out: torch.Tensor | None = None,
     return out
 
 
-def _integrate_cf_kernel(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
-    """nsteps CF kernel launches, the 1/2**nsteps scale folded into the
-    first, alternating two contiguous buffers."""
+def _integrate_kernel(step, vec: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """nsteps launches of `step` (`squaring_step` or `squaring_step_cf`),
+    the 1/2**nsteps scale folded into the first, alternating two
+    contiguous buffers."""
     vec = vec.contiguous()
     bufs = [torch.empty_like(vec, memory_format=torch.contiguous_format) for _ in range(2)]
-    cur = squaring_step_cf(vec, bufs[0], scale=1.0 / (2**nsteps))
+    cur = step(vec, bufs[0], scale=1.0 / (2**nsteps))
     for k in range(1, nsteps):
-        cur = squaring_step_cf(cur, bufs[k % 2])
+        cur = step(cur, bufs[k % 2])
     return cur
 
 
@@ -175,7 +197,7 @@ def integrate_svf_cf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
     if vec.device.type == "cpu":
         return integrate_svf_cf_plain(vec, nsteps)
     _check(_cl(vec), "CF squaring kernel")
-    return plain_vjp.apply(lambda v: _integrate_cf_kernel(v, nsteps),
+    return plain_vjp.apply(lambda v: _integrate_kernel(squaring_step_cf, v, nsteps),
                            lambda v: integrate_svf_cf_plain(v, nsteps), vec)
 
 
@@ -248,10 +270,18 @@ class IntegrateSVF(torch.autograd.Function):
 
 def integrate_svf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
     """Scaling-and-squaring integration of a stationary velocity field
-    (the reference VecInt), differentiable. vec: (B, *S, 3) float32."""
+    (the reference VecInt), differentiable. vec: (B, *S, 3) float32, or
+    a 2D (B, S0, S1, 2) field, whose gradient is the plain version's (as
+    the JAX package's 2D backward is XLA's VJP)."""
     assert nsteps >= 0
     if nsteps == 0:
         return vec.clone()
+    if vec.shape[-1] == 2:
+        if vec.device.type == "cpu":
+            return integrate_svf_plain(vec, nsteps)
+        _check(vec, "2D squaring kernel", ndims=2)
+        return plain_vjp.apply(lambda v: _integrate_kernel(squaring_step, v, nsteps),
+                               lambda v: integrate_svf_plain(v, nsteps), vec)
     if vec.device.type != "cpu":
         _check(vec, "squaring kernel")
     return IntegrateSVF.apply(vec, nsteps)

@@ -33,10 +33,18 @@ ladder, sparse repair and terminal fallback (warp_halo.py:1560-1685,
 channels-last kernel. Like the JAX package's CF warp it serves the eval
 decode; a gradient through it replays the plain version (`plain_vjp`).
 
-Layout: moving (B, *S_in, C) and df (B_df, *S_out, 3) channels-last
-float32 (the CF functions: (B, C, *S_in), (B_df, 3, *S_out)), df
-channel i = displacement along spatial axis i; df row r reads moving
-row r % B (samples folded into the df's batch).
+In 2D (`warp_2d`, the 2D instantiation of `csrc/warp.cu`, counted in
+`launches_2d`) the warp is the JAX package's XLA gather
+(pulpo_tpu/ops/warp.py:154-171): no Pallas kernel computes it, but a
+kernel does here, so that no plain version runs on the card's forward
+path. Its df- and moving-cotangents replay the plain version
+(`plain_vjp`), as the JAX package's 2D gradient is XLA's VJP;
+`csrc/warp_bwd.cu` stays 3D.
+
+Layout: moving (B, *S_in, C) and df (B_df, *S_out, nd) channels-last
+float32, nd = 3 or, in 2D, 2 (the CF functions: (B, C, *S_in) and
+(B_df, 3, *S_out)); df channel i = displacement along spatial axis i;
+df row r reads moving row r % B (samples folded into the df's batch).
 """
 
 from __future__ import annotations
@@ -47,15 +55,16 @@ import torch
 
 from pulpo_tpu_torch.kernels import _build, plain_vjp
 
-launches = 0         # kernel launches of `warp` (never of the plain version)
+launches = 0         # kernel launches of `warp` in 3D (never of the plain version)
+launches_2d = 0      # kernel launches of `warp` in 2D
 dfgrad_launches = 0  # kernel launches of `warp_dfgrad`
 mgrad_launches = 0   # kernel launches of `warp_mgrad`
 cf_launches = 0      # kernel launches of `warp_cf`
 
 
 def reset_count() -> None:
-    global launches, dfgrad_launches, mgrad_launches, cf_launches
-    launches = dfgrad_launches = mgrad_launches = cf_launches = 0
+    global launches, launches_2d, dfgrad_launches, mgrad_launches, cf_launches
+    launches = launches_2d = dfgrad_launches = mgrad_launches = cf_launches = 0
 
 
 def _factor(s_in: int, s_out: int) -> float:
@@ -218,9 +227,9 @@ def warp_mgrad_plain(moving_shape, df: torch.Tensor, g: torch.Tensor) -> torch.T
     return out.reshape(moving_shape)
 
 
-def _check(moving: torch.Tensor, df: torch.Tensor) -> None:
-    if moving.dim() != 5 or df.dim() != 5 or df.shape[-1] != 3:
-        raise ValueError(f"warp kernel takes 3D fields: moving {tuple(moving.shape)}, "
+def _check(moving: torch.Tensor, df: torch.Tensor, ndims: int = 3) -> None:
+    if moving.dim() != ndims + 2 or df.dim() != ndims + 2 or df.shape[-1] != ndims:
+        raise ValueError(f"warp kernel takes {ndims}D fields: moving {tuple(moving.shape)}, "
                          f"df {tuple(df.shape)}")
     if moving.dtype != torch.float32 or df.dtype != torch.float32:
         raise TypeError(f"warp kernel takes float32, got {moving.dtype}, {df.dtype}")
@@ -239,18 +248,20 @@ def _check_g(g: torch.Tensor, df: torch.Tensor, c: int) -> None:
 
 
 def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False):
-    """Call the C entry `entry(ptrs..., B, B_df, C, I0..2, O0..2, f0..2,
-    stream)` of kernel library `lib`; `cf`: the shapes are channels-first."""
+    """Call the C entry `entry(ptrs..., B, B_df, C, I0.., O0.., f0..,
+    stream)` of kernel library `lib`, one I, O and f per spatial axis;
+    `cf`: the shapes are channels-first."""
     if cf:
         b, c = moving_shape[0], moving_shape[1]
-        s_in, s_out = tuple(moving_shape[2:5]), tuple(df.shape[2:5])
+        s_in, s_out = tuple(moving_shape[2:]), tuple(df.shape[2:])
     else:
         b, c = moving_shape[0], moving_shape[-1]
-        s_in, s_out = tuple(moving_shape[1:4]), tuple(df.shape[1:4])
-    f = [_factor(s_in[i], s_out[i]) for i in range(3)]
+        s_in, s_out = tuple(moving_shape[1:-1]), tuple(df.shape[1:-1])
+    nd = len(s_in)
+    f = [_factor(s_in[i], s_out[i]) for i in range(nd)]
     fn = getattr(_build.load(lib), entry)
-    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (3 + 2 * nd)
+                   + [ctypes.c_float] * nd + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(df.device):
         rc = fn(*ptrs, b, df.shape[0], c, *s_in, *s_out, *f, _build.stream_ptr(df))
@@ -261,14 +272,18 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     """The forward: the CUDA kernel on the card, the plain version on the CPU."""
     if moving.device.type == "cpu":
         return warp_plain(moving, df)
-    _check(moving, df)
+    nd = df.dim() - 2
+    _check(moving, df, 2 if nd == 2 else 3)
     moving, df = moving.contiguous(), df.contiguous()
-    out = torch.empty((df.shape[0], *df.shape[1:4], moving.shape[-1]),
+    out = torch.empty((df.shape[0], *df.shape[1:-1], moving.shape[-1]),
                       device=df.device, dtype=torch.float32)
-    global launches
-    _launch("warp", "pulpo_warp", [moving.data_ptr(), df.data_ptr(), out.data_ptr()],
-            moving.shape, df)
-    launches += 1
+    global launches, launches_2d
+    _launch("warp", "pulpo_warp_2d" if nd == 2 else "pulpo_warp",
+            [moving.data_ptr(), df.data_ptr(), out.data_ptr()], moving.shape, df)
+    if nd == 2:
+        launches_2d += 1
+    else:
+        launches += 1
     return out
 
 
@@ -361,5 +376,8 @@ class Warp(torch.autograd.Function):
 
 def warp(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     """Warp `moving` by `df`, differentiable in both: the CUDA kernels for
-    tensors on the card, the plain versions for tensors on the CPU."""
+    tensors on the card, the plain versions for tensors on the CPU. A 2D
+    warp (df (B_df, S0, S1, 2)) is differentiated as its plain version."""
+    if df.shape[-1] == 2:
+        return plain_vjp.apply(_warp_kernel, warp_plain, moving, df)
     return Warp.apply(moving, df)

@@ -144,7 +144,7 @@ class PULPoModel:
         g = torch.Generator().manual_seed(int(seed))
         with torch.no_grad():
             for name, m in self.module.named_modules():
-                if isinstance(m, torch.nn.Conv3d):
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
                     bound = 1.0 / float(m.weight[0].numel()) ** 0.5
                     for p in (m.weight, m.bias):
                         p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))

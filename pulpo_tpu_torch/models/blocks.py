@@ -11,10 +11,14 @@ its `dtype`, with the JAX package's rounding points: a conv's sum is
 rounded to the compute type before its bias add, BatchNorm runs in
 float32 in flax's order, LeakyReLU in the compute type.
 
-Convs run on NCDHW views of channels-last tensors (a free permute: the
-memory is PyTorch's channels_last_3d layout), but a k = 3, pad = 1 conv
-of at most 4 input channels, which runs on the narrow-conv kernel
-(`conv3d_cl`).
+Dimension-generic, as the JAX blocks are: `ndims` 3 (volumes,
+`nn.Conv3d`) or 2 (slices, `nn.Conv2d`), with the same state_dict
+names. Convs run on NCDHW / NCHW views of channels-last tensors (a free
+permute: the memory is PyTorch's channels_last layout), but a 3D k = 3,
+pad = 1 conv of at most 4 input channels, which runs on the
+narrow-conv kernel (`conv_cl`). The eval kernels (velocity head,
+posterior head, conv chain, narrow conv) are 3D: a 2D network runs the
+library convs, as the JAX package runs XLA's there.
 
 Not ported: the 96->128 channel pad and the tap-sum conv backward of
 the JAX `_RawConv` (TPU workarounds that compute the same function).
@@ -30,19 +34,27 @@ from pulpo_tpu_torch.kernels import conv_chain, conv_narrow
 from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky, velocity_head
 
 
-def conv3d_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
-    """conv3d of a channels-last x by a (O, I, *K) weight, in x's dtype.
-    A k = 3, pad = 1 conv of an input with at most 4 channels is the
-    narrow-conv kernel's (kernels/conv_narrow.py), on every device."""
+def conv_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
+    """conv2d / conv3d (by x's rank) of a channels-last x by a (O, I, *K)
+    weight, in x's dtype. A 3D k = 3, pad = 1 conv of an input with at
+    most 4 channels is the narrow-conv kernel's (kernels/conv_narrow.py),
+    on every device."""
     w = w.to(x.dtype)
     if pad == 1 and conv_narrow.takes(x, w):
         return conv_narrow.conv_narrow(x, w)
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, padding=pad)
-    return y.permute(0, 2, 3, 4, 1)
+    nd = x.dim() - 2
+    conv = F.conv2d if nd == 2 else F.conv3d
+    y = conv(x.movedim(-1, 1), w, padding=pad)
+    return y.movedim(1, -1)
+
+
+def conv_module(ndims: int):
+    """The library conv module of a network with `ndims` spatial axes."""
+    return {2: nn.Conv2d, 3: nn.Conv3d}[ndims]
 
 
 def conv1x1_cl(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """1x1x1 conv of a channels-last x, as a matmul over channels."""
+    """1x1 conv of a channels-last x, as a matmul over channels."""
     return torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).to(x.dtype).T)
 
 
@@ -104,10 +116,10 @@ class ConvUnit(nn.Module):
     once per pair and broadcast over the samples
     (pulpo_tpu/models/blocks.py:_RawConv)."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype, ndims: int = 3):
         super().__init__()
         self.dtype = dtype
-        self._op = nn.ModuleList([nn.Conv3d(cin, cout, 3, padding=1),
+        self._op = nn.ModuleList([conv_module(ndims)(cin, cout, 3, padding=1),
                                   BatchNorm(cout)])
 
     def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
@@ -116,11 +128,11 @@ class ConvUnit(nn.Module):
         dt = self.dtype
         x = x.to(dt)
         if x2 is None:
-            y = conv3d_cl(x, conv.weight, 1)
+            y = conv_cl(x, conv.weight, 1)
         else:
             c1 = x.shape[-1]
-            y = conv3d_cl(x, conv.weight[:, :c1], 1)
-            y2 = conv3d_cl(x2.to(dt), conv.weight[:, c1:], 1)
+            y = conv_cl(x, conv.weight[:, :c1], 1)
+            y2 = conv_cl(x2.to(dt), conv.weight[:, c1:], 1)
             if y2.shape[0] != y.shape[0]:
                 y2 = tile_rows(y2, y.shape[0])
             y = y + y2
@@ -136,10 +148,10 @@ class ConvSequence(nn.Module):
     most 8 channels: the encoder's down_block_0) runs as one
     `kernels/conv_chain.conv_chain` (pulpo_tpu/models/blocks.py:216-244)."""
 
-    def __init__(self, cin: int, cout: int, depth: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, depth: int, dtype: torch.dtype, ndims: int = 3):
         super().__init__()
         self._op = nn.ModuleList(
-            [ConvUnit(cin if i == 0 else cout, cout, dtype) for i in range(depth)])
+            [ConvUnit(cin if i == 0 else cout, cout, dtype, ndims) for i in range(depth)])
 
     def stages(self) -> list[dict]:
         """Each unit's parameters, keyed as kernels/conv_unit.py takes them."""
@@ -165,12 +177,13 @@ class ConvSequence(nn.Module):
 class MuSigmaBlock(nn.Module):
     """Two 1x1 convs: a linear mu head and a softplus sigma head."""
 
-    def __init__(self, cin: int, zdim: int, dtype: torch.dtype):
+    def __init__(self, cin: int, zdim: int, dtype: torch.dtype, ndims: int = 3):
         super().__init__()
         self.dtype = dtype
-        self._conv_mu = nn.Conv3d(cin, zdim, 1)
+        conv = conv_module(ndims)
+        self._conv_mu = conv(cin, zdim, 1)
         # reference layout `_conv_sigma.0` (its softplus is applied below)
-        self._conv_sigma = nn.ModuleList([nn.Conv3d(cin, zdim, 1)])
+        self._conv_sigma = nn.ModuleList([conv(cin, zdim, 1)])
 
     def forward(self, x: torch.Tensor):
         dt = self.dtype
@@ -186,21 +199,24 @@ class VelocityField(nn.Module):
 
     depth >= 2: ConvUnit(z -> n0), (depth - 2) ConvUnits, 1x1 conv
     (n0 -> ndims). depth 1: one unpadded k=3 conv. depth 0: identity.
-    In eval, a depth-3 head runs as one fused kernel on the card
-    (kernels/vel_head.py) and as its plain version on the CPU; in train
-    it runs the plain chain of ConvUnits (batch statistics), as the JAX
-    package does (its fused head is eval only)."""
+    In eval, a 3D depth-3 head runs as one fused kernel on the card
+    (kernels/vel_head.py) and as its plain version on the CPU; in train,
+    and in 2D (the JAX `vel_head_mode` takes only ndims == 3,
+    pulpo_tpu/kernels/vel_head.py:327), it runs the plain chain of
+    ConvUnits, as the JAX package does (its fused head is eval only)."""
 
     def __init__(self, zdim: int, ndims: int, n0: int, depth: int, dtype: torch.dtype):
         super().__init__()
         self.dtype = dtype
         self.depth = depth
+        self.ndims = ndims
+        conv = conv_module(ndims)
         if depth == 1:
-            ops = [nn.Conv3d(zdim, ndims, 3)]
+            ops = [conv(zdim, ndims, 3)]
         elif depth >= 2:
-            ops = ([ConvUnit(zdim, n0, dtype)]
-                   + [ConvUnit(n0, n0, dtype) for _ in range(depth - 2)]
-                   + [nn.Conv3d(n0, ndims, 1)])
+            ops = ([ConvUnit(zdim, n0, dtype, ndims)]
+                   + [ConvUnit(n0, n0, dtype, ndims) for _ in range(depth - 2)]
+                   + [conv(n0, ndims, 1)])
         else:
             ops = []
         self._op = nn.ModuleList(ops)
@@ -222,8 +238,8 @@ class VelocityField(nn.Module):
             return z
         if self.depth == 1:
             conv = self._op[0]
-            return conv3d_cl(z.to(dt), conv.weight, 0) + conv.bias.to(dt)
-        if self.depth == 3 and not train:
+            return conv_cl(z.to(dt), conv.weight, 0) + conv.bias.to(dt)
+        if self.depth == 3 and self.ndims == 3 and not train:
             return velocity_head(z.to(dt), self.head_params())
         x = z
         for unit in self._op[:-1]:

@@ -10,6 +10,12 @@ Port of pulpo_tpu/models/pulpo.py:45-502:
   upscaled parent field, integrated (float32 whatever the compute dtype)
   and used to warp the moving-image pyramid.
 
+Dimension-generic as the JAX module is: `cfg.ndims` 3 (volumes) or 2
+(slices). The fused eval kernels take only 3D, as the JAX package's do
+(pulpo_tpu/kernels/vel_head.py:327, pos_head.py:449,
+attic/conv_chain.py:328), so a 2D network runs the library convs; its
+integration and warps run the 2D squaring and warp kernels.
+
 S posterior samples are folded into the batch axis, sample-major
 ((S, B) flattened to S*B). The per-pair tensors (pyramid, down
 activations, the coarsest posterior, the activation half of each merge
@@ -52,7 +58,7 @@ from pulpo_tpu_torch.models.blocks import (
     ConvSequence,
     MuSigmaBlock,
     VelocityField,
-    conv3d_cl,
+    conv_cl,
     tile_rows,
 )
 from pulpo_tpu_torch.ops.resize import avg_pool_ceil, resize_linear
@@ -124,7 +130,7 @@ class DownPath(nn.Module):
         ch = cfg.num_channels
         cin = [2 * _IMAGE_CHANNELS] + [ch[k] for k in range(cfg.total_levels - 1)]
         self.down_blocks = nn.ModuleList(
-            [ConvSequence(cin[k], ch[k], 3, dtype) for k in range(cfg.total_levels)])
+            [ConvSequence(cin[k], ch[k], 3, dtype, cfg.ndims) for k in range(cfg.total_levels)])
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False) -> LevelDict:
         h = torch.cat([x, y], dim=-1)
@@ -147,13 +153,14 @@ class PULPoEncoder(nn.Module):
         self.dtype = dtype
         self.n_feedback = cfg.n0 * cfg.zdim
         if level < cfg.latent_levels - 1:
-            self.sample_merge_block = ConvSequence(self.n_feedback + c, c, 2, dtype)
-        self.mu_sigma = MuSigmaBlock(c, cfg.zdim, dtype)
+            self.sample_merge_block = ConvSequence(self.n_feedback + c, c, 2, dtype,
+                                                   cfg.ndims)
+        self.mu_sigma = MuSigmaBlock(c, cfg.zdim, dtype, cfg.ndims)
 
     def merge_half(self, down_activation: torch.Tensor) -> torch.Tensor:
         """The merge conv's activation half, once per pair, without bias."""
         w = self.sample_merge_block._op[0]._op[0].weight[:, self.n_feedback:]
-        return conv3d_cl(down_activation.to(self.dtype), w, 1)
+        return conv_cl(down_activation.to(self.dtype), w, 1)
 
     def head_params(self, up_block: ConvSequence) -> dict:
         """This level's posterior head (`up_block`, the merge block, the
@@ -234,7 +241,7 @@ class Autoencoder(nn.Module):
         # feedback up-blocks of global levels lk_offset .. total_levels-2
         self.up_blocks = nn.ModuleDict({
             str(l + cfg.lk_offset): ConvSequence(
-                feedback_channels(cfg), cfg.n0 * cfg.zdim, 2, dtype)
+                feedback_channels(cfg), cfg.n0 * cfg.zdim, 2, dtype, cfg.ndims)
             for l in range(K - 1)
         })
 

@@ -80,7 +80,7 @@ def l2_loss(pred, target) -> torch.Tensor:
 
 
 def _box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
-    """Box sum of a single-channel (B, *spatial, 1) volume."""
+    """Box sum of a single-channel (B, *spatial, 1) volume or slice."""
     assert x.shape[-1] == 1, f"NCC takes single-channel input, got C={x.shape[-1]}"
     return box_sum(x[..., 0], win)[..., None]
 
@@ -88,10 +88,10 @@ def _box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
 def ncc_loss(y_pred, y_true, win_size: int = 9, gamma: float = 0.05) -> torch.Tensor:
     """Local squared normalized cross-correlation: zero-padded box sums
     with a constant window-volume denominator even at borders; returns
-    -sum(batch-mean cc) * gamma. 3D, C == 1."""
+    -sum(batch-mean cc) * gamma. 2D or 3D, C == 1."""
     ii, ji = y_true, y_pred
     ndims = ii.dim() - 2
-    assert ndims == 3, "the box-sum kernel is 3D"
+    assert ndims in (2, 3), f"NCC takes 2D or 3D images, got {ndims} spatial axes"
     i_sum = _box_sum(ii, win_size)
     j_sum = _box_sum(ji, win_size)
     i2_sum = _box_sum(ii * ii, win_size)

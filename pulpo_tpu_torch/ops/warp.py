@@ -9,7 +9,9 @@ displacement.
 tensors on the card (kernels/warp.py, kernels/squaring.py) and their
 plain PyTorch versions for tensors on the CPU. Both are differentiable:
 they go through the kernels' autograd Functions (`Warp`,
-`IntegrateSVF`), whose backward passes are kernels too.
+`IntegrateSVF`), whose backward passes are kernels too. On 2D fields
+(the 2D configuration) the forward runs the 2D kernels and the gradient
+is the plain version's, as the JAX package's 2D gradient is XLA's VJP.
 
 The channels-first functions (`integrate_svf_cf`, `resize_vecfield_cf`,
 `batched_level_warp_cf`; pulpo_tpu/ops/warp.py:236-295) serve the eval

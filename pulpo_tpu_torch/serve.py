@@ -49,8 +49,8 @@ from pulpo_tpu_torch.uq.predict import predict_with_uncertainty
 FORMAT_VERSION = 1
 ENTRIES = {"predict_deterministic": False, "predict_mean": True, "uq": True}
 _SOURCE = {"warp": "warp", "squaring": "squaring", "warp_cf": "warp",
-           "squaring_cf": "squaring", "vel_head": "vel_head",
-           "pos_head": "conv_unit", "conv_chain": "conv_unit"}
+           "squaring_cf": "squaring", "warp_2d": "warp", "squaring_2d": "squaring",
+           "vel_head": "vel_head", "pos_head": "conv_unit", "conv_chain": "conv_unit"}
 
 
 def _kernels(model: PULPoModel, rows: int) -> dict[str, str]:
@@ -58,6 +58,10 @@ def _kernels(model: PULPoModel, rows: int) -> dict[str, str]:
     source, from the kernels' own shape predicates (no data is touched)."""
     cfg, m = model.cfg, model.module
     meta = lambda *shape: torch.empty(shape, dtype=model.dtype, device="meta")
+    if cfg.ndims == 2:
+        # the fused eval kernels take only 3D; the library convs run
+        names = ["warp_2d", "squaring_2d"]
+        return {n: f"pulpo_tpu_torch/csrc/{_build.SOURCES[_SOURCE[n]][0]}" for n in names}
     names = ["warp_cf", "squaring_cf"] if cf_fields(cfg) else ["warp", "squaring"]
     if cfg.cp_depth == 3:
         names.append("vel_head")

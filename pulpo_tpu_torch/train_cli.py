@@ -5,7 +5,8 @@ reference's train.py:133-168).
         --compute_dtype bfloat16 --max_steps 1000
 
 `--accelerator` picks the device: `gpu` (the default) runs on `cuda`,
-`cpu` on the CPU (the kernels' plain versions). The LungCT and
+`cpu` on the CPU (the kernels' plain versions). `--ndims 2 --dataset
+synthetic` trains the 2D configuration on 64x64 synthetic slices. The LungCT and
 synthetic datasets are ported; the OASIS and BraTS readers are not yet
 (ROADMAP Queue 1 item 5). After training the run is evaluated
 (`Evaluate.run_one_model`, without the figures, which wait for

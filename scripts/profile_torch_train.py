@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where a training step's time goes on the card (PyTorch/CUDA port).
 
-    python3 scripts/profile_torch_train.py [--steps 3] [--top 30]
+    python3 scripts/profile_torch_train.py [--steps 3] [--top 30] [--ndims 2]
 
 Builds the flagship model (160x192x224, 5/4 levels, n0=32, bf16,
-level_res, NCC + KL + L2, Adam lr 1e-4, B = 1) with seeded random
+level_res, NCC + KL + L2, Adam lr 1e-4, B = 1; with --ndims 2 the
+`flagship-2d` configuration: the same network on a 160x192 slice) with
+seeded random
 weights, takes one warm-up step on a synthetic pair, then profiles
 `--steps` more with torch.profiler. Prints the card, each step's
 host-clock time, the peak device memory, the device's busy time (the
@@ -46,6 +48,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=30)
+    ap.add_argument("--ndims", type=int, default=3, choices=(2, 3))
     args = ap.parse_args()
 
     import numpy as np
@@ -67,7 +70,7 @@ def main() -> int:
                           check=True).stdout.strip()
     print(f"card: {card}")
     _build.build_all()
-    cfg = PULPoConfig(input_size=(160, 192, 224), total_levels=5, latent_levels=4,
+    cfg = PULPoConfig(input_size=(160, 192, 224)[:args.ndims], total_levels=5, latent_levels=4,
                       n0=32, compute_dtype="bfloat16", df_resolution="level_res",
                       dataset="synthetic", batch_size=1)
     model = PULPoModel(cfg)

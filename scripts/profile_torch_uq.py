@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where a UQ-32 request's time goes on the card (PyTorch/CUDA port).
 
-    python3 scripts/profile_torch_uq.py [--requests 2] [--top 25] [--full_res]
+    python3 scripts/profile_torch_uq.py [--requests 2] [--top 25] [--full_res] [--ndims 2]
 
 Builds the flagship model (160x192x224, 5/4 levels, n0=32, bf16,
 level_res; with --full_res the flagship-fullres configuration:
 full_res dfs and the default feedback less "transformed", the
-channels-first field path) with seeded random weights, answers one
+channels-first field path; with --ndims 2 the `flagship-2d`
+configuration: the same network on a 160x192 slice) with seeded
+random weights, answers one
 warm-up request,
 times `--requests` more on the host clock, then profiles `--requests`
 more with torch.profiler. Prints the card,
@@ -67,6 +69,7 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--full_res", action="store_true")
+    ap.add_argument("--ndims", type=int, default=3, choices=(2, 3))
     args = ap.parse_args()
 
     import numpy as np
@@ -88,12 +91,13 @@ def main() -> int:
                           check=True).stdout.strip()
     print(f"card: {card}")
     _build.build_all()
-    cfg = PULPoConfig(input_size=(160, 192, 224), total_levels=5, latent_levels=4,
+    cfg = PULPoConfig(input_size=(160, 192, 224)[:args.ndims], total_levels=5, latent_levels=4,
                       n0=32, compute_dtype="bfloat16", dataset="synthetic")
     if args.full_res:
         cfg = cfg.replace(df_resolution="full_res",
                           feedback=tuple(f for f in cfg.feedback if f != "transformed"))
-    print(f"config: df_resolution {cfg.df_resolution}, feedback {list(cfg.feedback)}")
+    print(f"config: {cfg.input_size}, df_resolution {cfg.df_resolution}, "
+          f"feedback {list(cfg.feedback)}")
     model = PULPoModel(cfg)
     model.init(0)
     pair = SyntheticDataset(shape=cfg.input_size, n=2, seed=0).get_pair(

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from pulpo_tpu.attic.conv_narrow import conv3d_narrow, conv3d_narrow_mxu
 from pulpo_tpu.models.blocks import ConvUnit as FlaxConvUnit
 from pulpo_tpu_torch.kernels import conv_narrow
-from pulpo_tpu_torch.models.blocks import ConvUnit, conv3d_cl
+from pulpo_tpu_torch.models.blocks import ConvUnit, conv_cl
 
 
 def _case(shape, cout, seed):
@@ -99,14 +99,14 @@ def test_conv3d_cl_routes_narrow_convs_by_shape():
     version on the CPU, bit for bit); anything else: F.conv3d."""
     x, w = _case((1, 5, 6, 7, 4), 6, 7)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    assert torch.equal(conv3d_cl(xt, wt, 1), conv_narrow.conv_narrow_plain(xt, wt))
+    assert torch.equal(conv_cl(xt, wt, 1), conv_narrow.conv_narrow_plain(xt, wt))
     x5, w5 = _case((1, 5, 6, 7, 5), 6, 8)
     assert not conv_narrow.takes(torch.from_numpy(x5), torch.from_numpy(w5))
     lib = F.conv3d(torch.from_numpy(x5).permute(0, 4, 1, 2, 3), torch.from_numpy(w5),
                    padding=1).permute(0, 2, 3, 4, 1)
-    assert torch.equal(conv3d_cl(torch.from_numpy(x5), torch.from_numpy(w5), 1), lib)
+    assert torch.equal(conv_cl(torch.from_numpy(x5), torch.from_numpy(w5), 1), lib)
     before = conv_narrow.launches
-    conv3d_cl(xt, wt, 1)
+    conv_cl(xt, wt, 1)
     assert conv_narrow.launches == before  # the CPU runs the plain version
 
 

@@ -592,3 +592,111 @@ def test_train_step_runs_the_narrow_conv(cuda_device):
     compute_grads(model, batch)
     torch.cuda.synchronize()
     assert conv_narrow.launches - before == train_narrow_launches(cfg) == 1 + cfg.latent_levels
+
+
+# ----------------------------------------------------------------------
+# the 2D configuration: the 2D instantiations of squaring.cu, warp.cu
+# and box_sum.cu, each bit-equal to its plain version
+# ----------------------------------------------------------------------
+
+def _permuted_2d(v):
+    return v.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("mag", [0.3, 4.0, 20.0])
+def test_2d_squaring_kernel_bit_equal_to_plain(cuda_device, mag):
+    v = _field((6, 40, 48, 2), mag, 40).to(cuda_device)
+    before, before_3d = squaring.launches_2d, squaring.launches
+    step = squaring.squaring_step(v)
+    got = squaring.integrate_svf(v, 7)
+    torch.cuda.synchronize()
+    assert squaring.launches_2d == before + 8 and squaring.launches == before_3d
+    torch.testing.assert_close(step, squaring.squaring_step_plain(v), rtol=0, atol=0)
+    ref = squaring.integrate_svf_plain(v, 7)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(squaring.integrate_svf(_permuted_2d(v), 7), ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_2d_warp_kernel_bit_equal_to_plain(cuda_device, c):
+    rng = np.random.default_rng(41)
+    m = torch.from_numpy(rng.random((2, 40, 48, c), dtype=np.float32)).to(cuda_device)
+    before, before_3d = warp.launches_2d, warp.launches
+    for d in (_field((6, 40, 48, 2), 3.0, 42), _field((4, 20, 24, 2), 2.0, 43),
+              _field((2, 33, 47, 2), 30.0, 44)):  # same size, cross-res, ragged and clamped
+        d = d.to(cuda_device)
+        got = warp.warp(m, d)
+        torch.testing.assert_close(got, warp.warp_plain(m, d), rtol=0, atol=0)
+        torch.testing.assert_close(warp.warp(m, _permuted_2d(d)), got, rtol=0, atol=0)
+    torch.cuda.synchronize()
+    assert warp.launches_2d == before + 6 and warp.launches == before_3d
+
+
+@pytest.mark.parametrize("win", [3, 5, 7, 9])
+def test_2d_box_sum_kernel_bit_equal_to_plain(cuda_device, win):
+    x = torch.rand((2, 37, 45), device=cuda_device).requires_grad_(True)  # ragged
+    g = torch.randn((2, 37, 45), device=cuda_device)
+    before, before_3d = box_sum.launches_2d, box_sum.launches
+    got = box_sum.box_sum(x, win)
+    (gx,) = torch.autograd.grad(got, x, g)  # self-adjoint: the same kernel on g
+    torch.cuda.synchronize()
+    assert box_sum.launches_2d == before + 2 and box_sum.launches == before_3d
+    torch.testing.assert_close(got, box_sum.box_sum_plain(x.detach(), win), rtol=0, atol=0)
+    torch.testing.assert_close(gx, box_sum.box_sum_plain(g, win), rtol=0, atol=0)
+
+
+def test_2d_gradients_are_the_plain_versions(cuda_device):
+    """A 2D warp and integration on the card are differentiated as their
+    plain versions (the JAX package's 2D backward is XLA's VJP): the
+    gradients equal autograd through the plain versions on the card
+    within 1e-5 of scale (the forward is bit-equal; the replay sums in
+    autograd's order), and no backward kernel launches."""
+    rng = np.random.default_rng(45)
+    m = torch.from_numpy(rng.random((2, 24, 28, 1), dtype=np.float32))
+    d = _field((4, 24, 28, 2), 3.0, 46)
+    cot = torch.from_numpy(rng.standard_normal((4, 24, 28, 1)).astype(np.float32))
+    bwd = (warp.dfgrad_launches, warp.mgrad_launches, squaring.bwd_launches)
+    for ref, got in zip(_grads_on(cuda_device, warp.warp_plain, (m, d), cot),
+                        _grads_on(cuda_device, warp.warp, (m, d), cot)):
+        _close_scaled(got, ref, 1e-5)
+    v = _field((2, 24, 28, 2), 6.0, 47)
+    cot = torch.from_numpy(rng.standard_normal((2, 24, 28, 2)).astype(np.float32))
+    (ref,) = _grads_on(cuda_device, lambda a: squaring.integrate_svf_plain(a, 7), (v,), cot)
+    (got,) = _grads_on(cuda_device, lambda a: squaring.integrate_svf(a, 7), (v,), cot)
+    torch.cuda.synchronize()
+    _close_scaled(got, ref, 1e-5)
+    assert (warp.dfgrad_launches, warp.mgrad_launches, squaring.bwd_launches) == bwd
+
+
+def test_3d_launch_counts_are_not_the_2d_counters(cuda_device):
+    """A 3D warp, integration and box sum count in the 3D counters only."""
+    v = _field((1, 12, 14, 16, 3), 2.0, 48).to(cuda_device)
+    img = torch.rand((1, 12, 14, 16, 1), device=cuda_device)
+    counts = lambda: (warp.launches, squaring.launches, box_sum.launches,
+                      warp.launches_2d, squaring.launches_2d, box_sum.launches_2d)
+    before = counts()
+    warp.warp(img, v)
+    squaring.integrate_svf(v, 7)
+    box_sum.box_sum(img[..., 0], 5)
+    torch.cuda.synchronize()
+    after = counts()
+    assert [a - b for a, b in zip(after, before)] == [1, 7, 1, 0, 0, 0]
+
+
+def test_2d_kernels_raise_for_shapes_they_do_not_take(cuda_device):
+    with pytest.raises(ValueError):
+        squaring.squaring_step(torch.zeros((1, 8, 8, 3), device=cuda_device))
+    with pytest.raises(ValueError):
+        warp.warp(torch.zeros((1, 8, 8, 1), device=cuda_device),
+                  torch.zeros((1, 8, 8, 8, 3), device=cuda_device))
+    with pytest.raises(ValueError):
+        box_sum.box_sum(torch.zeros((1, 8, 8), device=cuda_device, dtype=torch.float64), 3)
+
+
+@pytest.mark.parametrize("check", ["uq", "train"])
+def test_2d_small_paths_on_the_card_match_the_cpu(cuda_device, check):
+    """Phase 4c of chip_smoke.py: a small 2D UQ request and train step on
+    the card against the CPU (1e-3 of scale)."""
+    from chip_smoke import check_small_reference, check_small_train
+
+    (check_small_reference if check == "uq" else check_small_train)(cuda_device, size=(32, 40))

@@ -134,6 +134,34 @@ def test_predict_deterministic_matches_jax(tmp_path):
     np.testing.assert_allclose(df.numpy(), np.asarray(ref[6][0]), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("ndims", [3, 2])
+def test_evaluate_cli_exports_a_served_model(tmp_path, ndims):
+    """A one-step train_cli run, exported through `evaluate_cli --export`:
+    the artifact's `predict_deterministic` equals `apply_eval` of the
+    run's weights bit for bit, and its manifest names the kernels of the
+    run's dimension (the 2D network runs the 2D warp and squaring only)."""
+    from pulpo_tpu_torch import evaluate_cli, train_cli
+    from pulpo_tpu_torch.eval.evaluator import Evaluate
+
+    run_dir = train_cli.main([
+        "--dataset", "synthetic", "--accelerator", "cpu", "--max_steps", "1", "--n0", "2",
+        "--total_levels", "3", "--latent_levels", "2", "--ndims", str(ndims),
+        "--run_dir", str(tmp_path), "--skip_eval"])
+    path = tmp_path / "model.pulpo"
+    assert evaluate_cli.main(["--run_dir", str(run_dir), "--accelerator", "cpu",
+                              "--export", str(path), "--N", "2"]) is None
+    served = ServedModel(str(path), device="cpu")
+    model = Evaluate(device="cpu").load_model(run_dir)
+    assert served.config == model.cfg and served.manifest["N"] == 2
+    kernels = {3: {"warp", "squaring", "vel_head", "conv_chain", "pos_head"},
+               2: {"warp_2d", "squaring_2d"}}[ndims]
+    assert set(served.manifest["kernels"]) == kernels
+    rng = np.random.default_rng(3)
+    x, y = (rng.random((1, *model.cfg.input_size, 1), dtype=np.float32) for _ in range(2))
+    outs = model.apply_eval(x, y, deterministic=True)
+    _equal(served.predict_deterministic(x, y), (outs[7][0], outs[6][0]))
+
+
 def test_step_timer_and_trace_on_the_cpu(tmp_path):
     timer = StepTimer(warmup=1)
     assert timer.report() == "step: no timed steps"
