@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build the CUDA kernels from pulpo_tpu_torch/csrc (one nvcc per
    source, all started together);
 3. hold each kernel against its plain PyTorch version (TF32 off) at the
-   main paths' shapes, within a stated tolerance;
+   main paths' shapes, within a stated tolerance (the velocity head at
+   level 0 on 2 rows, and in bf16 on 32 rows: the persistent grid at the
+   size phase 6 times);
 3c. the same under LungCT's large displacements: a respiratory field
    (a superior-inferior ramp to 16 voxels and an in-plane drift to 4)
    at 192x192x208 for the warp and its df-cotangent (bit-equal), at the
@@ -75,11 +77,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5f. the 2D training path: `flagship-2d` takes 1 + 5 steps as in 5b,
    with exact counts of the 2D box sum (32 a step), squaring and warp;
 6. per-kernel times (CUDA events, the median of 5 repeats) beside their
-   bounds, the plain versions' times and one library call's time; the
+   bounds, the plain versions' times and one library call's time (and,
+   for the velocity head, the posterior head and the conv chain, their
+   TFLOP/s and share of the bound); the
    warp also at the LungCT shape under the respiratory field; the
-   posterior head at each flagship level at R = chunk and the conv chain
-   at full resolution, against the port's unfused eval chain (cuDNN
-   convs with PyTorch epilogues) as the library yardstick; the CF
+   posterior head at each flagship level at R = chunk (and held against
+   its plain version there, bf16 within BF16_CHAIN_REL of scale, so that
+   its persistent grid is checked at the size it is timed at) and the
+   conv chain at full resolution, against the port's unfused eval chain
+   (cuDNN convs with PyTorch epilogues) as the library yardstick; the CF
    kernels at the full-res request's shapes beside their channels-last
    twins (and `F.grid_sample` for the warp), the narrow conv at the
    training step's shapes beside cuDNN's `F.conv3d`; the 2D kernels at
@@ -412,26 +418,30 @@ def check_kernels(dev, full, level0, checks, rows=4):
            ref, 1e-4 * float(ref.abs().max()) + 1e-4)
     df = permuted(smooth_field(rows, full, 3.0, seed=6, device=dev))
     record("warp", "C=1 permuted-memory df", warp.warp(img, df), warp.warp_plain(img, df), 1e-5)
-    check_vel_head(dev, level0, checks, g)
+    check_vel_head(dev, level0, checks, g, rows=N_SAMPLES)
 
 
-def check_vel_head(dev, level0, checks, g):
-    """The velocity head at latent level 0, n0 = 32, zdim = 3. f32:
-    summation order only -> 1e-4 of the output scale; bf16: an
-    intermediate that rounds the other way moves an output by a few bf16
-    ulps (2**-8 of the output scale each) -> 2% of the output scale."""
+def check_vel_head(dev, level0, checks, g, rows=None):
+    """The velocity head at latent level 0, n0 = 32, zdim = 3, on 2 rows
+    and, given `rows`, in bf16 on that many (the request's chunk: the
+    persistent grid at the size phase 6 times). f32: summation order
+    only -> 1e-4 of the output scale; bf16: an intermediate that rounds
+    the other way moves an output by a few bf16 ulps (2**-8 of the output
+    scale each) -> 2% of the output scale."""
     import torch
 
     from pulpo_tpu_torch.kernels import vel_head
 
     p = head_params(3, 32, seed=3, device=dev)
-    for dt, name, rel in ((torch.float32, "f32", 1e-4), (torch.bfloat16, "bf16", 0.02)):
-        z = torch.randn((2, *level0, 3), generator=g).to(dev, dt)
+    cases = [(torch.float32, "f32", 1e-4, 2), (torch.bfloat16, "bf16", 0.02, 2)]
+    for dt, name, rel, n in cases + ([(torch.bfloat16, "bf16", 0.02, rows)] if rows else []):
+        z = torch.randn((n, *level0, 3), generator=g).to(dev, dt)
         ref = vel_head.velocity_head_plain(z, p)
         got = vel_head.velocity_head(z, p)
         scale = max(1.0, float(ref.float().abs().max()))
-        checks.record("vel_head", f"{name} 2 rows n0=32 {'x'.join(map(str, level0))}", got, ref,
+        checks.record("vel_head", f"{name} {n} rows n0=32 {'x'.join(map(str, level0))}", got, ref,
                       rel * scale)
+        del z, ref, got
 
 
 def check_backward_kernels(dev, cfg, checks):
@@ -1736,7 +1746,7 @@ def time_kernels(dev, full, level0, rows, zdim, n0):
         return F.conv3d(x, bf["k3"], bf["b3"])
 
     lib = time_ms(cudnn_chain, 5)
-    res["vel_head"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+    res["vel_head"] = dict(ms=ms, plain_ms=plain, library_ms=lib, tflop_per_s=flops / ms * 1e-9,
                            bound_ms=max(flops / BF16_FLOP_PER_S, bytes_ / HBM_BYTES_PER_S) * 1e3,
                            bound_by="operations" if flops / BF16_FLOP_PER_S > bytes_ / HBM_BYTES_PER_S else "bytes",
                            shape=f"z ({rows},{','.join(map(str, level0))},{zdim}) bf16, n0 {n0}")
@@ -1879,11 +1889,14 @@ def chain_flop_per_voxel(widths):
     return sum(2 * 27 * a * b for a, b in zip(widths[:-1], widths[1:]))
 
 
-def time_eval_kernels(dev, cfg, rows):
+def time_eval_kernels(dev, cfg, rows, checks):
     """The posterior head at each non-coarsest flagship level at R = rows
     (one pair), and the conv chain on down_block_0 at full resolution, in
     bf16. Bounds: the conv FLOPs (and the heads') over 989 TFLOP/s, or
-    each input and output once over 3.35 TB/s where that is larger."""
+    each input and output once over 3.35 TB/s where that is larger. The
+    head is also held against its plain version on these inputs
+    (BF16_CHAIN_REL of scale, as phase 3d on 4 rows): the persistent grid
+    at the size it is timed at."""
     import torch
 
     from pulpo_tpu_torch.kernels import conv_chain, pos_head
@@ -1906,6 +1919,13 @@ def time_eval_kernels(dev, cfg, rows):
         lib = time_ms(lambda: library_head(fb, y2, p), 1, warmup=1)
         torch.cuda.empty_cache()
         plain = time_ms(lambda: pos_head.posterior_head_plain(fb, y2, p), 1, warmup=1)
+        torch.cuda.empty_cache()
+        got = pos_head.posterior_head(fb, y2, p)
+        ref = pos_head.posterior_head_plain(fb, y2, p)
+        for what, a, b in zip(("mu", "sigma"), got, ref):
+            checks.record("pos_head", f"bf16 {what} {rows} rows {'x'.join(map(str, size))} "
+                          f"{'/'.join(map(str, widths))}", a, b, scaled(b, BF16_CHAIN_REL))
+        del got, ref
         torch.cuda.empty_cache()
         t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
         levels[l] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
@@ -2183,7 +2203,9 @@ def main() -> int:
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
     times.update(time_backward_kernels(dev, cfg))
     times["warp_lungct"] = time_lungct_warp(dev, PULPoConfig(**LUNGCT).input_size)
-    times.update(time_eval_kernels(dev, cfg, chunk))
+    times.update(time_eval_kernels(dev, cfg, chunk, checks))
+    if checks.failures:
+        raise SystemExit(f"kernel checks failed: {checks.failures}")
     times.update(time_fullres_kernels(dev, PULPoConfig(**FLAGSHIP_FULLRES), fullres["chunk"]))
     times.update(time_2d_kernels(dev, cfg_2d, uq2d["chunk"]))
     for k in ("squaring_cf", "warp_cf"):
@@ -2197,7 +2219,10 @@ def main() -> int:
         log(f"time pos_head l{l} {r['shape']}: kernel {r['ms']:.3f} ms ({r['tflop_per_s']:.1f} "
             f"TFLOP/s)  plain {r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
-    log(f"conv_chain kernel {times['conv_chain']['tflop_per_s']:.1f} TFLOP/s")
+    for k in ("vel_head", "conv_chain"):
+        r = times[k]
+        log(f"{k} kernel {r['tflop_per_s']:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of its "
+            f"bound")
     log(f"warp per voxel-row: LungCT ramp {times['warp_lungct']['ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps, "
         f"3-voxel field {times['warp_lungct']['small_displacement_ms'] * 1e9 / math.prod(LUNGCT['input_size']):.2f} ps "
         f"(same shape), flagship 32 rows {times['warp']['ms'] * 1e9 / (chunk * math.prod(full)):.2f} ps")

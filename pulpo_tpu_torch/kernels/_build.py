@@ -5,15 +5,20 @@ Each source under `pulpo_tpu_torch/csrc/` is compiled by `nvcc` for
 loaded with `ctypes`. Nothing is built when a module is imported: a
 kernel's library is built at its first launch (or by `build_all`, which
 starts one `nvcc` per source, all at once). Libraries are named by a
-hash of their source and flags, in `pulpo_tpu_torch/_build/` (listed
-in .gitignore), so an edited source is rebuilt.
+hash of their source, the `csrc/` headers it includes (`includes`) and
+the flags, in `pulpo_tpu_torch/_build/` (listed in .gitignore), so an
+edited source or header is rebuilt. The launch helpers (`check`,
+`stream_ptr`, and the persistent kernels' brick plan: `brick_plan`,
+`tile_origin`, `plan_arg`) are shared by the wrappers.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -59,11 +64,30 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def includes(path: Path) -> list[Path]:
+    """The headers under `path`'s directory that it includes with quotes,
+    directly or through another such header, each once, in first-seen
+    order."""
+    seen: list[Path] = []
+    todo = [path]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            h = path.parent / name.decode()
+            if h.exists() and h not in seen:
+                seen.append(h)
+                todo.append(h)
+    return seen
+
+
 def _target(name: str) -> tuple[Path, list[str]]:
     src, extra = SOURCES[name]
     path = CSRC / src
     flags = BASE_FLAGS + extra
-    h = hashlib.sha256(path.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    data = b"".join(p.read_bytes() for p in [path, *includes(path)])
+    h = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{h}.so", [str(path)] + flags
 
 
@@ -120,3 +144,31 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def brick_plan(rows: int, size, brick, sms: int) -> dict:
+    """A persistent kernel's walk over bricks of `brick` = (tz, ty, tx)
+    output voxels of one row: `per_axis` bricks along each axis, `tiles`
+    in all, ordered (row, z, y, x), walked by a grid of min(tiles, sms)
+    blocks (block b takes tiles b, b + grid, ...)."""
+    per_axis = tuple(-(-s // b) for s, b in zip(size, brick))
+    tiles = rows * math.prod(per_axis)
+    return {"brick": tuple(brick), "per_axis": per_axis, "tiles": tiles,
+            "grid": min(tiles, sms)}
+
+
+def tile_origin(plan: dict, t: int) -> tuple[int, int, int, int]:
+    """(row, z0, y0, x0) of tile t of `plan`; the brick may pass the
+    volume's edge."""
+    nz, ny, nx = plan["per_axis"]
+    bz, by, bx = plan["brick"]
+    r, rem = divmod(t, nz * ny * nx)
+    return r, rem // (ny * nx) * bz, rem // nx % ny * by, rem % nx * bx
+
+
+def plan_arg(plan: dict):
+    """`plan` as the kernels take it (csrc/tc.cuh:BrickPlan): six ints,
+    {tz, tiles along z, y, x, tiles, grid}. The kernel walks exactly
+    these tiles and refuses a plan that is not for its brick."""
+    return (ctypes.c_int * 6)(plan["brick"][0], *plan["per_axis"], plan["tiles"],
+                              plan["grid"])

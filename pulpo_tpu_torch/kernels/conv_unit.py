@@ -13,7 +13,10 @@ LeakyReLU takes its sign from the float32 value. The last unit of the
 posterior head adds the 1x1 mu and sigma heads (softplus on sigma).
 
 `kernels/pos_head.py` and `kernels/conv_chain.py` launch it; they hold
-the launch counts.
+the launch counts. In bfloat16 the kernel walks the spatial bricks of
+output voxels that `tile_plan` lays out, in `_build.tile_origin`'s
+order, with weights packed as 8-channel core matrices (`pack_tc`); in
+float32 it takes the (np, kp) matrix of `_pack`.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from pulpo_tpu_torch.kernels.vel_head import _conv_f32, bn_affine
 UNIT, UNIT_ADD, UNIT_HEADS = 0, 1, 2
 WIDTHS = (16, 32, 64, 96, 128, 192)  # the kernel's template widths (cout padded)
 MAX_WIDTH = WIDTHS[-1]
-K_CHUNK = 32  # the packed K is a multiple of this
+K_CHUNK = 32  # float32: the packed K is a multiple of this
+TC_CHUNK = 16  # bfloat16: input channels per K step (the wgmma depth)
+TILE_YX = 8  # bfloat16: a brick's y and x extent
 UNIT_KEYS = ("k", "b", "mean", "var", "scale", "bias")
 
 
@@ -76,17 +81,45 @@ def width(cout: int) -> int:
     return next(w for w in WIDTHS if w >= cout)
 
 
+def _epilogue_operands(u: dict, dt: torch.dtype, npad: int, device):
+    """bias (np,) float32 rounded to dt; BatchNorm (3, np) float32."""
+    cout = u["k"].shape[0]
+    b = F.pad(u["b"].to(device=device, dtype=dt).float(), (0, npad - cout))
+    bn = torch.stack([F.pad(t.to(device), (0, npad - cout))
+                      for t in bn_affine(u["mean"], u["var"], u["scale"], u["bias"])])
+    return b.contiguous(), bn.contiguous()
+
+
 def _pack(u: dict, dt: torch.dtype, device) -> list[torch.Tensor]:
-    """Weights (np, kp) in dt with k = tap * cin + c, zero-padded; bias
-    (np,) float32 rounded to dt; BatchNorm (3, np) float32."""
+    """The float32 kernel's operands: weights (np, kp) in dt with k = tap *
+    cin + c, zero-padded, and `_epilogue_operands`."""
     cout, cin = u["k"].shape[:2]
     npad, kp = width(cout), -(-27 * cin // K_CHUNK) * K_CHUNK
     w = u["k"].to(device=device, dtype=dt).permute(0, 2, 3, 4, 1).reshape(cout, 27 * cin)
     w = F.pad(w, (0, kp - 27 * cin, 0, npad - cout))
-    b = F.pad(u["b"].to(device=device, dtype=dt).float(), (0, npad - cout))
-    bn = torch.stack([F.pad(t.to(device), (0, npad - cout))
-                      for t in bn_affine(u["mean"], u["var"], u["scale"], u["bias"])])
-    return [t.contiguous() for t in (w, b, bn)]
+    return [w.contiguous(), *_epilogue_operands(u, dt, npad, device)]
+
+
+def tile_plan(rows: int, size, npad: int, sms: int) -> dict:
+    """The bf16 kernel's launch (`_build.brick_plan`): bricks of tz x 8 x 8
+    output voxels of one row, tz = 8, 4 or 2 for a padded width <= 64,
+    <= 128, 192 (the planes of its two warpgroups' accumulators), walked
+    by a persistent grid of one block per SM."""
+    tz = 8 if npad <= 64 else 4 if npad <= 128 else 2
+    return _build.brick_plan(rows, size, (tz, TILE_YX, TILE_YX), sms)
+
+
+def pack_tc(k: torch.Tensor, npad: int) -> torch.Tensor:
+    """bf16 weights k (cout, cin, 3, 3, 3) as the kernel's stages: (cp / 16,
+    3 dz, 9 (dy, dx), 2, npad, 8), cp = cin padded to 16 and npad = cout
+    padded, with zeros. Each [c, dz] block is one bulk copy; each [.., h]
+    (npad, 8) slab is npad / 8 core matrices of 8 output channels x 8
+    input channels (c * 16 + h * 8 + e)."""
+    cout, cin = k.shape[:2]
+    cp = -(-cin // TC_CHUNK) * TC_CHUNK
+    k = F.pad(k, (0, 0, 0, 0, 0, 0, 0, cp - cin, 0, npad - cout))
+    k = k.reshape(npad, cp // TC_CHUNK, 2, 8, 3, 3, 3).permute(1, 4, 5, 6, 2, 0, 3)
+    return k.reshape(cp // TC_CHUNK, 3, 9, 2, npad, 8).contiguous()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -102,9 +135,20 @@ def launch(x: torch.Tensor, u: dict, mode: int = UNIT, y2: torch.Tensor | None =
     dt = x.dtype
     R, S0, S1, S2, cin = x.shape
     cout = u["k"].shape[0]
+    if dt == torch.bfloat16:  # channels padded to the K step, weights as core matrices
+        npad, kp = width(cout), 0
+        cp = -(-cin // TC_CHUNK) * TC_CHUNK
+        if cp != cin:
+            x = F.pad(x, (0, cp - cin))
+        cin = cp
+        w = pack_tc(u["k"].to(device=x.device, dtype=dt), npad)
+        b, bn = _epilogue_operands(u, dt, npad, x.device)
+        plan = _build.plan_arg(tile_plan(
+            R, (S0, S1, S2), npad, torch.cuda.get_device_properties(x.device).multi_processor_count))
+    else:
+        w, b, bn = _pack(u, dt, x.device)
+        (npad, kp), plan = w.shape, None
     x = _aligned(x)
-    w, b, bn = _pack(u, dt, x.device)
-    npad, kp = w.shape
     zd = 0
     wh = bh = y2p = out2 = None
     if mode == UNIT_ADD:
@@ -122,13 +166,12 @@ def launch(x: torch.Tensor, u: dict, mode: int = UNIT, y2: torch.Tensor | None =
         out = torch.empty((R, S0, S1, S2, cout), device=x.device, dtype=dt)
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = _build.load("conv_unit").pulpo_conv_unit
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), bn.data_ptr(), ptr(y2p), ptr(wh),
                 ptr(bh), out.data_ptr(), ptr(out2), R, S0, S1, S2, cin, cout, npad, kp,
-                1 if y2p is None else y2p.shape[0], mode, zd, int(dt == torch.bfloat16),
-                _build.stream_ptr(x))
+                1 if y2p is None else y2p.shape[0], mode, zd, plan, _build.stream_ptr(x))
     _build.check(rc, "conv_unit")
     return (out, out2) if mode == UNIT_HEADS else out
 

@@ -30,8 +30,8 @@ import time
 
 # (group, substrings of the kernel name); the port's own kernels first
 GROUPS = (
-    ("conv-unit kernel (pos_head, conv_chain)", ("conv_unit_kernel",)),
-    ("velocity-head kernel", ("vel_head_kernel",)),
+    ("conv-unit kernel (pos_head, conv_chain)", ("conv_unit_kernel", "conv_unit_tc")),
+    ("velocity-head kernel", ("vel_head_kernel", "vel_head_tc")),
     ("warp and squaring kernels", ("warp_kernel", "squaring_kernel", "dfgrad_kernel",
                                    "mgrad_kernel", "box_axis_kernel")),
     ("cuDNN convs and transposes", ("conv", "cudnn", "implicit", "fprop", "nchw", "nhwc",

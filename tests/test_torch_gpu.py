@@ -700,3 +700,63 @@ def test_2d_small_paths_on_the_card_match_the_cpu(cuda_device, check):
     from chip_smoke import check_small_reference, check_small_train
 
     (check_small_reference if check == "uq" else check_small_train)(cuda_device, size=(32, 40))
+
+
+# ----------------------------------------------------------------------
+# the tensor-core tilings of the velocity head and the conv unit
+# ----------------------------------------------------------------------
+
+# ragged bricks in every axis and across the row boundary (R = 3)
+TC_SHAPES = [(3, 13, 18, 21), (1, 5, 3, 40), (2, 9, 8, 33)]
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 0.02)])
+@pytest.mark.parametrize("shape", TC_SHAPES)
+@pytest.mark.parametrize("n0", [8, 32, 64])
+def test_vel_head_bricks_match_plain(cuda_device, dtype, rel, shape, n0):
+    """Every width template (n0 8 -> 16, 32, 64: resident and streamed
+    conv2 weights) on bricks cut by every edge; a permuted-memory input
+    gives the same output."""
+    p = {k: v.to(cuda_device) for k, v in _head_params(n0, seed=n0).items()}
+    z = torch.randn((*shape, 3), device=cuda_device).to(dtype)
+    before = vel_head.launches
+    got = vel_head.velocity_head(z, p)
+    torch.cuda.synchronize()
+    assert vel_head.launches == before + 1
+    _close_scaled(got.float(), vel_head.velocity_head_plain(z, p).float(), rel)
+    assert torch.equal(vel_head.velocity_head(_permuted(z), p), got)
+
+
+def _unit_params(cin, cout, seed, device):
+    rng = np.random.default_rng(seed)
+    r = lambda shape, s=1.0: torch.from_numpy((rng.standard_normal(shape) * s)
+                                              .astype(np.float32)).to(device)
+    return {"k": r((cout, cin, 3, 3, 3), 1.0 / np.sqrt(27 * cin)), "b": r((cout,), 0.1),
+            "mean": r((cout,), 0.3), "var": r((cout,)).abs() + 0.2,
+            "scale": r((cout,)) + 1.0, "bias": r((cout,), 0.2)}
+
+
+@pytest.mark.parametrize("dtype,rel", EVAL_TOL)
+@pytest.mark.parametrize("cin,cout", [(2, 32), (15, 3), (16, 16), (16, 64), (96, 96),
+                                      (40, 192), (128, 128)])
+def test_conv_unit_modes_match_plain(cuda_device, dtype, rel, cin, cout):
+    """One unit in each mode at every padded width (cout 3 .. 192, the
+    scalar and 16-byte stores), narrow and ragged input widths (padded to
+    the 16-channel K step), R = 6 rows over ragged bricks, UNIT_ADD with
+    b_pair 3, a permuted-memory input."""
+    from pulpo_tpu_torch.kernels import conv_unit as cu
+
+    u = _unit_params(cin, cout, cin * 1000 + cout, cuda_device)
+    x = torch.randn((6, 9, 13, 18, cin), device=cuda_device).to(dtype)
+    y2 = torch.randn((3, 9, 13, 18, cout), device=cuda_device).to(dtype)
+    _close_scaled(cu.launch(_permuted(x), u).float(), cu.unit_plain(x, u).float(), rel)
+    _close_scaled(cu.launch(x, u, cu.UNIT_ADD, y2=y2).float(),
+                  cu.unit_plain(x, u, y2).float(), rel)
+    rng = np.random.default_rng(cout)
+    heads = [torch.from_numpy((rng.standard_normal(s) * 0.3).astype(np.float32)).to(cuda_device)
+             for s in ((3, cout, 1, 1, 1), (3,), (3, cout, 1, 1, 1), (3,))]
+    got = cu.launch(x, u, cu.UNIT_HEADS, heads=tuple(heads))
+    ref = cu.heads_plain(cu.unit_plain(x, u), *heads)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        _close_scaled(g.float(), r.float(), rel)
