@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. hold each kernel against its plain PyTorch version (TF32 off) at the
    main paths' shapes, within a stated tolerance (the velocity head at
    level 0 on 2 rows, and in bf16 on 32 rows: the persistent grid at the
-   size phase 6 times);
+   size phase 6 times); the warp and squaring step also from a base 4
+   bytes past a 16-byte boundary (their scalar path, bit-equal);
 3c. the same under LungCT's large displacements: a respiratory field
    (a superior-inferior ramp to 16 voxels and an in-plane drift to 4)
    at 192x192x208 for the warp and its df-cotangent (bit-equal), at the
@@ -87,7 +88,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    conv chain at full resolution, against the port's unfused eval chain
    (cuDNN convs with PyTorch epilogues) as the library yardstick; the CF
    kernels at the full-res request's shapes beside their channels-last
-   twins (and `F.grid_sample` for the warp), the narrow conv at the
+   twins (and `F.grid_sample` for the warp; the CF warp also on the
+   request's 4-row mean tail), the narrow conv at the
    training step's shapes beside cuDNN's `F.conv3d`; the 2D kernels at
    the `flagship-2d` paths' shapes beside `F.grid_sample` and
    `F.avg_pool2d`;
@@ -418,7 +420,28 @@ def check_kernels(dev, full, level0, checks, rows=4):
            ref, 1e-4 * float(ref.abs().max()) + 1e-4)
     df = permuted(smooth_field(rows, full, 3.0, seed=6, device=dev))
     record("warp", "C=1 permuted-memory df", warp.warp(img, df), warp.warp_plain(img, df), 1e-5)
+    # a base 4 bytes past a 16-byte boundary: the gathers' scalar path,
+    # the same operations as the 16-byte one (bit-equal)
+    df = smooth_field(rows, level0, 3.0, seed=16, device=dev)
+    img0 = torch.rand((1, *level0, 1), generator=g).to(dev)
+    record("warp", f"C=1 {rows} rows misaligned df", warp.warp(misaligned(img0), misaligned(df)),
+           warp.warp(img0, df), 0.0)
+    v = smooth_field(rows, level0, 2.0, seed=17, device=dev)
+    record("squaring", "one step misaligned field", squaring.squaring_step(
+        misaligned(v), misaligned(torch.empty_like(v))), squaring.squaring_step(v), 0.0)
     check_vel_head(dev, level0, checks, g, rows=N_SAMPLES)
+
+
+def misaligned(t):
+    """The same values in contiguous memory 4 bytes past a 16-byte
+    boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 4, device=t.device, dtype=t.dtype)
+    skip = (4 - (buf.data_ptr() // 4) % 4) % 4 + 1
+    out = buf[skip:skip + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def check_vel_head(dev, level0, checks, g, rows=None):
@@ -2014,7 +2037,19 @@ def time_fullres_kernels(dev, cfg, chunk):
                           bound_ms=4 * (rows * n * 3 + rows * n + n) / HBM_BYTES_PER_S * 1e3,
                           bound_by="bytes",
                           shape=f"moving (1,1,{fmt(full)}) df ({rows},3,{fmt(full)}) f32")
-    del img, df, grid, mov
+    del grid, mov
+    # the request's mean tail: the image by the 4 levels' mean dfs
+    tail = df[::chunk].contiguous()
+    grid = grid_for(tail.permute(0, 2, 3, 4, 1))
+    mov = cf(img).expand(tail.shape[0], -1, -1, -1, -1)
+    res["warp_cf"]["mean_tail"] = dict(
+        ms=time_ms(lambda: warp.warp_cf(cf(img), tail), 20),
+        plain_ms=time_ms(lambda: warp.warp_cf_plain(cf(img), tail), 2, warmup=1),
+        library_ms=time_ms(lambda: F.grid_sample(mov, grid, mode="bilinear", padding_mode="border",
+                                                 align_corners=False), 20),
+        bound_ms=4 * (tail.shape[0] * n * 4 + n) / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        shape=f"moving (1,1,{fmt(full)}) df ({tail.shape[0]},3,{fmt(full)}) f32")
+    del img, df, grid, mov, tail
     torch.cuda.empty_cache()
 
     # the narrow conv: down_block_0's 2 -> n0 at full res and a velocity
@@ -2211,6 +2246,10 @@ def main() -> int:
     for k in ("squaring_cf", "warp_cf"):
         log(f"time {k} channels-last twin on the same field: {times[k]['cl_twin_ms']:.3f} ms "
             f"(CF {times[k]['ms']:.3f} ms)")
+    r = times["warp_cf"]["mean_tail"]
+    log(f"time warp_cf mean_tail {r['shape']}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
+        f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{r['bound_ms'] / r['ms']:.2f} of it)")
     for shape, r in times["conv_narrow"]["shapes"].items():
         log(f"time conv_narrow {shape} bf16: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
             f"cuDNN {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']}; "
@@ -2254,6 +2293,8 @@ def main() -> int:
         }
         if name == "warp":
             record["lungct"] = {k: v for k, v in times["warp_lungct"].items() if k != "shape"}
+        if name == "warp_cf":
+            record["mean_tail"] = {k: v for k, v in r["mean_tail"].items() if k != "shape"}
         if name == "pos_head":
             record["levels"] = {l: {k: v for k, v in lv.items() if k != "shape"}
                                 for l, lv in r["levels"].items()}

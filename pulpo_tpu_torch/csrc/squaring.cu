@@ -1,170 +1,154 @@
 // One scaling-and-squaring step of VecInt for Hopper (sm_90a):
 //   out = v + trilinear(v, grid + v)      (v = scale * in)
 //
-// Replaces pulpo_tpu/kernels/warp_local.py:_squaring_step_pallas (the
-// 27-tap halo stencil, exact only while max|v| is sub-voxel) and the
-// warp_halo cascade that the tiered step falls back to past that bound
-// (warp_local.py:377-422). The TPU has no vector gather, hence the
-// stencil and its tiers; here one thread per voxel gathers its 8
-// corners directly, which is exact at any displacement.
+// Replaces:
+//   - pulpo_tpu/kernels/warp_local.py:142 _squaring_step_pallas, 3D
+//     (:167, the 27-tap halo stencil, exact only while max|v| is
+//     sub-voxel) and 2D (:190, _step_kernel_2d, a 3x3 hat-weight stencil
+//     over the padded slice), with the warp_halo cascade and the XLA
+//     gather that the tiered step takes past that bound
+//     (warp_local.py:377-422, 397-401);
+//   - pulpo_tpu/kernels/warp_local.py:603 _squaring_step_cf_pallas (the
+//     stencil on the TPU's tile-padded CF layout, B x 3 x (S0+2) x
+//     r8(S1+2) x r128(S2+2)) and the squaring_beyond_cf cascade past its
+//     bound (warp_local.py:629-649, warp_halo.py:1687): the channels-first
+//     instantiation, on an unpadded field.
+// The TPU has no vector gather, hence the stencils and their tiers; here
+// each voxel gathers its 2^ND corners, exact at any displacement.
 //
 // `scale` multiplies every value read (the centre and the corners): the
 // 1/2^nsteps scaling of integrate_svf is a power of two, so folding it
 // into the first step is exact and saves one pass over the field.
 //
-// Bound: memory. Each step reads the field once (the corner re-reads
-// hit L1/L2: the corners of a smooth field are the neighbours' own
-// voxels) and writes it once. The steps cannot fuse into one launch
-// without a grid-wide barrier, because step k+1 gathers from anywhere
-// in step k's output; integrate_svf ping-pongs two buffers.
+// What bounds it on this card: device memory on a large launch, the
+// latency of its dependent loads on a small one. A step reads the field
+// once and writes it once (the corners of a smooth field are the
+// neighbours' own voxels, read again from L1 and L2); the steps cannot
+// fuse into one launch without a grid-wide barrier, because step k+1
+// gathers from anywhere in step k's output. The first version (one
+// voxel a thread of a flat 1D grid, its index split by 64-bit divides
+// and modulos, 64-bit offsets) ran at under half of the byte bound
+// (PERF.md). This design keeps one voxel a thread, each thread's own
+// from registers, and takes its voxel from a tile (csrc/gather.cuh):
+// planes x lines x a strip of up to 128 voxels of the innermost axis,
+// derived from blockIdx by shift and mask, so no thread divides and
+// offsets in a row are 32-bit. Two heavier designs were measured slower
+// at every launched shape and are not built (PERF.md,
+// scripts/bench_gather.py): 4 voxels a thread moved as 16-byte quads
+// through the tile in shared memory (a thread waits on its 4 voxels'
+// gathers in turn, and the launch has a quarter of the threads to hide
+// them), and that tile staged with a halo so that corners read shared
+// memory (each tile reads its halo again, and the shared memory cuts
+// the resident blocks).
 //
 // Numerics: built with -fmad=false and summed in the order of
 // pulpo_tpu/ops/warp.py:warp_image, so the step matches the plain
-// PyTorch version's rounding.
+// PyTorch version's rounding. The arithmetic per voxel is the first
+// version's; only the addressing changed.
 //
-// Layouts: one kernel body, two instantiations that differ only in the
-// addressing of component ch of voxel v in row b:
-//   channels-last  (B, S0, S1, S2, 3):  (b * n + v) * 3 + ch
-//   channels-first (B, 3, S0, S1, S2):  (b * 3 + ch) * n + v
-// The channels-first one replaces pulpo_tpu/kernels/warp_local.py:
-// _squaring_step_cf_pallas (the stencil on the TPU's tile-padded CF
-// layout, B x 3 x (S0+2) x r8(S1+2) x r128(S2+2)) and the
-// squaring_beyond_cf cascade past its bound (warp_local.py:629-649,
-// warp_halo.py:1687): the field here is unpadded, since a gather needs
-// no halo and the card no (8, 128) tiles. The arithmetic is the same
-// operations in the same order, so the two instantiations are
-// bit-equal on the same field. In CF each component plane is read
-// with unit stride between neighbouring threads (coalesced), where CL
-// reads every third float.
-//
-// Dimensions: the body is also templated on the number of spatial axes
-// ND. The 2D instantiation (channels-last (B, S0, S1, 2), 4 corners x 2
-// components) replaces the ndims == 2 arm of _squaring_step_pallas
-// (warp_local.py:186-202, _step_kernel_2d: a 3x3 hat-weight stencil
-// over the whole padded slice, one grid step per row) and the XLA
-// gather that _squaring_step_tiered takes for a 2D field past the
-// sub-voxel bound (warp_local.py:397-401). The 3D instantiations are
-// the same operations as before the template gained ND.
+// Layouts: one kernel body, instantiated for the layout of component ch
+// of voxel v in row b:
+//   channels-last  (B, *S, ND):  (b * n + v) * ND + ch
+//   channels-first (B, ND, *S):  (b * ND + ch) * n + v
+// the same operations in the same order, so the two are bit-equal; and
+// for ND = 3 (volumes) and ND = 2 (the 2D configuration's slices,
+// channels-last, 4 corners x 2 components).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather.cuh"
+
 namespace {
 
-__device__ __forceinline__ float src_coord(int g, float d, float f, int s) {
-  float loc = (float)g + d;
-  float src = loc * f - 0.5f;
-  return fminf(fmaxf(src, 0.0f), (float)(s - 1));
-}
-
-// One thread per voxel of a field with ND spatial axes (ND = 3: the
-// volumes; ND = 2: the slices of the 2D configuration) and ND
-// components: it gathers the 2^ND corners around its source coordinate.
-// Axis a of voxel v is its a-th row-major index; corner bit a picks the
-// upper neighbour along axis a; weights multiply along the axes in
-// order and the corners add in order, as the plain version does.
 template <bool CF, int ND>
-__global__ void squaring_kernel(const float* __restrict__ vin,
-                                float* __restrict__ vout,
-                                int S0, int S1, int S2,
-                                float f0, float f1, float f2, float scale,
-                                long long total) {
-  long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int S[3] = {S0, S1, S2};
-  const float f[3] = {f0, f1, f2};
-  long long n = 1;
+__global__ void __launch_bounds__(gather::THREADS)
+squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
+                int S0, int S1, int S2, float f0, float f1, float f2, float scale,
+                gather::Plan p) {
+  const int s3[3] = {S0, S1, S2};
+  const float f3[3] = {f0, f1, f2};
+  int s[ND];
+  float f[ND];
 #pragma unroll
-  for (int a = 0; a < ND; ++a) n *= S[a];
-  const long long b = idx / n;
-  const long long v = idx - b * n;
-  int g[ND];
-  long long rem = v;
-#pragma unroll
-  for (int a = ND - 1; a >= 0; --a) {
-    g[a] = (int)(rem % S[a]);
-    rem /= S[a];
+  for (int a = 0; a < ND; ++a) {
+    s[a] = s3[a];
+    f[a] = f3[a];
   }
-  // element (b, voxel, ch) = row + voxel * vs + ch * cs
-  const long long vs = CF ? 1 : ND;
-  const long long cs = CF ? n : 1;
+  const int X = s[ND - 1], Y = s[ND - 2], Z = ND == 3 ? s[0] : 1;
+  const gather::Tile t = gather::tile_of<1>(p);
+  const int x = t.x0 + threadIdx.x, y = t.y0 + threadIdx.y, z = t.z0 + threadIdx.z;
+  if (x >= X || y >= Y || z >= Z) return;
+  const int n = X * Y * Z;
+  // a voxel's element offset along each axis, and a component's
+  int st[ND];
+  st[ND - 1] = CF ? 1 : ND;
+#pragma unroll
+  for (int a = ND - 2; a >= 0; --a) st[a] = st[a + 1] * s[a + 1];
+  const int cs = CF ? n : 1;
+  const float* row = vin + (long long)blockIdx.z * ND * n;
+  const int v = (z * Y + y) * X + x;
 
-  const float* row = vin + b * n * ND;
+  const int g3[3] = {z, y, x};
   float d[ND], c[ND];
 #pragma unroll
   for (int a = 0; a < ND; ++a) {
-    d[a] = row[v * vs + a * cs] * scale;
-    c[a] = src_coord(g[a], d[a], f[a], S[a]);
+    d[a] = __ldg(row + v * st[ND - 1] + a * cs) * scale;
+    c[a] = gather::src_coord(g3[a + 3 - ND], d[a], f[a], s[a]);
   }
-  int i0[ND], i1[ND];
-  float w[ND];
-  for (int a = 0; a < ND; ++a) {
-    float fl = floorf(c[a]);
-    i0[a] = (int)fl;
-    i1[a] = min(i0[a] + 1, S[a] - 1);
-    w[a] = c[a] - fl;
-  }
-  long long stride[ND];
-  stride[ND - 1] = 1;
-#pragma unroll
-  for (int a = ND - 2; a >= 0; --a) stride[a] = stride[a + 1] * S[a + 1];
+  const gather::Corners<ND> k = gather::corners<ND>(c, s);
   float acc[ND];
 #pragma unroll
   for (int corner = 0; corner < (1 << ND); ++corner) {
-    long long off = 0;
-    float weight = 1.0f;
-#pragma unroll
-    for (int a = 0; a < ND; ++a) {
-      const int hi = (corner >> a) & 1;
-      off += (long long)(hi ? i1[a] : i0[a]) * stride[a];
-      const float wa = hi ? w[a] : 1.0f - w[a];
-      weight = (a == 0) ? wa : weight * wa;
-    }
-    const float* p = row + off * vs;
+    const float* pc = row + gather::corner_offset<ND>(k, corner, st);
+    const float weight = gather::corner_weight<ND>(k, corner);
 #pragma unroll
     for (int ch = 0; ch < ND; ++ch) {
-      const float contrib = (__ldg(p + ch * cs) * scale) * weight;
+      const float contrib = (__ldg(pc + ch * cs) * scale) * weight;
       acc[ch] = (corner == 0) ? contrib : acc[ch] + contrib;
     }
   }
-  float* o = vout + b * n * ND + v * vs;
+  float* o = vout + (long long)blockIdx.z * ND * n + v * st[ND - 1];
 #pragma unroll
   for (int ch = 0; ch < ND; ++ch) o[ch * cs] = d[ch] + acc[ch];
 }
 
 template <bool CF, int ND>
 int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
-           float f0, float f1, float f2, float scale, void* stream) {
-  const long long total = (long long)B * S0 * S1 * S2;
-  if (total == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  squaring_kernel<CF, ND><<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)vin, (float*)vout, S0, S1, S2, f0, f1, f2, scale, total);
+           float f0, float f1, float f2, float scale, const int* plan, void* stream) {
+  const int X = ND == 3 ? S2 : S1, Y = ND == 3 ? S1 : S0, Z = ND == 3 ? S0 : 1;
+  const long long n = (long long)X * Y * Z;
+  if (B == 0 || n == 0) return 0;
+  const gather::Plan p = gather::read_plan(plan);
+  if (p.v != 1 || !gather::valid(p, X, Y, Z, 1, B, n * ND)) return (int)cudaErrorInvalidValue;
+  squaring_kernel<CF, ND><<<gather::grid(p, B), gather::block(p), 0, (cudaStream_t)stream>>>(
+      (const float*)vin, (float*)vout, S0, S1, S2, f0, f1, f2, scale, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// plan: the launch's tile plan, 9 ints (gather::Plan) from
+// kernels/gather.py:squaring_plan.
 extern "C" int pulpo_squaring_step(const void* vin, void* vout, int B,
                                    int S0, int S1, int S2,
                                    float f0, float f1, float f2, float scale,
-                                   void* stream) {
-  return launch<false, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, stream);
+                                   const int* plan, void* stream) {
+  return launch<false, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, plan, stream);
 }
 
 // The same step on a channels-first field (B, 3, S0, S1, S2).
 extern "C" int pulpo_squaring_step_cf(const void* vin, void* vout, int B,
                                       int S0, int S1, int S2,
                                       float f0, float f1, float f2, float scale,
-                                      void* stream) {
-  return launch<true, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, stream);
+                                      const int* plan, void* stream) {
+  return launch<true, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, plan, stream);
 }
 
 // The same step on a 2D channels-last field (B, S0, S1, 2): the 4
 // bilinear corners of each pixel.
 extern "C" int pulpo_squaring_step_2d(const void* vin, void* vout, int B,
                                       int S0, int S1, float f0, float f1,
-                                      float scale, void* stream) {
-  return launch<false, 2>(vin, vout, B, S0, S1, 1, f0, f1, 0.0f, scale, stream);
+                                      float scale, const int* plan, void* stream) {
+  return launch<false, 2>(vin, vout, B, S0, S1, 1, f0, f1, 0.0f, scale, plan, stream);
 }

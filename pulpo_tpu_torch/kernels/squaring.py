@@ -37,6 +37,10 @@ any displacement. The JAX package's 2D backward is XLA's VJP
 warp_local.py:439-446), so a 2D `integrate_svf` is differentiated as
 its plain version (`plain_vjp`); `csrc/squaring_bwd.cu` stays 3D.
 
+The step takes each thread's voxel from a tile of the field
+(`csrc/gather.cuh`) by the plan that `tile_plan` computes and the launch
+passes in (`kernels/gather.py`).
+
 Layout: (B, *S, nd) channels-last float32 (nd = 3, or 2 in 2D); the CF
 functions (B, 3, *S).
 """
@@ -44,10 +48,11 @@ functions (B, 3, *S).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from pulpo_tpu_torch.kernels import _build, plain_vjp
+from pulpo_tpu_torch.kernels import _build, gather, plain_vjp
 from pulpo_tpu_torch.kernels.warp import (
     _factor,
     warp_dfgrad_plain,
@@ -119,12 +124,22 @@ def _factors(vec: torch.Tensor) -> list[float]:
     return [_factor(s[i], s[i]) for i in range(len(s))]
 
 
+def tile_plan(shape, cf: bool = False) -> dict:
+    """The tile plan of the step's launch on a field of `shape`
+    (channels-last, or channels-first with `cf`; `kernels/gather.py:
+    squaring_plan`)."""
+    spatial = tuple(shape[2:]) if cf else tuple(shape[1:-1])
+    return gather.squaring_plan(spatial, shape[0])
+
+
 def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
                  ndims: int = 3) -> torch.Tensor:
     """One launch of C entry `entry` of the squaring library on a CUDA
     field of `ndims` spatial axes (channels-last, or channels-first with
     `cf`)."""
     _check(_cl(vec) if cf else vec, "squaring kernel", ndims)
+    if math.prod(vec.shape[1:]) >= 2**31:
+        raise ValueError(f"squaring kernel addresses a row in 32 bits, got {tuple(vec.shape)}")
     vec = vec.contiguous()
     if out is None:
         out = torch.empty_like(vec, memory_format=torch.contiguous_format)
@@ -134,11 +149,12 @@ def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
     cl = _cl(vec) if cf else vec
     fn = getattr(_build.load("squaring"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (ndims + 1)
-                   + [ctypes.c_float] * (ndims + 1) + [ctypes.c_void_p])
+                   + [ctypes.c_float] * (ndims + 1) + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+    plan = gather.plan_arg(tile_plan(vec.shape, cf))
     with torch.cuda.device(vec.device):
         rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *cl.shape[1:-1], *_factors(cl),
-                float(scale), _build.stream_ptr(vec))
+                float(scale), plan, _build.stream_ptr(vec))
     _build.check(rc, entry)
     return out
 

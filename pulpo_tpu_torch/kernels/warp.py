@@ -41,6 +41,13 @@ path. Its df- and moving-cotangents replay the plain version
 (`plain_vjp`), as the JAX package's 2D gradient is XLA's VJP;
 `csrc/warp_bwd.cu` stays 3D.
 
+The forward kernel walks tiles of the output (`csrc/gather.cuh`) by the
+plan that `tile_plan` computes and the launch passes in
+(`kernels/gather.py`): a block takes planes x lines x a strip of the
+innermost axis of one df row group that reads one moving row; a thread
+computes its own voxel or, in a large channels-first launch, moves a
+quad of 4 voxels with 16-byte accesses.
+
 Layout: moving (B, *S_in, C) and df (B_df, *S_out, nd) channels-last
 float32, nd = 3 or, in 2D, 2 (the CF functions: (B, C, *S_in) and
 (B_df, 3, *S_out)); df channel i = displacement along spatial axis i;
@@ -50,10 +57,11 @@ df row r reads moving row r % B (samples folded into the df's batch).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from pulpo_tpu_torch.kernels import _build, plain_vjp
+from pulpo_tpu_torch.kernels import _build, gather, plain_vjp
 
 launches = 0         # kernel launches of `warp` in 3D (never of the plain version)
 launches_2d = 0      # kernel launches of `warp` in 2D
@@ -247,24 +255,40 @@ def _check_g(g: torch.Tensor, df: torch.Tensor, c: int) -> None:
                          f"{df.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
 
 
+def _shapes(moving_shape, df_shape, cf: bool):
+    """(B, C, S_in, S_out) of a launch; `cf`: the shapes are channels-first."""
+    if cf:
+        return moving_shape[0], moving_shape[1], tuple(moving_shape[2:]), tuple(df_shape[2:])
+    return moving_shape[0], moving_shape[-1], tuple(moving_shape[1:-1]), tuple(df_shape[1:-1])
+
+
+def tile_plan(moving_shape, df_shape, cf: bool = False) -> dict:
+    """The tile plan of the forward kernel's launch on these shapes
+    (`kernels/gather.py:warp_plan`)."""
+    b, _, _, s_out = _shapes(moving_shape, df_shape, cf)
+    return gather.warp_plan(s_out, df_shape[0], b, cf)
+
+
 def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False):
     """Call the C entry `entry(ptrs..., B, B_df, C, I0.., O0.., f0..,
-    stream)` of kernel library `lib`, one I, O and f per spatial axis;
-    `cf`: the shapes are channels-first."""
-    if cf:
-        b, c = moving_shape[0], moving_shape[1]
-        s_in, s_out = tuple(moving_shape[2:]), tuple(df.shape[2:])
-    else:
-        b, c = moving_shape[0], moving_shape[-1]
-        s_in, s_out = tuple(moving_shape[1:-1]), tuple(df.shape[1:-1])
+    [plan,] stream)` of kernel library `lib`, one I, O and f per spatial
+    axis (the forward kernel also takes its tile plan); `cf`: the shapes
+    are channels-first."""
+    b, c, s_in, s_out = _shapes(moving_shape, df.shape, cf)
     nd = len(s_in)
+    plan = []
+    if lib == "warp":
+        if max(math.prod(s_in) * c, math.prod(s_out) * max(c, nd)) >= 2**31:
+            raise ValueError(f"warp kernel addresses a row in 32 bits: moving "
+                             f"{tuple(moving_shape)}, df {tuple(df.shape)}")
+        plan = [gather.plan_arg(tile_plan(moving_shape, df.shape, cf))]
     f = [_factor(s_in[i], s_out[i]) for i in range(nd)]
     fn = getattr(_build.load(lib), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (3 + 2 * nd)
-                   + [ctypes.c_float] * nd + [ctypes.c_void_p])
+                   + [ctypes.c_float] * nd + [ctypes.c_void_p] * (len(plan) + 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(df.device):
-        rc = fn(*ptrs, b, df.shape[0], c, *s_in, *s_out, *f, _build.stream_ptr(df))
+        rc = fn(*ptrs, b, df.shape[0], c, *s_in, *s_out, *f, *plan, _build.stream_ptr(df))
     _build.check(rc, entry)
 
 

@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Time the gather kernels (csrc/warp.cu, csrc/squaring.cu) at the shapes
+the paths launch, at both of their tile plans, against another checkout.
+
+    python3 scripts/bench_gather.py [--parent DIR] [--json PATH] [--sass DIR]
+
+For each case (a warp or a squaring step at a shape a path launches:
+the full_res batched warp and its mean tail, the level_res decode's
+warps at every level, LungCT's warp under its respiratory field, the 2D
+warp; one squaring step at each flagship level, CL and CF, and the 2D
+step) it calls the C entry points of:
+- `v1`, `v4`: this checkout's libraries with the launch's plan at one
+  and (the channels-first warp) four voxels a thread
+  (kernels/gather.py); `new` is the one the wrappers take;
+- `parent`: with --parent, the same sources of the checkout at DIR,
+  built with the same flags (its entry points take no plan).
+Every output is held equal, bit for bit, to `v1`'s, and `v1`'s to the
+plain version on the cases small enough to run it. Times: CUDA events,
+the median of 5 timings of `iters` calls, taken in turns (parent, v1,
+v4, v4, v1, parent, without v4 where there is none); for the cases under 200 MB, whose calls are
+host-bound, device times of a CUDA graph of the calls. With --sass DIR,
+the SASS of this checkout's two libraries goes to DIR and each kernel's
+instruction mix is printed. The bound is each input read once and each
+output written once over 3.35 TB/s. Prints the card, a table and each
+path's device ms, and writes the records to --json. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12
+
+
+def build_parent(root: str, name: str):
+    """The library of kernel `name` built from checkout `root`'s source
+    with this checkout's flags."""
+    from pulpo_tpu_torch.kernels import _build
+
+    src, extra = _build.SOURCES[name]
+    lib = _build.BUILD_DIR / f"parent_lib{name}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), os.path.join(root, "pulpo_tpu_torch", "csrc", src),
+           *_build.BASE_FLAGS, *extra, "-o", str(lib)]
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(lib))
+
+
+def warp_call(lib, mov, df, out, cf, v=None):
+    """One launch of `lib`'s warp entry on these tensors (the wrapper's
+    arguments, kernels/warp.py:_launch) with the plan at `v` voxels a
+    thread; v None: the parent's entry, which takes no plan."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import gather, warp
+
+    b, c, s_in, s_out = warp._shapes(mov.shape, df.shape, cf)
+    nd = len(s_in)
+    entry = "pulpo_warp_cf" if cf else ("pulpo_warp_2d" if nd == 2 else "pulpo_warp")
+    fn = getattr(lib, entry)
+    plan = [] if v is None else [gather.plan_arg(gather.warp_plan(s_out, df.shape[0], b, cf, v))]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + 2 * nd)
+                   + [ctypes.c_float] * nd + [ctypes.c_void_p] * (len(plan) + 1))
+    f = [warp._factor(s_in[i], s_out[i]) for i in range(nd)]
+    rc = fn(mov.data_ptr(), df.data_ptr(), out.data_ptr(), b, df.shape[0], c, *s_in, *s_out, *f,
+            *plan, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"{entry}: CUDA error {rc}"
+
+
+def step_call(lib, vec, out, cf, v=None, scale=1.0):
+    """One launch of `lib`'s squaring entry (kernels/squaring.py:_launch_step)
+    with its plan (one voxel a thread); v None: the parent's entry."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import gather, warp
+
+    s = tuple(vec.shape[2:]) if cf else tuple(vec.shape[1:-1])
+    nd = len(s)
+    entry = "pulpo_squaring_step_cf" if cf else ("pulpo_squaring_step_2d" if nd == 2
+                                                 else "pulpo_squaring_step")
+    fn = getattr(lib, entry)
+    plan = [] if v is None else [gather.plan_arg(gather.squaring_plan(s, vec.shape[0]))]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (nd + 1)
+                   + [ctypes.c_float] * (nd + 1) + [ctypes.c_void_p] * (len(plan) + 1))
+    rc = fn(vec.data_ptr(), out.data_ptr(), vec.shape[0], *s, *[warp._factor(x, x) for x in s],
+            float(scale), *plan, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"{entry}: CUDA error {rc}"
+
+
+# "/*0080*/  @!P0 BRA 0x120 ;": the opcode, past an address and a predicate
+SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "BAR", "IMAD", "IADD3", "LEA", "FMUL", "FADD", "FMNMX",
+            "FRND", "F2I", "I2F", "ISETP", "BRA", "SHFL")
+
+
+def sass_summary(out_dir: str) -> None:
+    """Dump the SASS of this checkout's warp and squaring libraries into
+    `out_dir` and print, per kernel, its instruction count and mix."""
+    from pulpo_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    os.makedirs(out_dir, exist_ok=True)
+    for k in ("warp", "squaring"):
+        usage = subprocess.run([cuobjdump, "-res-usage", str(_build._target(k)[0])], check=True,
+                               capture_output=True, text=True).stdout.splitlines()
+        for name, res in zip(usage, usage[1:]):
+            if name.strip().startswith("Function") and "REG" in res:
+                print(f"  resources {k}: {name.strip()[9:79]} {res.strip()}")
+        text = subprocess.run([cuobjdump, "-sass", str(_build._target(k)[0])], check=True,
+                              capture_output=True, text=True).stdout
+        with open(os.path.join(out_dir, f"{k}.sass"), "w") as fh:
+            fh.write(text)
+        for block in text.split("Function : ")[1:]:
+            name = block.splitlines()[0].strip()
+            ops = [m.group(1) for m in map(SASS_LINE.match, block.splitlines()) if m]
+            mix = {o: sum(1 for x in ops if x == o) for o in SASS_OPS}
+            print(f"  sass {k}: {name[:70]} {len(ops)} instructions; "
+                  + " ".join(f"{o} {c}" for o, c in mix.items() if c))
+
+
+FULL, LUNG = (160, 192, 224), (192, 192, 208)  # flagship's and LungCT's input sizes
+LEVELS = [(80, 96, 112), (40, 48, 56), (20, 24, 28), (10, 12, 14)]  # flagship latent levels
+LUNG_LEVELS = [(96, 96, 104), (48, 48, 52), (24, 24, 26), (12, 12, 13)]  # LungCT's
+PATHS = ("level_res request", "full_res request", "flagship step", "LungCT step")
+PATH_KEYS = dict(zip(("level_res_request", "full_res_request", "flagship_step", "LungCT_step"),
+                     PATHS))
+
+
+def cases(dev):
+    """The cases, each a dict: name, kind ("warp": tensors (moving, df);
+    "step": (field,)), cf, bytes (each input read once, each output
+    written once), plain (small enough to check against the plain
+    version), paths (launches of that call per warm UQ-32 request or
+    training step, from the code). Per level, the integration runs at the
+    level's size: in a request a decode integration of 32 rows and a
+    mean-tail one of 1 row, in a B = 1 step one of 1 row, 7 steps each.
+    The warps run at `df_size(l)`, which is the input size at level 0
+    even at level_res (pulpo_tpu_torch/config.py:df_size): the level_res
+    decode warps 32 rows of each level's image (level 0: the input), the
+    mean tail the input image by each level's 1-row mean df, a training
+    step each level's image by its 1-row df; the full_res request makes
+    one batched CF warp of 4 x 32 rows and a 4-row tail. The 32-row warp
+    at the latent level-0 size (80x96x112) is on no path."""
+    import torch
+
+    from chip_smoke import respiratory_field, smooth_field
+
+    cf_of = lambda v: v.movedim(-1, 1).contiguous()
+    full = FULL
+    n = math.prod(full)
+    img = torch.rand((1, *full, 1), device=dev)
+    out = []
+
+    def add(name, kind, tensors, cf, bytes_, plain, **paths):
+        out.append(dict(name=name, kind=kind, tensors=tensors, cf=cf, bytes=bytes_, plain=plain,
+                        paths={PATH_KEYS[p]: k for p, k in paths.items()}))
+
+    for rows in (128, 4):
+        df = cf_of(smooth_field(rows, full, 3.0, seed=300 + rows, device=dev))
+        add(f"#8 warp_cf {rows} rows 160x192x224", "warp", (cf_of(img), df), True,
+            4 * (rows * n * 4 + n), rows <= 4, full_res_request=1)
+    df = smooth_field(32, full, 3.0, seed=302, device=dev)
+    add("#4 warp 32 rows 160x192x224 (level 0, phase 6)", "warp", (img, df), False,
+        4 * (32 * n * 4 + n), False, level_res_request=1)
+    add("#4 warp 1 row 160x192x224 (level 0)", "warp",
+        (img, smooth_field(1, full, 3.0, seed=301, device=dev)), False, 4 * n * 5, True,
+        level_res_request=1, flagship_step=1)
+    for l, size in enumerate(LEVELS):
+        nl = math.prod(size)
+        fmt = "x".join(map(str, size))
+        on_path = {} if l == 0 else {"level_res_request": 1}
+        m = torch.rand((1, *size, 1), device=dev)
+        add(f"#4 warp 32 rows {fmt}", "warp", (m, smooth_field(32, size, 3.0, seed=303 + l,
+                                                                device=dev)),
+            False, 4 * (32 * nl * 4 + nl), l > 0, **on_path)
+        if l > 0:
+            add(f"#4 warp 1 row {fmt}", "warp", (m, smooth_field(1, size, 3.0, seed=313 + l,
+                                                                  device=dev)),
+                False, 4 * nl * 5, True, flagship_step=1)
+            add(f"#4 warp 1 row 160x192x224 image, {fmt} df", "warp",
+                (img, smooth_field(1, size, 3.0, seed=323 + l, device=dev)), False,
+                4 * (nl * 4 + n), True, level_res_request=1)
+        for rows in (32, 1):
+            v = smooth_field(rows, size, 3.0, seed=330 + l + rows, device=dev)
+            bytes_ = 2 * rows * nl * 3 * 4
+            add(f"#1 squaring CL {rows} rows {fmt}", "step", (v,), False, bytes_, l > 1 or rows == 1,
+                level_res_request=7, **({"flagship_step": 7} if rows == 1 else {}))
+            add(f"#3 squaring CF {rows} rows {fmt}", "step", (cf_of(v),), True, bytes_,
+                l > 1 or rows == 1, full_res_request=7)
+    lung = LUNG
+    nl = math.prod(lung)
+    add("#5 warp 1 row 192x192x208 LungCT ramp (level 0)", "warp",
+        (torch.rand((1, *lung, 1), device=dev), respiratory_field(lung, 16.0, 4.0, dev)),
+        False, 4 * nl * 5, True, LungCT_step=1)
+    for l, size in enumerate(LUNG_LEVELS):
+        nl = math.prod(size)
+        fmt = "x".join(map(str, size))
+        if l > 0:
+            add(f"#5 warp 1 row {fmt} LungCT ramp", "warp",
+                (torch.rand((1, *size, 1), device=dev),
+                 respiratory_field(size, 16.0 / 2**(l + 1), 4.0 / 2**(l + 1), dev)),
+                False, 4 * nl * 5, True, LungCT_step=1)
+        v = respiratory_field(size, 8.0 / 2**(l + 1), 2.0 / 2**(l + 1), dev) * (1.0 / 128)
+        add(f"#1 squaring CL 1 row {fmt} LungCT ramp", "step", (v,), False, 2 * nl * 3 * 4,
+            True, LungCT_step=7)
+    m3 = smooth_field(1, LEVELS[0], 1.0, seed=309, device=dev)
+    add("#4 warp C=3 32 rows 80x96x112 (field by field)", "warp",
+        (m3, smooth_field(32, LEVELS[0], 3.0, seed=310, device=dev)), False,
+        4 * math.prod(LEVELS[0]) * (32 * 6 + 3), False)
+    d2 = FULL[1:]
+    add("2D warp 32 rows 160x192", "warp",
+        (torch.rand((1, *d2, 1), device=dev), smooth_field(32, d2, 3.0, seed=311, device=dev,
+                                                           channels=2)),
+        False, 4 * math.prod(d2) * (32 * 3 + 1), True)
+    for size in (LEVELS[0][:2], LEVELS[1][:2]):  # flagship-2d's levels 0 and 1
+        v = smooth_field(32, size, 3.0, seed=340 + size[0], device=dev, channels=2)
+        add(f"2D squaring 32 rows {'x'.join(map(str, size))}", "step", (v,), False,
+            2 * 32 * math.prod(size) * 2 * 4, True)
+    return out
+
+
+def run_case(case: dict, libs: dict, dev) -> dict:
+    """Run one case on both plans of this checkout and on the parent:
+    outputs held equal to `v1`'s (and `v1`'s to the plain version's where
+    small), then timed in turns. Prints a line; returns the record."""
+    import torch
+
+    from chip_smoke import graph_ms, time_ms
+    from pulpo_tpu_torch.kernels import squaring, warp
+
+    name, kind, tensors, cf, bytes_ = (case[k] for k in ("name", "kind", "tensors", "cf",
+                                                          "bytes"))
+    sides = {"v1": ("new", 1)}
+    if kind == "warp" and cf:
+        sides["v4"] = ("new", 4)
+    if "parent" in libs:
+        sides["parent"] = ("parent", None)
+    if kind == "warp":
+        mov, df = tensors
+        _, c, _, s_out = warp._shapes(mov.shape, df.shape, cf)
+        shape = (df.shape[0], c, *s_out) if cf else (df.shape[0], *s_out, c)
+        mk = lambda: torch.empty(shape, device=dev)
+        call = lambda k, o: warp_call(libs[sides[k][0]]["warp"], mov, df, o, cf, sides[k][1])
+        plain = (lambda: warp.warp_cf_plain(mov, df)) if cf else (lambda: warp.warp_plain(mov, df))
+        chosen = warp.tile_plan(mov.shape, df.shape, cf)["v"]
+    else:
+        (vec,) = tensors
+        mk = lambda: torch.empty_like(vec)
+        call = lambda k, o: step_call(libs[sides[k][0]]["squaring"], vec, o, cf, sides[k][1])
+        plain = ((lambda: squaring.squaring_step_cf_plain(vec)) if cf
+                 else (lambda: squaring.squaring_step_plain(vec)))
+        chosen = squaring.tile_plan(vec.shape, cf)["v"]
+    outs = {}
+    for k in sides:
+        outs[k] = mk()
+        call(k, outs[k])
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(outs[k], outs["v1"])) for k in sides}
+    if case["plain"]:
+        same["plain"] = bool(torch.equal(outs["v1"], plain()))
+    # device times of a graph where a call's host side would outlast its kernel
+    on_graph = bytes_ < 2e8
+    timer = graph_ms if on_graph else (lambda fn: time_ms(fn, 5 if bytes_ > 4e9 else 20))
+    order = [k for k in ("v1", "v4", "v4", "v1") if k in sides]
+    if "parent" in sides:
+        order = ["parent", *order, "parent"]
+    times = {}
+    for k in order:
+        o = outs[k]
+        times.setdefault(k, []).append(timer(lambda k=k, o=o: call(k, o)))
+    times["new"] = times[f"v{chosen}"]
+    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+    record = {"case": name, "bound_ms": bound, "equal": same, "device_graph": on_graph,
+              "paths": case["paths"], "v": chosen, "ms": times}
+    best = statistics.median(times["new"])
+    line = f"{name:48s} bound {bound:8.4f}  new (v{chosen}) {best:.4f} ({bound / best:.2f} of bound)"
+    for k in ("v1", "v4", "parent"):
+        if k in times:
+            line += f"  {k} {' / '.join(f'{t:.4f}' for t in times[k])}"
+    print(line + f"  equal {same}", flush=True)
+    del outs, tensors
+    torch.cuda.empty_cache()
+    return record
+
+
+def path_sums(records: list, side: str) -> None:
+    """Print each path's device ms of the kernels #1, #3, #4, #5, #8 on
+    library `side`: launches x per-call time (the median), summed over
+    the shapes the path launches, beside the bound."""
+    for path in PATHS:
+        for prefix in ("#1", "#3", "#4", "#5", "#8"):
+            picked = [r for r in records if r["case"].startswith(prefix) and path in r["paths"]]
+            if picked:
+                ms = sum(r["paths"][path] * statistics.median(r["ms"][side]) for r in picked)
+                bound = sum(r["paths"][path] * r["bound_ms"] for r in picked)
+                launches = sum(r["paths"][path] for r in picked)
+                print(f"path {side:6s} {path:18s} {prefix}: {launches:3d} launches "
+                      f"{ms:8.4f} ms, bound {bound:8.4f} ms")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", default=None, help="another checkout to time beside this one")
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--sass", default=None, help="write the kernels' SASS under this directory "
+                    "and print each kernel's instruction mix")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_gather: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from chip_smoke import card_line
+    from pulpo_tpu_torch.kernels import _build
+
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    dev = torch.device("cuda")
+    libs = {"new": {k: _build.load(k) for k in ("warp", "squaring")}}
+    for k in ("warp", "squaring"):
+        for line in _build.BUILD_LOGS.get(k, "").splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill")):
+                print(f"  ptxas {k}: {line.strip()}")
+    if args.sass:
+        sass_summary(args.sass)
+    if args.parent:
+        libs["parent"] = {k: build_parent(args.parent, k) for k in ("warp", "squaring")}
+
+    records = [run_case(case, libs, dev) for case in cases(dev)]
+    for side in [k for k in ("new", "parent") if k in libs]:
+        path_sums(records, side)
+    bad = [r["case"] for r in records if not all(r["equal"].values())]
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as fh:
+            json.dump({"card": card, "records": records}, fh, indent=1)
+    print(f"card: {card}")
+    if bad:
+        print(f"bench_gather: outputs differ in {bad}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,13 @@
 """Where a training step's time goes on the card (PyTorch/CUDA port).
 
     python3 scripts/profile_torch_train.py [--steps 3] [--top 30] [--ndims 2]
+                                           [--input_size 192 192 208]
 
 Builds the flagship model (160x192x224, 5/4 levels, n0=32, bf16,
 level_res, NCC + KL + L2, Adam lr 1e-4, B = 1; with --ndims 2 the
-`flagship-2d` configuration: the same network on a 160x192 slice) with
-seeded random
+`flagship-2d` configuration: the same network on a 160x192 slice; with
+--input_size the same network on another volume, e.g. LungCT's 192 192
+208, at the LungCT Trainer step's shapes) with seeded random
 weights, takes one warm-up step on a synthetic pair, then profiles
 `--steps` more with torch.profiler. Prints the card, each step's
 host-clock time, the peak device memory, the device's busy time (the
@@ -49,6 +51,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=30)
     ap.add_argument("--ndims", type=int, default=3, choices=(2, 3))
+    ap.add_argument("--input_size", type=int, nargs="+", default=None)
     args = ap.parse_args()
 
     import numpy as np
@@ -70,7 +73,8 @@ def main() -> int:
                           check=True).stdout.strip()
     print(f"card: {card}")
     _build.build_all()
-    cfg = PULPoConfig(input_size=(160, 192, 224)[:args.ndims], total_levels=5, latent_levels=4,
+    size = tuple(args.input_size) if args.input_size else (160, 192, 224)[:args.ndims]
+    cfg = PULPoConfig(input_size=size, total_levels=5, latent_levels=4,
                       n0=32, compute_dtype="bfloat16", df_resolution="level_res",
                       dataset="synthetic", batch_size=1)
     model = PULPoModel(cfg)

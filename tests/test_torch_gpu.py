@@ -21,6 +21,7 @@ from chip_smoke import (
     Checks,
     chain_stages,
     check_eval_gradients,
+    misaligned,
     pos_head_params,
     respiratory_field,
 )
@@ -760,3 +761,110 @@ def test_conv_unit_modes_match_plain(cuda_device, dtype, rel, cin, cout):
     for g, r in zip(got, ref):
         assert g.dtype == dtype and g.shape == r.shape
         _close_scaled(g.float(), r.float(), rel)
+
+
+# ----------------------------------------------------------------------
+# the gather kernels' tiles (csrc/gather.cuh): every instantiation at
+# ragged sizes and misaligned bases, on both plans
+# ----------------------------------------------------------------------
+
+def _misaligned(t):
+    """The same values in contiguous memory starting 4 bytes past a
+    16-byte boundary: the kernels' 16-byte accesses must give way to
+    their scalar path."""
+    out = misaligned(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("cf_quads", [False, True])
+@pytest.mark.parametrize("layout", ["cl", "cf", "2d"])
+@pytest.mark.parametrize("c", [1, 3])
+def test_gather_warp_instantiations_at_ragged_sizes(cuda_device, monkeypatch, layout, c,
+                                                     cf_quads):
+    """The warp's CL, CF and 2D instantiations at 13x17x19 (2D 13x17),
+    C = 1 and 3, 2 moving rows read as r % 2 by 6 df rows, displacements
+    past the tiles, the CF one at 1 and (`cf_quads`) 4 voxels a thread:
+    bit-equal to the plain version, CF to CL, a permuted df and a
+    misaligned base to the contiguous aligned call, one launch per call."""
+    from pulpo_tpu_torch.kernels import gather
+
+    monkeypatch.setattr(gather, "WARP_CF_QUADS_FROM", 0 if cf_quads else 2**62)
+    size = (13, 17) if layout == "2d" else (13, 17, 19)
+    nd = len(size)
+    rng = np.random.default_rng(60 + c)
+    m = torch.from_numpy(rng.random((2, *size, c), dtype=np.float32)).to(cuda_device)
+    d = _field((6, *size, nd), 7.0, 61).to(cuda_device)
+    ref = warp.warp_plain(m, d)
+    counter = "cf_launches" if layout == "cf" else ("launches_2d" if nd == 2 else "launches")
+    before = getattr(warp, counter)
+    if layout == "cf":  # CF tensors in, the output viewed channels-last
+        to = lambda t: t.movedim(-1, 1).contiguous()
+        call = lambda mm, dd: warp.warp_cf(mm, dd).movedim(1, -1)
+        perm = d.movedim(-1, 1)  # CF shape over channels-last memory
+    else:
+        to, call = (lambda t: t), warp.warp
+        perm = d.movedim(-1, 1).contiguous().movedim(1, -1)
+    got = call(to(m), to(d))
+    torch.cuda.synchronize()
+    assert getattr(warp, counter) == before + 1
+    assert torch.equal(got, ref)
+    assert torch.equal(call(to(m), perm), got)
+    assert torch.equal(call(_misaligned(to(m)), _misaligned(to(d))), got)
+    if layout == "cf":
+        assert torch.equal(got, warp.warp(m, d))
+    assert getattr(warp, counter) == before + 3
+
+
+@pytest.mark.parametrize("layout", ["cl", "cf", "2d"])
+@pytest.mark.parametrize("mag", [0.8, 4.0, 30.0])
+def test_gather_squaring_instantiations_at_ragged_sizes(cuda_device, layout, mag):
+    """The squaring step's CL, CF and 2D instantiations at 13x17x19 (2D
+    13x17), sub-voxel and past the tile: one step bit-equal to the plain
+    version, CF to CL, a permuted and a misaligned field to the
+    contiguous aligned one; a 7-step integration bit-equal to the plain
+    one; one launch a step."""
+    size = (13, 17) if layout == "2d" else (13, 17, 19)
+    nd = len(size)
+    v = _field((3, *size, nd), mag, 62).to(cuda_device)
+    ref = squaring.squaring_step_plain(v * 0.5)
+    counter = "cf_launches" if layout == "cf" else ("launches_2d" if nd == 2 else "launches")
+    before = getattr(squaring, counter)
+    if layout == "cf":
+        step = lambda a: squaring.squaring_step_cf(a.movedim(-1, 1).contiguous(),
+                                                    scale=0.5).movedim(1, -1)
+        integ = lambda a: squaring.integrate_svf_cf(a.movedim(-1, 1).contiguous(), 7).movedim(1, -1)
+    else:
+        step = lambda a: squaring.squaring_step(a.contiguous(), scale=0.5)
+        integ = lambda a: squaring.integrate_svf(a, 7)
+    got = step(v)
+    torch.cuda.synchronize()
+    assert getattr(squaring, counter) == before + 1
+    assert torch.equal(got, ref)
+    if layout == "cf":
+        assert torch.equal(got, squaring.squaring_step(v, scale=0.5))
+    else:
+        perm = v.movedim(-1, 1).contiguous().movedim(1, -1)
+        assert torch.equal(squaring.squaring_step(perm, scale=0.5), got)
+        out = _misaligned(torch.empty_like(v))
+        assert torch.equal(squaring.squaring_step(_misaligned(v), out, scale=0.5), got)
+    before = getattr(squaring, counter)
+    assert torch.equal(integ(v), squaring.integrate_svf_plain(v, 7))
+    assert getattr(squaring, counter) == before + 7
+
+
+@pytest.mark.parametrize("bad", [{"tiles_y": 1}, {"v": 4}, {"v": 2}])
+def test_gather_entry_refuses_a_plan_it_cannot_walk(cuda_device, monkeypatch, bad):
+    """A plan whose tiles miss part of the output, or quads on a
+    channels-last warp, is refused at the C entry point (gather::valid),
+    not launched."""
+    from pulpo_tpu_torch.kernels import gather
+
+    real = gather.warp_plan
+    monkeypatch.setattr(gather, "warp_plan", lambda *a, **k: dict(real(*a, **k), **bad))
+    m = torch.rand((1, 13, 17, 19, 1), device=cuda_device)
+    d = _field((2, 13, 17, 19, 3), 2.0, 63).to(cuda_device)
+    before = warp.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        warp.warp(m, d)
+    assert warp.launches == before
