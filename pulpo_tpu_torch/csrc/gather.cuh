@@ -1,7 +1,9 @@
 // Shared pieces of the two gather kernels, csrc/warp.cu and
 // csrc/squaring.cu: the source coordinate of the reference
 // SpatialTransformer, the walk over a voxel's 2^ND corners, the tile
-// plan with its block decode, and the quad loads and stores.
+// plan with its block decode, and the quad loads and stores. The
+// squaring step's backward, csrc/squaring_bwd.cu, takes the same plan
+// and block decode, its tz being the planes a block marches.
 //
 // The tile plan is computed on the host by kernels/gather.py:make_plan
 // and passed to the C entry points as 9 ints (Plan); the kernels walk

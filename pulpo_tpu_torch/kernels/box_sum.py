@@ -6,12 +6,16 @@ its `lax.reduce_window` fallback `_box_sum_xla`): the sum of x over a
 win x win x win window around each voxel, zero outside the volume (the
 reference's ones-kernel convs with padding win // 2). `csrc/box_sum.cu`
 runs the three axis passes in the TPU kernel's order (H, W, D) as
-shifted adds, as the plain version does, so the two agree bit for bit.
+shifted adds, as the plain version does, so the two agree bit for bit:
+one launch, in which a block marches a tile of (H, W) along a chunk of
+D planes (`box_sum_plan`), the H and W passes in shared memory and the
+D pass over a register ring of the last `win` planes.
 
 In 2D (`box_sum_2d` launches, the NCC of the 2D configuration) it
 replaces the x.ndim == 3 arm of `_box_sum_pallas` (box_sum.py:63-74):
 the win x win box sum of a (B, H, W) slice, the H pass then the W pass
-(`_hw_kernel`), from the same source's `pulpo_box_sum_2d` entry.
+(`_hw_kernel`), from the same source's `pulpo_box_sum_2d` entry: the
+same plane kernel without the D ring, one launch.
 
 `BoxSum` is the autograd Function: the box sum is symmetric and zero-
 padded, so it is self-adjoint and its backward is the same kernel on
@@ -27,9 +31,14 @@ import ctypes
 import torch
 
 from pulpo_tpu_torch.kernels import _build
+from pulpo_tpu_torch.kernels.gather import cdiv
 
-launches = 0     # kernel launches of `box_sum` on (B, D, H, W) (three passes)
-launches_2d = 0  # kernel launches of `box_sum` on (B, H, W) (two passes)
+launches = 0     # kernel launches of `box_sum` on (B, D, H, W)
+launches_2d = 0  # kernel launches of `box_sum` on (B, H, W)
+
+TILE_W, TILE_H = 32, 32  # a block's outputs along W and H (csrc/box_sum.cu: TW, TH)
+MAX_WINDOW = 17          # the widest window the kernel is instantiated for
+TARGET_BLOCKS = 396      # D is split into chunks until a launch has as many blocks
 
 
 def reset_count() -> None:
@@ -63,23 +72,48 @@ def box_sum_plain(x: torch.Tensor, win: int) -> torch.Tensor:
     return x
 
 
+def box_sum_plan(b: int, d: int, h: int, w: int) -> dict:
+    """The launch's plan over B x D x H x W (a 2D input: D = 1): tiles of
+    TILE_H x TILE_W outputs, and D split into as few chunks of `chunk`
+    planes as give the launch TARGET_BLOCKS blocks (a chunk also reads
+    win // 2 planes on each side). The grid is (tiles_w, tiles_h,
+    b * chunks)."""
+    tiles_w, tiles_h = cdiv(w, TILE_W), cdiv(h, TILE_H)
+    chunks = max(1, min(d, cdiv(TARGET_BLOCKS, tiles_w * tiles_h * b)))
+    chunk = cdiv(d, chunks)
+    return {"tw": TILE_W, "th": TILE_H, "tiles_w": tiles_w, "tiles_h": tiles_h,
+            "chunk": chunk, "chunks": cdiv(d, chunk)}
+
+
+PLAN_KEYS = ("tw", "th", "tiles_w", "tiles_h", "chunk", "chunks")
+
+
+def plan_arg(plan: dict):
+    """`plan` as the C entry points take it: 6 ints."""
+    return (ctypes.c_int * len(PLAN_KEYS))(*(plan[k] for k in PLAN_KEYS))
+
+
 def _box_sum_kernel(x: torch.Tensor, win: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return box_sum_plain(x, win)
     if x.dim() not in (3, 4) or x.dtype != torch.float32:
         raise ValueError(f"box_sum kernel takes (B, D, H, W) or (B, H, W) float32, "
                          f"got {tuple(x.shape)} {x.dtype}")
+    if win > MAX_WINDOW:
+        raise ValueError(f"box_sum kernel takes windows up to {MAX_WINDOW}, got {win}")
     x = x.contiguous()
     out = torch.empty_like(x)
-    tmp = torch.empty_like(x)
     entry = "pulpo_box_sum" if x.dim() == 4 else "pulpo_box_sum_2d"
     fn = getattr(_build.load("box_sum"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * (x.dim() + 1) + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (x.dim() + 1)
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+    b, *rest = x.shape
+    d, h, w = rest if x.dim() == 4 else (1, *rest)
+    plan = plan_arg(box_sum_plan(b, d, h, w))
     global launches, launches_2d
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), out.data_ptr(), tmp.data_ptr(), *x.shape, int(win),
-                _build.stream_ptr(x))
+        rc = fn(x.data_ptr(), out.data_ptr(), *x.shape, int(win), plan, _build.stream_ptr(x))
         if x.dim() == 4:
             launches += 1
         else:
@@ -103,8 +137,8 @@ class BoxSum(torch.autograd.Function):
 
 def box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
     """Zero-padded box sum of x (B, D, H, W) or (B, H, W) with window `win` (odd),
-    differentiable: the CUDA kernel on the card, the plain version on
-    the CPU."""
+    differentiable: the CUDA kernel on the card (windows up to
+    MAX_WINDOW), the plain version on the CPU."""
     if win % 2 != 1:
         raise ValueError(f"box_sum takes an odd window, got {win}")
     if win == 1:

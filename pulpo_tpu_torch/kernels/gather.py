@@ -1,4 +1,5 @@
-"""The tile plan of the gather kernels (`csrc/warp.cu`, `csrc/squaring.cu`).
+"""The tile plan of the gather kernels (`csrc/warp.cu`, `csrc/squaring.cu`)
+and of the squaring step's backward (`csrc/squaring_bwd.cu`).
 
 The wrappers compute each launch's plan here and pass it to the C entry
 points as 9 ints (`plan_arg`, `gather::Plan` in `csrc/gather.cuh`); the
@@ -14,6 +15,12 @@ row), `rows` (df rows a group) and `v` (voxels a thread: 1, each thread
 its own voxel; or, in a large channels-first warp, 4, moved as 16-byte
 quads through a tile in shared memory). Axes are (z, y, x) with x the
 innermost; a 2D field has z = 1.
+
+The squaring backward's plan (`squaring_bwd_plan`) is the same 9 ints
+read another way: a block of tx x ty threads, one source column each,
+marches `tz` planes along z (a chunk; `tiles_z` chunks), merging the
+terms of a cell it sends twice before it sends them.
+`tests/test_torch_box_sum_bwd_plan.py` walks it as the kernel does.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ TARGET_BLOCKS = 2048  # a warp's rows are grouped until a launch has as many
 # thread, measured faster at every shape the paths launch (PERF.md,
 # scripts/bench_gather.py times both plans of the warp)
 WARP_CF_QUADS_FROM = 1 << 24
+BWD_STRIP = 32             # squaring backward: a tile's voxels along x, at most
+BWD_TARGET_BLOCKS = 264    # its chunks along z: as few as give a launch as many blocks
 
 KEYS = ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups", "rows", "v")
 
@@ -36,16 +45,17 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def make_plan(x: int, y: int, z: int, rows_per_moving: int, movings: int, v: int) -> dict:
+def make_plan(x: int, y: int, z: int, rows_per_moving: int, movings: int, v: int,
+              strip: int = STRIP) -> dict:
     """The plan over z x y x x output voxels a row, `movings` moving rows
     each read by `rows_per_moving` df rows, `v` voxels a thread: strips
-    of at most STRIP voxels (a power-of-two count along x), blocks of at
+    of at most `strip` voxels (a power-of-two count along x), blocks of at
     most THREADS threads filled with whole lines, then planes, and the
     df rows of a moving row split into as few groups as give a launch
     TARGET_BLOCKS blocks."""
     q = cdiv(x, v)
     strips, log_strips = 1, 0
-    while strips * (STRIP // v) < q:
+    while strips * (strip // v) < q:
         strips *= 2
         log_strips += 1
     tx = cdiv(q, strips)
@@ -83,6 +93,19 @@ def squaring_plan(spatial, rows: int) -> dict:
     `spatial`: one voxel a thread."""
     z, y, x = axes(spatial)
     return make_plan(x, y, z, 1, rows, 1)
+
+
+def squaring_bwd_plan(spatial, rows: int) -> dict:
+    """The plan of `pulpo_squaring_step_bwd` on `rows` fields over a 3D
+    `spatial`: tiles of one plane (strips of at most BWD_STRIP voxels,
+    whole lines), each block marching a chunk of `tz` planes along z, z
+    split into as few chunks as give the launch BWD_TARGET_BLOCKS
+    blocks."""
+    z, y, x = axes(spatial)
+    plan = make_plan(x, y, 1, 1, rows, 1, strip=BWD_STRIP)
+    per_chunk = (plan["tiles_y"] << plan["log_strips"]) * rows
+    tz = cdiv(z, min(z, cdiv(BWD_TARGET_BLOCKS, per_chunk)))
+    return dict(plan, tz=tz, tiles_z=cdiv(z, tz))
 
 
 def plan_arg(plan: dict):

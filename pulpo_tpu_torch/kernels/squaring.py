@@ -10,7 +10,12 @@ at any displacement with a per-voxel gather.
 The backward (`csrc/squaring_bwd.cu`) replaces
 `_squaring_step_bwd_pallas` (warp_local.py:309) and the tiered backward
 past its bound (warp_local.py:455-485): ``g + dfgrad(v, v, g) +
-mgrad(v, v, g)``, one launch per step at any displacement.
+mgrad(v, v, g)``, one launch per step at any displacement. A block
+marches its tile of source voxels along z (`kernels/gather.py:
+squaring_bwd_plan`); a thread merges the terms its voxels send twice to
+one cell (the upper-z corners of a plane and the lower-z corners of the
+next) and takes the next lane's terms for its own cells, then adds them
+to the output with global float atomics.
 
 `integrate_svf` is the autograd Function `IntegrateSVF`: the
 1/2**nsteps scale folded into the first step, then one launch per step.
@@ -232,11 +237,13 @@ def squaring_step_bwd(vec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(vec, memory_format=torch.contiguous_format)
     b, s = vec.shape[0], vec.shape[1:4]
     fn = _build.load("squaring_bwd").pulpo_squaring_step_bwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
+    plan = gather.plan_arg(gather.squaring_bwd_plan(s, b))
     global bwd_launches
     with torch.cuda.device(vec.device):
-        rc = fn(vec.data_ptr(), g.data_ptr(), out.data_ptr(), b, *s, *_factors(vec),
+        rc = fn(vec.data_ptr(), g.data_ptr(), out.data_ptr(), b, *s, *_factors(vec), plan,
                 _build.stream_ptr(vec))
         bwd_launches += 1
     _build.check(rc, "squaring_step_bwd")

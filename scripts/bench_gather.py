@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""Time the gather kernels (csrc/warp.cu, csrc/squaring.cu) at the shapes
-the paths launch, at both of their tile plans, against another checkout.
+"""Time the gather kernels (csrc/warp.cu, csrc/squaring.cu) and the
+training step's box sum and squaring backward (csrc/box_sum.cu,
+csrc/squaring_bwd.cu) at the shapes the paths launch, at more than one
+tile plan, against another checkout.
 
     python3 scripts/bench_gather.py [--parent DIR] [--json PATH] [--sass DIR]
+                                    [--cases all|gather|training]
 
 For each case (a warp or a squaring step at a shape a path launches:
 the full_res batched warp and its mean tail, the level_res decode's
 warps at every level, LungCT's warp under its respiratory field, the 2D
 warp; one squaring step at each flagship level, CL and CF, and the 2D
-step) it calls the C entry points of:
+step; the box sum at each level's size and window of the flagship,
+LungCT and flagship-2d steps; one squaring backward step at each
+flagship and LungCT level, and at level 0 also under a sub-voxel field,
+a 4-voxel one and the LungCT ramp) it calls the C entry points of:
 - `v1`, `v4`: this checkout's libraries with the launch's plan at one
   and (the channels-first warp) four voxels a thread
-  (kernels/gather.py); `new` is the one the wrappers take;
+  (kernels/gather.py); `new` is the one the wrappers take; the box sum
+  and the squaring backward at their plans (`new`) and, at levels 0
+  and 1, at plans for half and twice the target block count (`half`,
+  `twice`);
 - `parent`: with --parent, the same sources of the checkout at DIR,
   built with the same flags (its entry points take no plan).
-Every output is held equal, bit for bit, to `v1`'s, and `v1`'s to the
-plain version on the cases small enough to run it. Times: CUDA events,
+Every output is held equal, bit for bit, to `v1`'s (`new`'s), and
+`v1`'s to the plain version on the cases small enough to run it; the
+squaring backward, whose atomics fix no order, within 1e-5 of scale of
+the plain version on every side. Times: CUDA events,
 the median of 5 timings of `iters` calls, taken in turns (parent, v1,
 v4, v4, v1, parent, without v4 where there is none); for the cases under 200 MB, whose calls are
 host-bound, device times of a CUDA graph of the calls. With --sass DIR,
-the SASS of this checkout's two libraries goes to DIR and each kernel's
-instruction mix is printed. The bound is each input read once and each
+the SASS of this checkout's four libraries goes to DIR and each
+kernel's instruction mix is printed, with its atomic instructions in
+full (a native shared-memory float add, or a compare-and-swap loop). The bound is each input read once and each
 output written once over 3.35 TB/s. Prints the card, a table and each
 path's device ms, and writes the records to --json. Needs a CUDA device.
 """
@@ -52,6 +64,40 @@ def build_parent(root: str, name: str):
            *_build.BASE_FLAGS, *extra, "-o", str(lib)]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
+
+
+def box_call(lib, x, out, win, plan=None, tmp=None):
+    """One launch of `lib`'s box-sum entry on x (B, D, H, W) or (B, H, W)
+    with `plan` (kernels/box_sum.py:box_sum_plan); plan None: the
+    parent's entry, which takes a `tmp` buffer and no plan."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import box_sum
+
+    fn = getattr(lib, "pulpo_box_sum" if x.dim() == 4 else "pulpo_box_sum_2d")
+    ptrs = [x.data_ptr(), out.data_ptr()] + ([] if plan is not None else [tmp.data_ptr()])
+    tail = [box_sum.plan_arg(plan)] if plan is not None else []
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (x.dim() + 1)
+                   + [ctypes.c_void_p] * (len(tail) + 1))
+    rc = fn(*ptrs, *x.shape, int(win), *tail, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"box_sum: CUDA error {rc}"
+
+
+def bwd_call(lib, v, g, out, plan=None):
+    """One launch of `lib`'s squaring backward on (v, g) with `plan`
+    (kernels/gather.py:squaring_bwd_plan); plan None: the parent's entry."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import gather, warp
+
+    s = tuple(v.shape[1:4])
+    fn = lib.pulpo_squaring_step_bwd
+    tail = [] if plan is None else [gather.plan_arg(plan)]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] * (len(tail) + 1))
+    rc = fn(v.data_ptr(), g.data_ptr(), out.data_ptr(), v.shape[0], *s,
+            *[warp._factor(x, x) for x in s], *tail, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"squaring_bwd: CUDA error {rc}"
 
 
 def warp_call(lib, mov, df, out, cf, v=None):
@@ -97,18 +143,21 @@ def step_call(lib, vec, out, cf, v=None, scale=1.0):
 
 # "/*0080*/  @!P0 BRA 0x120 ;": the opcode, past an address and a predicate
 SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
-SASS_OPS = ("LDG", "STG", "LDS", "STS", "BAR", "IMAD", "IADD3", "LEA", "FMUL", "FADD", "FMNMX",
-            "FRND", "F2I", "I2F", "ISETP", "BRA", "SHFL")
+SASS_OPS = ("LDG", "STG", "LDS", "STS", "LDGSTS", "BAR", "IMAD", "IADD3", "LEA", "FMUL", "FADD",
+            "FMNMX", "FRND", "F2I", "I2F", "ISETP", "BRA", "SHFL", "ATOMS", "ATOMG", "ATOM", "RED",
+            "REDG")
+# the opcode with its modifiers, for the atomics: "ATOMS.CAST.SPIN", "REDG.E.ADD.F32..."
+SASS_ATOMIC = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?((?:ATOM|RED)[A-Z]*[.\w]*)")
 
 
-def sass_summary(out_dir: str) -> None:
-    """Dump the SASS of this checkout's warp and squaring libraries into
-    `out_dir` and print, per kernel, its instruction count and mix."""
+def sass_summary(out_dir: str, kernels) -> None:
+    """Dump the SASS of this checkout's libraries `kernels` into `out_dir`
+    and print, per kernel, its instruction count, mix and atomics."""
     from pulpo_tpu_torch.kernels import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     os.makedirs(out_dir, exist_ok=True)
-    for k in ("warp", "squaring"):
+    for k in kernels:
         usage = subprocess.run([cuobjdump, "-res-usage", str(_build._target(k)[0])], check=True,
                                capture_output=True, text=True).stdout.splitlines()
         for name, res in zip(usage, usage[1:]):
@@ -122,16 +171,22 @@ def sass_summary(out_dir: str) -> None:
             name = block.splitlines()[0].strip()
             ops = [m.group(1) for m in map(SASS_LINE.match, block.splitlines()) if m]
             mix = {o: sum(1 for x in ops if x == o) for o in SASS_OPS}
+            atomics = sorted({m.group(1) for m in map(SASS_ATOMIC.match, block.splitlines())
+                              if m})
             print(f"  sass {k}: {name[:70]} {len(ops)} instructions; "
-                  + " ".join(f"{o} {c}" for o, c in mix.items() if c))
+                  + " ".join(f"{o} {c}" for o, c in mix.items() if c)
+                  + (f"; atomics {' '.join(atomics)}" if atomics else ""))
 
 
 FULL, LUNG = (160, 192, 224), (192, 192, 208)  # flagship's and LungCT's input sizes
 LEVELS = [(80, 96, 112), (40, 48, 56), (20, 24, 28), (10, 12, 14)]  # flagship latent levels
 LUNG_LEVELS = [(96, 96, 104), (48, 48, 52), (24, 24, 26), (12, 12, 13)]  # LungCT's
-PATHS = ("level_res request", "full_res request", "flagship step", "LungCT step")
-PATH_KEYS = dict(zip(("level_res_request", "full_res_request", "flagship_step", "LungCT_step"),
-                     PATHS))
+FULL_2D = FULL[:2]  # flagship-2d's input size and latent levels: the flagship's first two axes
+LEVELS_2D = [s[:2] for s in LEVELS]
+PATHS = ("level_res request", "full_res request", "flagship step", "LungCT step", "2D step")
+PATH_KEYS = dict(zip(("level_res_request", "full_res_request", "flagship_step", "LungCT_step",
+                      "step_2d"), PATHS))
+WINDOWS = (9, 7, 5, 3)  # the NCC window at latent levels 0-3 (config.window_size)
 
 
 def cases(dev):
@@ -215,16 +270,139 @@ def cases(dev):
     add("#4 warp C=3 32 rows 80x96x112 (field by field)", "warp",
         (m3, smooth_field(32, LEVELS[0], 3.0, seed=310, device=dev)), False,
         4 * math.prod(LEVELS[0]) * (32 * 6 + 3), False)
-    d2 = FULL[1:]
+    d2 = FULL_2D
     add("2D warp 32 rows 160x192", "warp",
         (torch.rand((1, *d2, 1), device=dev), smooth_field(32, d2, 3.0, seed=311, device=dev,
                                                            channels=2)),
         False, 4 * math.prod(d2) * (32 * 3 + 1), True)
-    for size in (LEVELS[0][:2], LEVELS[1][:2]):  # flagship-2d's levels 0 and 1
+    for size in LEVELS_2D[:2]:  # flagship-2d's levels 0 and 1
         v = smooth_field(32, size, 3.0, seed=340 + size[0], device=dev, channels=2)
         add(f"2D squaring 32 rows {'x'.join(map(str, size))}", "step", (v,), False,
             2 * 32 * math.prod(size) * 2 * 4, True)
     return out
+
+
+def training_cases(dev):
+    """The box sum and squaring backward cases, as `cases` gives the
+    gathers': per level of the flagship and LungCT steps, the box sum
+    at the level's NCC size (`df_size`: the input size at level 0) and
+    window, 8 calls a step (5 forward, 3 backward), and one squaring
+    backward at the level's size, 7 a step (one per integration step),
+    its field a smooth one of max |v| = 1 voxel; at level 0 also under a
+    0.4-voxel field, a 4-voxel one and the LungCT ramp's next-to-last
+    step input; flagship-2d's box sums (2D step)."""
+    import torch
+
+    from chip_smoke import DRIFT, SI_RAMP, respiratory_field, smooth_field
+
+    out = []
+
+    def add(name, kind, tensors, bytes_, plain, variants, **paths):
+        out.append(dict(name=name, kind=kind, tensors=tensors, cf=False, bytes=bytes_,
+                        plain=plain, variants=variants,
+                        paths={PATH_KEYS[p]: k for p, k in paths.items()}))
+
+    for tag, full, levels, path in (("flagship", FULL, LEVELS, "flagship_step"),
+                                    ("LungCT", LUNG, LUNG_LEVELS, "LungCT_step"),
+                                    ("2D", FULL_2D, LEVELS_2D, "step_2d")):
+        for l, win in enumerate(WINDOWS):
+            size = full if l == 0 else levels[l]
+            x = torch.rand((1, *size), device=dev)
+            fmt = "x".join(map(str, size))
+            add(f"#9 box_sum {tag} level {l} {fmt} win {win}", "box", (x, win),
+                8 * math.prod(size), l > 0, l < 2 and tag != "2D", **{path: 8})
+    for tag, levels, path in (("flagship", LEVELS, "flagship_step"),
+                              ("LungCT", LUNG_LEVELS, "LungCT_step")):
+        for l, size in enumerate(levels):
+            fmt = "x".join(map(str, size))
+            g = torch.randn((1, *size, 3), device=dev)
+            v = smooth_field(1, size, 1.0, seed=350 + l, device=dev)
+            add(f"#2 squaring_bwd {tag} level {l} {fmt} |v|<=1", "bwd", (v, g),
+                36 * math.prod(size), True, l < 2, **{path: 7})
+            if l == 0:
+                for mag in (0.4, 4.0):
+                    add(f"#2 squaring_bwd {tag} level 0 {fmt} |v|<={mag:g}", "bwd",
+                        (smooth_field(1, size, mag, seed=360, device=dev), g),
+                        36 * math.prod(size), True, False)
+        if tag == "LungCT":
+            v = respiratory_field(levels[0], SI_RAMP / 4, DRIFT / 4, dev)
+            g = torch.randn((1, *levels[0], 3), device=dev)
+            add(f"#2 squaring_bwd LungCT level 0 ramp {SI_RAMP / 4:g}", "bwd", (v, g),
+                36 * math.prod(levels[0]), True, False)
+    return out
+
+
+def run_training_case(case: dict, libs: dict, dev) -> dict:
+    """A box-sum or squaring-backward case: every side's output held to
+    the plain version (bit-equal, or 1e-5 of scale for the backward) and
+    to `new`'s, then timed in turns (parent, new, half, twice, twice,
+    half, new, parent, each where there is one)."""
+    import torch
+
+    from chip_smoke import graph_ms
+    from pulpo_tpu_torch.kernels import box_sum, gather, squaring
+
+    name, kind, tensors, bytes_ = (case[k] for k in ("name", "kind", "tensors", "bytes"))
+    sides = ["new"] + (["half", "twice"] if case["variants"] else [])
+    if "parent" in libs:
+        sides.append("parent")
+    if kind == "box":
+        x, win = tensors
+        b, *rest = x.shape
+        dims = rest if x.dim() == 4 else (1, *rest)
+        target = box_sum.TARGET_BLOCKS
+        plans = {}
+        for side, t in (("new", target), ("half", target // 2), ("twice", target * 2)):
+            box_sum.TARGET_BLOCKS = t
+            plans[side] = box_sum.box_sum_plan(b, *dims)
+        box_sum.TARGET_BLOCKS = target
+        tmp = torch.empty_like(x)
+        mk = lambda: torch.empty_like(x)
+        call = lambda k, o: box_call(libs["parent" if k == "parent" else "new"]["box_sum"], x, o,
+                                     win, plans.get(k), tmp)
+        plain = lambda: box_sum.box_sum_plain(x, win)
+    else:
+        v, g = tensors
+        target = gather.BWD_TARGET_BLOCKS
+        plans = {}
+        for side, t in (("new", target), ("half", target // 2), ("twice", target * 2)):
+            gather.BWD_TARGET_BLOCKS = t
+            plans[side] = gather.squaring_bwd_plan(v.shape[1:4], v.shape[0])
+        gather.BWD_TARGET_BLOCKS = target
+        mk = lambda: torch.empty_like(v)
+        call = lambda k, o: bwd_call(libs["parent" if k == "parent" else "new"]["squaring_bwd"],
+                                     v, g, o, plans.get(k))
+        plain = lambda: squaring.squaring_step_bwd_plain(v, g)
+    outs = {}
+    for k in sides:
+        outs[k] = mk()
+        call(k, outs[k])
+    torch.cuda.synchronize()
+    ref = plain() if case["plain"] else outs["new"]
+    scale = max(1.0, float(ref.abs().max()))
+    err = {k: float((outs[k] - ref).abs().max()) for k in sides}
+    tol = 0.0 if kind == "box" else 1e-5 * scale
+    same = {k: err[k] <= tol for k in sides}
+    order = [k for k in ("parent", "new", "half", "twice") if k in sides]
+    order += order[::-1]
+    times = {}
+    for k in order:
+        o = outs[k]
+        times.setdefault(k, []).append(graph_ms(lambda k=k, o=o: call(k, o)))
+    bound = bytes_ / HBM_BYTES_PER_S * 1e3
+    best = statistics.median(times["new"])
+    record = {"case": name, "bound_ms": bound, "equal": same, "max_abs_err": err,
+              "device_graph": True, "paths": case["paths"], "ms": times,
+              "plans": {k: plans[k] for k in plans if k in sides}}
+    line = f"{name:48s} bound {bound:8.4f}  new {best:.4f} ({bound / best:.2f} of bound)"
+    for k in [k for k in sides if k != "new"]:
+        if k in times:
+            line += f"  {k} {' / '.join(f'{t:.4f}' for t in times[k])}"
+    print(line + f"  err {' '.join(f'{k} {e:.1e}' for k, e in err.items())}  equal {same}",
+          flush=True)
+    del outs
+    torch.cuda.empty_cache()
+    return record
 
 
 def run_case(case: dict, libs: dict, dev) -> dict:
@@ -292,12 +470,13 @@ def run_case(case: dict, libs: dict, dev) -> dict:
 
 
 def path_sums(records: list, side: str) -> None:
-    """Print each path's device ms of the kernels #1, #3, #4, #5, #8 on
-    library `side`: launches x per-call time (the median), summed over
-    the shapes the path launches, beside the bound."""
+    """Print each path's device ms of the kernels #1, #3, #4, #5, #8, #9,
+    #2 on library `side`: launches x per-call time (the median), summed
+    over the shapes the path launches, beside the bound."""
     for path in PATHS:
-        for prefix in ("#1", "#3", "#4", "#5", "#8"):
-            picked = [r for r in records if r["case"].startswith(prefix) and path in r["paths"]]
+        for prefix in ("#1", "#3", "#4", "#5", "#8", "#9", "#2"):
+            picked = [r for r in records if r["case"].startswith(prefix) and path in r["paths"]
+                      and side in r["ms"]]
             if picked:
                 ms = sum(r["paths"][path] * statistics.median(r["ms"][side]) for r in picked)
                 bound = sum(r["paths"][path] * r["bound_ms"] for r in picked)
@@ -312,6 +491,7 @@ def main() -> int:
     ap.add_argument("--json", default=None)
     ap.add_argument("--sass", default=None, help="write the kernels' SASS under this directory "
                     "and print each kernel's instruction mix")
+    ap.add_argument("--cases", default="all", choices=("all", "gather", "training"))
     args = ap.parse_args()
 
     import torch
@@ -327,17 +507,24 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
-    libs = {"new": {k: _build.load(k) for k in ("warp", "squaring")}}
-    for k in ("warp", "squaring"):
+    names = {"gather": ("warp", "squaring"), "training": ("box_sum", "squaring_bwd"),
+             "all": ("warp", "squaring", "box_sum", "squaring_bwd")}[args.cases]
+    _build.build_all(names)
+    libs = {"new": {k: _build.load(k) for k in names}}
+    for k in names:
         for line in _build.BUILD_LOGS.get(k, "").splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill")):
+            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas {k}: {line.strip()}")
     if args.sass:
-        sass_summary(args.sass)
+        sass_summary(args.sass, names)
     if args.parent:
-        libs["parent"] = {k: build_parent(args.parent, k) for k in ("warp", "squaring")}
+        libs["parent"] = {k: build_parent(args.parent, k) for k in names}
 
-    records = [run_case(case, libs, dev) for case in cases(dev)]
+    records = []
+    if args.cases != "training":
+        records += [run_case(case, libs, dev) for case in cases(dev)]
+    if args.cases != "gather":
+        records += [run_training_case(case, libs, dev) for case in training_cases(dev)]
     for side in [k for k in ("new", "parent") if k in libs]:
         path_sums(records, side)
     bad = [r["case"] for r in records if not all(r["equal"].values())]

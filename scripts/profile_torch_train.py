@@ -13,8 +13,9 @@ weights, takes one warm-up step on a synthetic pair, then profiles
 `--steps` more with torch.profiler. Prints the card, each step's
 host-clock time, the peak device memory, the device's busy time (the
 union of kernel intervals on the card) and idle share, the device time
-of the port's own kernels against everything else, and the kernels by
-device time. Needs a CUDA device.
+of the port's own kernels against everything else, each of the port's
+kernels (all its instantiations) with its launches and device ms a
+step, and the kernels by device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import time
 
 # device-kernel names of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = ("warp_kernel", "squaring_kernel", "vel_head", "dfgrad_kernel",
-               "mgrad_kernel", "squaring_bwd_kernel", "box_axis_kernel", "conv_narrow_kernel")
+               "mgrad_kernel", "squaring_bwd_kernel", "box_sum_kernel", "conv_narrow_kernel")
 
 
 def busy_ms(events) -> float:
@@ -110,6 +111,11 @@ def main() -> int:
     own = sum(sum(v) for n, v in rows if any(k in n for k in OWN_KERNELS))
     print(f"port's own kernels {own / args.steps:.1f} ms/step ({own / total:.3f} of device "
           f"time); everything else {(total - own) / args.steps:.1f} ms/step")
+    for k in OWN_KERNELS:
+        ts = [t for n, v in rows if k in n for t in v]
+        if ts:
+            print(f"own kernel {k:22s} {len(ts) / args.steps:6.1f} launches/step "
+                  f"{sum(ts) / args.steps:8.3f} ms/step")
     print(f"{'device ms/step':>15s} {'share':>6s} {'calls/step':>10s}  kernel")
     for name, ts in rows[:args.top]:
         print(f"{sum(ts) / args.steps:15.2f} {sum(ts) / total:6.3f} "

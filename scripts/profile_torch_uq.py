@@ -33,7 +33,7 @@ GROUPS = (
     ("conv-unit kernel (pos_head, conv_chain)", ("conv_unit_kernel", "conv_unit_tc")),
     ("velocity-head kernel", ("vel_head_kernel", "vel_head_tc")),
     ("warp and squaring kernels", ("warp_kernel", "squaring_kernel", "dfgrad_kernel",
-                                   "mgrad_kernel", "box_axis_kernel")),
+                                   "mgrad_kernel", "box_sum_kernel")),
     ("cuDNN convs and transposes", ("conv", "cudnn", "implicit", "fprop", "nchw", "nhwc",
                                     "transpose")),
     ("GEMMs (resize matmuls, 1x1 convs)", ("gemm", "nvjet", "cutlass", "cublas", "splitk")),

@@ -219,7 +219,65 @@ def test_box_sum_kernel_matches_plain(cuda_device, win):
     got = box_sum.box_sum(x, win)
     torch.cuda.synchronize()
     assert box_sum.launches == before + 1
-    _close_scaled(got, box_sum.box_sum_plain(x, win), 1e-5)
+    torch.testing.assert_close(got, box_sum.box_sum_plain(x, win), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("win", [3, 5, 7, 9, 11])
+@pytest.mark.parametrize("shape", [(1, 7, 37, 45), (2, 3, 33, 14), (1, 21, 13, 1),
+                                   (1, 40, 48, 56), (1, 12, 12, 13)])
+def test_box_sum_one_launch_bit_equal_at_ragged_sizes(cuda_device, win, shape):
+    """The 3D box sum at ragged sizes (innermost 45, 14, 1, 56, 13; depths
+    shorter than the window and than a chunk), the step's windows and a
+    wider one (11): one launch a call, bit-equal to the plain version,
+    also from permuted memory and from a base 4 bytes past a 16-byte
+    boundary (the scalar copies and stores)."""
+    x = torch.from_numpy(np.random.default_rng(70).standard_normal(shape).astype(np.float32))
+    x = x.to(cuda_device)
+    ref = box_sum.box_sum_plain(x, win)
+    before = box_sum.launches
+    got = box_sum.box_sum(x, win)
+    torch.cuda.synchronize()
+    assert box_sum.launches == before + 1
+    assert torch.equal(got, ref)
+    perm = x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert torch.equal(box_sum.box_sum(perm, win), ref)
+    assert torch.equal(box_sum.box_sum(_misaligned(x), win), ref)
+
+
+def test_box_sum_raises_past_its_widest_window(cuda_device):
+    x = torch.zeros((1, 4, 8, 8), device=cuda_device)
+    torch.testing.assert_close(box_sum.box_sum(x, box_sum.MAX_WINDOW), x)
+    with pytest.raises(ValueError):
+        box_sum.box_sum(x, box_sum.MAX_WINDOW + 2)
+
+
+@pytest.mark.parametrize("blocks", [None, 1, 10**6])
+@pytest.mark.parametrize("mag", [0.3, 2.5, 12.0, "smooth 3"])
+@pytest.mark.parametrize("shape", [(1, 13, 17, 19), (2, 9, 30, 70), (1, 5, 7, 2)])
+def test_squaring_bwd_kernel_at_ragged_sizes(cuda_device, monkeypatch, shape, mag, blocks):
+    """The squaring backward at ragged sizes, under noise fields of |v|
+    inside a voxel and past it (few terms merged) and a smooth 3-voxel
+    field (most of a voxel's terms merged with the next plane's and the
+    next lane's before they are sent), with z in the plan's chunks, in
+    one chunk (`blocks` 1) and one plane a chunk (10**6), from permuted
+    memory: within 1e-5 of scale of the plain version, one launch a call."""
+    from chip_smoke import smooth_field
+    from pulpo_tpu_torch.kernels import gather
+
+    if blocks is not None:
+        monkeypatch.setattr(gather, "BWD_TARGET_BLOCKS", blocks)
+    if mag == "smooth 3":
+        v = smooth_field(shape[0], shape[1:], 3.0, seed=72, device=cuda_device)
+    else:
+        v = _field((*shape, 3), mag, 71).to(cuda_device)
+    g = torch.randn((*shape, 3), device=cuda_device)
+    ref = squaring.squaring_step_bwd_plain(v, g)
+    before = squaring.bwd_launches
+    got = squaring.squaring_step_bwd(v, g)
+    torch.cuda.synchronize()
+    assert squaring.bwd_launches == before + 1
+    _close_scaled(got, ref, 1e-5)
+    _close_scaled(squaring.squaring_step_bwd(_permuted(v), g), ref, 1e-5)
 
 
 def _grads_on(device, fn, inputs, cot):
