@@ -159,7 +159,6 @@ FULLRES_FEEDBACK = ("samples", "velocity_fields", "individual_dfs", "combined_df
                     "final_dfs")
 FULLRES_KW = dict(df_resolution="full_res", feedback=FULLRES_FEEDBACK)
 FLAGSHIP_FULLRES = dict(FLAGSHIP, **FULLRES_KW)
-F32_FLOP_PER_S = 67e12         # CUDA-core float32 peak, published
 
 # the 2D configuration (`flagship-2d`): the flagship network on the
 # 160x192 slice of the public neurite-OASIS 2D release (the 2D form of
@@ -471,10 +470,10 @@ def check_vel_head(dev, level0, checks, g, rows=None):
 
 def check_backward_kernels(dev, cfg, checks):
     """The training path's kernels against their plain versions at its
-    shapes (B = 1): tolerance 1e-5 of the output's scale. `warp_mgrad`
-    and `squaring_bwd` scatter with float32 atomics, whose order is not
-    fixed; `warp_dfgrad` repeats the plain version's operations, and
-    `box_sum` is held bit-equal."""
+    shapes (B = 1). `warp_mgrad` and `squaring_bwd` scatter with float32
+    atomics, whose order is not fixed: 1e-5 of the output's scale.
+    `warp_dfgrad` (C = 1) repeats the plain version's operations and
+    `box_sum` adds in its order: both bit-equal."""
     import torch
 
     from pulpo_tpu_torch.kernels import squaring, warp
@@ -491,17 +490,23 @@ def check_backward_kernels(dev, cfg, checks):
         cot = torch.randn((1, *full, 1), generator=g).to(dev)
         ref = warp.warp_dfgrad_plain(img, df, cot)
         record("warp_dfgrad", f"C=1 full res |d|<={mag}", warp.warp_dfgrad(img, df, cot),
-               ref, scaled(ref, 1e-5))
+               ref, 0.0)
     df[..., 0] += 60.0
     df[:, :, :8, :, 2] -= 80.0
     ref = warp.warp_dfgrad_plain(img, df, cot)
     record("warp_dfgrad", "C=1 full res border clamp", warp.warp_dfgrad(img, df, cot),
-           ref, scaled(ref, 1e-5))
+           ref, 0.0)
     df = permuted(smooth_field(2, full, 3.0, seed=21, device=dev))
     cot = torch.randn((2, *full, 1), generator=g).to(dev)
     ref = warp.warp_dfgrad_plain(img, df, cot)
     record("warp_dfgrad", "C=1 2 rows permuted-memory df", warp.warp_dfgrad(img, df, cot),
-           ref, scaled(ref, 1e-5))
+           ref, 0.0)
+    # the full-size image under 2 rows of a level-0 df (a cross-resolution warp)
+    df = smooth_field(2, level0, 3.0, seed=25, device=dev)
+    cot = torch.randn((2, *level0, 1), generator=g).to(dev)
+    ref = warp.warp_dfgrad_plain(img, df, cot)
+    record("warp_dfgrad", f"C=1 2 rows {'x'.join(map(str, level0))} df, full-res image",
+           warp.warp_dfgrad(img, df, cot), ref, 0.0)
     del df, cot, ref
 
     # moving-cotangent: level 0 with C = 3 (its role in the squaring
@@ -873,26 +878,34 @@ def narrow_weight(cin, cout, seed, dev):
     return (torch.randn((cout, cin, 3, 3, 3), generator=g) / math.sqrt(27 * cin)).to(dev)
 
 
+def narrow_shapes(cfg_kw):
+    """(cin, size) of each narrow-conv launch of a training step of a 3D
+    configuration: down_block_0's 2 -> n0 at the input size, then each
+    latent level's velocity-head conv, zdim -> n0 at its size."""
+    from pulpo_tpu_torch import PULPoConfig
+
+    cfg = PULPoConfig(**cfg_kw)
+    return [(2, cfg.input_size)] + [(cfg.zdim, cfg.level_sizes[l])
+                                    for l in range(cfg.latent_levels)]
+
+
 def check_conv_narrow(dev, checks):
-    """The narrow conv against its plain version, bf16 and f32: 2 -> n0 at
-    both full sizes (down_block_0), 3 -> n0 at both level-0 sizes (the
-    velocity head's first conv), and with a non-contiguous input. The
-    kernel repeats the plain version's operations in its order (module
-    doc of csrc/conv_narrow.cu), so it is bit-equal; the tolerance, one
-    bf16 ulp at the output's scale (f32: 1e-6 of it), states what a
-    reordered sum would be allowed. Then the gradient (dx, dW) through
-    `NarrowConv` against the plain version's autograd (f32, 1e-5 of
-    scale: the library conv backward sums in another order)."""
+    """The narrow conv against its plain version, bf16 and f32, at every
+    shape a training step of the flagship and LungCT configurations
+    launches (2 -> n0 at the input size, zdim -> n0 at each latent
+    level), and from a non-contiguous input. bf16 runs on the tensor
+    cores, which sum the products in another order: within one bf16 ulp
+    at the output's scale. f32 runs on the CUDA cores, repeating the
+    plain version's operations: bit-equal. A permuted input gives the
+    contiguous one's output bit for bit. Then the gradient (dx, dW)
+    through `NarrowConv` against the plain version's autograd (f32, 1e-5
+    of scale: the library conv backward sums in another order)."""
     import torch
 
-    from pulpo_tpu_torch import PULPoConfig
     from pulpo_tpu_torch.kernels import conv_narrow
 
     fmt = lambda size: "x".join(map(str, size))
-    cases = []
-    for cfg_kw in (FLAGSHIP, LUNGCT):
-        cfg = PULPoConfig(**cfg_kw)
-        cases += [(2, cfg.input_size), (cfg.zdim, cfg.level_sizes[0])]
+    cases = narrow_shapes(FLAGSHIP) + narrow_shapes(LUNGCT)
     g = torch.Generator(device=dev).manual_seed(110)
     for i, (cin, size) in enumerate(cases):
         w = narrow_weight(cin, 32, 111 + i, dev)
@@ -900,15 +913,15 @@ def check_conv_narrow(dev, checks):
             x = torch.randn((1, *size, cin), generator=g, device=dev).to(dt)
             ref = conv_narrow.conv_narrow_plain(x, w)
             scale = max(1.0, float(ref.float().abs().max()))
-            tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if dt == torch.bfloat16 else 1e-6 * scale
+            tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if dt == torch.bfloat16 else 0.0
             with torch.no_grad():
-                checks.record("conv_narrow", f"{name} {cin}->32 {fmt(size)}",
-                              conv_narrow.conv_narrow(x, w), ref, tol)
-                if i == 0:
+                got = conv_narrow.conv_narrow(x, w)
+                checks.record("conv_narrow", f"{name} {cin}->32 {fmt(size)}", got, ref, tol)
+                if i in (0, 1):
                     xp = x.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1)
-                    checks.record("conv_narrow", f"{name} {cin}->32 {fmt(size)} permuted input",
-                                  conv_narrow.conv_narrow(xp, w), ref, tol)
-            del x, ref
+                    checks.record("conv_narrow", f"{name} {cin}->32 {fmt(size)} permuted input "
+                                  "vs contiguous", conv_narrow.conv_narrow(xp, w), got, 0.0)
+            del x, ref, got
         torch.cuda.empty_cache()
 
     x = torch.randn((2, 10, 12, 14, 3), generator=g, device=dev)
@@ -1714,6 +1727,43 @@ def grid_for(df):
     return norm.flip(-1).contiguous()
 
 
+def squaring_library(v, cf=False):
+    """One squaring step as one PyTorch expression, the library yardstick
+    of the squaring kernels: v + grid_sample(v, identity + v) with border
+    padding and align_corners=False, the grid built in the call (the
+    kernel derives its coordinates from v every step). `cf`: v is
+    channels-first (R, nd, *S), grid_sample's own layout; else
+    channels-last (R, *S, nd), and the result is permuted back."""
+    import torch.nn.functional as F
+
+    vcf = v if cf else v.movedim(-1, 1)
+    warped = F.grid_sample(vcf, grid_for(vcf.movedim(1, -1)), mode="bilinear",
+                           padding_mode="border", align_corners=False)
+    return v + (warped if cf else warped.movedim(1, -1))
+
+
+def time_squaring_library(v, cf=False, graph=False):
+    """ms of `squaring_library(v)` and of its grid_sample alone (the grid
+    built beforehand): CUDA-event medians, or device times of a CUDA
+    graph (`graph`) for calls shorter than their host side. Logs the
+    largest difference from the kernel's step."""
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import squaring
+
+    timer = graph_ms if graph else (lambda fn: time_ms(fn, 10))
+    vcf = v if cf else v.movedim(-1, 1)
+    grid = grid_for(vcf.movedim(1, -1))
+    ms = timer(lambda: squaring_library(v, cf))
+    gs = timer(lambda: F.grid_sample(vcf, grid, mode="bilinear", padding_mode="border",
+                                     align_corners=False))
+    kernel = squaring.squaring_step_cf(v) if cf else squaring.squaring_step(v)
+    log(f"squaring library ({'CF' if cf else 'CL'} {tuple(v.shape)}): one expression "
+        f"{ms:.5f} ms, grid_sample alone {gs:.5f} ms; max abs diff from the kernel "
+        f"{float((squaring_library(v, cf) - kernel).abs().max()):.3e}")
+    return ms, gs
+
+
 def time_kernels(dev, full, level0, rows, zdim, n0):
     import torch
     import torch.nn.functional as F
@@ -1746,7 +1796,8 @@ def time_kernels(dev, full, level0, rows, zdim, n0):
     nl = math.prod(level0)
     ms = time_ms(lambda: squaring.squaring_step(v, out), 20)
     plain = time_ms(lambda: squaring.squaring_step_plain(v), 3, warmup=1)
-    res["squaring"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+    lib, gs = time_squaring_library(v)
+    res["squaring"] = dict(ms=ms, plain_ms=plain, library_ms=lib, library_grid_sample_ms=gs,
                            bound_ms=2 * rows * nl * 3 * 4 / HBM_BYTES_PER_S * 1e3,
                            bound_by="bytes",
                            shape=f"({rows},{','.join(map(str, level0))},3) f32, one step")
@@ -1808,7 +1859,8 @@ def time_lungct_warp(dev, full):
 
 
 def time_backward_kernels(dev, cfg):
-    """The training path's kernels at its shapes (B = 1). Bounds count
+    """The training path's moving-cotangent, squaring backward and box sum
+    at its shapes (B = 1; the df-cotangent: `time_training_shapes`). Bounds count
     each input read once and each output written once; every one of
     these kernels does far fewer float32 operations per byte than the
     card's 67 TFLOP/s against 3.35 TB/s, so bytes bound them. The squaring
@@ -1824,24 +1876,6 @@ def time_backward_kernels(dev, cfg):
     full, level0 = cfg.input_size, cfg.level_sizes[0]
     n, nl = math.prod(full), math.prod(level0)
     fmt = lambda size: ",".join(map(str, size))
-
-    # df-cotangent at level 0: moving, df, g at full res, C = 1
-    img = torch.rand((1, *full, 1), device=dev)
-    df = smooth_field(1, full, 3.0, seed=31, device=dev)
-    cot = torch.randn((1, *full, 1), device=dev)
-    ms = time_ms(lambda: warp.warp_dfgrad(img, df, cot), 10)
-    plain = time_ms(lambda: warp.warp_dfgrad_plain(img, df, cot), 2, warmup=1)
-    grid = grid_for(df).requires_grad_(True)
-    out = F.grid_sample(img.permute(0, 4, 1, 2, 3), grid, mode="bilinear",
-                        padding_mode="border", align_corners=False)
-    gcf = cot.permute(0, 4, 1, 2, 3)
-    lib = time_ms(lambda: torch.autograd.grad(out, grid, gcf, retain_graph=True), 10)
-    res["warp_dfgrad"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                              bound_ms=n * (4 + 12 + 4 + 12) / HBM_BYTES_PER_S * 1e3,
-                              bound_by="bytes",
-                              shape=f"moving (1,{fmt(full)},1) df/g (1,{fmt(full)},3/1) f32")
-    del img, df, cot, grid, out, gcf
-    torch.cuda.empty_cache()
 
     # moving-cotangent at level 0, C = 3 (its role in the squaring backward)
     df = smooth_field(1, level0, 3.0, seed=32, device=dev)
@@ -1996,17 +2030,15 @@ def time_eval_kernels(dev, cfg, rows, checks):
 
 
 def time_fullres_kernels(dev, cfg, chunk):
-    """The channels-first kernels at the full-res request's shapes and the
-    narrow conv at the training step's, each beside its channels-last twin
-    or cuDNN. `cfg`: the flagship-fullres config; `chunk`: its request's.
-    Bounds: each input read once and each output written once over 3.35
-    TB/s (the gathers do ~100 float32 operations per voxel: bytes bound
-    them); the narrow conv's operations at the input type's peak (bf16
-    989 TFLOP/s) where that is larger."""
+    """The channels-first kernels at the full-res request's shapes, each
+    beside its channels-last twin. `cfg`: the flagship-fullres config;
+    `chunk`: its request's. Bounds: each input read once and each output
+    written once over 3.35 TB/s (the gathers do ~100 float32 operations
+    per voxel: bytes bound them)."""
     import torch
     import torch.nn.functional as F
 
-    from pulpo_tpu_torch.kernels import conv_narrow, squaring, warp
+    from pulpo_tpu_torch.kernels import squaring, warp
 
     res = {}
     full, level0 = cfg.input_size, cfg.level_sizes[0]
@@ -2022,7 +2054,9 @@ def time_fullres_kernels(dev, cfg, chunk):
     ms = time_ms(lambda: squaring.squaring_step_cf(v, out), 20)
     twin = time_ms(lambda: squaring.squaring_step(v_cl, out_cl), 20)
     plain = time_ms(lambda: squaring.squaring_step_cf_plain(v), 3, warmup=1)
-    res["squaring_cf"] = dict(ms=ms, plain_ms=plain, library_ms=None, cl_twin_ms=twin,
+    lib, gs = time_squaring_library(v, cf=True)
+    res["squaring_cf"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                              library_grid_sample_ms=gs, cl_twin_ms=twin,
                               bound_ms=2 * chunk * nl * 3 * 4 / HBM_BYTES_PER_S * 1e3,
                               bound_by="bytes",
                               shape=f"({chunk},3,{fmt(level0)}) f32, one step")
@@ -2065,31 +2099,83 @@ def time_fullres_kernels(dev, cfg, chunk):
     del img, df, grid, mov, tail
     torch.cuda.empty_cache()
 
-    # the narrow conv: down_block_0's 2 -> n0 at full res and a velocity
-    # head's zdim -> n0 at level 0, B = 1, bf16 (the training step's)
-    shapes = {}
-    for cin, size in ((2, full), (cfg.zdim, level0)):
-        w = narrow_weight(cin, cfg.n0, 122 + cin, dev).to(torch.bfloat16)
-        x = torch.randn((1, *size, cin), device=dev).to(torch.bfloat16)
-        nv = math.prod(size)
-        flops = 2 * 27 * cin * cfg.n0 * nv
-        bytes_ = 2 * nv * (cin + cfg.n0)
-        with torch.no_grad():
-            ms = time_ms(lambda: conv_narrow.conv_narrow(x, w), 10)
-            plain = time_ms(lambda: conv_narrow.conv_narrow_plain(x, w), 1, warmup=1)
-            xc = x.permute(0, 4, 1, 2, 3)
-            lib = time_ms(lambda: F.conv3d(xc, w, padding=1), 10)
-        t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
-        shapes[f"{cin}->{cfg.n0} {'x'.join(map(str, size))}"] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            f32_core_ms=flops / F32_FLOP_PER_S * 1e3,
-            shape=f"x (1,{fmt(size)},{cin}) bf16 -> {cfg.n0}")
-        del w, x
+    return res
+
+
+def time_training_shapes(dev):
+    """The narrow conv (#12) and the warp's df-cotangent (#6) at every
+    shape a B = 1 training step of the flagship and LungCT configurations
+    launches: the conv in bf16, 2 -> n0 at the input size and zdim -> n0
+    at each latent level; the df-cotangent, C = 1, of each level's image
+    by its df (level 0 at the input size), under a smooth 3-voxel field
+    (flagship) or the respiratory ramp (LungCT). `ms` is device time
+    (`graph_ms`; the conv's weights packed beforehand), `eager_ms` a loop
+    of wrapper calls (the conv's packs its weights each call). Library
+    yardsticks: cuDNN `conv3d` on the channels-first view, and
+    grid_sample's VJP with respect to the grid (eager). Bounds: each
+    input read once and each output written once over 3.35 TB/s, or the
+    conv's operations at bf16 peak where that is larger. Returns
+    {kernel: record of the flagship's first shape with `shapes`}."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import conv_narrow, warp
+
+    fmt = lambda size: "x".join(map(str, size))
+    conv, dfgrad = {}, {}
+    for tag, cfg_kw in (("flagship", FLAGSHIP), ("LungCT", LUNGCT)):
+        cfg = PULPoConfig(**cfg_kw)
+        for i, (cin, size) in enumerate(narrow_shapes(cfg_kw)):
+            w = narrow_weight(cin, cfg.n0, 122 + i, dev)
+            x = torch.randn((1, *size, cin), device=dev).to(torch.bfloat16)
+            nv = math.prod(size)
+            flops, bytes_ = 2 * 27 * cin * cfg.n0 * nv, 2 * nv * (cin + cfg.n0)
+            with torch.no_grad():
+                packed = conv_narrow.pack_weights(w)
+                ms = graph_ms(lambda: conv_narrow.conv_packed(x, packed, cfg.n0))
+                eager = time_ms(lambda: conv_narrow.conv_narrow(x, w), 10)
+                plain = time_ms(lambda: conv_narrow.conv_narrow_plain(x, w), 1, warmup=1)
+                xc, wb = x.permute(0, 4, 1, 2, 3), w.to(torch.bfloat16)
+                lib = graph_ms(lambda: F.conv3d(xc, wb, padding=1))
+            t_ops, t_bytes = flops / BF16_FLOP_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+            conv[f"{tag} {cin}->{cfg.n0} {fmt(size)}"] = dict(
+                ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+                shape=f"x (1,{fmt(size)},{cin}) bf16 -> {cfg.n0}")
+            del w, x, packed, xc, wb
+        for l in range(cfg.latent_levels):
+            size = cfg.input_size if l == 0 else cfg.level_sizes[l]
+            img = torch.rand((1, *size, 1), device=dev)
+            df = (smooth_field(1, size, 3.0, seed=130 + l, device=dev) if tag == "flagship"
+                  else respiratory_field(size, SI_RAMP / 2**l, DRIFT / 2**l, dev))
+            cot = torch.randn((1, *size, 1), device=dev)
+            ms = graph_ms(lambda: warp.warp_dfgrad(img, df, cot))
+            eager = time_ms(lambda: warp.warp_dfgrad(img, df, cot), 10)
+            plain = time_ms(lambda: warp.warp_dfgrad_plain(img, df, cot), 2, warmup=1)
+            grid = grid_for(df).requires_grad_(True)
+            out = F.grid_sample(img.permute(0, 4, 1, 2, 3), grid, mode="bilinear",
+                                padding_mode="border", align_corners=False)
+            gcf = cot.permute(0, 4, 1, 2, 3)
+            lib = time_ms(lambda: torch.autograd.grad(out, grid, gcf, retain_graph=True), 10)
+            dfgrad[f"{tag} level {l} {fmt(size)}"] = dict(
+                ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                bound_ms=math.prod(size) * (4 + 12 + 4 + 12) / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", shape=f"moving (1,{fmt(size)},1) df/g (1,{fmt(size)},3/1) f32")
+            if l == 0:
+                # the step's level-0 df is the resize's output, (S0, S1, 3, S2)
+                # in memory: the wrapper's `df.contiguous()` copies it
+                strided = df.movedim(-1, -2).contiguous().movedim(-2, -1)
+                dfgrad[f"{tag} level {l} {fmt(size)}"]["df_copy_ms"] = graph_ms(
+                    lambda: strided.contiguous())
+                del strided
+            del img, df, cot, grid, out, gcf
         torch.cuda.empty_cache()
-    first = next(iter(shapes.values()))
-    res["conv_narrow"] = dict(first, shapes={k: {a: b for a, b in r.items() if a != "shape"}
-                                             for k, r in shapes.items()})
+    res = {}
+    for name, shapes in (("conv_narrow", conv), ("warp_dfgrad", dfgrad)):
+        first = next(iter(shapes.values()))
+        res[name] = dict(first, shapes={k: {a: b for a, b in r.items() if a != "shape"}
+                                        for k, r in shapes.items()})
     return res
 
 
@@ -2118,7 +2204,10 @@ def time_2d_kernels(dev, cfg, rows):
     eager = time_ms(lambda: squaring.squaring_step(v, out), 50)
     ms = graph_ms(lambda: squaring.squaring_step(v, out))
     plain = time_ms(lambda: squaring.squaring_step_plain(v), 5, warmup=1)
-    res["squaring_2d"] = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=None,
+    lib, gs = time_squaring_library(v, graph=True)
+    lib_eager = time_ms(lambda: squaring_library(v), 50)
+    res["squaring_2d"] = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
+                              library_eager_ms=lib_eager, library_grid_sample_ms=gs,
                               bound_ms=2 * rows * nl * 2 * 4 / HBM_BYTES_PER_S * 1e3,
                               bound_by="bytes", shape=f"({rows},{fmt(level0)},2) f32, one step")
 
@@ -2255,6 +2344,7 @@ def main() -> int:
     if checks.failures:
         raise SystemExit(f"kernel checks failed: {checks.failures}")
     times.update(time_fullres_kernels(dev, PULPoConfig(**FLAGSHIP_FULLRES), fullres["chunk"]))
+    times.update(time_training_shapes(dev))
     times.update(time_2d_kernels(dev, cfg_2d, uq2d["chunk"]))
     for k in ("squaring_cf", "warp_cf"):
         log(f"time {k} channels-last twin on the same field: {times[k]['cl_twin_ms']:.3f} ms "
@@ -2263,10 +2353,20 @@ def main() -> int:
     log(f"time warp_cf mean_tail {r['shape']}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
         f"library {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
         f"{r['bound_ms'] / r['ms']:.2f} of it)")
-    for shape, r in times["conv_narrow"]["shapes"].items():
-        log(f"time conv_narrow {shape} bf16: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
-            f"cuDNN {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']}; "
-            f"f32 CUDA-core peak {r['f32_core_ms']:.3f} ms)")
+    for k in ("conv_narrow", "warp_dfgrad"):
+        for shape, r in times[k]["shapes"].items():
+            log(f"time {k} {shape}: device {r['ms']:.5f} ms ({r['bound_ms'] / r['ms']:.2f} of "
+                f"its bound), eager {r['eager_ms']:.5f} ms  plain {r['plain_ms']:.3f} ms  "
+                f"library {r['library_ms']:.5f} ms  bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']})")
+        for tag in ("flagship", "LungCT"):
+            step = sum(r["ms"] for shape, r in times[k]["shapes"].items()
+                       if shape.startswith(tag))
+            log(f"time {k} a {tag} training step (one launch a shape): {step:.5f} ms")
+    for shape, r in times["warp_dfgrad"]["shapes"].items():
+        if "df_copy_ms" in r:
+            log(f"time warp_dfgrad {shape}: the wrapper's copy of the step's strided df "
+                f"{r['df_copy_ms']:.5f} ms")
     for l, r in times["pos_head"]["levels"].items():
         log(f"time pos_head l{l} {r['shape']}: kernel {r['ms']:.3f} ms ({r['tflop_per_s']:.1f} "
             f"TFLOP/s)  plain {r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  "
@@ -2313,7 +2413,7 @@ def main() -> int:
                                 for l, lv in r["levels"].items()}
         if name in ("squaring_cf", "warp_cf"):
             record["cl_twin_ms"] = r["cl_twin_ms"]
-        if name == "conv_narrow":
+        if name in ("conv_narrow", "warp_dfgrad"):
             record["shapes"] = r["shapes"]
         for k in ("eager_ms", "library_eager_ms"):
             if k in r:

@@ -10,10 +10,20 @@
 // df-cotangent, per output voxel p and axis a,
 //   gdf[r, p, a] = sum_k <g[r, p], m[r % B, n_k]> * dW_k/dw_a
 //                  * clip'(u_a) * f_a.
-// One thread per (df row, output voxel): it gathers its 8 corners, as
-// the forward does, and writes its own 3 values; no atomics, so the
-// result is deterministic. Moving and df may have different spatial
-// shapes (the level_res cross-resolution warp).
+// It walks the forward warp's iteration space, so it takes the forward's
+// tile plan (csrc/gather.cuh; kernels/gather.py:warp_plan for the df's
+// output space): a block takes a tile of one df row group's output,
+// decoded from blockIdx by shift and mask plus one 32-bit divide for its
+// rows; offsets inside a row are 32-bit, each row's base one 64-bit
+// product a block. A thread computes its own voxel: it gathers its 8
+// corners of moving row r % B through the read-only path (neighbours
+// share them), as the forward does, and writes its own 3 values; df and
+// g are read, and gdf written, evict-first; the block walks its group's
+// df rows, loading the next row's df while it gathers the current one.
+// C = 1, the only width the training step launches, is its own
+// instantiation; other C take a body with a runtime channel loop. No
+// atomics, so the result is deterministic; moving and df may have
+// different spatial shapes (the level_res cross-resolution warp).
 //
 // pulpo_warp_mgrad replaces _warp_halo_mgrad_pallas (and its cascade):
 // the moving-cotangent, the transpose of the gather. One thread per
@@ -37,10 +47,13 @@
 //
 // Numerics: built with -fmad=false, so the coordinate arithmetic rounds
 // as in the forward (a source coordinate one ulp off can land across a
-// voxel boundary).
+// voxel boundary); dfgrad's arithmetic (axis_terms, the corner order,
+// the sums) is the same at either C and bit-equal to the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gather.cuh"
 
 namespace {
 
@@ -105,27 +118,32 @@ __device__ __forceinline__ float axis_weight(const Axis& a, int hi) {
   return hi ? a.w : 1.0f - a.w;
 }
 
-__global__ void dfgrad_kernel(const float* __restrict__ mov,
-                              const float* __restrict__ df,
-                              const float* __restrict__ g,
-                              float* __restrict__ out,
-                              int B, int C, int I0, int I1, int I2,
-                              int O0, int O1, int O2,
-                              float f0, float f1, float f2, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const Voxel vx = voxel_terms(df, idx, B, I0, I1, I2, O0, O1, O2, f0, f1, f2);
-  const float* gv = g + idx * C;
+// One voxel of row r: the 8 corners of moving row `m` (offsets inside
+// the row, 32-bit), C channels of g at `gv`, 3 values to `o`.
+template <int CT>
+__device__ __forceinline__ void dfgrad_voxel(const float* __restrict__ m,
+                                             const float* __restrict__ gv, float* o,
+                                             const Axis (&ax)[3], int C, int I1, int I2,
+                                             const float (&f)[3]) {
+  float g1 = 0.0f;
+  if constexpr (CT == 1) g1 = __ldcs(gv);
   float gw[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
-    const float* m = mov + corner_offset(vx, corner, I1, I2) * C;
+    const int z = (corner & 1) ? ax[0].i1 : ax[0].i0;
+    const int y = (corner & 2) ? ax[1].i1 : ax[1].i0;
+    const int x = (corner & 4) ? ax[2].i1 : ax[2].i0;
+    const float* mc = m + ((z * I1 + y) * I2 + x) * C;
     float gm = 0.0f;
-    for (int ch = 0; ch < C; ++ch) gm += gv[ch] * __ldg(m + ch);
+    if constexpr (CT == 1) {
+      gm += g1 * __ldg(mc);
+    } else {
+      for (int ch = 0; ch < C; ++ch) gm += __ldg(gv + ch) * __ldg(mc + ch);
+    }
     const int h0 = corner & 1, h1 = (corner >> 1) & 1, h2 = (corner >> 2) & 1;
-    const float w0 = axis_weight(vx.ax[0], h0);
-    const float w1 = axis_weight(vx.ax[1], h1);
-    const float w2 = axis_weight(vx.ax[2], h2);
+    const float w0 = axis_weight(ax[0], h0);
+    const float w1 = axis_weight(ax[1], h1);
+    const float w2 = axis_weight(ax[2], h2);
     const float t0 = gm * (w1 * w2);
     const float t1 = gm * (w0 * w2);
     const float t2 = gm * (w0 * w1);
@@ -133,10 +151,51 @@ __global__ void dfgrad_kernel(const float* __restrict__ mov,
     gw[1] = h1 ? gw[1] + t1 : gw[1] - t1;
     gw[2] = h2 ? gw[2] + t2 : gw[2] - t2;
   }
-  const float f[3] = {f0, f1, f2};
-  float* o = out + idx * 3;
 #pragma unroll
-  for (int a = 0; a < 3; ++a) o[a] = gw[a] * (vx.ax[a].dclip * f[a]);
+  for (int a = 0; a < 3; ++a) __stcs(o + a, gw[a] * (ax[a].dclip * f[a]));
+}
+
+// CT: C at compile time (1), or 0 for the runtime `C`.
+template <int CT>
+__global__ void __launch_bounds__(gather::THREADS)
+dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
+              const float* __restrict__ g, float* __restrict__ out, int B,
+              int rows_per_moving, int c_rt, int I0, int I1, int I2, int O0, int O1, int O2,
+              float f0, float f1, float f2, gather::Plan p) {
+  const int C = CT > 0 ? CT : c_rt;
+  const gather::Tile t = gather::tile_of<1>(p);
+  const int x = t.x0 + threadIdx.x, y = t.y0 + threadIdx.y, z = t.z0 + threadIdx.z;
+  if (x >= O2 || y >= O1 || z >= O0) return;  // no barrier follows
+  const int n_out = O0 * O1 * O2;
+  const int v = (z * O1 + y) * O2 + x;
+  const float f[3] = {f0, f1, f2};
+
+  // rows r = mrow + B * (j0 + k), k < nrows: all read moving row mrow
+  const int group = blockIdx.z / B;
+  const int mrow = blockIdx.z - group * B;
+  const int j0 = group * p.rows;
+  const int nrows = min(p.rows, rows_per_moving - j0);
+  const float* m = mov + (long long)mrow * I0 * I1 * I2 * C;
+  const long long row0 = (long long)B * j0 + mrow;
+
+  float d[3];
+  const float* dr = df + row0 * 3 * n_out + v * 3;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) d[a] = __ldcs(dr + a);
+  for (int k = 0; k < nrows; ++k) {
+    const long long r = row0 + (long long)B * k;
+    Axis ax[3];
+    ax[0] = axis_terms(z, d[0], f0, I0);
+    ax[1] = axis_terms(y, d[1], f1, I1);
+    ax[2] = axis_terms(x, d[2], f2, I2);
+    if (k + 1 < nrows) {
+      const float* dn = df + (r + B) * 3 * n_out + v * 3;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) d[a] = __ldcs(dn + a);
+    }
+    dfgrad_voxel<CT>(m, g + r * C * n_out + (long long)v * C, out + r * 3 * n_out + v * 3, ax,
+                     C, I1, I2, f);
+  }
 }
 
 __global__ void mgrad_kernel(const float* __restrict__ df,
@@ -166,17 +225,32 @@ unsigned int blocks_for(long long total, int threads) {
 }  // namespace
 
 // gdf (B_df, O0, O1, O2, 3) from moving (B, I0, I1, I2, C), df (B_df, O.., 3)
-// and g (B_df, O.., C). Returns cudaGetLastError().
+// and g (B_df, O.., C); plan: the forward's tile plan of the df's output
+// space, 9 ints (gather::Plan, kernels/gather.py:warp_plan), refused
+// unless it covers the output. Returns cudaGetLastError().
 extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
                                  void* out, int B, int B_df, int C,
                                  int I0, int I1, int I2, int O0, int O1, int O2,
-                                 float f0, float f1, float f2, void* stream) {
-  const long long total = (long long)B_df * O0 * O1 * O2;
-  if (total == 0) return 0;
-  const int threads = 256;
-  dfgrad_kernel<<<blocks_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const float*)mov, (const float*)df, (const float*)g, (float*)out,
-      B, C, I0, I1, I2, O0, O1, O2, f0, f1, f2, total);
+                                 float f0, float f1, float f2, const int* plan, void* stream) {
+  const long long n_out = (long long)O0 * O1 * O2;
+  const long long n_in = (long long)I0 * I1 * I2;
+  if (B_df == 0 || n_out == 0) return 0;
+  if (B < 1 || C < 1 || B_df % B != 0) return (int)cudaErrorInvalidValue;
+  const gather::Plan p = gather::read_plan(plan);
+  const long long widest = n_out * (C > 3 ? C : 3);
+  if (p.v != 1 || !gather::valid(p, O2, O1, O0, B_df / B, B,
+                                 widest > n_in * C ? widest : n_in * C))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid = gather::grid(p, B), block = gather::block(p);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (C == 1)
+    dfgrad_kernel<1><<<grid, block, 0, s>>>((const float*)mov, (const float*)df,
+                                            (const float*)g, (float*)out, B, B_df / B, C, I0,
+                                            I1, I2, O0, O1, O2, f0, f1, f2, p);
+  else
+    dfgrad_kernel<0><<<grid, block, 0, s>>>((const float*)mov, (const float*)df,
+                                            (const float*)g, (float*)out, B, B_df / B, C, I0,
+                                            I1, I2, O0, O1, O2, f0, f1, f2, p);
   return (int)cudaGetLastError();
 }
 

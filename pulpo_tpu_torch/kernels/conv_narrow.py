@@ -17,6 +17,16 @@ backward (`aten.convolution_backward`) in the compute type, as the JAX
 package's `custom_vjp` replays XLA's conv VJP
 (attic/conv_narrow.py:179-199): the JAX package has no backward kernel.
 
+Routing by type: a bfloat16 x goes to the tensor-core body of
+`csrc/conv_narrow.cu` (an implicit GEMM on `mma.sync`: its weights packed
+here by `pack_weights` into a (K_pad, N_pad) bf16 matrix, 27 taps x cin
+rounded up to even by cout rounded up to 8; its launch walking the tile
+plan `tile_plan` computes); a float32 x to the CUDA-core body, bit-equal
+to the plain version. The tensor cores sum the products in another
+order, so a bf16 output is held to one bf16 ulp at the output's scale of
+the plain version. Neither body falls back to the other: a launch that
+fails raises.
+
 Layout: x (B, *S, cin), weight (cout, cin, 3, 3, 3) as nn.Conv3d holds
 it; out (B, *S, cout) in x's dtype.
 """
@@ -24,6 +34,7 @@ it; out (B, *S, cout) in x's dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,6 +42,13 @@ from pulpo_tpu_torch.kernels import _build
 
 MAX_CIN = 4   # attic/conv_narrow.py:62
 launches = 0  # kernel launches of `conv_narrow` (never of the plain version)
+
+# the bf16 body's tiling (csrc/conv_narrow.cu): a block of 8 warps takes 8
+# lines x 32 voxels of a plane and marches them along z through a chunk
+# of at most MAX_TZ planes (`tile_plan`)
+TILE_X, TILE_Y = 32, 8
+MAX_TZ = 32
+PLAN_KEYS = ("tiles_x", "tiles_y", "tz", "chunks")
 
 
 def reset_count() -> None:
@@ -50,6 +68,69 @@ def _taps(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     tap-major in (kz, ky, kx) order."""
     cout, cin = w.shape[:2]
     return w.to(dtype).float().permute(2, 3, 4, 1, 0).reshape(27, cin, cout).contiguous()
+
+
+def pair_channels(cin: int) -> int:
+    """Channels a tap takes in the packed matrix: cin rounded up to even,
+    so that every channel pair of the kernel's A fragments is one tap's."""
+    return cin + cin % 2
+
+
+def k_pad(cin: int) -> int:
+    """Rows of the packed weight matrix: 27 taps x `pair_channels(cin)`,
+    rounded up to a multiple of 16 (an mma k-step)."""
+    return -(-27 * pair_channels(cin) // 16) * 16
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 body's weights: a (K_pad, N_pad) bfloat16 matrix, row k =
+    tap * cin_p + ci with taps in (kz, ky, kx) order and cin_p =
+    `pair_channels(cin)`, column = output channel; zero in the pad
+    channel of an odd cin, past the 27 * cin_p rows and past the cout
+    columns (N_pad = cout rounded up to 8)."""
+    cout, cin = w.shape[:2]
+    cp = pair_channels(cin)
+    packed = torch.zeros((k_pad(cin), -(-cout // 8) * 8), device=w.device,
+                         dtype=torch.bfloat16)
+    # one copy, rounding to bf16 as `_taps` does (two launches a call)
+    packed[:27 * cp].view(27, cp, -1)[:, :cin, :cout] = w.permute(2, 3, 4, 1, 0).reshape(
+        27, cin, cout)
+    return packed
+
+
+def tile_plan(b: int, s0: int, s1: int, s2: int, sms: int) -> dict:
+    """The bf16 body's launch over B x S0 x S1 x S2 on a card of `sms`
+    SMs: tiles of TILE_Y x TILE_X voxels of a plane, each block marching
+    `tz` planes of one (`chunks` chunks along z). The chunks minimize the
+    launch's waves (blocks over SMs, rounded up) times a block's planes
+    plus 4 (its two halo planes and its prologue): a block's planes share
+    its SM's shared-memory pipe, so more blocks than SMs buy little, and
+    every chunk reloads its halo. At most MAX_TZ planes a block: past
+    that, at the input size, the fewer blocks hid the loads' latency
+    worse (PERF.md). The grid is (tiles_x * tiles_y, chunks, B)."""
+    tiles_x, tiles_y = -(-s2 // TILE_X), -(-s1 // TILE_Y)
+    per_chunk = tiles_x * tiles_y * b
+    best = None
+    for chunks in range(-(-s0 // MAX_TZ), s0 + 1):
+        tz = -(-s0 // chunks)
+        if -(-s0 // tz) != chunks:  # the same tz as fewer chunks
+            continue
+        cost = -(-per_chunk * chunks // sms) * (tz + 4)
+        if best is None or cost < best[0]:
+            best = (cost, tz, chunks)
+    return {"tiles_x": tiles_x, "tiles_y": tiles_y, "tz": best[1], "chunks": best[2]}
+
+
+def plan_arg(plan: dict):
+    """`plan` as the C entry takes it: 4 ints."""
+    return (ctypes.c_int * len(PLAN_KEYS))(*(plan[k] for k in PLAN_KEYS))
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(b: int, s0: int, s1: int, s2: int, sms: int):
+    """`plan_arg(tile_plan(...))`, computed once a shape (a step launches
+    the same five shapes every step)."""
+    return plan_arg(tile_plan(b, s0, s1, s2, sms))
 
 
 def conv_narrow_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -81,27 +162,42 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError(f"x on {x.device}, weight on {w.device}")
 
 
+def conv_packed(x: torch.Tensor, weights: torch.Tensor, cout: int) -> torch.Tensor:
+    """One launch of the kernel on a contiguous x on the card with its
+    weights already laid out: `pack_weights(w)` for bf16, `_taps(w,
+    torch.float32)` for float32."""
+    b, s0, s1, s2, cin = x.shape
+    if s0 * s1 * s2 * max(cout, cin) >= 2**31:
+        raise ValueError(f"narrow conv kernel addresses a row in 32 bits: x {tuple(x.shape)}, "
+                         f"cout {cout}")
+    bf16 = x.dtype == torch.bfloat16
+    plan = None
+    if bf16:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = _launch_plan(b, s0, s1, s2, sms)
+    out = torch.empty((b, s0, s1, s2, cout), device=x.device, dtype=x.dtype)
+    fn = _build.load("conv_narrow").pulpo_conv_narrow
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    global launches
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), weights.data_ptr(), out.data_ptr(), int(bf16),
+                b, cin, s0, s1, s2, cout, plan, _build.stream_ptr(x))
+        launches += 1
+    _build.check(rc, "conv_narrow")
+    return out
+
+
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The conv without its gradient: the CUDA kernel for a tensor on the
-    card, the plain version on the CPU."""
+    card (the tensor-core body for bf16, the CUDA-core body for float32),
+    the plain version on the CPU."""
     if x.device.type == "cpu":
         return conv_narrow_plain(x, w)
     _check(x, w)
     x = x.contiguous()
-    taps = _taps(w, x.dtype)
-    b, s0, s1, s2, cin = x.shape
-    cout = w.shape[0]
-    out = torch.empty((b, s0, s1, s2, cout), device=x.device, dtype=x.dtype)
-    fn = _build.load("conv_narrow").pulpo_conv_narrow
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    global launches
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), taps.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-                b, cin, s0, s1, s2, cout, _build.stream_ptr(x))
-        launches += 1
-    _build.check(rc, "conv_narrow")
-    return out
+    weights = pack_weights(w) if x.dtype == torch.bfloat16 else _taps(w, x.dtype)
+    return conv_packed(x, weights, w.shape[0])
 
 
 class NarrowConv(torch.autograd.Function):

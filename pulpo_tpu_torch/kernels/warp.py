@@ -12,7 +12,8 @@ fallbacks past it. A CUDA thread can gather, so one kernel
 (`csrc/warp.cu`) is exact at any displacement and any input size.
 
 The backward (`csrc/warp_bwd.cu`) replaces the df-cotangent
-`_warp_halo_dfgrad_pallas` and the moving-cotangent
+`_warp_halo_dfgrad_pallas` (on the forward's tile plan) and the
+moving-cotangent
 `_warp_halo_mgrad_pallas` (and their cascades, the XLA VJP of
 `ops/warp.py:warp_image` past them). `Warp` is the autograd Function
 that joins the three; `warp` goes through it on both devices.
@@ -272,12 +273,13 @@ def tile_plan(moving_shape, df_shape, cf: bool = False) -> dict:
 def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False):
     """Call the C entry `entry(ptrs..., B, B_df, C, I0.., O0.., f0..,
     [plan,] stream)` of kernel library `lib`, one I, O and f per spatial
-    axis (the forward kernel also takes its tile plan); `cf`: the shapes
+    axis (the forward kernel and the df-cotangent, which walks the same
+    output space, also take the forward's tile plan); `cf`: the shapes
     are channels-first."""
     b, c, s_in, s_out = _shapes(moving_shape, df.shape, cf)
     nd = len(s_in)
     plan = []
-    if lib == "warp":
+    if entry != "pulpo_warp_mgrad":
         if max(math.prod(s_in) * c, math.prod(s_out) * max(c, nd)) >= 2**31:
             raise ValueError(f"warp kernel addresses a row in 32 bits: moving "
                              f"{tuple(moving_shape)}, df {tuple(df.shape)}")

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the gather kernels (csrc/warp.cu, csrc/squaring.cu) and the
-training step's box sum and squaring backward (csrc/box_sum.cu,
-csrc/squaring_bwd.cu) at the shapes the paths launch, at more than one
-tile plan, against another checkout.
+training step's box sum, squaring backward, narrow conv and warp
+df-cotangent (csrc/box_sum.cu, csrc/squaring_bwd.cu, csrc/conv_narrow.cu,
+csrc/warp_bwd.cu) at the shapes the paths launch, at more than one tile
+plan, against another checkout.
 
     python3 scripts/bench_gather.py [--parent DIR] [--json PATH] [--sass DIR]
                                     [--cases all|gather|training]
@@ -14,25 +15,35 @@ warp; one squaring step at each flagship level, CL and CF, and the 2D
 step; the box sum at each level's size and window of the flagship,
 LungCT and flagship-2d steps; one squaring backward step at each
 flagship and LungCT level, and at level 0 also under a sub-voxel field,
-a 4-voxel one and the LungCT ramp) it calls the C entry points of:
+a 4-voxel one and the LungCT ramp; the bf16 narrow conv at the 5 shapes
+a step launches of both configurations, 2 -> 32 at the input size and
+3 -> 32 at each latent level; the df-cotangent (C = 1) at the 4 shapes a
+step launches of both) it calls the C entry points of:
 - `v1`, `v4`: this checkout's libraries with the launch's plan at one
   and (the channels-first warp) four voxels a thread
-  (kernels/gather.py); `new` is the one the wrappers take; the box sum
-  and the squaring backward at their plans (`new`) and, at levels 0
-  and 1, at plans for half and twice the target block count (`half`,
-  `twice`);
+  (kernels/gather.py); `new` is the one the wrappers take; the box sum,
+  the squaring backward and the narrow conv at their plans (`new`) and,
+  at levels 0 and 1 (the conv: at every shape), at plans for half and
+  twice the target block count (`half`, `twice`; the conv: half and
+  twice the planes a block marches); the df-cotangent at the forward
+  warp's plan;
 - `parent`: with --parent, the same sources of the checkout at DIR,
-  built with the same flags (its entry points take no plan).
+  built with the same flags; an entry point of it that takes a plan
+  (its source says so) gets the plan `new` takes, one that takes none
+  is called without (and the narrow conv's with its float32 taps).
 Every output is held equal, bit for bit, to `v1`'s (`new`'s), and
 `v1`'s to the plain version on the cases small enough to run it; the
 squaring backward, whose atomics fix no order, within 1e-5 of scale of
-the plain version on every side. Times: CUDA events,
+the plain version on every side; the narrow conv within one bf16 ulp
+at the output's scale (the tensor cores sum in another order); the
+df-cotangent bit-equal. Times: CUDA events,
 the median of 5 timings of `iters` calls, taken in turns (parent, v1,
 v4, v4, v1, parent, without v4 where there is none); for the cases under 200 MB, whose calls are
 host-bound, device times of a CUDA graph of the calls. With --sass DIR,
-the SASS of this checkout's four libraries goes to DIR and each
-kernel's instruction mix is printed, with its atomic instructions in
-full (a native shared-memory float add, or a compare-and-swap loop). The bound is each input read once and each
+the SASS of this checkout's libraries goes to DIR and each
+kernel's instruction mix is printed (HMMA: the tensor-core products),
+with its atomic instructions in full (a native shared-memory float add,
+or a compare-and-swap loop). The bound is each input read once and each
 output written once over 3.35 TB/s. Prints the card, a table and each
 path's device ms, and writes the records to --json. Needs a CUDA device.
 """
@@ -52,6 +63,29 @@ import sys
 HBM_BYTES_PER_S = 3.35e12
 
 
+# the parent checkout's C entry points that take a tile plan
+PARENT_PLANS: set = set()
+
+
+def entries_with_plan(root: str) -> set:
+    """The C entry points of the checkout at `root` whose parameters
+    include a plan (`const int* plan`), read from its sources."""
+    out = set()
+    csrc = os.path.join(root, "pulpo_tpu_torch", "csrc")
+    for name in os.listdir(csrc):
+        if name.endswith(".cu"):
+            with open(os.path.join(csrc, name)) as fh:
+                for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', fh.read()):
+                    if "plan" in m.group(2):
+                        out.add(m.group(1))
+    return out
+
+
+def parent_plan(entry: str, plan):
+    """The plan to give the parent's `entry`: `plan` if it takes one."""
+    return plan if entry in PARENT_PLANS else None
+
+
 def build_parent(root: str, name: str):
     """The library of kernel `name` built from checkout `root`'s source
     with this checkout's flags."""
@@ -68,8 +102,8 @@ def build_parent(root: str, name: str):
 
 def box_call(lib, x, out, win, plan=None, tmp=None):
     """One launch of `lib`'s box-sum entry on x (B, D, H, W) or (B, H, W)
-    with `plan` (kernels/box_sum.py:box_sum_plan); plan None: the
-    parent's entry, which takes a `tmp` buffer and no plan."""
+    with `plan` (kernels/box_sum.py:box_sum_plan); plan None: an older
+    entry, which takes a `tmp` buffer and no plan."""
     import torch
 
     from pulpo_tpu_torch.kernels import box_sum
@@ -85,7 +119,7 @@ def box_call(lib, x, out, win, plan=None, tmp=None):
 
 def bwd_call(lib, v, g, out, plan=None):
     """One launch of `lib`'s squaring backward on (v, g) with `plan`
-    (kernels/gather.py:squaring_bwd_plan); plan None: the parent's entry."""
+    (kernels/gather.py:squaring_bwd_plan); plan None: an entry without one."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
@@ -100,10 +134,47 @@ def bwd_call(lib, v, g, out, plan=None):
     assert rc == 0, f"squaring_bwd: CUDA error {rc}"
 
 
+def conv_call(lib, x, weights, cout, out, plan=None):
+    """One launch of `lib`'s narrow conv on a bf16 x with `plan`
+    (kernels/conv_narrow.py:tile_plan) and the packed weights
+    (`pack_weights`); plan None: an entry that runs bf16 on the CUDA
+    cores, which takes the (27, cin, cout) float32 taps (`_taps`) and no
+    plan. The weights are laid out before, outside the timed call."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    fn = lib.pulpo_conv_narrow
+    tail = [] if plan is None else [conv_narrow.plan_arg(plan)]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * (len(tail) + 1))
+    rc = fn(x.data_ptr(), weights.data_ptr(), out.data_ptr(), 1, x.shape[0], x.shape[4],
+            *x.shape[1:4], cout, *tail, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"conv_narrow: CUDA error {rc}"
+
+
+def dfgrad_call(lib, mov, df, g, out, plan=True):
+    """One launch of `lib`'s df-cotangent on (mov, df, g) at the forward
+    warp's plan; plan False: an entry that takes none."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import gather, warp
+
+    b, c, s_in, s_out = warp._shapes(mov.shape, df.shape, False)
+    fn = lib.pulpo_warp_dfgrad
+    tail = [gather.plan_arg(warp.tile_plan(mov.shape, df.shape))] if plan else []
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] * (len(tail) + 1))
+    f = [warp._factor(s_in[i], s_out[i]) for i in range(3)]
+    rc = fn(mov.data_ptr(), df.data_ptr(), g.data_ptr(), out.data_ptr(), b, df.shape[0], c,
+            *s_in, *s_out, *f, *tail, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"warp_dfgrad: CUDA error {rc}"
+
+
 def warp_call(lib, mov, df, out, cf, v=None):
     """One launch of `lib`'s warp entry on these tensors (the wrapper's
     arguments, kernels/warp.py:_launch) with the plan at `v` voxels a
-    thread; v None: the parent's entry, which takes no plan."""
+    thread; v None: an entry that takes no plan."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
@@ -123,7 +194,7 @@ def warp_call(lib, mov, df, out, cf, v=None):
 
 def step_call(lib, vec, out, cf, v=None, scale=1.0):
     """One launch of `lib`'s squaring entry (kernels/squaring.py:_launch_step)
-    with its plan (one voxel a thread); v None: the parent's entry."""
+    with its plan (one voxel a thread); v None: an entry without one."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
@@ -143,7 +214,7 @@ def step_call(lib, vec, out, cf, v=None, scale=1.0):
 
 # "/*0080*/  @!P0 BRA 0x120 ;": the opcode, past an address and a predicate
 SASS_LINE = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
-SASS_OPS = ("LDG", "STG", "LDS", "STS", "LDGSTS", "BAR", "IMAD", "IADD3", "LEA", "FMUL", "FADD",
+SASS_OPS = ("HMMA", "LDG", "STG", "LDS", "STS", "LDGSTS", "BAR", "IMAD", "IADD3", "LEA", "FMUL", "FADD",
             "FMNMX", "FRND", "F2I", "I2F", "ISETP", "BRA", "SHFL", "ATOMS", "ATOMG", "ATOM", "RED",
             "REDG")
 # the opcode with its modifiers, for the atomics: "ATOMS.CAST.SPIN", "REDG.E.ADD.F32..."
@@ -283,17 +354,20 @@ def cases(dev):
 
 
 def training_cases(dev):
-    """The box sum and squaring backward cases, as `cases` gives the
-    gathers': per level of the flagship and LungCT steps, the box sum
+    """The box sum, squaring backward, narrow conv and df-cotangent
+    cases, as `cases` gives the gathers': per level of the flagship and
+    LungCT steps, the box sum
     at the level's NCC size (`df_size`: the input size at level 0) and
     window, 8 calls a step (5 forward, 3 backward), and one squaring
     backward at the level's size, 7 a step (one per integration step),
     its field a smooth one of max |v| = 1 voxel; at level 0 also under a
     0.4-voxel field, a 4-voxel one and the LungCT ramp's next-to-last
-    step input; flagship-2d's box sums (2D step)."""
+    step input; flagship-2d's box sums (2D step); the narrow conv at
+    the 5 shapes and the df-cotangent at the 4 shapes a step launches
+    (one call each)."""
     import torch
 
-    from chip_smoke import DRIFT, SI_RAMP, respiratory_field, smooth_field
+    from chip_smoke import DRIFT, SI_RAMP, narrow_weight, respiratory_field, smooth_field
 
     out = []
 
@@ -329,18 +403,39 @@ def training_cases(dev):
             g = torch.randn((1, *levels[0], 3), device=dev)
             add(f"#2 squaring_bwd LungCT level 0 ramp {SI_RAMP / 4:g}", "bwd", (v, g),
                 36 * math.prod(levels[0]), True, False)
+    for tag, full, levels, path in (("flagship", FULL, LEVELS, "flagship_step"),
+                                    ("LungCT", LUNG, LUNG_LEVELS, "LungCT_step")):
+        # the narrow conv: down_block_0's 2 -> 32 at the input size, each
+        # latent level's velocity head's 3 -> 32 (bf16, B = 1)
+        for cin, size in ((2, full), *((3, s) for s in levels)):
+            nv = math.prod(size)
+            x = torch.randn((1, *size, cin), device=dev).to(torch.bfloat16)
+            w = narrow_weight(cin, 32, 400 + cin + size[0], dev)
+            add(f"#12 conv_narrow {tag} {cin}->32 {'x'.join(map(str, size))}", "conv", (x, w),
+                2 * nv * (cin + 32), True, True, **{path: 1})
+        # the df-cotangent: each level's image by its df (level 0: the
+        # input size), C = 1, under the path's field
+        for l in range(4):
+            size = full if l == 0 else levels[l]
+            df = (smooth_field(1, size, 3.0, seed=410 + l, device=dev) if tag == "flagship"
+                  else respiratory_field(size, SI_RAMP / 2**l, DRIFT / 2**l, dev))
+            m = torch.rand((1, *size, 1), device=dev)
+            g = torch.randn((1, *size, 1), device=dev)
+            add(f"#6 warp_dfgrad {tag} level {l} {'x'.join(map(str, size))}", "dfgrad",
+                (m, df, g), math.prod(size) * (4 + 12 + 4 + 12), True, False, **{path: 1})
     return out
 
 
 def run_training_case(case: dict, libs: dict, dev) -> dict:
-    """A box-sum or squaring-backward case: every side's output held to
-    the plain version (bit-equal, or 1e-5 of scale for the backward) and
-    to `new`'s, then timed in turns (parent, new, half, twice, twice,
+    """A box-sum, squaring-backward, narrow-conv or df-cotangent case:
+    every side's output held to the plain version (bit-equal; 1e-5 of
+    scale for the squaring backward, one bf16 ulp at scale for the conv)
+    and to `new`'s, then timed in turns (parent, new, half, twice, twice,
     half, new, parent, each where there is one)."""
     import torch
 
     from chip_smoke import graph_ms
-    from pulpo_tpu_torch.kernels import box_sum, gather, squaring
+    from pulpo_tpu_torch.kernels import box_sum, conv_narrow, gather, squaring, warp
 
     name, kind, tensors, bytes_ = (case[k] for k in ("name", "kind", "tensors", "bytes"))
     sides = ["new"] + (["half", "twice"] if case["variants"] else [])
@@ -358,9 +453,34 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
         box_sum.TARGET_BLOCKS = target
         tmp = torch.empty_like(x)
         mk = lambda: torch.empty_like(x)
+        entry = "pulpo_box_sum" if x.dim() == 4 else "pulpo_box_sum_2d"
+        plans["parent"] = parent_plan(entry, plans["new"])
         call = lambda k, o: box_call(libs["parent" if k == "parent" else "new"]["box_sum"], x, o,
-                                     win, plans.get(k), tmp)
+                                     win, plans[k], tmp)
         plain = lambda: box_sum.box_sum_plain(x, win)
+    elif kind == "conv":
+        x, w = tensors
+        s0 = x.shape[1]
+        plans = {"new": conv_narrow.tile_plan(*x.shape[:4], torch.cuda.get_device_properties(
+            dev).multi_processor_count)}
+        for side, tz in (("half", max(1, plans["new"]["tz"] // 2)),
+                         ("twice", min(s0, 2 * plans["new"]["tz"]))):
+            plans[side] = dict(plans["new"], tz=tz, chunks=-(-s0 // tz))
+        mk = lambda: torch.empty((*x.shape[:4], w.shape[0]), device=dev, dtype=x.dtype)
+        plans["parent"] = parent_plan("pulpo_conv_narrow", plans["new"])
+        packed, taps = conv_narrow.pack_weights(w), conv_narrow._taps(w, torch.bfloat16)
+        call = lambda k, o: conv_call(libs["parent" if k == "parent" else "new"]["conv_narrow"],
+                                      x, taps if plans[k] is None else packed, w.shape[0], o,
+                                      plans[k])
+        plain = lambda: conv_narrow.conv_narrow_plain(x, w)
+    elif kind == "dfgrad":
+        m, df, g = tensors
+        plans = {"new": warp.tile_plan(m.shape, df.shape)}
+        mk = lambda: torch.empty_like(df)
+        with_plan = "pulpo_warp_dfgrad" in PARENT_PLANS
+        call = lambda k, o: dfgrad_call(libs["parent" if k == "parent" else "new"]["warp_bwd"],
+                                        m, df, g, o, k != "parent" or with_plan)
+        plain = lambda: warp.warp_dfgrad_plain(m, df, g)
     else:
         v, g = tensors
         target = gather.BWD_TARGET_BLOCKS
@@ -370,18 +490,21 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
             plans[side] = gather.squaring_bwd_plan(v.shape[1:4], v.shape[0])
         gather.BWD_TARGET_BLOCKS = target
         mk = lambda: torch.empty_like(v)
+        plans["parent"] = parent_plan("pulpo_squaring_step_bwd", plans["new"])
         call = lambda k, o: bwd_call(libs["parent" if k == "parent" else "new"]["squaring_bwd"],
-                                     v, g, o, plans.get(k))
+                                     v, g, o, plans[k])
         plain = lambda: squaring.squaring_step_bwd_plain(v, g)
     outs = {}
     for k in sides:
         outs[k] = mk()
         call(k, outs[k])
     torch.cuda.synchronize()
-    ref = plain() if case["plain"] else outs["new"]
+    with torch.no_grad():
+        ref = (plain() if case["plain"] else outs["new"]).float()
     scale = max(1.0, float(ref.abs().max()))
-    err = {k: float((outs[k] - ref).abs().max()) for k in sides}
-    tol = 0.0 if kind == "box" else 1e-5 * scale
+    err = {k: float((outs[k].float() - ref).abs().max()) for k in sides}
+    tol = {"box": 0.0, "dfgrad": 0.0, "bwd": 1e-5 * scale,
+           "conv": 2.0 ** (math.floor(math.log2(scale)) - 7)}[kind]
     same = {k: err[k] <= tol for k in sides}
     order = [k for k in ("parent", "new", "half", "twice") if k in sides]
     order += order[::-1]
@@ -393,7 +516,7 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
     best = statistics.median(times["new"])
     record = {"case": name, "bound_ms": bound, "equal": same, "max_abs_err": err,
               "device_graph": True, "paths": case["paths"], "ms": times,
-              "plans": {k: plans[k] for k in plans if k in sides}}
+              "plans": {k: plans[k] for k in plans if k in sides and plans[k] is not None}}
     line = f"{name:48s} bound {bound:8.4f}  new {best:.4f} ({bound / best:.2f} of bound)"
     for k in [k for k in sides if k != "new"]:
         if k in times:
@@ -419,16 +542,15 @@ def run_case(case: dict, libs: dict, dev) -> dict:
     sides = {"v1": ("new", 1)}
     if kind == "warp" and cf:
         sides["v4"] = ("new", 4)
-    if "parent" in libs:
-        sides["parent"] = ("parent", None)
     if kind == "warp":
         mov, df = tensors
-        _, c, _, s_out = warp._shapes(mov.shape, df.shape, cf)
+        _, c, s_in, s_out = warp._shapes(mov.shape, df.shape, cf)
         shape = (df.shape[0], c, *s_out) if cf else (df.shape[0], *s_out, c)
         mk = lambda: torch.empty(shape, device=dev)
         call = lambda k, o: warp_call(libs[sides[k][0]]["warp"], mov, df, o, cf, sides[k][1])
         plain = (lambda: warp.warp_cf_plain(mov, df)) if cf else (lambda: warp.warp_plain(mov, df))
         chosen = warp.tile_plan(mov.shape, df.shape, cf)["v"]
+        entry = "pulpo_warp_cf" if cf else ("pulpo_warp_2d" if len(s_in) == 2 else "pulpo_warp")
     else:
         (vec,) = tensors
         mk = lambda: torch.empty_like(vec)
@@ -436,6 +558,11 @@ def run_case(case: dict, libs: dict, dev) -> dict:
         plain = ((lambda: squaring.squaring_step_cf_plain(vec)) if cf
                  else (lambda: squaring.squaring_step_plain(vec)))
         chosen = squaring.tile_plan(vec.shape, cf)["v"]
+        nd = vec.dim() - 2
+        entry = ("pulpo_squaring_step_cf" if cf else
+                 ("pulpo_squaring_step_2d" if nd == 2 else "pulpo_squaring_step"))
+    if "parent" in libs:
+        sides["parent"] = ("parent", parent_plan(entry, chosen))
     outs = {}
     for k in sides:
         outs[k] = mk()
@@ -471,11 +598,11 @@ def run_case(case: dict, libs: dict, dev) -> dict:
 
 def path_sums(records: list, side: str) -> None:
     """Print each path's device ms of the kernels #1, #3, #4, #5, #8, #9,
-    #2 on library `side`: launches x per-call time (the median), summed
+    #2, #12, #6 on library `side`: launches x per-call time (the median), summed
     over the shapes the path launches, beside the bound."""
     for path in PATHS:
-        for prefix in ("#1", "#3", "#4", "#5", "#8", "#9", "#2"):
-            picked = [r for r in records if r["case"].startswith(prefix) and path in r["paths"]
+        for prefix in ("#1", "#3", "#4", "#5", "#8", "#9", "#2", "#12", "#6"):
+            picked = [r for r in records if r["case"].split()[0] == prefix and path in r["paths"]
                       and side in r["ms"]]
             if picked:
                 ms = sum(r["paths"][path] * statistics.median(r["ms"][side]) for r in picked)
@@ -507,8 +634,9 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
-    names = {"gather": ("warp", "squaring"), "training": ("box_sum", "squaring_bwd"),
-             "all": ("warp", "squaring", "box_sum", "squaring_bwd")}[args.cases]
+    training = ("box_sum", "squaring_bwd", "conv_narrow", "warp_bwd")
+    names = {"gather": ("warp", "squaring"), "training": training,
+             "all": ("warp", "squaring", *training)}[args.cases]
     _build.build_all(names)
     libs = {"new": {k: _build.load(k) for k in names}}
     for k in names:
@@ -519,6 +647,7 @@ def main() -> int:
         sass_summary(args.sass, names)
     if args.parent:
         libs["parent"] = {k: build_parent(args.parent, k) for k in names}
+        PARENT_PLANS.update(entries_with_plan(args.parent))
 
     records = []
     if args.cases != "training":

@@ -15,7 +15,9 @@ host-clock time, the peak device memory, the device's busy time (the
 union of kernel intervals on the card) and idle share, the device time
 of the port's own kernels against everything else, each of the port's
 kernels (all its instantiations) with its launches and device ms a
-step, and the kernels by device time. Needs a CUDA device.
+step, the device time of the narrow conv's backward (the library conv
+backward `NarrowConv.backward` calls: the kernels under its autograd
+node), and the kernels by device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ import time
 
 # device-kernel names of the port's hand-written kernels (csrc/*.cu)
 OWN_KERNELS = ("warp_kernel", "squaring_kernel", "vel_head", "dfgrad_kernel",
-               "mgrad_kernel", "squaring_bwd_kernel", "box_sum_kernel", "conv_narrow_kernel")
+               "mgrad_kernel", "squaring_bwd_kernel", "box_sum_kernel", "conv_narrow_kernel",
+               "conv_narrow_tc")
 
 
 def busy_ms(events) -> float:
@@ -116,6 +119,13 @@ def main() -> int:
         if ts:
             print(f"own kernel {k:22s} {len(ts) / args.steps:6.1f} launches/step "
                   f"{sum(ts) / args.steps:8.3f} ms/step")
+    # the narrow conv's backward: the device time of the kernels launched
+    # under its autograd node (cuDNN's dgrad and wgrad)
+    nodes = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name.endswith("NarrowConvBackward") and "evaluate_function" in e.name]
+    print(f"narrow conv backward (library conv backward) {len(nodes) / args.steps:.1f} "
+          f"calls/step {sum(e.device_time_total for e in nodes) / 1e3 / args.steps:8.3f} "
+          f"ms/step of device time")
     print(f"{'device ms/step':>15s} {'share':>6s} {'calls/step':>10s}  kernel")
     for name, ts in rows[:args.top]:
         print(f"{sum(ts) / args.steps:15.2f} {sum(ts) / total:6.3f} "

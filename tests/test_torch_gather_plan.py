@@ -219,3 +219,59 @@ def test_plan_arg_is_the_plan_in_the_kernels_order():
     assert list(gather.plan_arg(plan)) == [plan[k] for k in gather.KEYS]
     assert gather.KEYS == ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups",
                            "rows", "v")
+
+
+def _axis_counts(plan, size):
+    """How often each voxel of each axis is reached by the kernel's decode
+    (gather::tile_of at one voxel a thread: x = strip * tx + threadIdx.x,
+    y = (blockIdx.x >> log_strips) * ty + threadIdx.y, z = blockIdx.y * tz
+    + threadIdx.z), inside the volume; the walk is their product."""
+    z_, y_, x_ = size
+    strips = 1 << plan["log_strips"]
+    x = (np.arange(strips)[:, None] * plan["tx"] + np.arange(plan["tx"])).ravel()
+    y = (np.arange(plan["tiles_y"])[:, None] * plan["ty"] + np.arange(plan["ty"])).ravel()
+    z = (np.arange(plan["tiles_z"])[:, None] * plan["tz"] + np.arange(plan["tz"])).ravel()
+    return [np.bincount(a[a < n], minlength=n) for a, n in ((z, z_), (y, y_), (x, x_))]
+
+
+def _dfgrad_launches():
+    """(moving shape, df shape) of the df-cotangent's launches: each level
+    of a B = 1 flagship and LungCT training step (each level's image by
+    its df, level 0 at the input size), and the kernel checks' cases:
+    2 df rows of one image, the full-size image under a level-0 df."""
+    out = []
+    for full, levels in (((160, 192, 224), [(40, 48, 56), (20, 24, 28), (10, 12, 14)]),
+                         ((192, 192, 208), [(48, 48, 52), (24, 24, 26), (12, 12, 13)])):
+        for size in (full, *levels):
+            out.append(((1, *size, 1), (1, *size, 3)))
+        out.append(((1, *full, 1), (2, *full, 3)))
+    out.append(((1, 160, 192, 224, 1), (2, 80, 96, 112, 3)))
+    return out
+
+
+@pytest.mark.parametrize("moving,df", _dfgrad_launches())
+def test_dfgrad_plan_at_the_training_shapes(moving, df):
+    """The df-cotangent takes the forward warp's plan over the df's output
+    space (kernels/warp.py:_launch): one voxel a thread, the entry's checks
+    passed, every output voxel of every df row computed and written once."""
+    plan = warp.tile_plan(moving, df)
+    size = gather.axes(df[1:-1])
+    n = math.prod(size)
+    assert plan["v"] == 1
+    assert _admissible(plan, size, df[0] // moving[0], moving[0], n * 3)
+    for counts in _axis_counts(plan, size):
+        assert (counts == 1).all()
+    grid = _grid(plan, moving[0])
+    rows = [_block_rows(plan, bz, moving[0], df[0])[1] for bz in range(grid[2])]
+    assert sorted(r for rs in rows for r in rs) == list(range(df[0]))
+
+
+@pytest.mark.parametrize("size", RAGGED)
+def test_dfgrad_walk_matches_the_axis_decode(size):
+    """On ragged sizes the block-by-block walk (`_walk`) and the per-axis
+    decode above agree: the decode is the walk's product."""
+    plan = warp.tile_plan((2, *size, 1), (6, *size, 3))
+    stored, _ = _walk(plan, size, 2, 6)
+    zc, yc, xc = _axis_counts(plan, size)
+    assert (stored == 1).all()
+    assert (zc[:, None, None] * yc[None, :, None] * xc[None, None, :] == stored[0]).all()

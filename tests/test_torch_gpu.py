@@ -172,8 +172,11 @@ def _close_scaled(got, ref, rel):
 @pytest.mark.parametrize("c,rows,mag", [(1, 6, 0.3), (1, 6, 15.0), (3, 2, 3.0)])
 def test_warp_dfgrad_kernel_matches_plain(cuda_device, c, rows, mag):
     """Ragged sizes, C = 1 and 3, sample-tiled rows (row r reads r % 2),
-    and a full-res moving image under a half-res df."""
+    and a full-res moving image under a half-res df. C = 1 is bit-equal
+    to the plain version; at C = 3 the plain version's channel `sum`
+    adds in its own order on the card: 1e-5 of scale."""
     rng = np.random.default_rng(30)
+    rel = 0.0 if c == 1 else 1e-5
     m = torch.from_numpy(rng.random((2, 20, 24, 28, c), dtype=np.float32)).to(cuda_device)
     d = _field((rows, 20, 24, 28, 3), mag, 31).to(cuda_device)
     g = torch.randn((rows, 20, 24, 28, c), device=cuda_device)
@@ -181,10 +184,62 @@ def test_warp_dfgrad_kernel_matches_plain(cuda_device, c, rows, mag):
     got = warp.warp_dfgrad(m, d, g)
     torch.cuda.synchronize()
     assert warp.dfgrad_launches == before + 1
-    _close_scaled(got, warp.warp_dfgrad_plain(m, d, g), 1e-5)
+    _close_scaled(got, warp.warp_dfgrad_plain(m, d, g), rel)
     _close_scaled(warp.warp_dfgrad(m, _permuted(d), g), got, 0)
     mc = torch.from_numpy(rng.random((2, 40, 48, 56, c), dtype=np.float32)).to(cuda_device)
-    _close_scaled(warp.warp_dfgrad(mc, d, g), warp.warp_dfgrad_plain(mc, d, g), 1e-5)
+    _close_scaled(warp.warp_dfgrad(mc, d, g), warp.warp_dfgrad_plain(mc, d, g), rel)
+
+
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("moving,df,mag", [((2, 20, 24, 28), (6, 20, 24, 28), 3.0),
+                                           ((2, 40, 48, 56), (6, 20, 24, 28), 3.0),
+                                           ((3, 9, 5, 37), (9, 11, 7, 33), 15.0),
+                                           ((1, 13, 17, 19), (5, 13, 17, 19), 0.3)])
+def test_warp_dfgrad_on_the_gather_plan(cuda_device, monkeypatch, c, moving, df, mag):
+    """The df-cotangent on the forward warp's tile plan: more df rows than
+    moving rows (row r reads r % B), a moving image of another size than
+    the df (the cross-resolution warp), ragged sizes, each df row group of
+    one row and of several (the block's row walk). C = 1, the training
+    step's width and its own instantiation: bit-equal to the plain
+    version. C = 3 (the runtime channel loop): within 1e-5 of scale, as
+    the plain version's channel `sum` on the card adds in its own order;
+    the same output from one launch to the next. A permuted-memory df
+    gives the contiguous one's output exactly."""
+    from pulpo_tpu_torch.kernels import gather
+
+    rng = np.random.default_rng(sum(moving) + sum(df) + c)
+    m = torch.from_numpy(rng.random((*moving, c), dtype=np.float32)).to(cuda_device)
+    d = _field((*df, 3), mag, 33 + c).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((*df, c)).astype(np.float32)).to(cuda_device)
+    ref = warp.warp_dfgrad_plain(m, d, g)
+    first = None
+    for blocks in (gather.TARGET_BLOCKS, 1):
+        monkeypatch.setattr(gather, "TARGET_BLOCKS", blocks)
+        before = warp.dfgrad_launches
+        got = warp.warp_dfgrad(m, d, g)
+        torch.cuda.synchronize()
+        assert warp.dfgrad_launches == before + 1
+        if c == 1:
+            torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        else:
+            _close_scaled(got, ref, 1e-5)
+        first = got if first is None else first
+        assert torch.equal(got, first)
+        assert torch.equal(warp.warp_dfgrad(m, _permuted(d), g), got)
+
+
+def test_warp_dfgrad_refuses_a_plan_it_cannot_walk(cuda_device, monkeypatch):
+    """A plan whose tiles miss part of the output is refused at the C
+    entry (gather::valid), not launched."""
+    from pulpo_tpu_torch.kernels import gather
+
+    real = gather.warp_plan
+    monkeypatch.setattr(gather, "warp_plan", lambda *a, **k: dict(real(*a, **k), tiles_y=1))
+    m = torch.rand((1, 13, 17, 19, 1), device=cuda_device)
+    d = _field((2, 13, 17, 19, 3), 2.0, 64).to(cuda_device)
+    g = torch.randn((2, 13, 17, 19, 1), device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        warp.warp_dfgrad(m, d, g)
 
 
 @pytest.mark.parametrize("c,rows,mag", [(1, 6, 3.0), (3, 2, 3.0), (3, 2, 15.0)])
@@ -582,12 +637,18 @@ def _narrow_weight(cin, cout, seed):
                              / np.sqrt(27 * cin)).astype(np.float32))
 
 
+def _bf16_ulp(scale):
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,cout", [(1, 8), (2, 32), (3, 32), (4, 16), (3, 12)])
-def test_conv_narrow_kernel_bit_equal_to_plain(cuda_device, dtype, cin, cout):
+def test_conv_narrow_kernel_bf16_within_an_ulp_f32_bit_equal(cuda_device, dtype, cin, cout):
     """Ragged tiles (9 x 11 x 37), every cin, a cout that is not a multiple
-    of the kernel's 8-channel chunk, a permuted-memory input: the kernel
-    repeats the plain version's operations, so the outputs are equal."""
+    of 8, a permuted-memory input. The f32 body repeats the plain
+    version's operations: equal. The bf16 body sums on the tensor cores
+    in another order: within one bf16 ulp at the output's scale. A
+    permuted input gives the contiguous one's output exactly."""
     from pulpo_tpu_torch.kernels import conv_narrow
 
     w = _narrow_weight(cin, cout, cin * 100 + cout).to(cuda_device)
@@ -598,8 +659,49 @@ def test_conv_narrow_kernel_bit_equal_to_plain(cuda_device, dtype, cin, cout):
         torch.cuda.synchronize()
         assert conv_narrow.launches == before + 1
         assert got.dtype == dtype and got.shape == (2, 9, 11, 37, cout)
-        assert torch.equal(got, conv_narrow.conv_narrow_plain(x, w))
+        ref = conv_narrow.conv_narrow_plain(x, w)
+        if dtype == torch.float32:
+            assert torch.equal(got, ref)
+        else:
+            scale = max(1.0, float(ref.float().abs().max()))
+            torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=_bf16_ulp(scale))
         assert torch.equal(conv_narrow.conv_narrow(_permuted(x), w), got)
+
+
+@pytest.mark.parametrize("cin,cout,shape", [(1, 12, (1, 5, 9, 13)), (4, 12, (1, 4, 17, 40)),
+                                            (1, 32, (2, 3, 19, 45)), (4, 32, (1, 11, 3, 33)),
+                                            (2, 40, (1, 6, 10, 17)), (3, 64, (1, 12, 9, 17))])
+def test_conv_narrow_tensor_cores_at_ragged_sizes(cuda_device, monkeypatch, cin, cout, shape):
+    """The bf16 body on sizes that are not a multiple of its 8 x 32 tile
+    (and thinner than it), cin 1 and 4 (odd and even: a pad channel or
+    none), cout 12 (2-byte stores), cout past one 32-channel pass, and z
+    chunks of one plane, three, and the whole depth: within one bf16 ulp
+    at scale of the plain version; on integer-valued inputs, whose sums
+    are exact in any order, equal to it."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    rng = np.random.default_rng(sum(shape) + cin + cout)
+    for tz in (1, 3, shape[1]):
+        monkeypatch.setattr(conv_narrow, "_launch_plan", lambda *a, tz=tz: conv_narrow.plan_arg(
+            dict(conv_narrow.tile_plan(*a), tz=tz, chunks=-(-a[1] // tz))))
+        for integer in (False, True):
+            if integer:
+                x = torch.from_numpy(rng.integers(-3, 4, (*shape, cin)).astype(np.float32))
+                w = torch.from_numpy(rng.integers(-3, 4, (cout, cin, 3, 3, 3)).astype(np.float32))
+            else:
+                x = torch.from_numpy(rng.standard_normal((*shape, cin)).astype(np.float32))
+                w = _narrow_weight(cin, cout, cin + cout)
+            x = x.to(cuda_device).to(torch.bfloat16)
+            w = w.to(cuda_device)
+            with torch.no_grad():
+                got = conv_narrow.conv_narrow(x, w)
+                ref = conv_narrow.conv_narrow_plain(x, w)
+            if integer:
+                assert torch.equal(got, ref)
+            else:
+                scale = max(1.0, float(ref.float().abs().max()))
+                torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                           atol=_bf16_ulp(scale))
 
 
 def test_conv_narrow_gradient_matches_plain(cuda_device):
