@@ -44,6 +44,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dfs at the full size and at each level's size, a border clamp, a
    permuted df and a C = 2 field warp; the 2D box sum at each level's
    NCC size and window;
+3g. the segmentation shapes: the warp and its df-cotangent at the 36
+   one-hot channels of the OASIS maps, at each level's shape of the
+   flagship's `transform_segmentation` (the 160x192x224 map under the
+   level-0 df, the pooled maps at 40x48x56, 20x24x28 and 10x12x14), the
+   warp bit for bit and the df-cotangent within 1e-5 of scale; the 2D
+   warp at C = 36 over 10 rows of 160x192, bit for bit;
 4. a small-input reference: a UQ request on the card against the same
    weights and draws on the CPU (plain versions), leaf by leaf, at
    level_res and at full_res (the channels-first path);
@@ -94,7 +100,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward beside the `grid_sample` VJP of one library step
    (v + grid_sample(v, identity + v)); the 2D kernels at
    the `flagship-2d` paths' shapes beside `F.grid_sample` and
-   `F.avg_pool2d`;
+   `F.avg_pool2d`; the warp and its df-cotangent at C = 36 at phase
+   3g's shapes beside `F.grid_sample` and its VJP;
 7. the LungCT path: the full-width LungCT config (192x192x208, 5/4
    levels, n0=32, bf16) trains for 4 steps through the port's `Trainer`
    (B = 1, validation, the two best checkpoints, `latest` and metrics
@@ -108,7 +115,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7b. `train_cli --ndims 2 --dataset synthetic` (its 64x64 default) for 2
    steps on the card in a temporary run directory: finite validation
    losses, exact launch counts, and a `latest` checkpoint that reloads
-   bit for bit.
+   bit for bit;
+7c. `train_cli --ndims 2 --dataset oasis --segs --lms --recon_loss ncc
+   dice` on an in-memory 2D OASIS store (160x192, 36 classes): 2 steps,
+   then the tables it writes (Dice, the landmark columns, N = 10), every
+   entry finite but the reference's NaNs, exact launch counts; and the
+   `flagship-2d` model exported and served (its three entries, bit for
+   bit against the live model);
+8. the OASIS path: the flagship with segmentations (`OASIS`: NCC +
+   Dice at dice_factor 50, 36 one-hot classes) at 160x192x224, the
+   port's OASIS reader on an in-memory store (splits 4 / 2 / 2 / 2,
+   landmarks on test_lm) feeding 4 Trainer steps (B = 1) with
+   validation and checkpoints, then `Evaluate.run_one_model(task=
+   "oasis")`: the performance table (Dice, landmarks) and the N = 10
+   uncertainty table; finite entries, exact launch counts, a checkpoint
+   that reloads bit for bit; the Trainer iteration with and without
+   segmentations and the reader's own time a batch (the loader's share);
+8b. remat: the OASIS segmentation step at B = 2 plain, under
+   `remat_down=(0,)` and under `remat`, each twice: the loss and the
+   BatchNorm statistics equal, the gradients no further from the plain
+   step's (relative L2) than its own second run is (twice that, or
+   1e-5; the float atomics of the squaring backward), exact launch counts (a
+   checkpointed region's kernels launch again in the backward), the
+   remat peaks below the plain one;
+8c. BraTS: `train_cli` with its defaults (`--dataset brats`, float32)
+   on an in-memory store at 144x192x160, 2 steps with validation: finite
+   losses, exact launch counts, a checkpoint that reloads bit for bit.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -165,6 +197,22 @@ FLAGSHIP_FULLRES = dict(FLAGSHIP, **FULLRES_KW)
 # the flagship's OASIS volumes); synthetic pairs from the seed
 FLAGSHIP_2D = dict(FLAGSHIP, input_size=(160, 192))
 CLI_2D_STEPS = 2               # train_cli steps on its synthetic 2D default (64x64)
+
+# the flagship's own OASIS path: the flagship network with the one-hot
+# segmentations (36 classes, pulpo_tpu/data/convert.py:100) and the Dice
+# term at the reference's weight (SURVEY.md:177); in-memory stores with
+# the readers' layout (the card's machine has no h5py)
+SEG_CLASSES = 36
+OASIS = dict(FLAGSHIP, dataset="oasis", segs=True, lms=True, recon_loss=("ncc", "dice"),
+             dice_factor=50)
+OASIS_SPLITS = (4, 2, 2, 2)    # training, validation, test_seg, test_lm pairs
+OASIS_LANDMARKS = 8            # on test_lm
+OASIS_STEPS = 4                # Trainer steps, B = 1
+OASIS_SAMPLES = 10             # N of the uncertainty tables
+OASIS_2D_STEPS = 2             # train_cli --ndims 2 --dataset oasis steps
+BRATS_SIZE = (144, 192, 160)   # the converted BraTS volume (pulpo_tpu/data/brats.py)
+BRATS_SPLITS = (2, 2, 2)       # training, validation, test cases
+BRATS_STEPS = 2                # train_cli (its defaults: --dataset brats) steps
 
 KERNELS = ("warp", "squaring", "vel_head", "warp_dfgrad", "warp_mgrad",
            "squaring_bwd", "box_sum", "pos_head", "conv_chain", "squaring_cf", "warp_cf",
@@ -1286,9 +1334,10 @@ def run_train_path(dev, cfg_kw, steps):
 # ----------------------------------------------------------------------
 
 def run_serve_path(dev, cfg_kw, n_samples, chunk, n_uq, tmpdir):
-    """The flagship model exported to an artifact and served from it:
-    each entry's time, its outputs against the live model's bit for bit,
-    and the launch counts."""
+    """The model of `cfg_kw` (the flagship, or `flagship-2d` in phase 7c)
+    exported to an artifact and served from it: each entry's time, its
+    outputs against the live model's bit for bit, and the launch
+    counts."""
     import numpy as np
     import torch
 
@@ -1333,7 +1382,7 @@ def run_serve_path(dev, cfg_kw, n_samples, chunk, n_uq, tmpdir):
     K = cfg.latent_levels
     decodes = 1 + (1 + n_uq) * (n_samples // chunk)
     tails = 1 + n_uq  # each UQ entry's mean-SVF integration and warp per level
-    expect(counts, {
+    expect(counts, serving_launches(cfg, decodes, tails) if cfg.ndims == 2 else {
         "warp": K * (decodes + tails), "squaring": cfg.nsteps * K * (decodes + tails),
         "vel_head": K * decodes, "warp_dfgrad": 0, "warp_mgrad": 0, "squaring_bwd": 0,
         "box_sum": 0, "squaring_cf": 0, "warp_cf": 0, "conv_narrow": 0,
@@ -1463,9 +1512,7 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
     from pulpo_tpu_torch import PULPoConfig
     from pulpo_tpu_torch.data.lungct import split_loaders
     from pulpo_tpu_torch.eval import evaluator
-    from pulpo_tpu_torch.models import PULPoModel
-    from pulpo_tpu_torch.train import create_train_state
-    from pulpo_tpu_torch.train.checkpoint import load_payload, read_checkpoint, state_payload
+    from pulpo_tpu_torch.train.checkpoint import read_checkpoint
     from pulpo_tpu_torch.train.loop import Trainer
     from pulpo_tpu_torch.train.metrics import read_metrics
 
@@ -1529,12 +1576,8 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
         f"max_memory_allocated {train_peak:.2f} GiB; last validation {last}")
 
     # the checkpoint round trip on the card
-    saved = read_checkpoint(run_dir, "latest")
-    equal_payloads(state_payload(state), saved, "latest vs the trained state")
-    fresh, _ = create_train_state(PULPoModel(cfg, device=dev), seed=1)
-    load_payload(fresh, saved)
-    equal_payloads(state_payload(fresh), state_payload(state), "restored vs the trained state")
-    del fresh, saved, trainer, state
+    check_reload(run_dir, state, cfg, dev, "lungct")
+    del trainer, state
     torch.cuda.empty_cache()
 
     # evaluation: the tables on the reloaded run, landmarks on the test split
@@ -1547,14 +1590,6 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
     ev.set_data(split_loaders(*splits, 1), ["train", "val", "test"], segs=False, lms=True,
                 mask=False)
     pairs = sum(len(dl.dataset) for dl in ev.loaders)
-    chunks = []
-    uq = evaluator.predict_with_uncertainty
-
-    def recorded(*args, **kw):  # notes each request's chunk, for the counts
-        res = uq(*args, **kw)
-        chunks.append(res.outputs[0].shape[1])
-        return res
-
     reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1562,18 +1597,14 @@ def run_lungct_path(dev, cfg_kw, steps, n_samples, run_root):
     perf = ev.performance()
     torch.cuda.synchronize()
     perf_s = time.perf_counter() - t
-    calibrated = len(ev.model.decode_bytes)
-    evaluator.predict_with_uncertainty = recorded
-    try:
+    with RecordedRequests(n_samples) as rec:
         t = time.perf_counter()
         unc = ev.uncertainty(num_samples=n_samples)
         torch.cuda.synchronize()
         unc_s = time.perf_counter() - t
-    finally:
-        evaluator.predict_with_uncertainty = uq
     eval_counts = read_counts()
     eval_peak = torch.cuda.max_memory_allocated() / 2**30
-    decodes = sum(n_samples // c for c in chunks) + len(ev.model.decode_bytes) - calibrated
+    decodes, chunks = rec.decodes, rec.chunks
     expect(eval_counts, {
         # performance: per pair one deterministic decode and the K
         # integrations of combine_dfs; uncertainty: as the serving path
@@ -1617,14 +1648,7 @@ def run_train_cli_2d(dev, steps, run_root):
     import torch
 
     from pulpo_tpu_torch import train_cli
-    from pulpo_tpu_torch.models import PULPoModel
-    from pulpo_tpu_torch.train import create_train_state
-    from pulpo_tpu_torch.train.checkpoint import (
-        CheckpointManager,
-        load_payload,
-        read_checkpoint,
-        state_payload,
-    )
+    from pulpo_tpu_torch.train.checkpoint import CheckpointManager
     from pulpo_tpu_torch.train.metrics import read_metrics
 
     accelerator = "gpu" if dev.type == "cuda" else "cpu"
@@ -1647,16 +1671,685 @@ def run_train_cli_2d(dev, steps, run_root):
     # validation after every step (8 pairs x 0.1 < 1), over the 8 pairs
     expect(counts, train_launches(cfg, steps, val_forwards=8 * steps),
            f"train_cli 2D ({steps} steps)")
-    saved = read_checkpoint(run_dir, "latest")
+    saved = check_reload(run_dir, None, cfg, dev, "train_cli 2D")
     if saved["step"] != steps:
         raise SystemExit(f"train_cli 2D: latest checkpoint at step {saved['step']}")
-    fresh, _ = create_train_state(PULPoModel(cfg, device=dev), seed=1)
-    load_payload(fresh, saved)
-    equal_payloads(state_payload(fresh), saved, "train_cli 2D: restored vs latest")
     log(f"train_cli 2D: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
         f"n0 {cfg.n0} {cfg.compute_dtype}, {steps} steps with validation in {fit_s:.3f} s, "
         f"val total_loss {' '.join(str(r['val/total_loss']) for r in rows)}, checkpoint "
         "reloads bit for bit")
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 3g: the segmentation shapes (C = 36 one-hot channels)
+# ----------------------------------------------------------------------
+
+def seg_shapes(cfg, rows=1):
+    """The (moving, df) shapes of `transform_segmentation`'s warps on a
+    level_res configuration: level 0 the full-size one-hot map under the
+    level-0 df (at the input size), level l > 0 the ceil-mode pooled map
+    under that level's df."""
+    size = tuple(cfg.input_size)
+    pooled = lambda s: tuple(-(-n // 2) for n in s)
+    for _ in range(cfg.lk_offset):
+        size = pooled(size)
+    shapes = [((rows, *cfg.input_size, SEG_CLASSES), (rows, *cfg.df_size(0), cfg.ndims))]
+    for l in range(1, cfg.latent_levels):
+        size = pooled(size)
+        shapes.append(((rows, *size, SEG_CLASSES), (rows, *cfg.df_size(l), cfg.ndims)))
+    return shapes
+
+
+def onehot_volume(shape, seed, dev):
+    """A one-hot float32 map (rows, *size, SEG_CLASSES) of smooth labels."""
+    import torch
+
+    rows, *size, c = shape
+    labels = (smooth_field(rows, size, 1.0, seed, dev, channels=1)[..., 0] * 0.5 + 0.5) * c
+    return torch.nn.functional.one_hot(labels.long().clamp(0, c - 1), c).float()
+
+
+def check_seg_kernels(dev, cfg, cfg_2d, checks, rows_2d=OASIS_SAMPLES):
+    """Phase 3g: the warp (#4) and its df-cotangent (#6) at C = 36 at
+    every shape of the flagship's segmentation warps (a smooth 3-voxel
+    df), and the 2D warp at C = 36 over `rows_2d` rows at the 2D input
+    size (`Evaluate.predict`'s per-sample maps). The warps are bit-equal
+    to their plain versions (the same operations in the same order); the
+    df-cotangent is held to 1e-5 of scale (the plain version's channel
+    `sum` adds its 36 products in its own order)."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import warp
+
+    fmt = lambda s: "x".join(map(str, s))
+    for l, (mshape, dshape) in enumerate(seg_shapes(cfg)):
+        seg = onehot_volume(mshape, 300 + l, dev)
+        df = smooth_field(dshape[0], dshape[1:-1], 3.0, seed=310 + l, device=dev)
+        g = torch.randn(dshape[:-1] + (SEG_CLASSES,), generator=torch.Generator().manual_seed(
+            320 + l)).to(dev)
+        case = f"C={SEG_CLASSES} level {l} {fmt(mshape[1:-1])} df {fmt(dshape[1:-1])}"
+        checks.record("warp", case, warp.warp(seg, df), warp.warp_plain(seg, df), 0.0)
+        ref = warp.warp_dfgrad_plain(seg, df, g)
+        checks.record("warp_dfgrad", case, warp.warp_dfgrad(seg, df, g), ref, scaled(ref, 1e-5))
+        del seg, df, g, ref
+    full = cfg_2d.input_size
+    seg = onehot_volume((1, *full, SEG_CLASSES), 330, dev).repeat_interleave(rows_2d, 0)
+    df = smooth_field(rows_2d, full, 3.0, seed=331, device=dev, channels=2)
+    checks.record("warp_2d", f"C={SEG_CLASSES} {rows_2d} rows {fmt(full)}", warp.warp(seg, df),
+                  warp.warp_plain(seg, df), 0.0)
+    torch.cuda.empty_cache()
+
+
+def time_seg_kernels(dev, cfg, cfg_2d, rows_2d=OASIS_SAMPLES):
+    """#4 and #6 at C = 36 at each segmentation shape, and the 2D warp at
+    C = 36 over `rows_2d` rows: device time by CUDA-graph replay, eager
+    time, the plain version, and `F.grid_sample` (the warp) or its VJP to
+    the grid (#6) on a channels-first copy of the map. Bounds: each input
+    read once and each output written once over 3.35 TB/s. Returns
+    {kernel: {shape: record}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import warp
+
+    fmt = lambda s: "x".join(map(str, s))
+    res = {"warp": {}, "warp_dfgrad": {}, "warp_2d": {}}
+    cases = [(l, m, d) for l, (m, d) in enumerate(seg_shapes(cfg))]
+    cases.append(("2d", (rows_2d, *cfg_2d.input_size, SEG_CLASSES),
+                  (rows_2d, *cfg_2d.input_size, 2)))
+    for l, mshape, dshape in cases:
+        seg = onehot_volume((1, *mshape[1:]), 340, dev).repeat_interleave(mshape[0], 0)
+        df = smooth_field(dshape[0], dshape[1:-1], 3.0, seed=341, device=dev,
+                          channels=dshape[-1])
+        n_in, n_out = math.prod(mshape[:-1]), math.prod(dshape[:-1])
+        c, nd = SEG_CLASSES, dshape[-1]
+        seg_cf = seg.permute(0, len(mshape) - 1, *range(1, len(mshape) - 1)).contiguous()
+        grid = grid_for(df)
+        key = f"level {l} {fmt(mshape[1:-1])} df {fmt(dshape[1:-1])}" if l != "2d" else \
+            f"{mshape[0]} rows {fmt(mshape[1:-1])}"
+        lib = graph_ms(lambda: F.grid_sample(seg_cf, grid, mode="bilinear",
+                                             padding_mode="border", align_corners=False), 5)
+        name = "warp" if l != "2d" else "warp_2d"
+        res[name][key] = dict(
+            ms=graph_ms(lambda: warp.warp(seg, df), 5), eager_ms=time_ms(
+                lambda: warp.warp(seg, df), 3),
+            plain_ms=time_ms(lambda: warp.warp_plain(seg, df), 1, warmup=1), library_ms=lib,
+            bound_ms=(n_in * c + n_out * (nd + c)) * 4 / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+        if l != "2d":
+            g = torch.randn(dshape[:-1] + (c,), device=dev)
+            gr = grid.clone().requires_grad_(True)
+            out = F.grid_sample(seg_cf, gr, mode="bilinear", padding_mode="border",
+                                align_corners=False)
+            gcf = g.permute(0, 4, 1, 2, 3).contiguous()
+            res["warp_dfgrad"][key] = dict(
+                ms=graph_ms(lambda: warp.warp_dfgrad(seg, df, g), 5),
+                eager_ms=time_ms(lambda: warp.warp_dfgrad(seg, df, g), 3),
+                plain_ms=time_ms(lambda: warp.warp_dfgrad_plain(seg, df, g), 1, warmup=1),
+                library_ms=time_ms(lambda: torch.autograd.grad(out, gr, gcf, retain_graph=True),
+                                   3),
+                bound_ms=(n_in * c + n_out * (2 * nd + c)) * 4 / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes")
+            del g, gr, out, gcf
+        del seg, df, seg_cf, grid
+        torch.cuda.empty_cache()
+    for name, shapes in res.items():
+        for key, r in shapes.items():
+            log(f"time {name} C={SEG_CLASSES} {key}: device {r['ms']:.4f} ms "
+                f"({r['bound_ms'] / r['ms']:.2f} of its bound), eager {r['eager_ms']:.4f} ms  "
+                f"plain {r['plain_ms']:.3f} ms  library {r['library_ms']:.4f} ms  bound "
+                f"{r['bound_ms']:.4f} ms (bytes)")
+    return res
+
+
+# ----------------------------------------------------------------------
+# phases 7c, 8, 8b, 8c: the OASIS and BraTS readers on in-memory stores
+# ----------------------------------------------------------------------
+
+class MemoryGroup(dict):
+    """A group of an in-memory store in the readers' HDF5 layout: named
+    children (groups or numpy arrays) and `attrs`."""
+
+    def __init__(self, attrs=None, **children):
+        super().__init__(children)
+        self.attrs = dict(attrs or {})
+
+
+class memory_stores:
+    """Serve `stores` ({path: MemoryGroup}) to the readers as the `h5py`
+    module would serve files: the card's machine has no h5py, so while
+    this context is open `import h5py` finds a stand-in whose
+    `File(path, mode)` returns the registered store. The readers then run
+    as they are (`__init__`, `get_pair`, `create_data_loaders`), also
+    under `train_cli` and `Evaluate.load_data`."""
+
+    def __init__(self, stores):
+        import types
+
+        self.module = types.ModuleType("h5py")
+        self.module.File = lambda path, mode="r": stores[str(path)]
+
+    def __enter__(self):
+        self.before = sys.modules.get("h5py")
+        sys.modules["h5py"] = self.module
+        return self
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            del sys.modules["h5py"]
+        else:
+            sys.modules["h5py"] = self.before
+
+
+def smooth_volume(size, rng):
+    """A volume (or slice) in [0, 1]: coarse uniform noise from `rng`,
+    upsampled (tri/bi)linearly to `size`, float32 numpy."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    coarse = torch.from_numpy(rng.random([max(2, s // 8) for s in size], dtype=np.float32))
+    mode = "trilinear" if len(size) == 3 else "bilinear"
+    vol = F.interpolate(coarse[None, None], size=tuple(size), mode=mode, align_corners=True)[0, 0]
+    return ((vol - vol.min()) / (vol.max() - vol.min())).numpy()
+
+
+def oasis_store(size, splits, seed, landmarks=OASIS_LANDMARKS):
+    """An OASIS store (pulpo_tpu_torch/data/oasis.py's layout) made from a
+    seed: per split `image/<i>` smooth volumes, `seg/<i>` int16 label maps
+    of SEG_CLASSES classes (the volume's intensity bands), `landmarks/<i>`
+    on test_lm."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root = MemoryGroup({"shape": np.asarray(size)})
+    for split, n in zip(("training", "validation", "test_seg", "test_lm"), splits):
+        image, seg, lms = MemoryGroup(), MemoryGroup(), MemoryGroup()
+        for i in range(n):
+            vol = smooth_volume(size, rng)
+            image[str(i)] = vol
+            seg[str(i)] = np.minimum(vol * SEG_CLASSES, SEG_CLASSES - 1).astype(np.int16)
+            if split == "test_lm":
+                lms[str(i)] = rng.uniform(8, np.asarray(size) - 8,
+                                          (landmarks, len(size))).astype(np.float32)
+        root[split] = MemoryGroup({"N": n, "seg_dim": SEG_CLASSES}, image=image, seg=seg,
+                                  landmarks=lms)
+    return root
+
+
+def brats_store(size, splits, seed):
+    """A BraTS store (pulpo_tpu_torch/data/brats.py's layout) from a seed:
+    per split and case a baseline t1ce volume and its follow-up (the
+    baseline plus a smooth change)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root = MemoryGroup({"shape": np.asarray(size)})
+    for split, n in zip(("training", "validation", "test"), splits):
+        base, follow = MemoryGroup(), MemoryGroup()
+        for i in range(n):
+            base[str(i)] = smooth_volume(size, rng)
+            follow[str(i)] = (0.8 * base[str(i)] + 0.2 * smooth_volume(size, rng)).astype(
+                np.float32)
+        root[split] = MemoryGroup({"N": n}, base=MemoryGroup(t1ce=base),
+                                  follow=MemoryGroup(t1ce=follow))
+    return root
+
+
+class RecordedRequests:
+    """Wraps `evaluator.predict_with_uncertainty` while open: notes each
+    request's decodes (its chunks and any calibration decode), for the
+    launch counts."""
+
+    def __init__(self, n_samples):
+        self.n_samples = n_samples
+        self.decodes = 0
+        self.chunks = []
+
+    def __enter__(self):
+        from pulpo_tpu_torch.eval import evaluator
+
+        self.uq = uq = evaluator.predict_with_uncertainty
+
+        def recorded(model, *args, **kw):
+            calibrated = len(model.decode_bytes)
+            res = uq(model, *args, **kw)
+            chunk = res.outputs[0].shape[1]
+            self.chunks.append(chunk)
+            self.decodes += self.n_samples // chunk + len(model.decode_bytes) - calibrated
+            return res
+
+        evaluator.predict_with_uncertainty = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from pulpo_tpu_torch.eval import evaluator
+
+        evaluator.predict_with_uncertainty = self.uq
+
+
+def step_launches(cfg, steps, val_forwards=0, dice=False):
+    """Launches of `steps` 3D training steps and `val_forwards` eval
+    forwards with their losses (phase 7's accounting). Per step and
+    level: one integration forward and backward (nsteps each), the image
+    warp and its df-cotangent, the NCC's 5 box sums forward and 3
+    backward; per eval forward and level: the integration, the warp, 5
+    box sums, a velocity head, and its encode's and decode's conv chains.
+    With a Dice loss each forward also warps the level's one-hot map (and
+    a step takes its df-cotangent: the map needs no gradient)."""
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    maps = 2 if dice else 1
+    return {
+        "warp": maps * K * (steps + val_forwards),
+        "squaring": nsteps * K * (steps + val_forwards), "vel_head": K * val_forwards,
+        "warp_dfgrad": maps * K * steps, "warp_mgrad": 0, "squaring_bwd": nsteps * K * steps,
+        "box_sum": 8 * K * steps + 5 * K * val_forwards, "squaring_cf": 0, "warp_cf": 0,
+        "conv_narrow": train_narrow_launches(cfg) * steps,
+        **eval_launches(cfg, val_forwards, val_forwards),
+    }
+
+
+def table_launches(cfg, pairs, seg_pairs, decodes):
+    """Launches of the performance and uncertainty tables over `pairs`
+    pairs, `seg_pairs` of them with segmentations (phase 7's accounting):
+    per pair one deterministic decode and the K integrations of
+    combine_dfs, per segmentation pair K one-hot warps (one per level's
+    final df), and the uncertainty requests as the serving path
+    (`decodes` decodes, one mean-SVF tail a pair). In 2D the squaring
+    and warp run their 2D kernels and the fused eval kernels none."""
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    warps = K * pairs + K * seg_pairs + K * (decodes + pairs)
+    integrations = 2 * nsteps * K * pairs + nsteps * K * (decodes + pairs)
+    if cfg.ndims == 2:
+        return {"warp_2d": warps, "squaring_2d": integrations}
+    return {"warp": warps, "squaring": integrations, "vel_head": K * pairs + K * decodes,
+            **eval_launches(cfg, 2 * pairs, pairs + decodes)}
+
+
+def remat_launches(cfg, steps):
+    """The extra launches of `steps` remat steps over plain ones: each
+    kernel of a checkpointed region launches once more in the backward.
+    `remat_down` blocks: their narrow convs; `remat`: every down block's,
+    and each level's decoder (its velocity head's first conv on the
+    narrow-conv kernel, the integration and the image warp; the one-hot
+    warps run outside the decoders)."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    K = cfg.latent_levels
+    cins = [2] + [cfg.num_channels[k] for k in range(cfg.total_levels - 1)]
+    blocks = range(cfg.total_levels) if cfg.remat else cfg.remat_down
+    narrow = sum(cins[k] <= conv_narrow.MAX_CIN for k in blocks)
+    extra = {"conv_narrow": narrow * steps}
+    if cfg.remat:
+        heads = K if (cfg.cp_depth >= 2 and cfg.zdim <= conv_narrow.MAX_CIN) else 0
+        extra = {"conv_narrow": (narrow + heads) * steps, "warp": K * steps,
+                 "squaring": cfg.nsteps * K * steps}
+    return extra
+
+
+def check_reload(run_dir, state, cfg, dev, what):
+    """`latest` equals the trained state, and a fresh state loads it bit
+    for bit."""
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train import create_train_state
+    from pulpo_tpu_torch.train.checkpoint import load_payload, read_checkpoint, state_payload
+
+    saved = read_checkpoint(run_dir, "latest")
+    if state is not None:
+        equal_payloads(state_payload(state), saved, f"{what}: latest vs the trained state")
+    fresh, _ = create_train_state(PULPoModel(cfg, device=dev), seed=1)
+    load_payload(fresh, saved)
+    equal_payloads(state_payload(fresh), saved, f"{what}: restored vs latest")
+    return saved
+
+
+def run_oasis_path(dev, cfg_kw, steps, n_samples, run_root):
+    """Phase 8: the flagship's own OASIS path with segmentations. The
+    port's OASIS reader on an in-memory store (`memory_stores`) feeds the
+    Trainer (B = 1, NCC + Dice, validation and checkpoints); `Evaluate.
+    run_one_model(task="oasis")` then writes the performance table (Dice
+    on train, val and test_seg, the landmark columns on test_lm) and the
+    N = 10 uncertainty table. Then 4 steps with and 4 without
+    segmentations (NCC only), neither validating, and the reader alone,
+    for the loader's share of a Trainer iteration."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data import oasis
+    from pulpo_tpu_torch.data.loader import prefetch_to_device
+    from pulpo_tpu_torch.eval.evaluator import Evaluate
+    from pulpo_tpu_torch.train.loop import Trainer
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1, max_epochs=steps, log_every_n_steps=2,
+                      val_check_interval=0.5)
+    t = time.perf_counter()
+    key = "memory://OASIS.h5"
+    stores = {key: oasis_store(cfg.input_size, OASIS_SPLITS, seed=80)}
+    pairs, seg_pairs = sum(OASIS_SPLITS), sum(OASIS_SPLITS[:3])
+    log(f"oasis path: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} n0 "
+        f"{cfg.n0} {cfg.compute_dtype} {cfg.df_resolution} {cfg.recon_loss} dice_factor "
+        f"{cfg.dice_factor}, {SEG_CLASSES} one-hot classes, splits {OASIS_SPLITS}, store "
+        f"{time.perf_counter() - t:.1f} s")
+    K = cfg.latent_levels
+    with memory_stores(stores):
+        train_loader, val_loader, _, _ = oasis.create_data_loaders(
+            1, segs=True, lms=False, path=key, seed=cfg.random_seed)
+        trainer = Trainer(cfg, run_dir=run_root, experiment="oasis", device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        state = trainer.fit(train_loader, val_loader, max_steps=steps)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        trainer.close()
+        train_counts = read_counts()
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        times = trainer.times
+        n_val = len(times["validate"]) * len(val_loader.dataset)
+        if len(times["step"]) != steps or state.nan_flag:
+            raise SystemExit(f"oasis training: {len(times['step'])} steps, nan_flag "
+                             f"{state.nan_flag}")
+        expect(train_counts, step_launches(cfg, steps, n_val, dice=True),
+               f"oasis training ({steps} steps, {n_val} validation forwards)")
+        rows = read_metrics(trainer.run_dir)
+        for row in rows:
+            bad = [k for k, v in row.items()
+                   if not (isinstance(v, (int, float)) and math.isfinite(v))]
+            if bad:
+                raise SystemExit(f"oasis metrics.jsonl step {row['step']}: not finite {bad}")
+        if not any("val/reconstruction_loss" in r for r in rows):
+            raise SystemExit("oasis metrics.jsonl has no validation losses")
+        check_reload(trainer.run_dir, state, cfg, dev, "oasis")
+        log(f"oasis training: step {' '.join(f'{x:.3f}' for x in times['step'])} s, validation "
+            f"{' '.join(f'{x:.3f}' for x in times['validate'])} s, checkpoint rounds "
+            f"{' '.join(f'{x:.3f}' for x in times['checkpoint'])} s, fit {fit_s:.2f} s, "
+            f"max_memory_allocated {train_peak:.2f} GiB, last losses "
+            f"{ {k: v for k, v in rows[-1].items() if k.startswith('val/')} }")
+        run_dir = trainer.run_dir
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # the Trainer iteration with and without segmentations: the same
+        # steps without validation or checkpoints, so that the reader's
+        # thread does not fill its queue while a validation runs
+        iteration, step_s = {}, {}
+        for segs in (True, False):
+            kw = dict(cfg_kw) if segs else dict(cfg_kw, segs=False, recon_loss=("ncc",))
+            timed_cfg = PULPoConfig(**kw, batch_size=1, max_epochs=steps,
+                                    log_every_n_steps=2, val_check_interval=10.0)
+            loaders = oasis.create_data_loaders(1, segs=segs, lms=False, path=key,
+                                                seed=cfg.random_seed)
+            timed = Trainer(timed_cfg, run_dir=run_root, experiment=f"oasis-segs={segs}",
+                            device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            timed.fit(loaders[0], loaders[1], max_steps=steps)
+            torch.cuda.synchronize()
+            iteration[segs] = (time.perf_counter() - t) / steps
+            step_s[segs] = statistics.median(timed.times["step"][1:])
+            timed.close()
+            del timed
+            torch.cuda.empty_cache()
+
+        # the reader alone: the one-hot pairs on the host, then their
+        # pinned copy to the card
+        t = time.perf_counter()
+        host = list(train_loader)
+        read_s = (time.perf_counter() - t) / len(host)
+        t = time.perf_counter()
+        for batch in prefetch_to_device(iter(host), dev):
+            torch.cuda.current_stream().synchronize()
+        copy_s = (time.perf_counter() - t) / len(host)
+        batch_bytes = sum(v.nbytes for v in host[0].values())
+        del host
+        share = {k: (iteration[k] - step_s[k]) / iteration[k] for k in iteration}
+        log(f"oasis loader: {batch_bytes / 2**30:.2f} GiB a B = 1 batch with segmentations; "
+            f"read and one-hot {read_s:.3f} s a batch, pinned copy {copy_s:.3f} s a batch "
+            f"({batch_bytes / copy_s / 1e9:.1f} GB/s); Trainer iteration (no validation) with "
+            f"segmentations {iteration[True]:.3f} s (step {step_s[True]:.3f} s), without "
+            f"{iteration[False]:.3f} s (step {step_s[False]:.3f} s); the loader's share of the "
+            f"iteration with segmentations {share[True]:.3f}, without {share[False]:.3f}")
+
+        # the tables, through the evaluation entry point
+        ev = Evaluate(device=dev)
+        ev.load_model(run_dir)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with RecordedRequests(n_samples) as rec:
+            perf, unc = ev.run_one_model(segs=True, lms=True, N=n_samples, task="oasis",
+                                         data_path=key, visualize=False)
+        torch.cuda.synchronize()
+        tables_s = time.perf_counter() - t
+        eval_counts = read_counts()
+        eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    expect(eval_counts, table_launches(cfg, pairs, seg_pairs, rec.decodes),
+           f"oasis tables ({rec.decodes} decodes, chunks {rec.chunks})")
+    lm_cols = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
+    check_table(perf, lambda s, m, r: m == "JDetLeq0" or (m == "Dice" and s == "test_lm")
+                or (m in lm_cols and (s != "test_lm" or r > 0)), "oasis performance table")
+    check_table(unc, lambda s, m, r: m in lm_cols and s != "test_lm", "oasis uncertainty table")
+    for s in ("train", "val", "test_seg"):
+        if not np.isfinite(perf[(s, "Dice")]).all():
+            raise SystemExit(f"oasis performance table: ({s}, Dice) not finite")
+    for table, need in ((perf, ("LM_MAE", "LM_Euclid")), (unc, ("LM_VAR", "LM_NCC"))):
+        for m in need:
+            if not np.isfinite(table[("test_lm", m)][0]):
+                raise SystemExit(f"oasis tables: no finite (test_lm, {m})")
+    log(f"oasis tables: {tables_s:.3f} s for both (N={n_samples}), max_memory_allocated "
+        f"{eval_peak:.2f} GiB, checkpoint {ev.loaded_checkpoint}")
+    log("oasis performance table (deterministic):\n" + str(perf))
+    log("oasis uncertainty table:\n" + str(unc))
+    info = {"step_s": step_s[True], "iteration_s": iteration[True],
+            "plain_step_s": step_s[False], "plain_iteration_s": iteration[False],
+            "read_s": read_s, "copy_s": copy_s,
+            "train_peak_gib": train_peak, "tables_s": tables_s, "eval_peak_gib": eval_peak}
+    return train_counts, eval_counts, info, stores
+
+
+def grad_spread(grads, ref):
+    """How far one set of gradients is from another: (the relative L2
+    distance over the whole network, the worst leaf as a share of its own
+    scale, that leaf). A leaf's scale is at least 1 % of the largest
+    gradient: a conv bias that feeds a train BatchNorm has gradient 0 in
+    exact arithmetic, so its values are rounding noise."""
+    top = max(float(g.abs().max()) for g in ref.values())
+    diff = sum(float((g.double() - ref[n].double()).square().sum()) for n, g in grads.items())
+    norm = sum(float(g.double().square().sum()) for g in ref.values())
+    worst = max((float((g.float() - ref[n].float()).abs().max())
+                 / max(float(ref[n].abs().max()), 1e-2 * top), n) for n, g in grads.items())
+    return (diff / norm) ** 0.5, *worst
+
+
+def run_remat_path(dev, cfg_kw, stores):
+    """Phase 8b: the OASIS segmentation step at B = 2 (one batch of the
+    reader's training loader) three ways on fresh models from seed 0:
+    plain, `remat_down=(0,)` and `remat=True`, each twice (the first
+    run's peak and gradients, the second's time). Checks: the loss equal
+    (the forward has no atomics), the BatchNorm statistics equal, exact
+    launch counts, the remat peaks below the plain one, and the
+    gradients no further from the plain step's (relative L2 over the
+    network) than the plain step's own second run is (twice that, or
+    1e-5): the backward's float atomics (#2) change the last bits from
+    run to run, and in bfloat16 a last bit that moves a rounding moves a
+    gradient by more than that bit."""
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data import oasis
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train.step import compute_grads
+
+    key = next(iter(stores))
+    with memory_stores(stores):
+        loader = oasis.create_data_loaders(2, segs=True, lms=False, path=key, seed=0)[0]
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in next(iter(loader)).items()}
+    results, counts, peaks, times = {}, {}, {}, {}
+    total = {}
+    for name, knob in (("plain", {}), ("remat_down=(0,)", {"remat_down": (0,)}),
+                       ("remat", {"remat": True})):
+        cfg = PULPoConfig(**cfg_kw, **knob, batch_size=2)
+        expected = step_launches(cfg, 1, dice=True)
+        for k, v in remat_launches(cfg, 1).items():
+            expected[k] += v
+        for run in range(2):
+            model = PULPoModel(cfg, device=dev)
+            model.init(0)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t = time.perf_counter()
+            grads, stats, metrics = compute_grads(model, batch, seed=5)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            c = read_counts()
+            expect(c, expected, f"remat path, {name} run {run}")
+            total = {k: total.get(k, 0) + v for k, v in c.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"remat path {name} run {run}: B = 2 step (forward and backward) {dt:.3f} s, "
+                f"total_loss {float(metrics['total_loss']):.6f}, max_memory_allocated "
+                f"{peak:.2f} GiB")
+            results[(name, run)] = (grads, stats, float(metrics["total_loss"]))
+            if run == 0:
+                peaks[name] = peak
+            else:
+                times[name] = dt
+            del model, grads, stats, metrics
+    ref_grads, ref_stats, ref_loss = results[("plain", 0)]
+    spread = grad_spread(results[("plain", 1)][0], ref_grads)[0]
+    for key_ in (("plain", 1), ("remat_down=(0,)", 0), ("remat_down=(0,)", 1), ("remat", 0),
+                 ("remat", 1)):
+        grads, stats, loss = results[key_]
+        rel, worst, leaf = grad_spread(grads, ref_grads)
+        stats_equal = all(torch.equal(v, ref_stats[n]) for n, v in stats.items())
+        log(f"remat path {key_[0]} run {key_[1]} vs plain run 0: loss "
+            f"{'equal' if loss == ref_loss else f'differs by {loss - ref_loss:.3e}'}, gradients "
+            f"{rel:.3e} apart (relative L2 over the network), the worst leaf {worst:.3e} of "
+            f"its scale ({leaf}), BatchNorm statistics {'equal' if stats_equal else 'DIFFER'}")
+        if loss != ref_loss or not stats_equal or rel > max(2 * spread, 1e-5):
+            raise SystemExit(f"remat path: {key_} differs from the plain step")
+    for name in ("remat_down=(0,)", "remat"):
+        if not peaks[name] < peaks["plain"]:
+            raise SystemExit(f"remat path: {name} peak {peaks[name]:.2f} GiB not below the "
+                             f"plain {peaks['plain']:.2f} GiB")
+    return total, {"peaks": peaks, "times": times, "spread": spread}
+
+
+def run_brats_path(dev, steps, run_root):
+    """Phase 8c: `train_cli` with its defaults (`--dataset brats`: the
+    flagship network in float32, B = 1) on an in-memory BraTS store at
+    144x192x160: `steps` steps with validation after each, finite
+    losses, exact launch counts, a `latest` checkpoint that reloads bit
+    for bit."""
+    import torch
+
+    from pulpo_tpu_torch import train_cli
+    from pulpo_tpu_torch.train.checkpoint import CheckpointManager
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    key = "memory://BraTS.h5"
+    stores = {key: brats_store(BRATS_SIZE, BRATS_SPLITS, seed=90)}
+    accelerator = "gpu" if dev.type == "cuda" else "cpu"
+    with memory_stores(stores):
+        reset_counts()
+        t = time.perf_counter()
+        run_dir = train_cli.main(["--data_path", key, "--max_steps", str(steps), "--skip_eval",
+                                  "--run_dir", str(run_root), "--accelerator", accelerator])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+    counts = read_counts()
+    cfg = CheckpointManager.load_config(run_dir)
+    if cfg.dataset != "brats" or tuple(cfg.input_size) != BRATS_SIZE:
+        raise SystemExit(f"brats: {cfg.dataset} {cfg.input_size}")
+    rows = read_metrics(run_dir)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise SystemExit(f"brats: validation rows {[r['step'] for r in rows]}")
+    for r in rows:
+        if not all(math.isfinite(r[f"val/{k}"]) for k in ("kl_loss", "reconstruction_loss",
+                                                          "regularization_loss", "total_loss")):
+            raise SystemExit(f"brats: step {r['step']} validation losses {r}")
+    # validation after every step (2 pairs x 0.1 < 1), over the validation pairs
+    expect(counts, step_launches(cfg, steps, BRATS_SPLITS[1] * steps),
+           f"brats train_cli ({steps} steps)")
+    check_reload(run_dir, None, cfg, dev, "brats")
+    log(f"brats train_cli: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} n0 "
+        f"{cfg.n0} {cfg.compute_dtype}, {steps} steps with validation in {fit_s:.2f} s, val "
+        f"total_loss {' '.join(str(r['val/total_loss']) for r in rows)}, checkpoint reloads bit "
+        "for bit")
+    return counts, {"fit_s": fit_s}
+
+
+def read_table(path):
+    """A table that `eval/tables.make_tables` wrote as csv."""
+    import csv
+
+    from pulpo_tpu_torch.eval.tables import Table
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return Table([[float(v) for v in r[1:]] for r in rows[2:]],
+                 list(zip(rows[0][1:], rows[1][1:])), index=[r[0] for r in rows[2:]])
+
+
+def run_oasis_2d(dev, steps, n_samples, run_root):
+    """Phase 7c: `train_cli --ndims 2 --dataset oasis --segs --lms
+    --recon_loss ncc dice` (the CLI's default network, float32) on an
+    in-memory 2D OASIS store at 160x192: `steps` steps with validation
+    after each, then the evaluation the CLI runs (the performance table
+    with Dice and the landmark columns, the N = 10 uncertainty table):
+    every entry finite but the reference's NaNs, exact launch counts."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import train_cli
+    from pulpo_tpu_torch.train.checkpoint import CheckpointManager
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    key = "memory://OASIS-2d.h5"
+    stores = {key: oasis_store(FLAGSHIP_2D["input_size"], OASIS_SPLITS, seed=70)}
+    accelerator = "gpu" if dev.type == "cuda" else "cpu"
+    with memory_stores(stores), RecordedRequests(n_samples) as rec:
+        reset_counts()
+        t = time.perf_counter()
+        run_dir = train_cli.main(["--ndims", "2", "--dataset", "oasis", "--segs", "--lms",
+                                  "--recon_loss", "ncc", "dice", "--data_path", key,
+                                  "--max_steps", str(steps), "--run_dir", str(run_root),
+                                  "--accelerator", accelerator])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    counts = read_counts()
+    cfg = CheckpointManager.load_config(run_dir)
+    rows = read_metrics(run_dir)
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise SystemExit(f"oasis 2D: validation rows {[r['step'] for r in rows]}")
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    pairs, seg_pairs = sum(OASIS_SPLITS), sum(OASIS_SPLITS[:3])
+    forwards = steps + OASIS_SPLITS[1] * steps  # validation after every step
+    train = train_launches(cfg, steps, OASIS_SPLITS[1] * steps)
+    train["warp_2d"] += K * forwards  # the one-hot map at each level of each forward
+    tables = table_launches(cfg, pairs, seg_pairs, rec.decodes)
+    expect(counts, {k: train.get(k, 0) + tables.get(k, 0) for k in set(train) | set(tables)},
+           f"oasis 2D train_cli and tables ({rec.decodes} decodes, chunks {rec.chunks})")
+    perf = read_table(run_dir / "evaluation" / "loss" / "loss_table_deterministic.csv")
+    unc = read_table(run_dir / "evaluation" / "uncertainty" / "loss_table.csv")
+    lm_cols = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
+    check_table(perf, lambda s, m, r: m == "JDetLeq0" or (m == "Dice" and s == "test_lm")
+                or (m in lm_cols and (s != "test_lm" or r > 0)), "oasis 2D performance table")
+    check_table(unc, lambda s, m, r: m in lm_cols and s != "test_lm", "oasis 2D uncertainty table")
+    if not np.isfinite(perf[("test_seg", "Dice")]).all():
+        raise SystemExit("oasis 2D performance table: (test_seg, Dice) not finite")
+    log(f"oasis 2D train_cli: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
+        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.recon_loss}, {steps} steps with validation and "
+        f"the tables in {total_s:.2f} s; val total_loss "
+        f"{' '.join(str(r['val/total_loss']) for r in rows)}")
+    log("oasis 2D performance table:\n" + str(perf))
+    log("oasis 2D uncertainty table:\n" + str(unc))
     return counts
 
 
@@ -2294,6 +2987,7 @@ def main() -> int:
     cfg_2d = PULPoConfig(**FLAGSHIP_2D)
     check_2d_kernels(dev, cfg_2d, checks)
     torch.cuda.empty_cache()
+    check_seg_kernels(dev, PULPoConfig(**OASIS), cfg_2d, checks)
     if checks.failures:
         raise SystemExit(f"kernel checks failed: {checks.failures}")
     log(f"kernel checks passed in {time.perf_counter() - t:.1f} s")
@@ -2336,6 +3030,23 @@ def main() -> int:
     finally:
         shutil.rmtree(cli_root, ignore_errors=True)
     torch.cuda.empty_cache()
+    oasis_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_oasis_"))
+    try:
+        oasis2d_counts = run_oasis_2d(dev, OASIS_2D_STEPS, OASIS_SAMPLES, oasis_root / "2d")
+        torch.cuda.empty_cache()
+        serve2d_counts, serve2d = run_serve_path(dev, FLAGSHIP_2D, N_SAMPLES, uq2d["chunk"],
+                                                 N_REQUESTS, oasis_root)
+        torch.cuda.empty_cache()
+        oasis_train, oasis_eval, oasis, stores = run_oasis_path(
+            dev, OASIS, OASIS_STEPS, OASIS_SAMPLES, oasis_root / "3d")
+        torch.cuda.empty_cache()
+        remat_counts, remat = run_remat_path(dev, OASIS, stores)
+        del stores
+        torch.cuda.empty_cache()
+        brats_counts, brats = run_brats_path(dev, BRATS_STEPS, oasis_root / "brats")
+    finally:
+        shutil.rmtree(oasis_root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
     times.update(time_backward_kernels(dev, cfg))
@@ -2346,6 +3057,7 @@ def main() -> int:
     times.update(time_fullres_kernels(dev, PULPoConfig(**FLAGSHIP_FULLRES), fullres["chunk"]))
     times.update(time_training_shapes(dev))
     times.update(time_2d_kernels(dev, cfg_2d, uq2d["chunk"]))
+    seg_times = time_seg_kernels(dev, PULPoConfig(**OASIS), cfg_2d)
     for k in ("squaring_cf", "warp_cf"):
         log(f"time {k} channels-last twin on the same field: {times[k]['cl_twin_ms']:.3f} ms "
             f"(CF {times[k]['ms']:.3f} ms)")
@@ -2395,7 +3107,10 @@ def main() -> int:
                    "serving_fullres": fullres_counts[name],
                    "training": train_counts[name], "lungct_train": lungct_train[name],
                    "lungct_eval": lungct_eval[name], "serving_2d": uq2d_counts[name],
-                   "training_2d": train2d_counts[name], "train_cli_2d": cli2d_counts[name]}
+                   "training_2d": train2d_counts[name], "train_cli_2d": cli2d_counts[name],
+                   "oasis_2d": oasis2d_counts[name], "serve_2d": serve2d_counts[name],
+                   "oasis_train": oasis_train[name], "oasis_tables": oasis_eval[name],
+                   "oasis_remat": remat_counts[name], "brats_train": brats_counts[name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -2415,6 +3130,8 @@ def main() -> int:
             record["cl_twin_ms"] = r["cl_twin_ms"]
         if name in ("conv_narrow", "warp_dfgrad"):
             record["shapes"] = r["shapes"]
+        if name in seg_times:
+            record[f"seg_c{SEG_CLASSES}"] = seg_times[name]
         for k in ("eager_ms", "library_eager_ms"):
             if k in r:
                 record[k] = r[k]
@@ -2433,6 +3150,18 @@ def main() -> int:
         f"{lungct['ckpt_s']:.3f} s, training peak {lungct['train_peak_gib']:.2f} GiB, "
         f"performance table {lungct['perf_s']:.3f} s, uncertainty table {lungct['unc_s']:.3f} s, "
         f"evaluation peak {lungct['eval_peak_gib']:.2f} GiB")
+    log(f"serve 2D: artifact {serve2d['bytes']} B, predict_deterministic "
+        f"{serve2d['det_s']:.4f} s, predict_mean {serve2d['mean_s']:.4f} s, uq "
+        f"{' '.join(f'{t:.4f}' for t in serve2d['uq_s'])} s")
+    log(f"oasis: Trainer step with segmentations {oasis['step_s']:.3f} s, iteration "
+        f"{oasis['iteration_s']:.3f} s; without {oasis['plain_step_s']:.3f} s, iteration "
+        f"{oasis['plain_iteration_s']:.3f} s; loader read {oasis['read_s']:.3f} s and pinned "
+        f"copy {oasis['copy_s']:.3f} s a batch; training peak {oasis['train_peak_gib']:.2f} GiB; "
+        f"tables {oasis['tables_s']:.3f} s, peak {oasis['eval_peak_gib']:.2f} GiB")
+    log("remat B = 2 step: " + ", ".join(
+        f"{k} peak {remat['peaks'][k]:.2f} GiB, {remat['times'][k]:.3f} s" for k in remat["peaks"])
+        + f"; the plain step's gradient spread {remat['spread']:.3e}")
+    log(f"brats: train_cli {BRATS_STEPS} steps with validation {brats['fit_s']:.2f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

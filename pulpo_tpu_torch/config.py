@@ -6,8 +6,8 @@ package. Field names, defaults and derived sizes are the same, and a
 config JSON written by the JAX package loads unchanged. The TPU
 routing knobs (`use_pallas`, `routing`, `debug_nans`) are kept as
 inert fields for that reason only: the port routes by device, not by
-knob. `remat` and `remat_down` are not ported yet: a train forward with
-either set raises.
+knob. `remat` and `remat_down` recompute activations in the backward
+(`models/pulpo.py:remat`).
 """
 
 from __future__ import annotations
@@ -96,9 +96,10 @@ class PULPoConfig:
 
     # --- numerics ---
     compute_dtype: str = "float32"  # "bfloat16" for mixed precision
-    # inert in the port (TPU routing knobs of the JAX config JSON), except
-    # remat / remat_down, which a train forward refuses (not ported yet)
+    # inert in the port (a TPU routing knob of the JAX config JSON)
     use_pallas: bool = True
+    # recompute in the backward: every DownPath block and each level's
+    # encoder and decoder / only these DownPath blocks (global levels)
     remat: bool = False
     remat_down: tuple[int, ...] = ()
     debug_nans: bool = False

@@ -12,10 +12,11 @@ NaN before the mean over inputs (its "empty slot" sentinel), and the
 landmarks thread through `predict_with_uncertainty(lm=...)` so that the
 per-sample landmark warps use the same draws as the Var/NCC maps.
 
-Not ported yet (ROADMAP Queue 1 item 4): the figures (`visualize=True`,
-which needs `eval/visualize`), the artifact experiments, the
-VoxelMorph baseline and `compare_models`. The OASIS and BraTS readers
-wait for Queue 1 item 5.
+Tasks: oasis (loaders train / val / test_seg / test_lm), brats and
+lungct (train / val / test), synthetic. Not ported yet: the figures
+(`visualize=True`, which needs `eval/visualize`), the artifact
+experiments (`eval/artifact`), the VoxelMorph baseline
+(`models/voxelmorph`) and `compare_models`.
 """
 
 from __future__ import annotations
@@ -98,11 +99,19 @@ class Evaluate:
     def load_data(self, task, segs, lms, mask, ndims=3, path=None):
         """Build the task's loaders and metric lists (evaluate.py:120-159)."""
         self.task = task
-        if task in ("oasis", "brats"):
-            from pulpo_tpu_torch.data import reader_not_ported
+        names = ["train", "val", "test"]
+        if task == "oasis":
+            from pulpo_tpu_torch.data.oasis import create_data_loaders
 
-            raise reader_not_ported(task)
-        if task == "lungct":
+            loaders = create_data_loaders(1, segs=segs, lms=lms, mask=mask,
+                                          ndims=ndims, path=path)
+            names = ["train", "val", "test_seg", "test_lm"]
+        elif task == "brats":
+            from pulpo_tpu_torch.data.brats import create_data_loaders
+
+            loaders = create_data_loaders(1, segs=segs, lms=lms, mask=mask,
+                                          ndims=ndims, path=path)
+        elif task == "lungct":
             from pulpo_tpu_torch.data.lungct import create_data_loaders
 
             loaders = create_data_loaders(1, segs=segs, lms=lms, mask=mask,
@@ -118,7 +127,7 @@ class Evaluate:
             loaders = [mk(0, 4), mk(1, 2), mk(2, 2)]
         else:
             raise ValueError(f"Task {task} does not exist.")
-        self.set_data(loaders, ["train", "val", "test"], segs, lms, mask)
+        self.set_data(loaders, names, segs, lms, mask)
 
     def set_data(self, loaders, loader_names, segs, lms, mask):
         """Evaluate on the given loaders (what `load_data` builds for a task)."""
@@ -364,8 +373,8 @@ class Evaluate:
                       N=10, task="oasis", data_path=None, visualize=True):
         if visualize:
             raise NotImplementedError(
-                "the figures need eval/visualize, which is not ported yet "
-                "(ROADMAP Queue 1 item 4); pass visualize=False (--no_visualize)")
+                "the figures need eval/visualize, which is not ported yet; "
+                "pass visualize=False (--no_visualize)")
         if run_dir is not None:
             self.load_model(run_dir)
         self.load_data(task=task, segs=segs, lms=lms, mask=mask,

@@ -3,13 +3,13 @@ reference's evaluate.py __main__, evaluate.py:1806-1840) and
 `--accelerator`.
 
     python -m pulpo_tpu_torch.evaluate_cli --run_dir runs/<exp>/version_0 \
-        --task lungct --lms --N 10 --no_visualize
+        --task oasis --segs --lms --data_path OASIS.h5 --N 10 --no_visualize
 
 `--accelerator gpu` (the default) runs on `cuda`, `cpu` on the CPU.
 `--export PATH` writes the loaded model's serving artifact
 (`serve.export_model`, at `--export_batch` pairs and `--N` samples) and
-returns, as the JAX CLI does. The figures wait for `eval/visualize`
-(ROADMAP Queue 1 item 1): without `--no_visualize` the command raises.
+returns, as the JAX CLI does. The figures wait for `eval/visualize`,
+which is not ported yet: without `--no_visualize` the command raises.
 """
 
 from __future__ import annotations

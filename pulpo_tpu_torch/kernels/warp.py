@@ -263,6 +263,24 @@ def _shapes(moving_shape, df_shape, cf: bool):
     return moving_shape[0], moving_shape[-1], tuple(moving_shape[1:-1]), tuple(df_shape[1:-1])
 
 
+def max_channels(size) -> int:
+    """The most channels a moving volume of spatial `size` may have in a
+    launch of the forward or the df-cotangent kernel (`check_rows`): 312
+    at the flagship's 160x192x224."""
+    return (2**31 - 1) // math.prod(size)
+
+
+def check_rows(moving_shape, df_shape, cf: bool = False) -> None:
+    """Refuse a launch of the forward or the df-cotangent kernel whose
+    moving, output or df row holds 2**31 elements or more: they address
+    a row in 32 bits (`gather::valid` refuses the plan too)."""
+    _, c, s_in, s_out = _shapes(moving_shape, df_shape, cf)
+    if max(math.prod(s_in) * c, math.prod(s_out) * max(c, len(s_in))) >= 2**31:
+        raise ValueError(f"warp kernel addresses a row in 32 bits: moving "
+                         f"{tuple(moving_shape)}, df {tuple(df_shape)} (at most "
+                         f"{max_channels(s_in)} channels at {tuple(s_in)})")
+
+
 def tile_plan(moving_shape, df_shape, cf: bool = False) -> dict:
     """The tile plan of the forward kernel's launch on these shapes
     (`kernels/gather.py:warp_plan`)."""
@@ -280,9 +298,7 @@ def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool
     nd = len(s_in)
     plan = []
     if entry != "pulpo_warp_mgrad":
-        if max(math.prod(s_in) * c, math.prod(s_out) * max(c, nd)) >= 2**31:
-            raise ValueError(f"warp kernel addresses a row in 32 bits: moving "
-                             f"{tuple(moving_shape)}, df {tuple(df.shape)}")
+        check_rows(moving_shape, df.shape, cf)
         plan = [gather.plan_arg(tile_plan(moving_shape, df.shape, cf))]
     f = [_factor(s_in[i], s_out[i]) for i in range(nd)]
     fn = getattr(_build.load(lib), entry)

@@ -26,6 +26,8 @@ the JAX `_RawConv` (TPU workarounds that compute the same function).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -80,9 +82,22 @@ class BatchNorm(nn.Module):
     (biased; `nn.BatchNorm3d` would take the unbiased one). A train call
     does not touch the buffers: it leaves the running statistics' update
     ``0.9 * old + 0.1 * batch`` in `pending`, which the training step
-    commits (or drops, when its NaN guard fires)."""
+    commits (or drops, when its NaN guard fires). A recomputation of the
+    forward in the backward (`replaying`, under remat) records nothing:
+    the forward recorded the update, from the same batch."""
 
     momentum = 0.9
+    _replaying = False  # process-wide: autograd may recompute on its own thread
+
+    @classmethod
+    @contextlib.contextmanager
+    def replaying(cls):
+        """Train BatchNorms inside record no running-statistics update."""
+        before, cls._replaying = cls._replaying, True
+        try:
+            yield
+        finally:
+            cls._replaying = before
 
     def __init__(self, c: int):
         super().__init__()
@@ -100,10 +115,11 @@ class BatchNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(dims)
         var = torch.clamp_min(torch.mean(xf * xf, dims) - mean * mean, 0.0)
-        assert self.pending is None, "a BatchNorm ran twice in one train forward"
-        m = self.momentum
-        self.pending = (m * self.running_mean + (1 - m) * mean.detach(),
-                        m * self.running_var + (1 - m) * var.detach())
+        if not BatchNorm._replaying:
+            assert self.pending is None, "a BatchNorm ran twice in one train forward"
+            m = self.momentum
+            self.pending = (m * self.running_mean + (1 - m) * mean.detach(),
+                            m * self.running_var + (1 - m) * var.detach())
         return eval_bn(x, *bn_affine(mean, var, self.weight, self.bias))
 
 

@@ -31,9 +31,16 @@ running update) over the running ones, and the plain velocity head over
 the fused kernel, as in the JAX package. In eval, each non-coarsest
 level's up_block, merge block and mu/sigma heads run as one
 `kernels/pos_head.posterior_head` call where its kernel takes the
-widths (pulpo_tpu/models/pulpo.py:368-392). `cfg.remat` / `cfg.remat_down`
-(recompute activations in the backward) are not ported yet: a train
-forward with either set raises.
+widths (pulpo_tpu/models/pulpo.py:368-392).
+
+Remat (recomputing activations in the backward instead of keeping
+them; pulpo_tpu/models/pulpo.py:56-66, 214-215): in a train forward,
+`cfg.remat_down` checkpoints the listed DownPath blocks, and
+`cfg.remat` every DownPath block and each level's encoder and decoder
+(`remat`). The noise is drawn outside the decoders, and the
+recomputation records no BatchNorm update, so a remat step equals the
+plain one. A kernel inside a checkpointed region launches again in the
+backward.
 
 At `df_resolution="full_res"` without `"transformed"` feedback, the
 eval decode runs its fields channels-first (`cf_fields`; JAX
@@ -51,10 +58,12 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from pulpo_tpu_torch.config import PULPoConfig
 from pulpo_tpu_torch.kernels import pos_head
 from pulpo_tpu_torch.models.blocks import (
+    BatchNorm,
     ConvSequence,
     MuSigmaBlock,
     VelocityField,
@@ -112,6 +121,26 @@ def draw_normal(seed: int, samples, level: int, per_shape, device) -> torch.Tens
     return torch.stack(out)
 
 
+def remat(fn, *args):
+    """fn(*args) with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant), as `nn.remat` in the JAX
+    package. The recomputation runs its BatchNorms `replaying`, and runs
+    the whole region (no early stop), so that each kernel in it launches
+    once more in the backward."""
+    first = True
+
+    def run(*a):
+        nonlocal first
+        if first:
+            first = False
+            return fn(*a)
+        with BatchNorm.replaying():
+            return fn(*a)
+
+    with set_checkpoint_early_stop(False):
+        return checkpoint(run, *args, use_reentrant=False)
+
+
 def _cat(ts: list[torch.Tensor]) -> torch.Tensor:
     """Channel concat with dtype promotion (as jnp.concatenate)."""
     if len(ts) == 1:
@@ -131,6 +160,7 @@ class DownPath(nn.Module):
         cin = [2 * _IMAGE_CHANNELS] + [ch[k] for k in range(cfg.total_levels - 1)]
         self.down_blocks = nn.ModuleList(
             [ConvSequence(cin[k], ch[k], 3, dtype, cfg.ndims) for k in range(cfg.total_levels)])
+        self.rematted = {k for k in range(cfg.total_levels) if cfg.remat or k in cfg.remat_down}
 
     def forward(self, x: torch.Tensor, y: torch.Tensor, train: bool = False) -> LevelDict:
         h = torch.cat([x, y], dim=-1)
@@ -138,7 +168,10 @@ class DownPath(nn.Module):
         for k, block in enumerate(self.down_blocks):
             if k > 0:
                 h = avg_pool_ceil(h)
-            h = block(h, train=train)
+            if train and k in self.rematted:
+                h = remat(lambda t, block=block: block(t, train=True), h)
+            else:
+                h = block(h, train=train)
             acts[k] = h
         return acts
 
@@ -282,6 +315,18 @@ class Autoencoder(nn.Module):
         batched = batch_warp(cfg)
         cf = cf_fields(cfg) and not train
 
+        checkpointed = train and cfg.remat
+
+        def encode(enc, act, fb):
+            if checkpointed:
+                return remat(lambda a, f: enc(a, f, True), act, fb)
+            return enc(act, fb, train)
+
+        def decode(dec, z, img, parent):
+            if checkpointed:
+                return remat(lambda *a: dec(*a, not batched, True, cf), z, img, parent)
+            return dec(z, img, parent, not batched, train, cf)
+
         def draw_eps(l: int, shape, dtype) -> torch.Tensor:
             if noise is not None:
                 eps = noise[l].to(device=x.device, dtype=torch.float32)
@@ -310,7 +355,7 @@ class Autoencoder(nn.Module):
         for l in reversed(range(cfg.latent_levels)):
             k = l + cfg.lk_offset
             if l == cfg.latent_levels - 1:
-                mu_pp, sigma_pp = self.encoders[l](down_activations[k], None, train)
+                mu_pp, sigma_pp = encode(self.encoders[l], down_activations[k], None)
                 mus[l], sigmas[l] = tile_rows(mu_pp, S * B), tile_rows(sigma_pp, S * B)
                 parent_combined = None
             else:
@@ -333,7 +378,7 @@ class Autoencoder(nn.Module):
                         fbt, enc.merge_half(down_activations[k]), p)
                 else:
                     fb = up(fb, train=train)
-                    mus[l], sigmas[l] = enc(down_activations[k], fb, train)
+                    mus[l], sigmas[l] = encode(enc, down_activations[k], fb)
                 parent_combined = combined_dfs[l + 1]
 
             if deterministic:
@@ -343,8 +388,8 @@ class Autoencoder(nn.Module):
                 samples[l] = mus[l] + sigmas[l] * eps
 
             (velocity_fields[l], individual_dfs[l], combined_dfs[l],
-             final_dfs[l], transformed[l]) = self.decoders[l](
-                samples[l], level_x[l], parent_combined, not batched, train, cf)
+             final_dfs[l], transformed[l]) = decode(
+                self.decoders[l], samples[l], level_x[l], parent_combined)
 
         if cf:
             transformed.update(batched_level_warp_cf(
@@ -373,11 +418,6 @@ class PULPoModule(nn.Module):
 
     def forward(self, x, y, deterministic: bool = False, seed: int = 0,
                 noise: LevelDict | None = None, train: bool = False):
-        cfg = self.cfg
-        if train and (cfg.remat or cfg.remat_down):
-            raise NotImplementedError(
-                "cfg.remat / cfg.remat_down (recomputing activations in the "
-                "backward) are not ported yet; see ROADMAP.md Queue 1")
         acts = self.downpath(x, y, train=train)
         return self.autoencoder(x, acts, deterministic=deterministic,
                                 seed=seed, noise=noise, train=train)

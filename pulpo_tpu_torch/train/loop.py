@@ -55,8 +55,8 @@ class Trainer:
                  device=None):
         if cfg.data_parallel > 1:
             raise NotImplementedError(
-                "data_parallel > 1 is not ported yet (ROADMAP Queue 1 item 7: "
-                "DP with DDP and a cross-replica BatchNorm)")
+                "data_parallel > 1 needs parallel/ (DDP with a cross-replica "
+                "BatchNorm), which is not ported yet")
         self.cfg = cfg
         self.model = PULPoModel(cfg, device=device)
         base = pathlib.Path(run_dir or cfg.run_dir) / experiment

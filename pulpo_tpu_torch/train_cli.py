@@ -5,10 +5,11 @@ reference's train.py:133-168).
         --compute_dtype bfloat16 --max_steps 1000
 
 `--accelerator` picks the device: `gpu` (the default) runs on `cuda`,
-`cpu` on the CPU (the kernels' plain versions). `--ndims 2 --dataset
-synthetic` trains the 2D configuration on 64x64 synthetic slices. The LungCT and
-synthetic datasets are ported; the OASIS and BraTS readers are not yet
-(ROADMAP Queue 1 item 5). After training the run is evaluated
+`cpu` on the CPU (the kernels' plain versions). `--dataset` reads
+OASIS (`--segs` adds the one-hot segmentations for a `dice` loss),
+BraTS (the default; `--interpatient` pairs across patients), LungCT or
+synthetic pairs; `--ndims 2` trains the 2D configuration on OASIS
+slices or 64x64 synthetic ones. After training the run is evaluated
 (`Evaluate.run_one_model`, without the figures, which wait for
 `eval/visualize`) unless `--skip_eval` is given.
 """
@@ -88,12 +89,24 @@ def main(args=None):
     device = device_of(args.accelerator)
 
     from pulpo_tpu_torch.config import PULPoConfig
-    from pulpo_tpu_torch.data import reader_not_ported
 
     # the input size comes from the data (reference: train.py:80)
-    if args.dataset in ("oasis", "brats"):
-        raise reader_not_ported(args.dataset)
-    if args.dataset == "lungct":
+    if args.dataset == "oasis":
+        from pulpo_tpu_torch.data import oasis
+
+        train_loader, val_loader, _, _ = oasis.create_data_loaders(
+            args.batch_size, segs=args.segs, lms=False, mask=False,
+            ndims=args.ndims, path=args.data_path, seed=args.random_seed)
+        input_size = train_loader.dataset.input_size
+    elif args.dataset == "brats":
+        from pulpo_tpu_torch.data import brats
+
+        train_loader, val_loader, _ = brats.create_data_loaders(
+            args.batch_size, segs=args.segs, lms=args.lms, mask=args.mask,
+            ndims=args.ndims, interpatient=args.interpatient,
+            path=args.data_path, seed=args.random_seed)
+        input_size = train_loader.dataset.input_size
+    elif args.dataset == "lungct":
         from pulpo_tpu_torch.data import lungct
 
         train_loader, val_loader, _ = lungct.create_data_loaders(

@@ -211,5 +211,6 @@ def test_evaluate_cli_on_a_train_cli_run(tmp_path):
         evaluate_cli.main(args)
     assert evaluate_cli.main(args + ["--export", str(tmp_path / "artifact")]) is None
     assert (tmp_path / "artifact").stat().st_size > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        Evaluate(device="cpu").load_data("oasis", False, False, False)
+    with pytest.raises(FileNotFoundError):  # the OASIS reader opens its store
+        Evaluate(device="cpu").load_data("oasis", False, False, False,
+                                         path=tmp_path / "missing.h5")

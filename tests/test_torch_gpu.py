@@ -1028,3 +1028,88 @@ def test_gather_entry_refuses_a_plan_it_cannot_walk(cuda_device, monkeypatch, ba
     with pytest.raises(RuntimeError, match="CUDA error"):
         warp.warp(m, d)
     assert warp.launches == before
+
+
+# ----------------------------------------------------------------------
+# the segmentation path: the warp and its df-cotangent at the 36 one-hot
+# channels of the OASIS maps, and a remat step
+# ----------------------------------------------------------------------
+
+def _onehot(shape, classes, seed):
+    labels = np.random.default_rng(seed).integers(0, classes, shape)
+    return torch.from_numpy(np.eye(classes, dtype=np.float32)[labels])
+
+
+@pytest.mark.parametrize("moving,df", [((2, 20, 24, 28), (4, 20, 24, 28)),
+                                       ((1, 10, 12, 14), (1, 10, 12, 14)),
+                                       ((1, 40, 48, 56), (2, 20, 24, 28))])
+def test_warp_kernels_at_36_channels(cuda_device, moving, df):
+    """#4 at C = 36 bit-equal to its plain version (one voxel a thread, its
+    36 channels in the plain version's order); #6 within 1e-5 of scale
+    (the plain version's channel `sum` adds the 36 products in its own
+    order); one launch each."""
+    seg = _onehot(moving, 36, 60).to(cuda_device)
+    d = _field((*df, 3), 3.0, 61).to(cuda_device)
+    g = torch.from_numpy(np.random.default_rng(62).standard_normal(
+        (*df, 36)).astype(np.float32)).to(cuda_device)
+    before = (warp.launches, warp.dfgrad_launches)
+    got, gd = warp.warp(seg, d), warp.warp_dfgrad(seg, d, g)
+    torch.cuda.synchronize()
+    assert (warp.launches, warp.dfgrad_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got, warp.warp_plain(seg, d), rtol=0, atol=0)
+    ref = warp.warp_dfgrad_plain(seg, d, g)
+    torch.testing.assert_close(gd, ref, rtol=0, atol=1e-5 * max(1.0, float(ref.abs().max())))
+
+
+def test_2d_warp_at_36_channels(cuda_device):
+    """The 2D warp of 10 per-sample one-hot maps (`Evaluate.predict`'s 2D
+    segmentations), bit-equal to its plain version."""
+    seg = _onehot((1, 40, 48), 36, 63).to(cuda_device).repeat_interleave(10, 0)
+    d = _field((10, 40, 48, 2), 3.0, 64).to(cuda_device)
+    before = warp.launches_2d
+    got = warp.warp(seg, d)
+    torch.cuda.synchronize()
+    assert warp.launches_2d == before + 1
+    torch.testing.assert_close(got, warp.warp_plain(seg, d), rtol=0, atol=0)
+
+
+def test_remat_step_on_the_card_matches_the_plain_step(cuda_device):
+    """A segmentation step (NCC + Dice) under `remat_down=(0,)` and
+    `remat` against the plain step: the loss and the BatchNorm statistics
+    equal (the forward has no atomics), the gradients no further from
+    the plain step's (relative L2 over the network) than a second plain
+    step's are (twice that, or 1e-5: the squaring backward's float
+    atomics), and the narrow conv launched again for each recomputed
+    region."""
+    from chip_smoke import grad_spread, remat_launches
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import conv_narrow
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train.step import compute_grads
+
+    kw = dict(input_size=(24, 28, 32), total_levels=3, latent_levels=2, n0=8, batch_size=2,
+              segs=True, recon_loss=("ncc", "dice"))
+    rng = np.random.default_rng(65)
+    batch = {k: rng.random((2, 24, 28, 32, 1), dtype=np.float32) for k in ("x", "y")}
+    batch["seg_x"], batch["seg_y"] = (_onehot((2, 24, 28, 32), 36, s).numpy() for s in (66, 67))
+    out = {}
+    for name, knob in (("plain", {}), ("plain again", {}), ("remat_down", {"remat_down": (0,)}),
+                       ("remat", {"remat": True})):
+        cfg = PULPoConfig(**kw, **knob)
+        model = PULPoModel(cfg, device=cuda_device)
+        model.init(6)
+        before = conv_narrow.launches
+        grads, stats, metrics = compute_grads(model, batch, seed=7)
+        torch.cuda.synchronize()
+        extra = remat_launches(cfg, 1)["conv_narrow"]
+        assert conv_narrow.launches - before == 1 + cfg.latent_levels + extra
+        out[name] = grads, stats, float(metrics["total_loss"])
+    ref_grads, ref_stats, ref_loss = out["plain"]
+    spread = grad_spread(out["plain again"][0], ref_grads)[0]
+    for name in ("remat_down", "remat"):
+        grads, stats, loss = out[name]
+        assert loss == ref_loss
+        rel = grad_spread(grads, ref_grads)
+        assert rel[0] <= max(2 * spread, 1e-5), (name, rel, spread)
+        for n, v in stats.items():
+            assert torch.equal(v, ref_stats[n]), (name, n)

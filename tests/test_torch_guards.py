@@ -91,3 +91,21 @@ def test_chip_smoke_fails_alone(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("channels,refused", [(36, False), (312, False), (313, True)])
+def test_warp_row_guard_at_the_flagship_size(channels, refused):
+    """The warp and df-cotangent kernels address a row in 32 bits: at
+    160x192x224 a moving map of up to 312 channels passes the guard (the
+    36-channel one-hot map with room to spare), 313 do not. Decided from
+    the shapes alone, before anything is allocated or launched."""
+    from pulpo_tpu_torch.kernels import warp
+
+    size = (160, 192, 224)
+    assert warp.max_channels(size) == 312
+    moving, df = (1, *size, channels), (1, *size, 3)
+    if refused:
+        with pytest.raises(ValueError, match=r"32 bits.*at most 312 channels at \(160, 192, 224\)"):
+            warp.check_rows(moving, df)
+    else:
+        warp.check_rows(moving, df)

@@ -297,8 +297,14 @@ def test_dice_loss_warps_the_segmentation():
 
 @pytest.mark.parametrize("knob", [dict(remat=True), dict(remat_down=(0,))])
 def test_remat_raises(knob):
-    cfg = _tiny(**knob)
-    model = PULPoModel(cfg, device="cpu")
-    state, tx = create_train_state(model, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(model, tx)(state, _batch(cfg.input_size))
+    """A remat config trains: its step raises nothing and gives the plain
+    step's loss (bit for bit: tests/test_torch_remat.py)."""
+    losses = []
+    for kw in (knob, {}):
+        cfg = _tiny(**kw)
+        model = PULPoModel(cfg, device="cpu")
+        state, tx = create_train_state(model, seed=0)
+        state, metrics = make_train_step(model, tx)(state, _batch(cfg.input_size))
+        assert state.step == 1 and not state.nan_flag
+        losses.append(metrics["total_loss"])
+    assert torch.equal(losses[0], losses[1])
