@@ -141,6 +141,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8c. BraTS: `train_cli` with its defaults (`--dataset brats`, float32)
    on an in-memory store at 144x192x160, 2 steps with validation: finite
    losses, exact launch counts, a checkpoint that reloads bit for bit.
+9. the figure path: `evaluate_cli --task oasis --segs --lms --N 10`
+   without `--no_visualize` (`Evaluate.run_one_model(visualize=True)`)
+   on phase 8's run and store: per
+   loader three predictions (deterministic, one sample, the mean over
+   10), each figure's panels as `vis/*.npz` (the row count of the
+   default menu, every image finite; a `.png` only where matplotlib
+   imports, which the card's machine does not) and its JDet table, then
+   the tables; exact launch counts, the time beside phase 8's
+   `run_one_model(visualize=False)`, and the device time of the C = 36
+   one-hot warps it launched (each shape timed);
+9b. the same on phase 7c's 2D OASIS run (the 2D warp at C = 36 over
+   the 10 samples' rows);
+9c. the validation panels of phase 8's Trainer (`image_logging_frequency
+   = 1`): one `images/step_<s>.npz` a validation, keyed by the JAX
+   writer's tags, every grid uint8 (H, W, 3);
+9d. the DIF-VoxelMorph baseline (`models/voxelmorph.py`): first card
+   against CPU at 24x28x32 (the forward and an N = 4 `predict` with
+   injected draws, 1e-5 of scale), then at 160x192x224 with weights from
+   seed 0 on phase 8's store: `performance_vxm(1)`, `uncertainty_vxm(10)`
+   and `performance_vxm(artifact="blur")` (which must differ from the
+   clean table), 3 VoxelMorph-diff steps with a finite loss, exact
+   launch counts of the narrow conv (its 2 -> 16 f32 first conv), the
+   squaring step and the warp, and in training the squaring backward
+   and the df-cotangent; a pair's times (CUDA events), the peaks, and
+   each kernel's device time at the paths' shapes beside `F.conv3d` and
+   `F.grid_sample`;
+9e. `Evaluate.compare_models` over phase 8's run and a second run of
+   the same config with weights from seed 1, at N = 2 (reduced from 10):
+   one row a model, no NaN where a metric applies, exact launch counts.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -1906,6 +1935,7 @@ class RecordedRequests:
         self.n_samples = n_samples
         self.decodes = 0
         self.chunks = []
+        self.per_request = []
 
     def __enter__(self):
         from pulpo_tpu_torch.eval import evaluator
@@ -1917,7 +1947,9 @@ class RecordedRequests:
             res = uq(model, *args, **kw)
             chunk = res.outputs[0].shape[1]
             self.chunks.append(chunk)
-            self.decodes += self.n_samples // chunk + len(model.decode_bytes) - calibrated
+            self.per_request.append(self.n_samples // chunk + len(model.decode_bytes)
+                                    - calibrated)
+            self.decodes += self.per_request[-1]
             return res
 
         evaluator.predict_with_uncertainty = recorded
@@ -1950,21 +1982,38 @@ def step_launches(cfg, steps, val_forwards=0, dice=False):
     }
 
 
+def decode_launches(cfg, decodes, encodes):
+    """Launches of `decodes` eval decodes and `encodes` encodes: per decode
+    and level the velocity head, the integration and the image warp, and
+    the posterior heads and conv chains of `eval_launches`. In 2D the
+    squaring and warp run their 2D kernels and the fused kernels none."""
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    if cfg.ndims == 2:
+        return {"warp_2d": K * decodes, "squaring_2d": nsteps * K * decodes}
+    return {"warp": K * decodes, "squaring": nsteps * K * decodes, "vel_head": K * decodes,
+            **eval_launches(cfg, encodes, decodes)}
+
+
+def add_counts(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def table_launches(cfg, pairs, seg_pairs, decodes):
     """Launches of the performance and uncertainty tables over `pairs`
     pairs, `seg_pairs` of them with segmentations (phase 7's accounting):
-    per pair one deterministic decode and the K integrations of
-    combine_dfs, per segmentation pair K one-hot warps (one per level's
-    final df), and the uncertainty requests as the serving path
-    (`decodes` decodes, one mean-SVF tail a pair). In 2D the squaring
-    and warp run their 2D kernels and the fused eval kernels none."""
+    per pair one deterministic decode (`decode_launches`) and the K
+    integrations of combine_dfs, per segmentation pair K one-hot warps
+    (one per level's final df), and the uncertainty requests as the
+    serving path (`decodes` decodes, one mean-SVF tail a pair: K warps
+    and K integrations); an encode per pair for each table."""
     K, nsteps = cfg.latent_levels, cfg.nsteps
-    warps = K * pairs + K * seg_pairs + K * (decodes + pairs)
-    integrations = 2 * nsteps * K * pairs + nsteps * K * (decodes + pairs)
-    if cfg.ndims == 2:
-        return {"warp_2d": warps, "squaring_2d": integrations}
-    return {"warp": warps, "squaring": integrations, "vel_head": K * pairs + K * decodes,
-            **eval_launches(cfg, 2 * pairs, pairs + decodes)}
+    sq, wp = ("squaring_2d", "warp_2d") if cfg.ndims == 2 else ("squaring", "warp")
+    return add_counts(decode_launches(cfg, pairs + decodes, 2 * pairs),
+                      {sq: 2 * nsteps * K * pairs, wp: K * (pairs + seg_pairs)})
 
 
 def remat_launches(cfg, steps):
@@ -2024,7 +2073,7 @@ def run_oasis_path(dev, cfg_kw, steps, n_samples, run_root):
     from pulpo_tpu_torch.train.metrics import read_metrics
 
     cfg = PULPoConfig(**cfg_kw, batch_size=1, max_epochs=steps, log_every_n_steps=2,
-                      val_check_interval=0.5)
+                      val_check_interval=0.5, image_logging_frequency=1)
     t = time.perf_counter()
     key = "memory://OASIS.h5"
     stores = {key: oasis_store(cfg.input_size, OASIS_SPLITS, seed=80)}
@@ -2145,7 +2194,7 @@ def run_oasis_path(dev, cfg_kw, steps, n_samples, run_root):
         f"{eval_peak:.2f} GiB, checkpoint {ev.loaded_checkpoint}")
     log("oasis performance table (deterministic):\n" + str(perf))
     log("oasis uncertainty table:\n" + str(unc))
-    info = {"step_s": step_s[True], "iteration_s": iteration[True],
+    info = {"run_dir": run_dir, "step_s": step_s[True], "iteration_s": iteration[True],
             "plain_step_s": step_s[False], "plain_iteration_s": iteration[False],
             "read_s": read_s, "copy_s": copy_s,
             "train_peak_gib": train_peak, "tables_s": tables_s, "eval_peak_gib": eval_peak}
@@ -2350,7 +2399,443 @@ def run_oasis_2d(dev, steps, n_samples, run_root):
         f"{' '.join(str(r['val/total_loss']) for r in rows)}")
     log("oasis 2D performance table:\n" + str(perf))
     log("oasis 2D uncertainty table:\n" + str(unc))
-    return counts
+    return counts, run_dir, stores
+
+
+# ----------------------------------------------------------------------
+# phases 9, 9b, 9c, 9d: the figures, the validation panels, the
+# DIF-VoxelMorph baseline and compare_models
+# ----------------------------------------------------------------------
+
+VXM_SAMPLES = 10               # N of the VoxelMorph uncertainty table
+VXM_STEPS = 3                  # VoxelMorph training steps
+VXM_SMALL = (24, 28, 32)       # the card-against-CPU check's size
+COMPARE_SAMPLES = 2            # N of compare_models' mean-SVF predictions (reduced)
+VAL_TAGS = ("val/x", "val/y", "val/y_pred", "val/distance", "val/DF")
+
+
+class RecordedWarps:
+    """Notes the (moving, df) shapes of each image-warp launch while open
+    (`kernels/warp._warp_kernel`, 3D and 2D), for per-path device times."""
+
+    def __enter__(self):
+        from pulpo_tpu_torch.kernels import warp
+
+        self.shapes = []
+        self.fn = fn = warp._warp_kernel
+
+        def recorded(moving, df):
+            self.shapes.append((tuple(moving.shape), tuple(df.shape)))
+            return fn(moving, df)
+
+        warp._warp_kernel = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from pulpo_tpu_torch.kernels import warp
+
+        warp._warp_kernel = self.fn
+
+
+def figure_launches(cfg, loaders, seg_loaders, uq_decodes, requests):
+    """Launches of `Evaluate.write_figures` over `loaders` loaders (one
+    pair each, `seg_loaders` with segmentations) whose N-sample
+    predictions made `uq_decodes` decodes in `requests` requests. Per
+    loader: the deterministic prediction (an encode and a decode, one
+    `combine_dfs`), the one-sample prediction (an encode and a decode,
+    `PULPoModel.predict`'s `combine_dfs` and level warps, then
+    `Evaluate.predict`'s `combine_dfs`) and the N-sample one (its
+    requests' decodes and mean-SVF tails, then a `combine_dfs`); each
+    prediction warps the one-hot map by every level's final df. In 2D
+    the N-sample prediction also warps the map by each sample's final df
+    (N rows a level, one launch)."""
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    sq, wp = ("squaring_2d", "warp_2d") if cfg.ndims == 2 else ("squaring", "warp")
+    combines = 4 * loaders
+    tails = requests
+    seg_warps = 3 * K * seg_loaders + (K * seg_loaders if cfg.ndims == 2 else 0)
+    return add_counts(
+        decode_launches(cfg, 2 * loaders + uq_decodes, 3 * loaders),
+        {sq: nsteps * K * (combines + tails),
+         wp: K * loaders + K * tails + seg_warps})
+
+
+def check_panel_files(vis_dir, loader_names, n, segs, ndims):
+    """Each loader's three figures: `.npz` panels whose row count is the
+    default menu's and whose images are finite; a `.png` beside each only
+    where matplotlib is installed. Returns the files' names."""
+    import importlib.util
+
+    import numpy as np
+
+    from pulpo_tpu_torch.eval import visualize as vis
+
+    png = importlib.util.find_spec("matplotlib") is not None
+    names = []
+    for loader in loader_names:
+        for pred in ("deterministic", "sample", f"avg_{n}"):
+            base = vis_dir / f"allvis{loader}_{pred}"
+            p = vis.load_panels(base.with_suffix(".npz"))
+            uq = pred.startswith("avg")
+            has_segs = segs and loader != "test_lm"
+            rows = vis.default_visualizations(has_segs, uq, uq and has_segs and ndims == 2)[0]
+            if p.rows != len(rows):
+                raise SystemExit(f"figure {base.name}: {p.rows} rows, the menu has {len(rows)}")
+            for r, row in enumerate(p.axes):
+                for c, a in enumerate(row):
+                    if a.image is not None and not np.isfinite(a.image.astype(np.float64)).all():
+                        raise SystemExit(f"figure {base.name}: row {rows[r]} column {c} not "
+                                         "finite")
+            if base.with_suffix(".png").exists() != png:
+                raise SystemExit(f"figure {base.name}: png {base.with_suffix('.png').exists()}, "
+                                 f"matplotlib {'installed' if png else 'absent'}")
+            names.append(base.name + (".npz and .png" if png else ".npz"))
+    return names
+
+
+def run_figure_path(dev, run_dir, stores, n_samples, what):
+    """Phases 9 and 9b: the evaluation CLI's default command, `evaluate_cli
+    --run_dir <run> --task oasis --segs --lms --N 10` without
+    `--no_visualize` (`Evaluate.run_one_model(visualize=True)`), on a
+    trained run's directory and its in-memory store: per loader three
+    predictions, their figures' panels (`vis/*.npz`, checked by
+    `check_panel_files`) and JDet tables, then the performance and
+    uncertainty tables; exact launch counts. Returns (counts, info) with
+    the time, the peak and the C = 36 one-hot warps' shapes."""
+    import torch
+
+    from pulpo_tpu_torch import evaluate_cli
+    from pulpo_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = CheckpointManager.load_config(run_dir)
+    out = run_dir / "evaluation"
+    key = next(iter(stores))
+    accelerator = "gpu" if dev.type == "cuda" else "cpu"
+    with memory_stores(stores):
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with RecordedRequests(n_samples) as rec, RecordedWarps() as warps:
+            perf, unc = evaluate_cli.main([
+                "--run_dir", str(run_dir), "--task", "oasis", "--segs", "--lms", "--N",
+                str(n_samples), "--data_path", key, "--accelerator", accelerator])
+        torch.cuda.synchronize()
+        fig_s = time.perf_counter() - t
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loaders = ("train", "val", "test_seg", "test_lm")  # the OASIS task's
+    n_loaders = len(loaders)
+    # the figures' requests come first (one a loader), then the tables'
+    fig_decodes = sum(rec.per_request[:n_loaders])
+    table_decodes = rec.decodes - fig_decodes
+    pairs, seg_pairs = sum(OASIS_SPLITS), sum(OASIS_SPLITS[:3])
+    expected = add_counts(figure_launches(cfg, n_loaders, n_loaders - 1, fig_decodes, n_loaders),
+                          table_launches(cfg, pairs, seg_pairs, table_decodes))
+    expect(counts, expected, f"{what} figure path ({rec.decodes} decodes, chunks {rec.chunks})")
+    names = check_panel_files(out / "vis", loaders, n_samples, True, cfg.ndims)
+    jdet = sorted(p.name for p in (out / "jdet").glob("*.csv"))
+    if len(jdet) != 3 * n_loaders:
+        raise SystemExit(f"{what} figure path: jdet tables {jdet}")
+    for p in (out / "jdet").glob("*.csv"):
+        if not all(math.isfinite(v) for v in read_table(p).values.ravel()):
+            raise SystemExit(f"{what} figure path: {p.name} not finite")
+    lm_cols = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
+    check_table(perf, lambda s, m, r: m == "JDetLeq0" or (m == "Dice" and s == "test_lm")
+                or (m in lm_cols and (s != "test_lm" or r > 0)), f"{what} figure path table")
+    check_table(unc, lambda s, m, r: m in lm_cols and s != "test_lm", f"{what} figure path "
+                "uncertainty table")
+    seg_warps = [s for s in warps.shapes if s[0][-1] == SEG_CLASSES]
+    log(f"{what} figure path: evaluate_cli (run_one_model(visualize=True)) {fig_s:.3f} s "
+        f"(figures and tables), max_memory_allocated {peak:.2f} GiB; wrote {len(names)} figures ("
+        f"{', '.join(names)}) and {len(jdet)} jdet tables; {len(seg_warps)} one-hot warps at "
+        f"C = {SEG_CLASSES}")
+    return counts, {"fig_s": fig_s, "peak_gib": peak, "seg_warps": seg_warps,
+                    "figures": len(names)}
+
+
+def time_warp_shapes(dev, shapes):
+    """Device ms (CUDA-graph replay) of the image warp at each distinct
+    (moving, df) shape of `shapes` (a smooth 3-voxel field, a one-hot
+    map for C = 36), and their sum over `shapes`: a path's device ms."""
+    from collections import Counter
+
+    from pulpo_tpu_torch.kernels import warp
+
+    fmt = lambda s: "x".join(map(str, s))
+    per, total = {}, 0.0
+    for (mshape, dshape), n in sorted(Counter(shapes).items()):
+        if mshape[-1] == SEG_CLASSES:
+            moving = onehot_volume((1, *mshape[1:]), 350, dev).repeat_interleave(mshape[0], 0)
+        else:
+            moving = smooth_field(mshape[0], mshape[1:-1], 1.0, 351, dev, channels=mshape[-1])
+        df = smooth_field(dshape[0], dshape[1:-1], 3.0, 352, dev, channels=dshape[-1])
+        ms = graph_ms(lambda: warp.warp(moving, df), 5)
+        per[f"moving {fmt(mshape)} df {fmt(dshape)}"] = {"launches": n, "ms": ms}
+        total += n * ms
+        del moving, df
+    return per, total
+
+
+def run_panels_check(run_dir):
+    """Phase 9c: the validation panels that phase 8's Trainer wrote at
+    every validation round (`image_logging_frequency = 1`): per round one
+    `images/step_<s>.npz` whose keys are the JAX writer's tags, each a
+    uint8 (H, W, 3) grid."""
+    from pulpo_tpu_torch.train.metrics import read_images, read_metrics
+
+    images = read_images(run_dir)
+    val_steps = [r["step"] for r in read_metrics(run_dir) if "val/total_loss" in r]
+    if list(images) != val_steps:
+        raise SystemExit(f"validation panels at steps {list(images)}, validations at {val_steps}")
+    for step, grids in images.items():
+        levels = sorted({int(k.rsplit("_", 1)[1]) for k in grids if k.startswith("val_levels/")})
+        tags = list(VAL_TAGS) + [f"val_levels/{n}_level_{l}" for l in levels
+                                 for n in ("recon", "individual_DF", "final_DF")]
+        if sorted(grids) != sorted(tags) or not levels:
+            raise SystemExit(f"validation panels at step {step}: tags {sorted(grids)}")
+        for tag, g in grids.items():
+            if g.dtype.name != "uint8" or g.ndim != 3 or g.shape[-1] != 3:
+                raise SystemExit(f"validation panel {tag} at step {step}: {g.dtype} {g.shape}")
+    shapes = {k: v.shape for k, v in next(iter(images.values())).items()}
+    log(f"validation panels: {len(images)} rounds (steps {list(images)}), "
+        f"{len(shapes)} uint8 HWC grids a round: {shapes}")
+    return len(images)
+
+
+def check_vxm_small(dev, size=VXM_SMALL, n=4):
+    """Phase 9d, first part: the VoxelMorph forward (deterministic) and an
+    N = 4 `predict` with injected draws on the card against the CPU's
+    plain versions, same weights: every output within 1e-5 of its scale."""
+    import torch
+
+    from pulpo_tpu_torch.models.voxelmorph import VxmModel
+
+    models = {d: VxmModel(size, device=d) for d in ("cpu", dev)}
+    models["cpu"].init(3)
+    models[dev].load_state_dict(models["cpu"].state_dict())
+    x, y = (smooth_field(1, size, 1.0, s, "cpu", channels=1).abs() for s in (360, 361))
+    eps = torch.randn((n, 1, *models["cpu"].half_size, 3),
+                      generator=torch.Generator().manual_seed(362))
+    outs = {d: (m.apply(x, y, deterministic=True)[:2], m.predict(x, y, n, eps=eps))
+            for d, m in models.items()}
+    names = ["moved", "df", "avg_moved", "avg_df", "moved_std", "df_std", "all_moved", "all_dfs"]
+    got = [*outs[dev][0], *outs[dev][1]]
+    ref = [*outs["cpu"][0], *outs["cpu"][1]]
+    worst = 0.0
+    for name, g, r in zip(names, got, ref):
+        rel = float((g.cpu().double() - r.double()).abs().max() / r.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+        if not rel <= 1e-5:
+            raise SystemExit(f"vxm small: {name} card vs CPU {rel:.3e} of its scale")
+    log(f"vxm small {size}: forward and N = {n} predict on the card vs the CPU, worst "
+        f"{worst:.3e} of scale (tol 1e-5)")
+
+
+def vxm_launches(passes, predicts, steps, nsteps=7):
+    """Launches of the VoxelMorph paths: each forward (a deterministic or
+    sampled pair, or an N-sample `predict`: one U-Net, all rows in one
+    integration and one warp) one narrow conv (its 2 -> 16 first conv),
+    nsteps squaring steps and one warp; each training step also nsteps
+    squaring backward steps and one df-cotangent."""
+    forwards = passes + predicts + steps
+    return {"conv_narrow": forwards, "squaring": nsteps * forwards, "warp": forwards,
+            "squaring_bwd": nsteps * steps, "warp_dfgrad": steps}
+
+
+def time_vxm_kernels(dev, size, n):
+    """Device ms (CUDA-graph replay) of #12, #1, #4, #2 and #6 at the
+    VoxelMorph paths' shapes, {kernel: {shape: ms}}, and under "library"
+    `F.conv3d` (cuDNN, float32, TF32 off) for #12 and `F.grid_sample` for
+    #4 on the same inputs."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import conv_narrow, squaring, warp
+
+    half = tuple(-(-s // 2) for s in size)
+    res = {"conv_narrow": {}, "squaring": {}, "warp": {}, "squaring_bwd": {}, "warp_dfgrad": {}}
+    import torch.nn.functional as F
+
+    x = smooth_field(1, size, 1.0, 370, dev, channels=2)
+    w = narrow_weight(2, 16, 371, dev)
+    res["conv_narrow"]["2->16 f32"] = graph_ms(lambda: conv_narrow.conv_narrow(x, w), 5)
+    x_cf = x.permute(0, 4, 1, 2, 3).contiguous()
+    res["library"] = {"conv_narrow 2->16 f32 (F.conv3d)": graph_ms(
+        lambda: F.conv3d(x_cf, w, padding=1), 5)}
+    moving = smooth_field(1, size, 1.0, 372, dev, channels=1)
+    for rows in (1, n):
+        v = smooth_field(rows, half, 3.0 / 2**7, 373, dev)
+        res["squaring"][f"{rows} rows"] = graph_ms(lambda: squaring.squaring_step(v), 5)
+        df = smooth_field(rows, size, 3.0, 374, dev)
+        res["warp"][f"{rows} rows"] = graph_ms(lambda: warp.warp(moving, df), 5)
+        m_cf = moving.permute(0, 4, 1, 2, 3).expand(rows, -1, -1, -1, -1).contiguous()
+        grid = grid_for(df)
+        res["library"][f"warp {rows} rows (F.grid_sample)"] = graph_ms(
+            lambda: F.grid_sample(m_cf, grid, mode="bilinear", padding_mode="border",
+                                  align_corners=False), 5)
+        if rows == 1:
+            g = torch.randn_like(v)
+            res["squaring_bwd"]["1 row"] = graph_ms(lambda: squaring.squaring_step_bwd(v, g), 5)
+            gw = torch.randn((1, *size, 1), device=dev)
+            res["warp_dfgrad"]["1 row"] = graph_ms(
+                lambda: warp.warp_dfgrad(moving, df, gw), 5)
+        del v, df, grid, m_cf
+    return res
+
+
+def run_vxm_path(dev, size, stores, n_samples, steps, out_root):
+    """Phase 9d: the DIF-VoxelMorph baseline at the flagship's size with
+    weights from seed 0, on phase 8's OASIS store (10 pairs, landmarks on
+    test_lm): `performance_vxm(1)`, `uncertainty_vxm(N)` and
+    `performance_vxm(artifact="blur")`, which must differ from the clean
+    table; then `steps` VoxelMorph-diff steps (torch Adam, lr 1e-4) on one
+    pair with a finite loss. Exact launch counts, the pair times (CUDA
+    events) and the peaks."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch.eval.evaluator import Evaluate
+    from pulpo_tpu_torch.models.voxelmorph import VxmModel, make_vxm_train_step
+
+    init = VxmModel(size, device=dev)
+    weights = init.init(0)
+    del init
+    ev = Evaluate(device=dev)
+    key = next(iter(stores))
+    with memory_stores(stores):
+        ev.load_data(task="oasis", segs=False, lms=True, mask=False, path=key)
+        batch = next(iter(ev.loaders[0]))
+    ev.load_vxm(weights, size, output_dir=out_root / "vxm")
+    pairs = sum(len(dl.dataset) for dl in ev.loaders)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with memory_stores(stores):
+        perf = ev.performance_vxm(1)
+        t_perf = time.perf_counter()
+        unc = ev.uncertainty_vxm(n_samples)
+        t_unc = time.perf_counter()
+        blur = ev.performance_vxm(1, artifact="blur")
+    torch.cuda.synchronize()
+    tables = (t_perf - t, t_unc - t_perf, time.perf_counter() - t_unc)
+    eval_peak = torch.cuda.max_memory_allocated() / 2**30
+    eval_counts = read_counts()
+    expect(eval_counts, vxm_launches(2 * pairs, pairs, 0), f"vxm tables ({pairs} pairs)")
+    lm = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
+    for table, name in ((perf, "performance"), (unc, "uncertainty"), (blur, "blur")):
+        check_table(table, lambda s, m, r: m == "JDetLeq0" or (m in lm and s != "test_lm"),
+                    f"vxm {name} table")
+    if np.array_equal(perf.values, blur.values, equal_nan=True):
+        raise SystemExit("vxm: the blurred table equals the clean one")
+    if not (out_root / "vxm" / "loss" / "loss_table_vxmblur.csv").exists():
+        raise SystemExit("vxm: no loss_table_vxmblur.csv")
+    log("vxm performance table:\n" + str(perf))
+    log("vxm uncertainty table:\n" + str(unc))
+    log("vxm performance table, blurred moving images:\n" + str(blur))
+
+    # training
+    model = ev.vxm
+    tx = torch.optim.Adam(model.module.parameters(), lr=1e-4)
+    step = make_vxm_train_step(model, tx, seed=0)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        m = step(batch)
+        losses.append(float(m["total_loss"]))
+        step_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    train_counts = read_counts()
+    expect(train_counts, vxm_launches(0, 0, steps), f"vxm training ({steps} steps)")
+    if not all(math.isfinite(v) for v in losses):
+        raise SystemExit(f"vxm training losses {losses}")
+    if all(torch.equal(before[k], v) for k, v in model.state_dict().items()):
+        raise SystemExit("vxm training changed no weight")
+    model.load_state_dict(before)
+    log(f"vxm training: {steps} steps, total_loss {' '.join(f'{v:.6f}' for v in losses)}, "
+        f"step {' '.join(f'{s:.3f}' for s in step_s)} s, max_memory_allocated "
+        f"{train_peak:.2f} GiB")
+
+    # a pair's times on the device (CUDA events)
+    x = torch.as_tensor(batch["x"], device=dev)
+    y = torch.as_tensor(batch["y"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    det_ms = time_ms(lambda: model.apply(x, y, deterministic=True), 3)
+    pred_ms = time_ms(lambda: model.predict(x, y, n_samples, seed=1), 1)
+    pair_peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = time_ms(lambda: step(batch), 1)
+    model.load_state_dict(before)
+    log(f"vxm pair {size}: deterministic forward {det_ms:.3f} ms, N = {n_samples} predict "
+        f"{pred_ms:.3f} ms (max_memory_allocated {pair_peak:.2f} GiB), training step "
+        f"{step_ms:.3f} ms; tables {' '.join(f'{s:.3f}' for s in tables)} s (performance, "
+        f"uncertainty, blurred) with peak {eval_peak:.2f} GiB")
+    return add_counts(eval_counts, train_counts), {
+        "eval_counts": eval_counts, "train_counts": train_counts, "det_ms": det_ms,
+        "pred_ms": pred_ms, "step_ms": step_ms, "pair_peak_gib": pair_peak,
+        "eval_peak_gib": eval_peak, "train_peak_gib": train_peak, "tables_s": tables,
+        "pairs": pairs}
+
+
+def compare_launches(cfg, pairs, seg_pairs, n):
+    """Launches of `compare_models` for one model over `pairs` pairs
+    (`seg_pairs` with segmentations): per pair `PULPoModel.predict` (an
+    encode, a decode of the N samples as one batch, a `combine_dfs` and
+    the level warps), then a `combine_dfs` and, with segmentations, the
+    level-0 one-hot warp."""
+    K, nsteps = cfg.latent_levels, cfg.nsteps
+    return add_counts(decode_launches(cfg, pairs, pairs),
+                      {"squaring": 2 * nsteps * K * pairs, "warp": K * pairs + seg_pairs})
+
+
+def run_compare_path(dev, run_dir, stores, n, out_root):
+    """Phase 9e: `Evaluate.compare_models` over phase 8's run and a second
+    run of the same config with weights from seed 1, at N = `n` (reduced)
+    on phase 8's store with segmentations: one row a model, no NaN where a
+    metric applies (Dice has none on test_lm), exact launch counts, the
+    table files."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch.eval.evaluator import Evaluate
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train import create_train_state
+    from pulpo_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = CheckpointManager.load_config(run_dir)
+    second = out_root / "seed1"
+    state, _ = create_train_state(PULPoModel(cfg, device=dev), seed=1)
+    CheckpointManager(second, cfg).save_latest(state, 0)
+    del state
+    torch.cuda.empty_cache()
+    key = next(iter(stores))
+    ev = Evaluate(device=dev)
+    reset_counts()
+    t = time.perf_counter()
+    with memory_stores(stores):
+        table = ev.compare_models([run_dir, second], model_names=["oasis", "seed1"],
+                                  task="oasis", segs=True, lms=False, N=n, data_path=key,
+                                  output_dir=out_root / "compare")
+    torch.cuda.synchronize()
+    cmp_s = time.perf_counter() - t
+    counts = read_counts()
+    pairs, seg_pairs = sum(OASIS_SPLITS), sum(OASIS_SPLITS[:3])
+    one = compare_launches(cfg, pairs, seg_pairs, n)
+    expect(counts, {k: 2 * v for k, v in one.items()}, "compare_models (2 models)")
+    if table.index != ["oasis", "seed1"] or table.shape != (2, 16):
+        raise SystemExit(f"compare_models: index {table.index}, shape {table.shape}")
+    for c, (s, m) in enumerate(table.columns):
+        if not (m == "Dice" and s == "test_lm") and np.isnan(table.values[:, c]).any():
+            raise SystemExit(f"compare_models: NaN in ({s}, {m})")
+    for ext in ("csv", "tex"):
+        if not (out_root / "compare" / f"loss_table.{ext}").exists():
+            raise SystemExit(f"compare_models: no loss_table.{ext}")
+    log(f"compare_models: 2 models x {pairs} pairs at N = {n} in {cmp_s:.3f} s\n{table}")
+    return counts, {"compare_s": cmp_s}
 
 
 # ----------------------------------------------------------------------
@@ -2996,6 +3481,7 @@ def main() -> int:
     check_small_train(dev)
     check_small_reference(dev, size=(32, 40))
     check_small_train(dev, size=(32, 40))
+    check_vxm_small(dev)
 
     uq_counts, uq = run_main_path(dev, FLAGSHIP, N_SAMPLES, N_REQUESTS)
     chunk = uq["chunk"]
@@ -3032,7 +3518,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     oasis_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_oasis_"))
     try:
-        oasis2d_counts = run_oasis_2d(dev, OASIS_2D_STEPS, OASIS_SAMPLES, oasis_root / "2d")
+        oasis2d_counts, oasis2d_dir, oasis2d_stores = run_oasis_2d(
+            dev, OASIS_2D_STEPS, OASIS_SAMPLES, oasis_root / "2d")
         torch.cuda.empty_cache()
         serve2d_counts, serve2d = run_serve_path(dev, FLAGSHIP_2D, N_SAMPLES, uq2d["chunk"],
                                                  N_REQUESTS, oasis_root)
@@ -3041,6 +3528,19 @@ def main() -> int:
             dev, OASIS, OASIS_STEPS, OASIS_SAMPLES, oasis_root / "3d")
         torch.cuda.empty_cache()
         remat_counts, remat = run_remat_path(dev, OASIS, stores)
+        torch.cuda.empty_cache()
+        panel_rounds = run_panels_check(oasis["run_dir"])
+        fig_counts, fig = run_figure_path(dev, oasis["run_dir"], stores, OASIS_SAMPLES, "oasis")
+        torch.cuda.empty_cache()
+        fig2d_counts, fig2d = run_figure_path(dev, oasis2d_dir, oasis2d_stores, OASIS_SAMPLES,
+                                              "oasis 2D")
+        del oasis2d_stores
+        torch.cuda.empty_cache()
+        vxm_counts, vxm = run_vxm_path(dev, FLAGSHIP["input_size"], stores, VXM_SAMPLES,
+                                       VXM_STEPS, oasis_root)
+        torch.cuda.empty_cache()
+        cmp_counts, cmp = run_compare_path(dev, oasis["run_dir"], stores, COMPARE_SAMPLES,
+                                           oasis_root)
         del stores
         torch.cuda.empty_cache()
         brats_counts, brats = run_brats_path(dev, BRATS_STEPS, oasis_root / "brats")
@@ -3058,6 +3558,31 @@ def main() -> int:
     times.update(time_training_shapes(dev))
     times.update(time_2d_kernels(dev, cfg_2d, uq2d["chunk"]))
     seg_times = time_seg_kernels(dev, PULPoConfig(**OASIS), cfg_2d)
+    fig_warp = {what: time_warp_shapes(dev, info["seg_warps"])
+                for what, info in (("figures", fig), ("figures_2d", fig2d))}
+    for what, (per, total) in fig_warp.items():
+        for shape, r in per.items():
+            log(f"time {what} one-hot warp {shape}: {r['launches']} launches x {r['ms']:.4f} ms")
+        log(f"time {what} path: the C = {SEG_CLASSES} one-hot warps {total:.3f} ms of device time")
+    vxm_times = time_vxm_kernels(dev, FLAGSHIP["input_size"], VXM_SAMPLES)
+    pairs, steps = vxm["pairs"], VXM_STEPS
+    one, many = "1 rows", f"{VXM_SAMPLES} rows"
+    vxm_path_ms = {
+        "vxm_eval": {
+            "conv_narrow": 3 * pairs * vxm_times["conv_narrow"]["2->16 f32"],
+            "squaring": 7 * pairs * (2 * vxm_times["squaring"][one]
+                                     + vxm_times["squaring"][many]),
+            "warp": pairs * (2 * vxm_times["warp"][one] + vxm_times["warp"][many])},
+        "vxm_train": {
+            "conv_narrow": steps * vxm_times["conv_narrow"]["2->16 f32"],
+            "squaring": 7 * steps * vxm_times["squaring"][one],
+            "warp": steps * vxm_times["warp"][one],
+            "squaring_bwd": 7 * steps * vxm_times["squaring_bwd"]["1 row"],
+            "warp_dfgrad": steps * vxm_times["warp_dfgrad"]["1 row"]}}
+    for k, shapes in vxm_times.items():
+        log(f"time vxm {k}: " + ", ".join(f"{sh} {ms:.4f} ms" for sh, ms in shapes.items()))
+    for path, per in vxm_path_ms.items():
+        log(f"time {path} path device ms: " + ", ".join(f"{k} {v:.3f}" for k, v in per.items()))
     for k in ("squaring_cf", "warp_cf"):
         log(f"time {k} channels-last twin on the same field: {times[k]['cl_twin_ms']:.3f} ms "
             f"(CF {times[k]['ms']:.3f} ms)")
@@ -3110,7 +3635,10 @@ def main() -> int:
                    "training_2d": train2d_counts[name], "train_cli_2d": cli2d_counts[name],
                    "oasis_2d": oasis2d_counts[name], "serve_2d": serve2d_counts[name],
                    "oasis_train": oasis_train[name], "oasis_tables": oasis_eval[name],
-                   "oasis_remat": remat_counts[name], "brats_train": brats_counts[name]}
+                   "oasis_remat": remat_counts[name], "brats_train": brats_counts[name],
+                   "figures": fig_counts[name], "figures_2d": fig2d_counts[name],
+                   "vxm_eval": vxm["eval_counts"][name], "vxm_train": vxm["train_counts"][name],
+                   "compare": cmp_counts[name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -3132,6 +3660,15 @@ def main() -> int:
             record["shapes"] = r["shapes"]
         if name in seg_times:
             record[f"seg_c{SEG_CLASSES}"] = seg_times[name]
+        if name in vxm_times:
+            record["vxm"] = {"ms": vxm_times[name],
+                             "path_ms": {p: v[name] for p, v in vxm_path_ms.items() if name in v},
+                             "library_ms": {k: v for k, v in vxm_times["library"].items()
+                                            if k.startswith(name + " ")}}
+        if name in ("warp", "warp_2d"):
+            what = "figures" if name == "warp" else "figures_2d"
+            per, total = fig_warp[what]
+            record[f"{what}_c{SEG_CLASSES}"] = {"shapes": per, "path_ms": total}
         for k in ("eager_ms", "library_eager_ms"):
             if k in r:
                 record[k] = r[k]
@@ -3162,6 +3699,14 @@ def main() -> int:
         f"{k} peak {remat['peaks'][k]:.2f} GiB, {remat['times'][k]:.3f} s" for k in remat["peaks"])
         + f"; the plain step's gradient spread {remat['spread']:.3e}")
     log(f"brats: train_cli {BRATS_STEPS} steps with validation {brats['fit_s']:.2f} s")
+    log(f"figures: evaluate_cli (visualize=True) {fig['fig_s']:.3f} s ({fig['figures']} "
+        f"figures and the tables), run_one_model(visualize=False) {oasis['tables_s']:.3f} s, "
+        f"peak {fig['peak_gib']:.2f} GiB; 2D {fig2d['fig_s']:.3f} s; validation panels "
+        f"{panel_rounds} rounds")
+    log(f"vxm: deterministic pair {vxm['det_ms']:.3f} ms, N = {VXM_SAMPLES} predict "
+        f"{vxm['pred_ms']:.3f} ms (peak {vxm['pair_peak_gib']:.2f} GiB), training step "
+        f"{vxm['step_ms']:.3f} ms (peak {vxm['train_peak_gib']:.2f} GiB); compare_models "
+        f"{cmp['compare_s']:.3f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

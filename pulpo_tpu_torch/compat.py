@@ -93,3 +93,17 @@ def conv_chain_stages_from_jax(stages: list[dict]) -> list[dict[str, torch.Tenso
     k (3, 3, 3, I, O), b, mean, var, scale, bias) as kernels/conv_chain.py
     takes them."""
     return [{k: _kernel(v) if k == "k" else _t(v) for k, v in s.items()} for s in stages]
+
+
+def vxm_from_jax_variables(variables) -> dict[str, torch.Tensor]:
+    """State_dict of the port's `models/voxelmorph.VxmDense` from the JAX
+    package's VxM variables (`{'params': {'_ConvLReLU_<i>': {'TorchConv_0':
+    {'Conv_0': ...}}, 'flow_mu': {'Conv_0': ...}, 'flow_log_sigma': ...}}`)."""
+    params = variables["params"]
+    out: dict[str, torch.Tensor] = {}
+    n = sum(k.startswith("_ConvLReLU_") for k in params)
+    for i in range(n):
+        _conv(out, f"convs.{i}", params[f"_ConvLReLU_{i}"]["TorchConv_0"])
+    for name in ("flow_mu", "flow_log_sigma"):
+        _conv(out, name, params[name])
+    return out

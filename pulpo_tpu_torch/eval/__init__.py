@@ -1,1 +1,1 @@
-"""Evaluation: metrics, tables and the Evaluate driver."""
+"""Evaluation: metrics, tables, figures, artifacts and the Evaluate driver."""

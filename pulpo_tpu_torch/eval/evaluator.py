@@ -1,26 +1,40 @@
-"""The evaluation suite: deterministic performance tables and N-sample
-uncertainty tables (the reference's evaluate.py, class Evaluate).
+"""The evaluation suite: figures, deterministic performance tables,
+N-sample uncertainty tables, the robustness (artifact) experiments, the
+DIF-VoxelMorph baseline and the multi-model table (the reference's
+evaluate.py, class Evaluate).
 
-Port of pulpo_tpu/eval/evaluator.py:48-520: `load_model` (the port's
+Port of pulpo_tpu/eval/evaluator.py: `load_model` (the port's
 checkpoints), `set_model`, `load_data`, `predict`, `performance`,
-`uncertainty`, `performance_affine` and `run_one_model`. Output layout
-as the reference: <run_dir>/evaluation/{loss, uncertainty}/...
+`uncertainty`, `performance_affine` (each with `artifact=`),
+`run_one_model`, `load_vxm`, `performance_vxm`, `uncertainty_vxm` and
+`compare_models`. Output layout as the reference:
+<run_dir>/evaluation/{vis, jdet, loss, uncertainty}/...
 
 Tables are `eval.tables.Table`s (no pandas on the card's machine). The
 reference's conventions are kept: exact-zero entries are scrubbed to
-NaN before the mean over inputs (its "empty slot" sentinel), and the
-landmarks thread through `predict_with_uncertainty(lm=...)` so that the
-per-sample landmark warps use the same draws as the Var/NCC maps.
+NaN before the mean over inputs (its "empty slot" sentinel; not in
+`compare_models`, as in the JAX package), and the landmarks thread
+through `predict_with_uncertainty(lm=...)` so that the per-sample
+landmark warps use the same draws as the Var/NCC maps.
+
+Figures (`run_one_model(visualize=True)`): each figure's panels are
+written to `vis/allvis<loader>_<prediction>.npz` on every host
+(`eval/visualize.save_panels`), and its `.png` beside them where
+matplotlib is installed (the card's machine has none;
+`eval/visualize.draw` makes the same PNG from the `.npz` elsewhere).
+
+The artifact experiments corrupt the moving image on the host, in
+numpy and scipy (`eval/artifact.py`), as the JAX package does: the
+image is copied to the host, corrupted and sent back before the
+prediction.
 
 Tasks: oasis (loaders train / val / test_seg / test_lm), brats and
-lungct (train / val / test), synthetic. Not ported yet: the figures
-(`visualize=True`, which needs `eval/visualize`), the artifact
-experiments (`eval/artifact`), the VoxelMorph baseline
-(`models/voxelmorph`) and `compare_models`.
+lungct (train / val / test), synthetic.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import pathlib
 import warnings
 
@@ -28,7 +42,8 @@ import numpy as np
 import torch
 
 from pulpo_tpu_torch.eval import metrics as M
-from pulpo_tpu_torch.eval.tables import Table, make_tables
+from pulpo_tpu_torch.eval.artifact import artifact as artifact_fn
+from pulpo_tpu_torch.eval.tables import Table, make_tables, multiindex_table, table_jdet
 from pulpo_tpu_torch.models.api import PULPoModel, _as_tensor, combine_dfs, resolve_device
 from pulpo_tpu_torch.ops import losses as L
 from pulpo_tpu_torch.ops.warp import warp_image, warp_landmarks
@@ -156,7 +171,28 @@ class Evaluate:
         return int(torch.randint(0, 2**62, (1,), generator=self.rng))
 
     def _tensor(self, a):
-        return _as_tensor(a, self.model.device)
+        return _as_tensor(a, self.device)
+
+    # ------------------------------------------------------------------
+    # Artifact injection (robustness / UQ experiments)
+    # ------------------------------------------------------------------
+
+    def _artifact_box(self, spatial):
+        """The reference's fixed ROI x=(100,130) y=(100,130) z=(120,150)
+        (evaluate.py:1188, 1255, 1333, 1421, 1500); for volumes too small
+        to contain it, the JAX package's fractional box (0.45..0.65 of
+        each axis, DIVERGENCES.md)."""
+        fixed = [(100, 130), (100, 130), (120, 150)][: len(spatial)]
+        if all(hi <= s for (_, hi), s in zip(fixed, spatial)):
+            return tuple(fixed)
+        return tuple((int(s * 0.45), int(s * 0.65)) for s in spatial)
+
+    def _inject_artifact(self, x, method: str) -> torch.Tensor:
+        """`x` with the artifact in its box: on the host (numpy, scipy),
+        then back on the evaluator's device."""
+        x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+        box = self._artifact_box(tuple(x.shape[1:-1]))
+        return self._tensor(artifact_fn(x, method, *box))
 
     # ------------------------------------------------------------------
     # Prediction (evaluate.py:179-280 schema)
@@ -242,7 +278,7 @@ class Evaluate:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def performance(self, save: bool = True) -> Table:
+    def performance(self, artifact: str = "", save: bool = True) -> Table:
         model, cfg = self.model, self.model.cfg
         K = self.latent_levels
         all_metrics = np.full([self.num_metrics, K, self.num_datasets, self.num_inputs], np.nan)
@@ -252,6 +288,8 @@ class Evaluate:
         for k, loader in enumerate(self.loaders):
             for j, batch in enumerate(loader):
                 x, y = self._tensor(batch["x"]), self._tensor(batch["y"])
+                if artifact:
+                    x = self._inject_artifact(x, artifact)
                 outputs, individual_dfs = model.predict_deterministic(x, y)
                 _, final_dfs = combine_dfs(cfg, individual_dfs)
                 seg_x, seg_y = batch.get("seg_x"), batch.get("seg_y")
@@ -296,7 +334,8 @@ class Evaluate:
         data = np.concatenate(mean_metrics.T, axis=1)
         table = Table.from_sets(data, self.loader_names, self.metric_names).round(3)
         if save:
-            make_tables(table, self.output_dir / "loss", name="loss_table_deterministic")
+            make_tables(table, self.output_dir / "loss",
+                        name="loss_table_deterministic" + artifact)
         return table
 
     # ------------------------------------------------------------------
@@ -304,7 +343,7 @@ class Evaluate:
     # ------------------------------------------------------------------
 
     @torch.inference_mode()
-    def uncertainty(self, num_samples: int, save: bool = True) -> Table:
+    def uncertainty(self, num_samples: int, artifact: str = "", save: bool = True) -> Table:
         if num_samples < 2:
             raise ValueError("N has to be at least 2")
         model = self.model
@@ -316,6 +355,8 @@ class Evaluate:
         for k, loader in enumerate(self.loaders):
             for j, batch in enumerate(loader):
                 x, y = self._tensor(batch["x"]), self._tensor(batch["y"])
+                if artifact:
+                    x = self._inject_artifact(x, artifact)
                 lm_x, lm_y = batch.get("lm_x"), batch.get("lm_y")
                 has_lms = self.lms and _has(lm_x) and _has(lm_y)
                 res = predict_with_uncertainty(
@@ -335,20 +376,23 @@ class Evaluate:
         table = Table.from_sets(np.concatenate(mean_metrics.T)[None, :],
                                 self.loader_names, metric_names)
         if save:
-            make_tables(table, self.output_dir / "uncertainty", name="loss_table")
+            make_tables(table, self.output_dir / "uncertainty", name="loss_table" + artifact)
         return table
 
     # ------------------------------------------------------------------
     # Affine (identity) baseline (evaluate.py:1146-1221)
     # ------------------------------------------------------------------
 
-    def performance_affine(self, save: bool = True) -> Table:
+    def performance_affine(self, artifact: str = "", save: bool = True) -> Table:
         """The no-op registration baseline: prediction = moving image (the
-        datasets are affinely pre-aligned)."""
+        datasets are affinely pre-aligned), with the artifact hook of
+        evaluate.py:1187-1188."""
         all_metrics = np.full([self.num_metrics, self.num_datasets, self.num_inputs], np.nan)
         for k, loader in enumerate(self.loaders):
             for j, batch in enumerate(loader):
                 x, y = np.asarray(batch["x"]), np.asarray(batch["y"])
+                if artifact:
+                    x = self._inject_artifact(x, artifact).cpu().numpy()
                 all_metrics[0, k, j] = M.rmse(x, y)
                 seg_x, seg_y = batch.get("seg_x"), batch.get("seg_y")
                 if "Dice" in self.metric_names and seg_x is not None:
@@ -362,7 +406,7 @@ class Evaluate:
         table = Table.from_sets(mean_metrics.T.reshape(1, -1), self.loader_names,
                                 self.metric_names)
         if save:
-            make_tables(table, self.output_dir / "loss", name="loss_table_affine")
+            make_tables(table, self.output_dir / "loss", name="loss_table_affine" + artifact)
         return table
 
     # ------------------------------------------------------------------
@@ -371,16 +415,168 @@ class Evaluate:
 
     def run_one_model(self, run_dir=None, segs=False, lms=False, mask=False,
                       N=10, task="oasis", data_path=None, visualize=True):
-        if visualize:
-            raise NotImplementedError(
-                "the figures need eval/visualize, which is not ported yet; "
-                "pass visualize=False (--no_visualize)")
+        """Figures (with `visualize`), then the performance and (N > 1)
+        uncertainty tables. For each loader's first pair, three
+        predictions (deterministic, one sample, the mean over N) each
+        write their figure's panels (`vis/allvis<loader>_<pred>.npz`, and
+        the `.png` where matplotlib is installed) and their JDet table
+        (`jdet/jdet_<loader>_<pred>`)."""
         if run_dir is not None:
             self.load_model(run_dir)
         self.load_data(task=task, segs=segs, lms=lms, mask=mask,
                        ndims=self.model.cfg.ndims, path=data_path)
-        for sub in ("loss", "uncertainty"):
+        for sub in ("jdet", "loss", "uncertainty", "vis"):
             (self.output_dir / sub).mkdir(parents=True, exist_ok=True)
+        if visualize:
+            self.write_figures(N)
         perf = self.performance()
         unc = self.uncertainty(num_samples=N) if N > 1 else None
         return perf, unc
+
+    def write_figures(self, N: int) -> None:
+        """The figures of `run_one_model` (evaluator.py:495-516 of the JAX
+        package)."""
+        from pulpo_tpu_torch.eval.visualize import draw, prediction_panels, save_panels
+
+        png = importlib.util.find_spec("matplotlib") is not None
+        for lname in self.loader_names:
+            batch = self.sample_data(loader_name=lname)
+            for pname, (ns, det) in {"deterministic": (1, True), "sample": (1, False),
+                                     f"avg_{N}": (N, False)}.items():
+                preds, all_preds = self.predict(batch, num_samples=ns, deterministic=det)
+                p = prediction_panels(
+                    batch, preds, all_preds, latent_levels=self.latent_levels,
+                    title=f"All visualizations on {lname} set with {pname} prediction")
+                path = self.output_dir / "vis" / f"allvis{lname}_{pname}"
+                save_panels(p, path.with_suffix(".npz"))
+                if png:
+                    draw(p, save_path=path.with_suffix(".png"))
+                table_jdet(preds[6], preds[4], output_dir=self.output_dir / "jdet",
+                           name=f"{lname}_{pname}", save=True)
+
+    # ------------------------------------------------------------------
+    # DIF-VoxelMorph baseline (evaluate.py:113-118, 282-309, 1224-1377)
+    # ------------------------------------------------------------------
+
+    def load_vxm(self, state_dict, input_size, output_dir="evaluation_vxm"):
+        """Attach the DIF-VM baseline (`models/voxelmorph.VxmModel`) with
+        the weights `state_dict`, on the evaluator's device."""
+        from pulpo_tpu_torch.models.voxelmorph import VxmModel
+
+        self.vxm = VxmModel(input_size, device=self.device)
+        self.vxm.load_state_dict(state_dict)
+        self.output_dir = pathlib.Path(output_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        return self.vxm
+
+    def _vxm_table(self, all_metrics, names) -> Table:
+        mean = _nanmean(all_metrics)  # (metrics, datasets)
+        return Table.from_sets(mean.T.reshape(1, -1), self.loader_names, names)
+
+    @torch.inference_mode()
+    def performance_vxm(self, num_samples: int = 1, artifact: str = "",
+                        save: bool = True) -> Table:
+        """Deterministic (or N-sample-mean) metrics of the baseline: RMSE,
+        JDetStd, JDetLeq0 (and the landmark metrics) at full resolution
+        (evaluate.py:1224-1304, with the artifact hook of :1254-1255)."""
+        names = ["RMSE", "JDetStd", "JDetLeq0"] + (["LM_MAE", "LM_Euclid"] if self.lms else [])
+        all_metrics = np.full([len(names), self.num_datasets, self.num_inputs], np.nan)
+        for k, loader in enumerate(self.loaders):
+            for j, batch in enumerate(loader):
+                x, y = self._tensor(batch["x"]), self._tensor(batch["y"])
+                if artifact:
+                    x = self._inject_artifact(x, artifact)
+                if num_samples == 1:
+                    moved, df, _ = self.vxm.apply(x, y, deterministic=True)
+                else:
+                    moved, df, *_ = self.vxm.predict(x, y, num_samples, seed=self._next_seed())
+                all_metrics[0, k, j] = M.rmse(moved.cpu().numpy(), y.cpu().numpy())
+                all_metrics[1, k, j] = float(L.jdet_std(df, lamb=1.0))
+                all_metrics[2, k, j] = M.jdet_leq0_percent(L.jacobian_det(df).cpu().numpy())
+                lm_x, lm_y = batch.get("lm_x"), batch.get("lm_y")
+                if self.lms and _has(lm_x) and _has(lm_y):
+                    warped = warp_landmarks(self._tensor(lm_x), df).cpu().numpy()
+                    all_metrics[3, k, j] = M.lm_mae(warped, lm_y)
+                    all_metrics[4, k, j] = M.lm_euclid(warped, lm_y)
+        table = self._vxm_table(all_metrics, names).round(3)
+        if save:
+            make_tables(table, self.output_dir / "loss", name="loss_table_vxm" + artifact)
+        return table
+
+    @torch.inference_mode()
+    def uncertainty_vxm(self, num_samples: int, artifact: str = "", save: bool = True) -> Table:
+        """Var and NCC(var, mse) calibration (and LM_VAR / LM_NCC) of the
+        baseline (evaluate.py:1300-1377, with the artifact hook of
+        :1332-1333 and the landmark metrics of :1347-1354)."""
+        if num_samples < 2:
+            raise ValueError("N has to be at least 2")
+        names = ["Var", "NCC"] + (["LM_VAR", "LM_NCC"] if self.lms else [])
+        all_metrics = np.full([len(names), self.num_datasets, self.num_inputs], np.nan)
+        for k, loader in enumerate(self.loaders):
+            for j, batch in enumerate(loader):
+                x, y = self._tensor(batch["x"]), self._tensor(batch["y"])
+                if artifact:
+                    x = self._inject_artifact(x, artifact)
+                _avg, avg_df, moved_std, _dstd, all_moved, all_dfs = self.vxm.predict(
+                    x, y, num_samples, seed=self._next_seed())
+                mse = torch.mean((all_moved - y) ** 2, dim=0)[0, ..., 0].cpu().numpy()
+                var = moved_std[0].cpu().numpy() ** 2
+                all_metrics[0, k, j] = var.mean()
+                all_metrics[1, k, j] = M.global_ncc(var, mse)
+                lm_x, lm_y = batch.get("lm_x"), batch.get("lm_y")
+                if self.lms and _has(lm_x) and _has(lm_y):
+                    lm = self._tensor(lm_x)
+                    lm_hat = warp_landmarks(lm, avg_df).cpu().numpy()
+                    warped_lms = warp_landmarks(lm.repeat_interleave(num_samples, dim=0),
+                                                all_dfs[:, 0]).cpu().numpy()
+                    all_metrics[2, k, j] = M.lms_var(warped_lms).mean()
+                    all_metrics[3, k, j] = M.lms_corr(lm_hat[0], warped_lms, np.asarray(lm_y)[0])
+        table = self._vxm_table(all_metrics, names)
+        if save:
+            make_tables(table, self.output_dir / "uncertainty", name="loss_table_vxm" + artifact)
+        return table
+
+    # ------------------------------------------------------------------
+    # Multi-model table (evaluate.py:1721-1801)
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def compare_models(self, run_dirs, model_names=None, task="oasis", segs=False, lms=False,
+                       N=10, data_path=None, output_dir="experiments/compare") -> Table:
+        """One row per model: each run's N-sample mean-SVF prediction
+        (`PULPoModel.predict`) over every loader, RMSE, JDetStd, JDetLeq0
+        and Dice of the level-0 outputs; written as
+        `<output_dir>/loss_table.{csv,tex}`. The data of the first run's
+        config serves every run. As in the JAX package, no zero-scrub and
+        no landmark columns (they stay NaN)."""
+        model_names = model_names or [str(r) for r in run_dirs]
+        rows = []
+        for i, rd in enumerate(run_dirs):
+            self.load_model(rd)
+            if i == 0:
+                self.load_data(task=task, segs=segs, lms=lms, mask=False,
+                               ndims=self.model.cfg.ndims, path=data_path)
+            all_metrics = np.full([self.num_metrics, self.num_datasets, self.num_inputs], np.nan)
+            for k, loader in enumerate(self.loaders):
+                for j, batch in enumerate(loader):
+                    x, y = self._tensor(batch["x"]), self._tensor(batch["y"])
+                    outputs, dfs = self.model.predict(x, y, N, seed=self._next_seed())
+                    _, final_dfs = combine_dfs(self.model.cfg, dfs)
+                    y_pred, df_pred = outputs[0], final_dfs[0]
+                    num_pixels = float(np.prod(y_pred.shape[1:-1]))
+                    all_metrics[0, k, j] = float(torch.sqrt(L.l2_loss(y_pred, y) / num_pixels))
+                    all_metrics[1, k, j] = float(L.jdet_std(df_pred, lamb=1.0))
+                    all_metrics[2, k, j] = M.jdet_leq0_percent(
+                        L.jacobian_det(df_pred).cpu().numpy())
+                    seg_x, seg_y = batch.get("seg_x"), batch.get("seg_y")
+                    if "Dice" in self.metric_names and seg_x is not None:
+                        pred_seg = warp_image(self._tensor(seg_x), final_dfs[0])
+                        all_metrics[self.metric_names.index("Dice"), k, j] = 1 - float(
+                            L.soft_dice_loss(pred_seg, self._tensor(seg_y)) / num_pixels)
+            with warnings.catch_warnings():  # an all-NaN column stays NaN
+                warnings.simplefilter("ignore", RuntimeWarning)
+                rows.append(np.nanmean(all_metrics, axis=-1))
+        table = multiindex_table(np.stack(rows, axis=1), self.loader_names,
+                                 self.metric_names, index=model_names)
+        make_tables(table, output_dir, name="loss_table")
+        return table

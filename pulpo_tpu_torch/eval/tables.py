@@ -5,8 +5,8 @@ convert_to_scientific and table_jdet, evaluate.py:531-602). The card's
 machine has no pandas, so a `Table` holds what the JAX package's
 DataFrame holds: a row index, columns as (set, metric) pairs and
 float64 values, rounded to 3 decimals where the JAX code rounds.
-`make_tables` writes `<name>.csv` and `<name>.tex`; the SVG render of
-the JAX package waits for the port of `eval/visualize`.
+`make_tables` writes `<name>.csv` and `<name>.tex`; the JAX package's
+SVG render of a table (matplotlib) is not written.
 """
 
 from __future__ import annotations
@@ -119,6 +119,16 @@ def make_tables(table: Table, output_dir, name: str | None = None,
         with open(os.path.join(output_dir, f"{name}.tex"), "w") as f:
             f.write(latex)
     return latex
+
+
+def multiindex_table(mean_metrics: np.ndarray, loader_names: Sequence[str],
+                     metric_names: Sequence[str], index) -> Table:
+    """(metrics, rows, datasets) nanmean data -> a (set, metric) column
+    table with one row per `index` entry, rounded to 3 decimals
+    (evaluate.py:1483-1490; the JAX package's MultiIndex DataFrame)."""
+    data = np.asarray(mean_metrics).T
+    data = np.concatenate(data, axis=1) if data.ndim == 3 else data
+    return Table.from_sets(data, loader_names, metric_names, index=list(index)).round(3)
 
 
 def table_jdet(final_dfs: dict, individual_dfs: dict, output_dir=None, name: str = "",

@@ -6,10 +6,13 @@ reference's evaluate.py __main__, evaluate.py:1806-1840) and
         --task oasis --segs --lms --data_path OASIS.h5 --N 10 --no_visualize
 
 `--accelerator gpu` (the default) runs on `cuda`, `cpu` on the CPU.
+Unless `--no_visualize` is given, the command first writes the figures
+(`Evaluate.run_one_model`): each figure's panels as
+`evaluation/vis/allvis<loader>_<prediction>.npz`, its `.png` where
+matplotlib is installed, and the JDet tables under `evaluation/jdet`.
 `--export PATH` writes the loaded model's serving artifact
 (`serve.export_model`, at `--export_batch` pairs and `--N` samples) and
-returns, as the JAX CLI does. The figures wait for `eval/visualize`,
-which is not ported yet: without `--no_visualize` the command raises.
+returns, as the JAX CLI does.
 """
 
 from __future__ import annotations

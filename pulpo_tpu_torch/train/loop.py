@@ -15,9 +15,11 @@ train.py:106-116 and the models.py hooks):
 
 The port's step reads its NaN latch on the host once per step, so the
 guard acts on the step that fired it (the JAX loop reads the flag one
-step late so as not to stall its asynchronous dispatch). Validation
-image panels wait for `eval/visualize` (ROADMAP Queue 1). Data
-parallelism (`data_parallel > 1`) is not ported yet.
+step late so as not to stall its asynchronous dispatch). Every
+`image_logging_frequency`-th validation round logs the last validation
+batch's image panels (`MetricWriter.log_validation_images` and
+`log_level_images`: `<run>/images/step_<s>.npz`). Data parallelism
+(`data_parallel > 1`) is not ported yet.
 
 `times` keeps the host-clock seconds of each step, validation round and
 checkpoint round; each ends in a host read of a result (the NaN latch,
@@ -158,12 +160,22 @@ class Trainer:
         self.validation_counter += 1
         g = torch.Generator().manual_seed(self.cfg.random_seed + self.validation_counter)
         agg: dict[str, list] = {}
+        last = None
         for batch in prefetch_to_device(iter(val_loader), self.model.device):
             seed = int(torch.randint(0, 2**62, (1,), generator=g))
-            metrics, _ = eval_step(batch, seed=seed)
+            metrics, imgs = eval_step(batch, seed=seed)
             for k, v in metrics.items():
                 if not isinstance(v, dict) and k != "nan_flag":
                     agg.setdefault(k, []).append(float(v))
+            last = batch, imgs
         val_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
         self.writer.scalars(val_metrics, step, prefix="val/")
+        if last is not None and self.validation_counter % max(
+                1, self.cfg.image_logging_frequency) == 0:
+            batch, imgs = last
+            self.writer.log_validation_images("val", batch["x"], batch["y"], imgs["y_pred"],
+                                              imgs["final_df"], step)
+            self.writer.log_level_images("val_levels", imgs["levels/y_hat"],
+                                         imgs["levels/individual_dfs"],
+                                         imgs["levels/final_dfs"], step)
         return val_metrics

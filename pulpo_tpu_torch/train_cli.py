@@ -10,8 +10,9 @@ OASIS (`--segs` adds the one-hot segmentations for a `dice` loss),
 BraTS (the default; `--interpatient` pairs across patients), LungCT or
 synthetic pairs; `--ndims 2` trains the 2D configuration on OASIS
 slices or 64x64 synthetic ones. After training the run is evaluated
-(`Evaluate.run_one_model`, without the figures, which wait for
-`eval/visualize`) unless `--skip_eval` is given.
+(`Evaluate.run_one_model`: the performance and uncertainty tables)
+unless `--skip_eval` is given. Unlike the JAX CLI, it draws no figures
+there: `evaluate_cli` draws them.
 """
 
 from __future__ import annotations

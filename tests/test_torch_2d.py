@@ -58,6 +58,7 @@ from pulpo_tpu_torch.train.step import compute_grads
 from pulpo_tpu_torch.uq.predict import UQResult, predict_with_uncertainty
 from chip_smoke import payload_difference
 from test_torch_model import NAMES, port_model
+from test_torch_threads import one_torch_thread  # noqa: F401
 from test_torch_trainer import _SamePair
 from test_torch_uq import comparable, jax_noise
 

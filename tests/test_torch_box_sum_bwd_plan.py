@@ -34,6 +34,7 @@ import chip_smoke
 from pulpo_tpu_torch.config import PULPoConfig
 from pulpo_tpu_torch.kernels import box_sum, gather
 from pulpo_tpu_torch.kernels.warp import _factor
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 # csrc/box_sum.cu's constants
 TW, TH, NBUF, RH, MAX_P = 32, 32, 3, 4, 8

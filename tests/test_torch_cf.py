@@ -46,6 +46,7 @@ from pulpo_tpu_torch.ops.warp import (
 )
 from pulpo_tpu_torch.uq.predict import UQResult, predict_with_uncertainty
 from test_torch_model import jax_model_and_variables, port_model
+from test_torch_threads import one_torch_thread  # noqa: F401
 from test_torch_uq import comparable, jax_noise
 
 SHAPE = (16, 24, 28)  # tests/test_cf.py's SHAPE

@@ -25,6 +25,7 @@ from pulpo_tpu.kernels import warp_halo
 from pulpo_tpu.ops.warp import integrate_svf as jax_integrate_svf
 from pulpo_tpu.ops.warp import warp_image as jax_warp_image
 from pulpo_tpu_torch.kernels import squaring, warp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 HALO = 3
 

@@ -25,6 +25,7 @@ from pulpo_tpu.attic.conv_narrow import conv3d_narrow, conv3d_narrow_mxu
 from pulpo_tpu.models.blocks import ConvUnit as FlaxConvUnit
 from pulpo_tpu_torch.kernels import conv_narrow
 from pulpo_tpu_torch.models.blocks import ConvUnit, conv_cl
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _case(shape, cout, seed):

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from pulpo_tpu_torch.kernels import conv_narrow
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 MX, MY, RING, NC = 32, 8, 5, 32  # csrc/conv_narrow.cu
 PX, PY = MX + 2, MY + 2

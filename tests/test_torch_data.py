@@ -19,6 +19,7 @@ from pulpo_tpu.data.synthetic import SyntheticDataset as JaxSynthetic
 from pulpo_tpu_torch.data import lungct
 from pulpo_tpu_torch.data.loader import DataLoader, prefetch_to_device
 from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _epochs(loader, n=2):

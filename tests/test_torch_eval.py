@@ -25,6 +25,7 @@ from pulpo_tpu_torch.eval.tables import Table, make_tables, table_jdet
 from pulpo_tpu_torch.models.api import combine_dfs
 from test_torch_data import _write_lungct
 from test_torch_model import jax_model_and_variables, port_model
+from test_torch_threads import one_torch_thread  # noqa: F401
 from test_torch_uq import jax_noise
 
 KW = dict(input_size=(16, 20, 24), total_levels=3, latent_levels=2, n0=4)
@@ -200,15 +201,22 @@ def test_evaluate_cli_on_a_train_cli_run(tmp_path):
         "--dataset", "synthetic", "--accelerator", "cpu", "--max_steps", "1",
         "--n0", "2", "--total_levels", "3", "--latent_levels", "2",
         "--run_dir", str(tmp_path), "--skip_eval"])
+    # the default command draws the figures first (`--no_visualize` is
+    # run in test_torch_oasis.py)
     perf, unc = evaluate_cli.main(["--run_dir", str(run_dir), "--task", "synthetic", "--lms",
-                                   "--N", "2", "--accelerator", "cpu", "--no_visualize"])
+                                   "--N", "2", "--accelerator", "cpu"])
     assert perf.shape == (2, 15) and np.isfinite(perf[("train", "RMSE")]).all()
     assert np.isfinite(unc[("val", "Var")]).all()
-    assert (run_dir / "evaluation" / "loss" / "loss_table_deterministic.tex").exists()
-    assert (run_dir / "evaluation" / "uncertainty" / "loss_table.csv").exists()
+    out = run_dir / "evaluation"
+    assert (out / "loss" / "loss_table_deterministic.tex").exists()
+    assert (out / "uncertainty" / "loss_table.csv").exists()
+    figures = [f"allvis{s}_{p}" for s in ("train", "val", "test")
+               for p in ("deterministic", "sample", "avg_2")]
+    assert sorted(f.name for f in (out / "vis").iterdir()) == sorted(
+        f + ext for f in figures for ext in (".npz", ".png"))
+    assert sorted(f.name for f in (out / "jdet").glob("*.csv")) == sorted(
+        f"jdet_{f[len('allvis'):]}.csv" for f in figures)
     args = ["--run_dir", str(run_dir), "--task", "synthetic", "--accelerator", "cpu"]
-    with pytest.raises(NotImplementedError, match="visualize"):
-        evaluate_cli.main(args)
     assert evaluate_cli.main(args + ["--export", str(tmp_path / "artifact")]) is None
     assert (tmp_path / "artifact").stat().st_size > 0
     with pytest.raises(FileNotFoundError):  # the OASIS reader opens its store

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 from pulpo_tpu_torch.kernels import gather, squaring, warp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 RAGGED = [(5, 7, 13), (3, 17, 14), (4, 6, 26), (6, 9, 1), (1, 17, 13), (1, 12, 64)]
 

@@ -1113,3 +1113,117 @@ def test_remat_step_on_the_card_matches_the_plain_step(cuda_device):
         assert rel[0] <= max(2 * spread, 1e-5), (name, rel, spread)
         for n, v in stats.items():
             assert torch.equal(v, ref_stats[n]), (name, n)
+
+
+# ----------------------------------------------------------------------
+# the DIF-VoxelMorph baseline and the figures
+# ----------------------------------------------------------------------
+
+def _vxm_pair(size, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.random((1, *size, 1), dtype=np.float32),
+            rng.random((1, *size, 1), dtype=np.float32))
+
+
+def _rel(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def test_vxm_forward_and_predict_on_the_card_match_the_cpu(cuda_device):
+    """The same weights and draws on the card (the narrow conv, squaring
+    and warp kernels) and on the CPU (plain versions): every output
+    within 1e-5 of its scale."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+    from pulpo_tpu_torch.models.voxelmorph import VxmModel
+
+    size = (24, 28, 32)
+    models = {dev: VxmModel(size, device=dev) for dev in ("cpu", cuda_device)}
+    models["cpu"].init(3)
+    models[cuda_device].load_state_dict(models["cpu"].state_dict())
+    x, y = _vxm_pair(size, 4)
+    eps = torch.randn((5, 1, 12, 14, 16, 3), generator=torch.Generator().manual_seed(5))
+    before = (conv_narrow.launches, squaring.launches, warp.launches)
+    out = {dev: (m.apply(x, y, deterministic=True), m.predict(x, y, 5, eps=eps))
+           for dev, m in models.items()}
+    torch.cuda.synchronize()
+    # two forwards: one narrow conv, 7 squaring steps and one warp each
+    assert (conv_narrow.launches, squaring.launches, warp.launches) == (
+        before[0] + 2, before[1] + 14, before[2] + 2)
+    (det_c, pred_c), (det_g, pred_g) = out["cpu"], out[cuda_device]
+    for g, r in zip((*det_g[:2], *det_g[2][:2], *pred_g), (*det_c[:2], *det_c[2][:2], *pred_c)):
+        assert g.device.type == "cuda" and _rel(g, r) <= 1e-5
+
+
+def test_conv_narrow_2_to_16_f32_matches_plain(cuda_device):
+    """The VoxelMorph's first conv (2 -> 16 at the input size, float32) on
+    the narrow-conv kernel: bit-equal to its plain version (the f32 body
+    sums in the plain version's order), also from permuted memory."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((1, 20, 24, 28, 2), dtype=np.float32)).to(cuda_device)
+    w = torch.from_numpy(rng.standard_normal((16, 2, 3, 3, 3)).astype(np.float32) * 0.2)
+    w = w.to(cuda_device)
+    before = conv_narrow.launches
+    got = conv_narrow.conv_narrow(x, w)
+    assert conv_narrow.launches == before + 1 and got.shape == (1, 20, 24, 28, 16)
+    torch.testing.assert_close(got, conv_narrow.conv_narrow_plain(x, w), rtol=0, atol=0)
+    torch.testing.assert_close(conv_narrow.conv_narrow(_permuted(x), w), got, rtol=0, atol=0)
+
+
+def test_vxm_train_step_gradients_on_the_card_match_the_cpu(cuda_device):
+    """One VoxelMorph-diff loss and its gradients on the card (the
+    squaring backward and the warp's df-cotangent kernels) against the
+    CPU's plain backward on the same weights and draw: the loss rtol
+    1e-5, each leaf within 1e-5 of its scale."""
+    from pulpo_tpu_torch.models.voxelmorph import VxmModel, vxm_grads
+
+    size = (24, 28, 32)
+    x, y = _vxm_pair(size, 8)
+    eps = torch.randn((1, 12, 14, 16, 3), generator=torch.Generator().manual_seed(9))
+    res = {}
+    for dev in ("cpu", cuda_device):
+        m = VxmModel(size, device=dev)
+        m.init(2)
+        before = (squaring.bwd_launches, warp.dfgrad_launches)
+        res[str(dev)] = vxm_grads(m, {"x": x, "y": y}, eps.to(m.device))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (squaring.bwd_launches, warp.dfgrad_launches) == (before[0] + 7, before[1] + 1)
+    (g_ref, m_ref), (g_got, m_got) = res["cpu"], res[str(cuda_device)]
+    np.testing.assert_allclose(float(m_got["total_loss"]), float(m_ref["total_loss"]), rtol=1e-5)
+    for name, g in g_got.items():
+        assert _rel(g, g_ref[name]) <= 1e-5, name
+
+
+def test_run_one_model_writes_the_figures_on_the_card(cuda_device, tmp_path):
+    """`Evaluate.run_one_model(visualize=True)` on a small 2D synthetic
+    task on the card: each loader's three figures as `.npz` panels with
+    finite images (a `.png` only where matplotlib is installed) and the
+    JDet tables."""
+    import importlib.util
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.eval import visualize as vis
+    from pulpo_tpu_torch.eval.evaluator import Evaluate
+    from pulpo_tpu_torch.models import PULPoModel
+
+    cfg = PULPoConfig(input_size=(32, 40), total_levels=5, latent_levels=4, n0=8)
+    model = PULPoModel(cfg, device=cuda_device)
+    model.init(0)
+    ev = Evaluate(device=cuda_device)
+    ev.set_model(model, tmp_path)
+    before = warp.launches_2d
+    perf, _ = ev.run_one_model(segs=True, N=3, task="synthetic", visualize=True)
+    assert warp.launches_2d > before and np.isfinite(perf[("val", "Dice")]).all()
+    png = importlib.util.find_spec("matplotlib") is not None
+    for loader in ("train", "val", "test"):
+        for pred in ("deterministic", "sample", "avg_3"):
+            p = vis.load_panels(tmp_path / "vis" / f"allvis{loader}_{pred}.npz")
+            assert p.rows == len(vis.default_visualizations(True, pred == "avg_3",
+                                                            pred == "avg_3")[0])
+            assert all(a.image is None or np.isfinite(a.image.astype(np.float64)).all()
+                       for row in p.axes for a in row)
+            assert (tmp_path / "vis" / f"allvis{loader}_{pred}.png").exists() == png
+            assert (tmp_path / "jdet" / f"jdet_{loader}_{pred}.csv").exists()

@@ -8,6 +8,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pulpo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -30,6 +31,36 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+HOST_ONLY = ("pandas", "tensorboardX", "matplotlib")  # not on the card's machine
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_pandas_or_tensorboard_and_matplotlib_only_in_draw(path):
+    """The card's machine has none of pandas, tensorboardX and
+    matplotlib: no port module imports the first two, and matplotlib is
+    imported only inside `eval/visualize.draw`, the one function that
+    draws."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    allowed = path == ROOT / "pulpo_tpu_torch" / "eval" / "visualize.py"
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                walk(child, child.name)
+                continue
+            if isinstance(child, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in child.names] if isinstance(child, ast.Import)
+                         else [child.module or ""])
+                for n in names:
+                    top = n.split(".")[0]
+                    if top in HOST_ONLY:
+                        assert top == "matplotlib" and allowed and func == "draw", \
+                            f"{path.name}:{child.lineno} imports {n} (in {func})"
+            walk(child, func)
+
+    walk(tree, None)
 
 
 BLOCKED_IMPORT = """

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pulpo_tpu_torch.kernels import squaring, vel_head, warp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _field(shape, mag, seed):

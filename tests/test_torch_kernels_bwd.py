@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from pulpo_tpu_torch.kernels import box_sum, squaring, warp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

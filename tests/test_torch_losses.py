@@ -15,6 +15,7 @@ import torch
 
 from pulpo_tpu.ops import losses as JL
 from pulpo_tpu_torch.ops import losses as TL
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(2, 16, 20, 24), (1, 15, 18, 21)]
 

@@ -19,6 +19,7 @@ from pulpo_tpu.models.api import PULPoModel as JaxModel
 from pulpo_tpu_torch import PULPoConfig
 from pulpo_tpu_torch.compat import from_jax_variables
 from pulpo_tpu_torch.models import PULPoModel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("mus", "sigmas", "samples", "velocity_fields", "individual_dfs",
          "combined_dfs", "final_dfs", "transformed")

@@ -13,6 +13,7 @@ from pulpo_tpu.ops import resize as jresize
 from pulpo_tpu.ops import warp as jwarp
 from pulpo_tpu_torch.ops import resize as presize
 from pulpo_tpu_torch.ops import warp as pwarp
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 

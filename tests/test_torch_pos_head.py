@@ -19,6 +19,7 @@ from pulpo_tpu_torch import PULPoConfig
 from pulpo_tpu_torch.compat import conv_chain_stages_from_jax, pos_head_params_from_jax
 from pulpo_tpu_torch.kernels import conv_chain, conv_narrow, conv_unit, plain_vjp, pos_head
 from pulpo_tpu_torch.models import PULPoModel
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 
 def _unit(rng, pre, n, cin, cout):

@@ -18,6 +18,7 @@ from pulpo_tpu.data import brats as jax_brats
 from pulpo_tpu.data import oasis as jax_oasis
 from pulpo_tpu.data.synthetic import write_oasis_style_h5
 from pulpo_tpu_torch.data import brats, oasis
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 OASIS_3D = (10, 12, 14)
 OASIS_2D = (16, 20)

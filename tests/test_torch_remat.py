@@ -19,6 +19,7 @@ from pulpo_tpu_torch.models import PULPoModel
 from pulpo_tpu_torch.models.blocks import BatchNorm
 from pulpo_tpu_torch.train import create_train_state, make_train_step
 from pulpo_tpu_torch.train.step import compute_grads
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(input_size=(16, 20, 24), total_levels=3, latent_levels=2, n0=4, batch_size=2,
           segs=True, recon_loss=("ncc", "dice"), dice_factor=50)

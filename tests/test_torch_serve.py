@@ -22,6 +22,7 @@ from pulpo_tpu_torch.models import PULPoModel
 from pulpo_tpu_torch.serve import ServedModel, export_model
 from pulpo_tpu_torch.uq.predict import predict_with_uncertainty
 from pulpo_tpu_torch.utils.profiling import StepTimer, trace
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 CFG = dict(input_size=(16, 16, 16), total_levels=3, latent_levels=2, n0=4,
            dataset="synthetic")

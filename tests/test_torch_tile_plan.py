@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from pulpo_tpu_torch.kernels import _build, conv_unit, vel_head
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 SHAPES = [(1, 13, 18, 21), (3, 5, 7, 9), (2, 20, 24, 28)]
 

@@ -37,6 +37,7 @@ from pulpo_tpu_torch.train.checkpoint import (
 from pulpo_tpu_torch.train.loop import Trainer
 from pulpo_tpu_torch.train.metrics import MetricWriter, read_metrics
 from pulpo_tpu_torch.train.step import compute_grads
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(input_size=(12, 14, 16), total_levels=3, latent_levels=2, n0=2,
             dataset="synthetic")

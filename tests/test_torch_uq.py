@@ -15,6 +15,7 @@ import torch
 from pulpo_tpu.uq.predict import predict_with_uncertainty as jax_uq
 from pulpo_tpu_torch.uq.predict import UQResult, auto_chunk, predict_with_uncertainty
 from test_torch_model import jax_model_and_variables, port_model
+from test_torch_threads import one_torch_thread  # noqa: F401
 
 KW = dict(input_size=(16, 20, 24), total_levels=3, latent_levels=2, n0=4)
 
