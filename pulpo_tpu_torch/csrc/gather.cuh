@@ -6,9 +6,10 @@
 // and block decode, its tz being the planes a block marches.
 //
 // The tile plan is computed on the host by kernels/gather.py:make_plan
-// and passed to the C entry points as 9 ints (Plan); the kernels walk
-// exactly that plan, and the entry points refuse one that does not
-// cover the output or breaks a launch limit (valid). A block takes a
+// (channel_plan for a channel body) and passed to the C entry points as
+// 10 ints (Plan); the kernels walk exactly that plan, and the entry
+// points refuse one that does not cover the output or breaks a launch
+// limit (valid). A block takes a
 // tile of one row's output: tz planes x ty lines x W = tx * V voxels
 // along the innermost axis, one thread (threadIdx = (i, ly, lz)) per
 // V neighbouring voxels. Tiles along x come in a power-of-two count, so
@@ -28,6 +29,17 @@
 // so the 32 threads of a warp read 32 neighbouring voxels at each
 // corner, as with one voxel a thread. A voxel's arithmetic is the same
 // at either V.
+//
+// A channels-last warp of more than 4 channels takes a channel body
+// instead (the plan's ch, 4 or 1; 0 in every other plan): there the
+// threads run across channels. A voxel's C channels are K = C / ch
+// chunks of ch channels (a 16-byte quad, or one channel where C % 4 != 0
+// or a pointer is not 16-byte aligned), taken by L = lanes(C, ch)
+// neighbouring threads (lane l takes chunks l, l + L, ...). A block
+// then takes tx neighbouring voxels of a line (tx * L threads: the
+// flattening of (voxel, chunk) in memory order, so a warp's accesses
+// are contiguous) and walks ty lines and tz planes of its tile in turn;
+// the tile decode is the same.
 
 #pragma once
 
@@ -44,10 +56,17 @@ struct Plan {
   int tiles_y, tiles_z;  // tiles along y and z
   int groups, rows;      // df row groups per moving row, df rows a group
   int v;                 // voxels a thread along x: 4 or 1
+  int ch;                // channels a chunk of a channel body: 4 or 1; 0: a voxel body
 };
 
 inline Plan read_plan(const int* q) {
-  return Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8]};
+  return Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9]};
+}
+
+// Threads a voxel in a channel body: one a chunk, at most a warp's.
+__host__ __device__ inline int lanes(int C, int ch) {
+  const int k = C / ch;
+  return k < 32 ? k : 32;
 }
 
 // Whether plan p tiles an output of Z x Y x X voxels a row whose
@@ -55,13 +74,21 @@ inline Plan read_plan(const int* q) {
 // squaring step: one each), within the launch limits: a block of at
 // most THREADS threads, gridDim.y and gridDim.z at most 65535, every
 // row group non-empty, and a row's `row_elements` addressable in 32 bits.
+// A channel body (ch 4 or 1, one voxel a thread-group) needs the `C`
+// channels of the warp, a multiple of ch; a caller without channels
+// (C = 0) takes no channel plan.
 inline bool valid(const Plan& p, int X, int Y, int Z, int rows_per_moving, int movings,
-                  long long row_elements) {
+                  long long row_elements, int C = 0) {
   if ((p.v != 1 && p.v != 4) || p.tx < 1 || p.ty < 1 || p.tz < 1 || p.log_strips < 0 ||
       p.log_strips > 20 || p.rows < 1 || p.tiles_y < 1 || p.tiles_z < 1)
     return false;
+  long long threads = (long long)p.tx * p.ty * p.tz;
+  if (p.ch != 0) {
+    if (C < 1 || (p.ch != 4 && p.ch != 1) || C % p.ch != 0 || p.v != 1) return false;
+    threads = (long long)p.tx * lanes(C, p.ch);
+  }
   const long long strips = 1LL << p.log_strips;
-  return (long long)p.tx * p.ty * p.tz <= THREADS && (long long)p.tx * p.v * strips >= X &&
+  return threads <= THREADS && (long long)p.tx * p.v * strips >= X &&
          (long long)p.ty * p.tiles_y >= Y && (long long)p.tz * p.tiles_z >= Z &&
          p.groups == (rows_per_moving + p.rows - 1) / p.rows &&
          (long long)p.tiles_y * strips < (1LL << 31) && p.tiles_z <= 65535 &&
@@ -142,7 +169,7 @@ __device__ __forceinline__ float corner_weight(const Corners<ND>& k, int corner)
   return weight;
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 

@@ -128,7 +128,7 @@ int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
 
 }  // namespace
 
-// plan: the launch's tile plan, 9 ints (gather::Plan) from
+// plan: the launch's tile plan, 10 ints (gather::Plan) from
 // kernels/gather.py:squaring_plan.
 extern "C" int pulpo_squaring_step(const void* vin, void* vout, int B,
                                    int S0, int S1, int S2,

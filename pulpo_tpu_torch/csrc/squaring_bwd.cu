@@ -206,8 +206,8 @@ squaring_bwd_kernel(const float* __restrict__ vin, const float* __restrict__ g,
 // tz planes covering z, within the launch limits, and offsets of a row's
 // 3 n floats in 32 bits.
 bool valid(const gather::Plan& p, int B, int S0, int S1, int S2) {
-  if (p.v != 1 || p.tx < 1 || p.ty < 1 || p.tz < 1 || p.log_strips < 0 || p.log_strips > 20 ||
-      p.tiles_y < 1 || p.tiles_z < 1 || p.groups != 1 || p.rows != 1)
+  if (p.v != 1 || p.ch != 0 || p.tx < 1 || p.ty < 1 || p.tz < 1 || p.log_strips < 0 ||
+      p.log_strips > 20 || p.tiles_y < 1 || p.tiles_z < 1 || p.groups != 1 || p.rows != 1)
     return false;
   const long long strips = 1LL << p.log_strips;
   return (long long)p.tx * p.ty <= gather::THREADS && p.tx * strips >= S2 &&
@@ -219,7 +219,7 @@ bool valid(const gather::Plan& p, int B, int S0, int S1, int S2) {
 }  // namespace
 
 // vbar (B, S0, S1, S2, 3) = g + dfgrad(v, v, g) + mgrad(v, v, g); plan:
-// 9 ints, gather::Plan with tz the planes a block marches
+// 10 ints, gather::Plan with tz the planes a block marches
 // (kernels/gather.py:squaring_bwd_plan). `out` must not alias v or g.
 // Returns the first CUDA error, or 0 (cudaErrorInvalidValue for a plan
 // the kernel cannot walk).

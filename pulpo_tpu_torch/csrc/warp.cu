@@ -46,12 +46,35 @@
 //     on every other launch of the paths, where a thread waits on its 4
 //     voxels' gathers in turn (PERF.md, scripts/bench_gather.py).
 //
+// The channel body (C > 4, channels-last: the 36-channel one-hot
+// segmentation maps of the OASIS path, 3D and 2D). One voxel a thread
+// looping over its channels, as above, ran at 0.03 of the byte bound at
+// C = 36 (21.3 ms for the 160x192x224 map, 12x grid_sample's time): each
+// of the 8 corner gathers and the store of a channel is a 4-byte access
+// at a 4C-byte stride across the warp's lanes, so a warp instruction
+// touches 32 sectors for 128 useful bytes, and a warp's corner slabs
+// overflow L1 (cutting either its stores or its gathers out of that body
+// removed about two thirds of its time: scripts/bench_gather.py's probe
+// copies). There the threads run across channels instead (gather.cuh, the
+// plan's ch): a voxel's channels are chunks of 4 (one 16-byte access)
+// where C % 4 == 0 and the map and output are 16-byte aligned, else of
+// one, taken by lanes(C, ch) neighbouring threads (9 at C = 36), so a
+// warp's stores are one contiguous run and each corner gather of a
+// voxel's lanes one contiguous slab; every lane recomputes its voxel's
+// source coordinate and corners (its df load a broadcast among the
+// lanes). A block takes tx voxels of a line and walks up to 8 lines of
+// its tile and, at each, its group of df rows, so that a line's corner
+// slabs, half of which the next line reads, and the moving slabs that
+// the rows of a group share, are L1 hits; blocks run plane after plane,
+// so the planes in flight stay in L2 while the 991 MB map streams once.
+//
 // Numerics: built with -fmad=false, so every multiply and add rounds as
 // the plain PyTorch version's separate operations do; weights are
 // multiplied along the axes in order and the corners summed in order, as
-// in pulpo_tpu/ops/warp.py:warp_image. The arithmetic per voxel is the
-// first version's at either V; only the addressing and the access
-// widths changed.
+// in pulpo_tpu/ops/warp.py:warp_image. The arithmetic per voxel and
+// channel is the first version's in every body; only the addressing and
+// the access widths changed, so every body is bit-equal to the plain
+// version.
 //
 // Layouts: one kernel body, instantiated for the layout (n = voxels of a
 // row):
@@ -213,6 +236,121 @@ warp_kernel(const float* __restrict__ mov, const float* __restrict__ df, float* 
   }
 }
 
+// CH channels from p (16-byte aligned where CH = 4) through the
+// read-only path, and to p evict-first.
+template <int CH>
+__device__ __forceinline__ void load_chunk(const float* p, float (&q)[CH]) {
+  if constexpr (CH == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    q[0] = t.x;
+    q[1] = t.y;
+    q[2] = t.z;
+    q[3] = t.w;
+  } else {
+    q[0] = __ldg(p);
+  }
+}
+
+template <int CH>
+__device__ __forceinline__ void store_chunk(float* p, const float (&q)[CH]) {
+  if constexpr (CH == 4)
+    __stcs(reinterpret_cast<float4*>(p), make_float4(q[0], q[1], q[2], q[3]));
+  else
+    __stcs(p, q[0]);
+}
+
+// The channel body (plan ch = CH, channels-last, C > 4): L = lanes(C, CH)
+// threads a voxel, tx voxels of a line a block (blockDim.x = tx * L),
+// thread (j, lane) = threadIdx.x = j * L + lane; the block walks the ty
+// lines and tz planes of its tile, and at each line its group of df rows
+// (which read one moving row). Each thread recomputes its voxel's corners
+// (the df load is a broadcast among the voxel's lanes) and moves chunks
+// lane, lane + L, ... of CH channels: 2^ND gathers of CH contiguous
+// floats and one store each, so a warp's stores are contiguous and each
+// corner's gathers are contiguous slabs of the voxels' channels.
+template <int ND, int CH>
+__global__ void __launch_bounds__(gather::THREADS)
+warp_channels_kernel(const float* __restrict__ mov, const float* __restrict__ df,
+                     float* __restrict__ out, int B, int rows_per_moving, int C, int I0, int I1,
+                     int I2, int O0, int O1, int O2, float f0, float f1, float f2, gather::Plan p) {
+  const int in3[3] = {I0, I1, I2};
+  const int out3[3] = {O0, O1, O2};
+  const float f3[3] = {f0, f1, f2};
+  int s_in[ND];
+  float f[ND];
+#pragma unroll
+  for (int a = 0; a < ND; ++a) {
+    s_in[a] = in3[a];
+    f[a] = f3[a];
+  }
+  const int X = out3[ND - 1], Y = out3[ND - 2], Z = ND == 3 ? out3[0] : 1;
+  const int n_out = X * Y * Z;
+  int n_in = 1;
+#pragma unroll
+  for (int a = 0; a < ND; ++a) n_in *= s_in[a];
+  int mstride[ND];
+  mstride[ND - 1] = C;
+#pragma unroll
+  for (int a = ND - 2; a >= 0; --a) mstride[a] = mstride[a + 1] * s_in[a + 1];
+
+  const int K = C / CH, L = gather::lanes(C, CH);
+  const int j = threadIdx.x / L, lane = threadIdx.x - j * L;
+  const gather::Tile t = gather::tile_of<1>(p);
+  const int x = t.x0 + j;
+  if (x >= X) return;  // no barrier follows
+
+  // rows r = mrow + B * (j0 + k), k < nrows: all read moving row mrow
+  const int group = blockIdx.z / B;
+  const int mrow = blockIdx.z - group * B;
+  const int j0 = group * p.rows;
+  const int nrows = min(p.rows, rows_per_moving - j0);
+  const float* m = mov + (long long)mrow * n_in * C;
+  const long long row0 = (long long)B * j0 + mrow;
+
+  for (int lz = 0; lz < p.tz; ++lz) {
+    const int z = t.z0 + lz;
+    if (z >= Z) break;
+    for (int ly = 0; ly < p.ty; ++ly) {
+      const int y = t.y0 + ly;
+      if (y >= Y) break;
+      const int v = (z * Y + y) * X + x;
+      const int g3[3] = {z, y, x};
+      for (int k = 0; k < nrows; ++k) {
+        const long long rv = (row0 + (long long)B * k) * n_out + v;  // the output voxel
+        float c[ND];
+#pragma unroll
+        for (int a = 0; a < ND; ++a)
+          c[a] = gather::src_coord(g3[a + 3 - ND], __ldcs(df + rv * ND + a), f[a], s_in[a]);
+        const gather::Corners<ND> kk = gather::corners<ND>(c, s_in);
+        int off[1 << ND];
+        float w[1 << ND];
+#pragma unroll
+        for (int corner = 0; corner < (1 << ND); ++corner) {
+          off[corner] = gather::corner_offset<ND>(kk, corner, mstride);
+          w[corner] = gather::corner_weight<ND>(kk, corner);
+        }
+        float* o = out + rv * C;
+        for (int q = lane; q < K; q += L) {
+          float val[1 << ND][CH];
+#pragma unroll
+          for (int corner = 0; corner < (1 << ND); ++corner)
+            load_chunk<CH>(m + off[corner] + q * CH, val[corner]);
+          float acc[CH];
+#pragma unroll
+          for (int corner = 0; corner < (1 << ND); ++corner) {
+#pragma unroll
+            for (int e = 0; e < CH; ++e) {
+              const float contrib = val[corner][e] * w[corner];
+              acc[e] = (corner == 0) ? contrib : acc[e] + contrib;
+            }
+          }
+          store_chunk<CH>(o + q * CH, acc);
+        }
+      }
+    }
+  }
+}
+
 template <bool CF, int ND>
 int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
            int I0, int I1, int I2, int O0, int O1, int O2,
@@ -224,10 +362,25 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
   if (B < 1 || B_df % B != 0) return (int)cudaErrorInvalidValue;
   const gather::Plan p = gather::read_plan(plan);
   const long long widest = n_out * (C > ND ? C : ND);
-  if ((p.v == 4 && !CF) ||
-      !gather::valid(p, X, Y, Z, B_df / B, B, widest > n_in * C ? widest : n_in * C))
+  if ((p.v == 4 && !CF) || (p.ch != 0 && CF) ||
+      (p.ch == 4 && !(gather::aligned16(mov) && gather::aligned16(out))) ||
+      !gather::valid(p, X, Y, Z, B_df / B, B, widest > n_in * C ? widest : n_in * C, C))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);
+  if constexpr (!CF) {
+    if (p.ch != 0) {
+      const dim3 lanes_block(p.tx * gather::lanes(C, p.ch));
+      if (p.ch == 4)
+        warp_channels_kernel<ND, 4><<<grid, lanes_block, 0, (cudaStream_t)stream>>>(
+            (const float*)mov, (const float*)df, (float*)out, B, B_df / B, C, I0, I1, I2,
+            O0, O1, O2, f0, f1, f2, p);
+      else
+        warp_channels_kernel<ND, 1><<<grid, lanes_block, 0, (cudaStream_t)stream>>>(
+            (const float*)mov, (const float*)df, (float*)out, B, B_df / B, C, I0, I1, I2,
+            O0, O1, O2, f0, f1, f2, p);
+      return (int)cudaGetLastError();
+    }
+  }
   if (p.v == 1) {
     warp_kernel<CF, ND, 1><<<grid, block, 0, (cudaStream_t)stream>>>(
         (const float*)mov, (const float*)df, (float*)out, B, B_df / B, C, I0, I1, I2,
@@ -243,7 +396,7 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
 
 }  // namespace
 
-// plan: the launch's tile plan, 9 ints (gather::Plan) from
+// plan: the launch's tile plan, 10 ints (gather::Plan) from
 // kernels/gather.py:warp_plan.
 extern "C" int pulpo_warp(const void* mov, const void* df, void* out,
                           int B, int B_df, int C,

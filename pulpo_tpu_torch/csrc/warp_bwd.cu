@@ -11,19 +11,31 @@
 //   gdf[r, p, a] = sum_k <g[r, p], m[r % B, n_k]> * dW_k/dw_a
 //                  * clip'(u_a) * f_a.
 // It walks the forward warp's iteration space, so it takes the forward's
-// tile plan (csrc/gather.cuh; kernels/gather.py:warp_plan for the df's
-// output space): a block takes a tile of one df row group's output,
-// decoded from blockIdx by shift and mask plus one 32-bit divide for its
-// rows; offsets inside a row are 32-bit, each row's base one 64-bit
-// product a block. A thread computes its own voxel: it gathers its 8
-// corners of moving row r % B through the read-only path (neighbours
-// share them), as the forward does, and writes its own 3 values; df and
-// g are read, and gdf written, evict-first; the block walks its group's
-// df rows, loading the next row's df while it gathers the current one.
-// C = 1, the only width the training step launches, is its own
-// instantiation; other C take a body with a runtime channel loop. No
-// atomics, so the result is deterministic; moving and df may have
-// different spatial shapes (the level_res cross-resolution warp).
+// voxel plan at every C (csrc/gather.cuh, ch = 0; kernels/warp.py:
+// dfgrad_plan, over the df's output space): a block takes a tile of one df
+// row group's output, decoded from blockIdx by shift and mask plus one 32-bit
+// divide for its rows; offsets inside a row are 32-bit, each row's base one
+// 64-bit product a block. A thread computes its own voxel: it gathers its 8
+// corners of moving row r % B through the read-only path (neighbours share
+// them), as the forward does, and writes its own 3 values; df and g are read,
+// and gdf written, evict-first; the block walks its group's df rows, loading
+// the next row's df while it gathers the current one. C = 1, the training
+// step's image, is its own instantiation. Other C (the 36-channel one-hot
+// segmentation maps of the OASIS step) take the channels in chunks of 4, one
+// 16-byte access, where C % 4 == 0 and the map and cotangent are 16-byte
+// aligned, else of 1: each chunk of g is loaded once and taken against the
+// matching chunk of each of the 8 corners, 8 partial dot products in
+// registers; at C = 36 the 9 chunks of g stay in registers and a corner's 9
+// chunks are loaded together, a whole slab in flight a thread (a loop over
+// the chunks, with 9 loads in flight, measured slower). The first C > 1 body
+// reloaded all C channels of g for each corner with 4-byte loads at a 4C-byte
+// lane stride (288 loads of the same 144 bytes a voxel at C = 36) and ran at
+// 0.04 of the byte bound, 7.8x the time of grid_sample's VJP; 9-lane groups
+// across the channels, a voxel's partial dot products summed by shuffles
+// (scripts/probe_dfgrad_lanes.cu), measured slower than this body at the
+// large shapes (PERF.md, scripts/bench_gather.py). No atomics, so the result
+// is deterministic; moving and df may have different spatial shapes (the
+// level_res cross-resolution warp).
 //
 // pulpo_warp_mgrad replaces _warp_halo_mgrad_pallas (and its cascade):
 // the moving-cotangent, the transpose of the gather. One thread per
@@ -40,15 +52,19 @@
 // with a bound, 0 outside. The floor is one-sided (derivative 1). The
 // plain PyTorch versions (kernels/warp.py) use the same convention.
 //
-// Bound: memory. dfgrad reads df (12 B) and g (4C B) once per voxel
-// and writes 12 B; the corners of a smooth field are the neighbours'
-// voxels and come from L1/L2. mgrad reads df and g and scatters into a
-// volume that stays in L2 at level-0 sizes; the atomics resolve in L2.
+// Bound: memory. dfgrad reads df (12 B) and g (4C B) once per voxel and
+// writes 12 B, and the moving map (4C B a voxel) once; the corners of a
+// smooth field are the neighbours' voxels and come from L1/L2. mgrad reads df
+// and g and scatters into a volume that stays in L2 at level-0 sizes; the
+// atomics resolve in L2.
 //
 // Numerics: built with -fmad=false, so the coordinate arithmetic rounds
 // as in the forward (a source coordinate one ulp off can land across a
 // voxel boundary); dfgrad's arithmetic (axis_terms, the corner order,
-// the sums) is the same at either C and bit-equal to the plain version.
+// each corner's channel sum in channel order) is the same in every body.
+// At C = 1 it is bit-equal to the plain version; at C > 1 the plain
+// version's channel `sum` adds in its own order, so the two agree to
+// rounding (1e-5 of scale).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,35 +134,87 @@ __device__ __forceinline__ float axis_weight(const Axis& a, int hi) {
   return hi ? a.w : 1.0f - a.w;
 }
 
+// CH channels from p: evict-first (EF, the cotangent g, read once) or
+// through the read-only path (the moving corners, read again by the
+// neighbours); 16-byte aligned where CH = 4.
+template <int CH, bool EF>
+__device__ __forceinline__ void load_chunk(const float* p, float (&q)[CH]) {
+  if constexpr (CH == 4) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    const float4 t = EF ? __ldcs(p4) : __ldg(p4);
+    q[0] = t.x;
+    q[1] = t.y;
+    q[2] = t.z;
+    q[3] = t.w;
+  } else {
+    q[0] = EF ? __ldcs(p) : __ldg(p);
+  }
+}
+
 // One voxel of row r: the 8 corners of moving row `m` (offsets inside
-// the row, 32-bit), C channels of g at `gv`, 3 values to `o`.
-template <int CT>
+// the row, 32-bit), C channels of g at `gv`, 3 values to `o`. CT = 1:
+// one channel. CT = 36 (the one-hot segmentation maps): g held in
+// registers as 36 / CH chunks of CH channels (16-byte quads where
+// CH = 4), each corner's chunks loaded together, so a thread has a
+// corner's whole slab in flight. CT = 0: the runtime C, chunk by chunk,
+// each chunk of g taken against the matching chunk of each corner. Each
+// corner's dot product adds its channels in order in every body.
+template <int CT, int CH>
 __device__ __forceinline__ void dfgrad_voxel(const float* __restrict__ m,
                                              const float* __restrict__ gv, float* o,
                                              const Axis (&ax)[3], int C, int I1, int I2,
                                              const float (&f)[3]) {
-  float g1 = 0.0f;
-  if constexpr (CT == 1) g1 = __ldcs(gv);
-  float gw[3] = {0.0f, 0.0f, 0.0f};
+  int off[8];
 #pragma unroll
   for (int corner = 0; corner < 8; ++corner) {
     const int z = (corner & 1) ? ax[0].i1 : ax[0].i0;
     const int y = (corner & 2) ? ax[1].i1 : ax[1].i0;
     const int x = (corner & 4) ? ax[2].i1 : ax[2].i0;
-    const float* mc = m + ((z * I1 + y) * I2 + x) * C;
-    float gm = 0.0f;
-    if constexpr (CT == 1) {
-      gm += g1 * __ldg(mc);
-    } else {
-      for (int ch = 0; ch < C; ++ch) gm += __ldg(gv + ch) * __ldg(mc + ch);
+    off[corner] = ((z * I1 + y) * I2 + x) * C;
+  }
+  float gm[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if constexpr (CT == 1) {
+    const float g1 = __ldcs(gv);
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) gm[corner] += g1 * __ldg(m + off[corner]);
+  } else if constexpr (CT > 1) {
+    constexpr int NQ = CT / CH;
+    float gq[NQ][CH];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) load_chunk<CH, true>(gv + q * CH, gq[q]);
+#pragma unroll
+    for (int corner = 0; corner < 8; ++corner) {
+      float mq[NQ][CH];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) load_chunk<CH, false>(m + off[corner] + q * CH, mq[q]);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q)
+#pragma unroll
+        for (int e = 0; e < CH; ++e) gm[corner] += gq[q][e] * mq[q][e];
     }
+  } else {
+    for (int q = 0; q < C / CH; ++q) {
+      float gq[CH], mq[8][CH];
+      load_chunk<CH, true>(gv + q * CH, gq);
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner)
+        load_chunk<CH, false>(m + off[corner] + q * CH, mq[corner]);
+#pragma unroll
+      for (int corner = 0; corner < 8; ++corner)
+#pragma unroll
+        for (int e = 0; e < CH; ++e) gm[corner] += gq[e] * mq[corner][e];
+    }
+  }
+  float gw[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int corner = 0; corner < 8; ++corner) {
     const int h0 = corner & 1, h1 = (corner >> 1) & 1, h2 = (corner >> 2) & 1;
     const float w0 = axis_weight(ax[0], h0);
     const float w1 = axis_weight(ax[1], h1);
     const float w2 = axis_weight(ax[2], h2);
-    const float t0 = gm * (w1 * w2);
-    const float t1 = gm * (w0 * w2);
-    const float t2 = gm * (w0 * w1);
+    const float t0 = gm[corner] * (w1 * w2);
+    const float t1 = gm[corner] * (w0 * w2);
+    const float t2 = gm[corner] * (w0 * w1);
     gw[0] = h0 ? gw[0] + t0 : gw[0] - t0;
     gw[1] = h1 ? gw[1] + t1 : gw[1] - t1;
     gw[2] = h2 ? gw[2] + t2 : gw[2] - t2;
@@ -155,8 +223,8 @@ __device__ __forceinline__ void dfgrad_voxel(const float* __restrict__ m,
   for (int a = 0; a < 3; ++a) __stcs(o + a, gw[a] * (ax[a].dclip * f[a]));
 }
 
-// CT: C at compile time (1), or 0 for the runtime `C`.
-template <int CT>
+// CT: C at compile time (1 or 36), or 0 for the runtime `C`; chunks of CH.
+template <int CT, int CH>
 __global__ void __launch_bounds__(gather::THREADS)
 dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
               const float* __restrict__ g, float* __restrict__ out, int B,
@@ -193,7 +261,7 @@ dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
 #pragma unroll
       for (int a = 0; a < 3; ++a) d[a] = __ldcs(dn + a);
     }
-    dfgrad_voxel<CT>(m, g + r * C * n_out + (long long)v * C, out + r * 3 * n_out + v * 3, ax,
+    dfgrad_voxel<CT, CH>(m, g + r * C * n_out + (long long)v * C, out + r * 3 * n_out + v * 3, ax,
                      C, I1, I2, f);
   }
 }
@@ -226,7 +294,7 @@ unsigned int blocks_for(long long total, int threads) {
 
 // gdf (B_df, O0, O1, O2, 3) from moving (B, I0, I1, I2, C), df (B_df, O.., 3)
 // and g (B_df, O.., C); plan: the forward's tile plan of the df's output
-// space, 9 ints (gather::Plan, kernels/gather.py:warp_plan), refused
+// space, 10 ints (gather::Plan, kernels/gather.py:warp_plan), refused
 // unless it covers the output. Returns cudaGetLastError().
 extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
                                  void* out, int B, int B_df, int C,
@@ -238,19 +306,26 @@ extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
   if (B < 1 || C < 1 || B_df % B != 0) return (int)cudaErrorInvalidValue;
   const gather::Plan p = gather::read_plan(plan);
   const long long widest = n_out * (C > 3 ? C : 3);
-  if (p.v != 1 || !gather::valid(p, O2, O1, O0, B_df / B, B,
-                                 widest > n_in * C ? widest : n_in * C))
+  if (p.v != 1 || p.ch != 0 ||
+      !gather::valid(p, O2, O1, O0, B_df / B, B, widest > n_in * C ? widest : n_in * C))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);
   const cudaStream_t s = (cudaStream_t)stream;
+  // the body: one channel; 16-byte chunks where C % 4 == 0 and the map
+  // and cotangent are 16-byte aligned, else single channels; 36 channels
+  // (the segmentation maps) with their chunks unrolled
+  const bool quads = C % 4 == 0 && gather::aligned16(mov) && gather::aligned16(g);
+  auto launch = [&](auto kernel) {
+    kernel<<<grid, block, 0, s>>>((const float*)mov, (const float*)df, (const float*)g,
+                                  (float*)out, B, B_df / B, C, I0, I1, I2, O0, O1, O2, f0, f1,
+                                  f2, p);
+  };
   if (C == 1)
-    dfgrad_kernel<1><<<grid, block, 0, s>>>((const float*)mov, (const float*)df,
-                                            (const float*)g, (float*)out, B, B_df / B, C, I0,
-                                            I1, I2, O0, O1, O2, f0, f1, f2, p);
+    launch(dfgrad_kernel<1, 1>);
+  else if (C == 36)
+    launch(quads ? dfgrad_kernel<36, 4> : dfgrad_kernel<36, 1>);
   else
-    dfgrad_kernel<0><<<grid, block, 0, s>>>((const float*)mov, (const float*)df,
-                                            (const float*)g, (float*)out, B, B_df / B, C, I0,
-                                            I1, I2, O0, O1, O2, f0, f1, f2, p);
+    launch(quads ? dfgrad_kernel<0, 4> : dfgrad_kernel<0, 1>);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 and of the squaring step's backward (`csrc/squaring_bwd.cu`).
 
 The wrappers compute each launch's plan here and pass it to the C entry
-points as 9 ints (`plan_arg`, `gather::Plan` in `csrc/gather.cuh`); the
+points as 10 ints (`plan_arg`, `gather::Plan` in `csrc/gather.cuh`); the
 kernels walk exactly that plan, and the entry points refuse one that
 does not cover the output. `tests/test_torch_gather_plan.py` holds the
 plans the paths launch to the kernels' walk: every output voxel of
@@ -11,12 +11,22 @@ every row written once, 16-byte accesses only where aligned.
 A plan is a dict: `tx, ty, tz` (a block's threads along x, each with `v`
 voxels, its lines and planes), `log_strips` (tiles along x:
 2**log_strips), `tiles_y, tiles_z`, `groups` (df row groups per moving
-row), `rows` (df rows a group) and `v` (voxels a thread: 1, each thread
+row), `rows` (df rows a group), `v` (voxels a thread: 1, each thread
 its own voxel; or, in a large channels-first warp, 4, moved as 16-byte
-quads through a tile in shared memory). Axes are (z, y, x) with x the
-innermost; a 2D field has z = 1.
+quads through a tile in shared memory) and `ch` (0 but in a channel
+body). Axes are (z, y, x) with x the innermost; a 2D field has z = 1.
 
-The squaring backward's plan (`squaring_bwd_plan`) is the same 9 ints
+A channels-last warp (and its df-cotangent) of CHANNELS_FROM channels or
+more takes a channel body (`channel_plan`): its threads run across
+channels, `lanes(c, ch)` threads a voxel, each moving chunks of `ch`
+channels: 4 (16-byte quads) where the channels are a multiple of 4 and
+the pointers the kernel moves quads of are 16-byte aligned (`aligned`),
+else 1. There `tx` is the voxels of a line a block takes (the forward's
+block: tx * lanes threads; the df-cotangent's: whole warps of
+32 // lanes voxels each) and `ty, tz` the lines and planes it walks in
+turn.
+
+The squaring backward's plan (`squaring_bwd_plan`) is the same 10 ints
 read another way: a block of tx x ty threads, one source column each,
 marches `tz` planes along z (a chunk; `tiles_z` chunks), merging the
 terms of a cell it sends twice before it sends them.
@@ -37,8 +47,10 @@ TARGET_BLOCKS = 2048  # a warp's rows are grouped until a launch has as many
 WARP_CF_QUADS_FROM = 1 << 24
 BWD_STRIP = 32             # squaring backward: a tile's voxels along x, at most
 BWD_TARGET_BLOCKS = 264    # its chunks along z: as few as give a launch as many blocks
+CHANNELS_FROM = 5  # a channels-last warp of this many channels or more runs across channels
+LINES = 8          # lines a channel body's block walks, at most
 
-KEYS = ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups", "rows", "v")
+KEYS = ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups", "rows", "v", "ch")
 
 
 def cdiv(a: int, b: int) -> int:
@@ -67,7 +79,45 @@ def make_plan(x: int, y: int, z: int, rows_per_moving: int, movings: int, v: int
     rows = cdiv(rows_per_moving, max(groups, 1))
     groups = cdiv(rows_per_moving, rows)
     return {"tx": tx, "ty": ty, "tz": tz, "log_strips": log_strips, "tiles_y": tiles_y,
-            "tiles_z": tiles_z, "groups": groups, "rows": rows, "v": v}
+            "tiles_z": tiles_z, "groups": groups, "rows": rows, "v": v, "ch": 0}
+
+
+def lanes(c: int, ch: int) -> int:
+    """Threads a voxel in a channel body (`gather::lanes`): one a chunk
+    of `ch` of the `c` channels, at most 32 (a lane then takes every 32nd
+    chunk)."""
+    return min(c // ch, 32)
+
+
+def aligned(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def channel_plan(x: int, y: int, z: int, rows_per_moving: int, movings: int, c: int,
+                 ch: int) -> dict:
+    """The channel body's plan over z x y x x output voxels of `c`
+    channels: strips of at most THREADS // lanes voxels (a power-of-two
+    count along x), each block walking up to LINES lines of one plane, as
+    many as leave the launch TARGET_BLOCKS blocks (neighbouring lines
+    share half their corners, which the block then reads from L1), and
+    the df rows of a moving row split into as few groups as give a launch
+    TARGET_BLOCKS blocks (the rows of a group share the moving slabs)."""
+    most = THREADS // lanes(c, ch)
+    strips, log_strips = 1, 0
+    while strips * most < x:
+        strips *= 2
+        log_strips += 1
+    per_line = strips * movings
+    ty = 1
+    while 2 * ty <= min(LINES, y) and per_line * cdiv(y, 2 * ty) * z >= TARGET_BLOCKS:
+        ty *= 2
+    per_moving = strips * cdiv(y, ty) * z
+    groups = min(cdiv(TARGET_BLOCKS, per_moving * movings), rows_per_moving)
+    rows = cdiv(rows_per_moving, max(groups, 1))
+    return {"tx": cdiv(x, strips), "ty": ty, "tz": 1, "log_strips": log_strips,
+            "tiles_y": cdiv(y, ty), "tiles_z": z, "groups": cdiv(rows_per_moving, rows),
+            "rows": rows, "v": 1, "ch": ch}
 
 
 def axes(spatial) -> tuple[int, int, int]:
@@ -77,12 +127,21 @@ def axes(spatial) -> tuple[int, int, int]:
 
 
 def warp_plan(out_spatial, b_df: int, movings: int, cf: bool = False,
-              v: int | None = None) -> dict:
-    """The plan of `pulpo_warp{,_cf,_2d}` for a df of `b_df` rows over
-    `out_spatial`, reading `movings` moving rows (channels-first with
-    `cf`; `v`: 4 on a channels-first launch of at least
-    WARP_CF_QUADS_FROM voxels, else 1, unless given)."""
+              v: int | None = None, c: int = 1, is_aligned: bool = True,
+              ch: int | None = None) -> dict:
+    """The plan of `pulpo_warp{,_cf,_2d}` (and of `pulpo_warp_dfgrad`)
+    for a df of `b_df` rows over `out_spatial`, reading `movings` moving
+    rows of `c` channels (channels-first with `cf`). `ch`, unless given:
+    a channel body on a channels-last launch of CHANNELS_FROM channels or
+    more, of 16-byte quads where `c` is a multiple of 4 and the launch's
+    pointers are aligned (`is_aligned`), else of single channels; else 0,
+    a voxel body of `v` voxels a thread: 4 on a channels-first launch of
+    at least WARP_CF_QUADS_FROM voxels, else 1, unless given."""
     z, y, x = axes(out_spatial)
+    if ch is None:
+        ch = 0 if cf or c < CHANNELS_FROM else (4 if c % 4 == 0 and is_aligned else 1)
+    if ch:
+        return channel_plan(x, y, z, b_df // movings, movings, c, ch)
     if v is None:
         v = 4 if cf and b_df * x * y * z >= WARP_CF_QUADS_FROM else 1
     return make_plan(x, y, z, b_df // movings, movings, v)
@@ -109,5 +168,5 @@ def squaring_bwd_plan(spatial, rows: int) -> dict:
 
 
 def plan_arg(plan: dict):
-    """`plan` as the C entry points take it (`gather::Plan`): 9 ints."""
+    """`plan` as the C entry points take it (`gather::Plan`): 10 ints."""
     return (ctypes.c_int * len(KEYS))(*(plan[k] for k in KEYS))

@@ -47,7 +47,13 @@ plan that `tile_plan` computes and the launch passes in
 (`kernels/gather.py`): a block takes planes x lines x a strip of the
 innermost axis of one df row group that reads one moving row; a thread
 computes its own voxel or, in a large channels-first launch, moves a
-quad of 4 voxels with 16-byte accesses.
+quad of 4 voxels with 16-byte accesses. A channels-last warp of more
+than 4 channels (the 36-channel one-hot segmentation maps) takes the
+channel body instead: a voxel's channels spread over neighbouring
+threads in 16-byte chunks (single channels where C % 4 != 0 or the map
+or output is not 16-byte aligned, `gather.aligned`). The df-cotangent
+takes the forward's voxel plan at every C (`dfgrad_plan`); its launch
+moves the channels of a voxel in 16-byte chunks where it can.
 
 Layout: moving (B, *S_in, C) and df (B_df, *S_out, nd) channels-last
 float32, nd = 3 or, in 2D, 2 (the CF functions: (B, C, *S_in) and
@@ -281,25 +287,36 @@ def check_rows(moving_shape, df_shape, cf: bool = False) -> None:
                          f"{max_channels(s_in)} channels at {tuple(s_in)})")
 
 
-def tile_plan(moving_shape, df_shape, cf: bool = False) -> dict:
+def tile_plan(moving_shape, df_shape, cf: bool = False, is_aligned: bool = True) -> dict:
     """The tile plan of the forward kernel's launch on these shapes
-    (`kernels/gather.py:warp_plan`)."""
-    b, _, _, s_out = _shapes(moving_shape, df_shape, cf)
-    return gather.warp_plan(s_out, df_shape[0], b, cf)
+    (`kernels/gather.py:warp_plan`); `is_aligned`: the tensors the kernel
+    moves 16-byte quads of start on a 16-byte boundary."""
+    b, c, _, s_out = _shapes(moving_shape, df_shape, cf)
+    return gather.warp_plan(s_out, df_shape[0], b, cf, c=c, is_aligned=is_aligned)
 
 
-def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False):
+def dfgrad_plan(moving_shape, df_shape) -> dict:
+    """The tile plan of the df-cotangent kernel's launch: the forward's
+    voxel plan over the df's output space (one voxel a thread, ch = 0) at
+    any C. The launch takes its body from C and the pointers: one
+    channel, 16-byte chunks of the channels where C % 4 == 0 and the map
+    and cotangent are 16-byte aligned, else single channels."""
+    b, c, _, s_out = _shapes(moving_shape, df_shape, False)
+    return gather.warp_plan(s_out, df_shape[0], b, c=c, ch=0)
+
+
+def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False,
+            plan: dict | None = None):
     """Call the C entry `entry(ptrs..., B, B_df, C, I0.., O0.., f0..,
     [plan,] stream)` of kernel library `lib`, one I, O and f per spatial
     axis (the forward kernel and the df-cotangent, which walks the same
-    output space, also take the forward's tile plan); `cf`: the shapes
-    are channels-first."""
+    output space, also take a tile plan: `plan`); `cf`: the shapes are
+    channels-first."""
     b, c, s_in, s_out = _shapes(moving_shape, df.shape, cf)
     nd = len(s_in)
-    plan = []
-    if entry != "pulpo_warp_mgrad":
+    if plan is not None:
         check_rows(moving_shape, df.shape, cf)
-        plan = [gather.plan_arg(tile_plan(moving_shape, df.shape, cf))]
+    plan = [] if plan is None else [gather.plan_arg(plan)]
     f = [_factor(s_in[i], s_out[i]) for i in range(nd)]
     fn = getattr(_build.load(lib), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (3 + 2 * nd)
@@ -321,7 +338,8 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
                       device=df.device, dtype=torch.float32)
     global launches, launches_2d
     _launch("warp", "pulpo_warp_2d" if nd == 2 else "pulpo_warp",
-            [moving.data_ptr(), df.data_ptr(), out.data_ptr()], moving.shape, df)
+            [moving.data_ptr(), df.data_ptr(), out.data_ptr()], moving.shape, df,
+            plan=tile_plan(moving.shape, df.shape, is_aligned=gather.aligned(moving, out)))
     if nd == 2:
         launches_2d += 1
     else:
@@ -343,7 +361,7 @@ def _warp_cf_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
                       device=df.device, dtype=torch.float32)
     global cf_launches
     _launch("warp", "pulpo_warp_cf", [moving.data_ptr(), df.data_ptr(), out.data_ptr()],
-            moving.shape, df, cf=True)
+            moving.shape, df, cf=True, plan=tile_plan(moving.shape, df.shape, cf=True))
     cf_launches += 1
     return out
 
@@ -370,7 +388,7 @@ def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor) -> torc
     global dfgrad_launches
     _launch("warp_bwd", "pulpo_warp_dfgrad",
             [moving.data_ptr(), df.data_ptr(), g.data_ptr(), out.data_ptr()],
-            moving.shape, df)
+            moving.shape, df, plan=dfgrad_plan(moving.shape, df.shape))
     dfgrad_launches += 1
     return out
 

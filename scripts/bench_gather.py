@@ -6,7 +6,7 @@ csrc/warp_bwd.cu) at the shapes the paths launch, at more than one tile
 plan, against another checkout.
 
     python3 scripts/bench_gather.py [--parent DIR] [--json PATH] [--sass DIR]
-                                    [--cases all|gather|training]
+                                    [--cases all|gather|training|seg]
 
 For each case (a warp or a squaring step at a shape a path launches:
 the full_res batched warp and its mean tail, the level_res decode's
@@ -18,7 +18,12 @@ flagship and LungCT level, and at level 0 also under a sub-voxel field,
 a 4-voxel one and the LungCT ramp; the bf16 narrow conv at the 5 shapes
 a step launches of both configurations, 2 -> 32 at the input size and
 3 -> 32 at each latent level; the df-cotangent (C = 1) at the 4 shapes a
-step launches of both) it calls the C entry points of:
+step launches of both; the warp and the df-cotangent at C = 36, the
+one-hot segmentation maps, at the 4 shapes of `transform_segmentation`
+(chip_smoke.seg_shapes: the OASIS step's, the tables' and the figures'),
+and the 2D warp at C = 36 over 10 rows of 160x192, the 2D OASIS
+evaluation's; `--cases seg` runs these alone) it calls the C entry
+points of:
 - `v1`, `v4`: this checkout's libraries with the launch's plan at one
   and (the channels-first warp) four voxels a thread
   (kernels/gather.py); `new` is the one the wrappers take; the box sum,
@@ -26,17 +31,30 @@ step launches of both) it calls the C entry points of:
   at levels 0 and 1 (the conv: at every shape), at plans for half and
   twice the target block count (`half`, `twice`; the conv: half and
   twice the planes a block marches); the df-cotangent at the forward
-  warp's plan;
+  warp's plan; at C = 36 the channel bodies instead (`quads`, 16-byte
+  chunks, the one the wrappers take; `scalar`, one channel a thread, the
+  body of a misaligned or C % 4 != 0 launch); for the df-cotangent
+  `new` (one voxel a thread, 16-byte chunks of its channels), `scalar`
+  (the same call on copies of the map and cotangent 4 bytes past a
+  16-byte boundary: single channels) and `lanes`
+  (scripts/probe_dfgrad_lanes.cu: 9-lane groups across the channels,
+  shuffles, on the forward's channel plan);
 - `parent`: with --parent, the same sources of the checkout at DIR,
   built with the same flags; an entry point of it that takes a plan
   (its source says so) gets the plan `new` takes, one that takes none
-  is called without (and the narrow conv's with its float32 taps).
+  is called without (and the narrow conv's with its float32 taps); at
+  C = 36 also two probe copies of the parent's warp.cu, with its stores
+  cut out (`no_stores`: an output is stored only if it equals a value no
+  one-hot warp gives, so the gathers stay) and with its gathers cut out
+  (`no_gathers`: a corner's value is its offset), whose outputs are
+  wrong by construction and not compared.
 Every output is held equal, bit for bit, to `v1`'s (`new`'s), and
 `v1`'s to the plain version on the cases small enough to run it; the
 squaring backward, whose atomics fix no order, within 1e-5 of scale of
 the plain version on every side; the narrow conv within one bf16 ulp
 at the output's scale (the tensor cores sum in another order); the
-df-cotangent bit-equal. Times: CUDA events,
+df-cotangent bit-equal at C = 1, within 1e-5 of scale at C = 36 (the
+channel sum's order differs by body). Times: CUDA events,
 the median of 5 timings of `iters` calls, taken in turns (parent, v1,
 v4, v4, v1, parent, without v4 where there is none); for the cases under 200 MB, whose calls are
 host-bound, device times of a CUDA graph of the calls. With --sass DIR,
@@ -86,18 +104,69 @@ def parent_plan(entry: str, plan):
     return plan if entry in PARENT_PLANS else None
 
 
+def build_lib(src_path, tag: str, flags_of: str, include=None):
+    """The library `tag` built from the source at `src_path` with the
+    flags of this checkout's kernel `flags_of` (and `-I include`)."""
+    from pulpo_tpu_torch.kernels import _build
+
+    _, extra = _build.SOURCES[flags_of]
+    lib = _build.BUILD_DIR / f"{tag}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [_build._nvcc(), str(src_path), *_build.BASE_FLAGS, *extra,
+           *([f"-I{include}"] if include else []), "-o", str(lib)]
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(lib))
+
+
 def build_parent(root: str, name: str):
     """The library of kernel `name` built from checkout `root`'s source
     with this checkout's flags."""
     from pulpo_tpu_torch.kernels import _build
 
-    src, extra = _build.SOURCES[name]
-    lib = _build.BUILD_DIR / f"parent_lib{name}.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), os.path.join(root, "pulpo_tpu_torch", "csrc", src),
-           *_build.BASE_FLAGS, *extra, "-o", str(lib)]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(lib))
+    src, _ = _build.SOURCES[name]
+    return build_lib(os.path.join(root, "pulpo_tpu_torch", "csrc", src), f"parent_lib{name}", name)
+
+
+# the probe copies of the parent's warp.cu (its voxel body, which the
+# C = 36 warps ran): text substitutions
+PARENT_WARP_PROBES = {
+    "no_stores": [("""      for (int ch = 0; ch < C; ++ch)
+        __stcs(o + (CF ? ch * n_out + line + xq : (line + xq) * C + ch),
+               interpolate<ND>(m + ch * cs_in, kk, mstride));""",
+                   """      for (int ch = 0; ch < C; ++ch) {
+        const float val = interpolate<ND>(m + ch * cs_in, kk, mstride);
+        if (val == -1.25e-37f) __stcs(o + (CF ? ch * n_out + line + xq : (line + xq) * C + ch), val);
+      }""")],
+    "no_gathers": [("__ldg(mc + gather::corner_offset<ND>(k, corner, mstride))",
+                    "(float)gather::corner_offset<ND>(k, corner, mstride)")],
+}
+
+
+def build_probes(root: str | None) -> dict:
+    """The probe libraries by name: `dfgrad_lanes` (this checkout's
+    scripts/probe_dfgrad_lanes.cu) and, with a parent checkout at `root`,
+    the probe copies of its warp.cu."""
+    from pulpo_tpu_torch.kernels import _build
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {"dfgrad_lanes": build_lib(os.path.join(here, "scripts", "probe_dfgrad_lanes.cu"),
+                                     "probe_dfgrad_lanes", "warp_bwd", include=_build.CSRC)}
+    if root is None:
+        return out
+    csrc = os.path.join(root, "pulpo_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "warp.cu")) as fh:
+        src = fh.read()
+    for name, subs in PARENT_WARP_PROBES.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"probe {name}: {old!r} is not in the parent's warp.cu")
+            text = text.replace(old, new)
+        path = _build.BUILD_DIR / f"probe_parent_warp_{name}.cu"
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        out[name] = build_lib(path, f"probe_parent_warp_{name}", "warp", include=csrc)
+    return out
 
 
 def box_call(lib, x, out, win, plan=None, tmp=None):
@@ -154,15 +223,18 @@ def conv_call(lib, x, weights, cout, out, plan=None):
 
 
 def dfgrad_call(lib, mov, df, g, out, plan=True):
-    """One launch of `lib`'s df-cotangent on (mov, df, g) at the forward
-    warp's plan; plan False: an entry that takes none."""
+    """One launch of `lib`'s df-cotangent on (mov, df, g) at the plan the
+    wrapper takes (kernels/warp.py:dfgrad_plan), or at `plan` if it is a
+    dict (kernels/gather.py); plan False: an entry that takes none."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
 
     b, c, s_in, s_out = warp._shapes(mov.shape, df.shape, False)
     fn = lib.pulpo_warp_dfgrad
-    tail = [gather.plan_arg(warp.tile_plan(mov.shape, df.shape))] if plan else []
+    if plan is True:
+        plan = warp.dfgrad_plan(mov.shape, df.shape)
+    tail = [gather.plan_arg(plan)] if plan else []
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
                    + [ctypes.c_void_p] * (len(tail) + 1))
     f = [warp._factor(s_in[i], s_out[i]) for i in range(3)]
@@ -171,10 +243,11 @@ def dfgrad_call(lib, mov, df, g, out, plan=True):
     assert rc == 0, f"warp_dfgrad: CUDA error {rc}"
 
 
-def warp_call(lib, mov, df, out, cf, v=None):
+def warp_call(lib, mov, df, out, cf, v=None, ch=0):
     """One launch of `lib`'s warp entry on these tensors (the wrapper's
     arguments, kernels/warp.py:_launch) with the plan at `v` voxels a
-    thread; v None: an entry that takes no plan."""
+    thread, or of the channel body of `ch` channels a chunk; v None: an
+    entry that takes no plan."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
@@ -183,7 +256,8 @@ def warp_call(lib, mov, df, out, cf, v=None):
     nd = len(s_in)
     entry = "pulpo_warp_cf" if cf else ("pulpo_warp_2d" if nd == 2 else "pulpo_warp")
     fn = getattr(lib, entry)
-    plan = [] if v is None else [gather.plan_arg(gather.warp_plan(s_out, df.shape[0], b, cf, v))]
+    plan = [] if v is None else [gather.plan_arg(gather.warp_plan(s_out, df.shape[0], b, cf, v,
+                                                                    c=c, ch=ch))]
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + 2 * nd)
                    + [ctypes.c_float] * nd + [ctypes.c_void_p] * (len(plan) + 1))
     f = [warp._factor(s_in[i], s_out[i]) for i in range(nd)]
@@ -254,9 +328,10 @@ LEVELS = [(80, 96, 112), (40, 48, 56), (20, 24, 28), (10, 12, 14)]  # flagship l
 LUNG_LEVELS = [(96, 96, 104), (48, 48, 52), (24, 24, 26), (12, 12, 13)]  # LungCT's
 FULL_2D = FULL[:2]  # flagship-2d's input size and latent levels: the flagship's first two axes
 LEVELS_2D = [s[:2] for s in LEVELS]
-PATHS = ("level_res request", "full_res request", "flagship step", "LungCT step", "2D step")
+PATHS = ("level_res request", "full_res request", "flagship step", "LungCT step", "2D step",
+         "OASIS step, C=36")
 PATH_KEYS = dict(zip(("level_res_request", "full_res_request", "flagship_step", "LungCT_step",
-                      "step_2d"), PATHS))
+                      "step_2d", "OASIS_step"), PATHS))
 WINDOWS = (9, 7, 5, 3)  # the NCC window at latent levels 0-3 (config.window_size)
 
 
@@ -353,6 +428,59 @@ def cases(dev):
     return out
 
 
+def seg_warps(dev):
+    """(level, moving one-hot map, df) of each C = 36 warp of
+    `transform_segmentation` (chip_smoke.seg_shapes: the OASIS step's,
+    the tables' and the figures' 4 levels, a smooth 3-voxel df), and of
+    the 2D OASIS evaluation (10 rows of 160x192, level "2d")."""
+    from chip_smoke import FLAGSHIP_2D, OASIS, SEG_CLASSES, onehot_volume, seg_shapes, \
+        smooth_field
+    from pulpo_tpu_torch import PULPoConfig
+
+    out = []
+    for l, (mshape, dshape) in enumerate(seg_shapes(PULPoConfig(**OASIS))):
+        out.append((l, onehot_volume(mshape, 500 + l, dev),
+                    smooth_field(dshape[0], dshape[1:-1], 3.0, seed=510 + l, device=dev)))
+    full = FLAGSHIP_2D["input_size"]
+    out.append(("2d", onehot_volume((1, *full, SEG_CLASSES), 520, dev).repeat_interleave(10, 0),
+                smooth_field(10, full, 3.0, seed=521, device=dev, channels=2)))
+    return out
+
+
+def seg_cases(dev):
+    """The C = 36 warps of `seg_warps`, as `cases` gives its cases."""
+    fmt = lambda s: "x".join(map(str, s))
+    out = []
+    for l, m, df in seg_warps(dev):
+        n_in, n_out, nd = math.prod(m.shape[:-1]), math.prod(df.shape[:-1]), df.shape[-1]
+        c = m.shape[-1]
+        name = (f"#4 warp C={c} level {l} {fmt(m.shape[1:-1])}" if l != "2d" else
+                f"2D warp C={c} 10 rows {fmt(m.shape[1:-1])}")
+        out.append(dict(name=name, kind="warp", tensors=(m, df), cf=False,
+                        bytes=4 * (n_in * c + n_out * (nd + c)), plain=l != 0,
+                        paths={} if l == "2d" else {PATHS[-1]: 1}))
+    return out
+
+
+def seg_training_cases(dev):
+    """The df-cotangent at C = 36 at the 3D shapes of `seg_warps`, a
+    random cotangent, one launch each in an OASIS step."""
+    import torch
+
+    out = []
+    for l, m, df in seg_warps(dev):
+        if l == "2d":
+            continue
+        c = m.shape[-1]
+        g = torch.randn((*df.shape[:-1], c), device=dev)
+        n_in, n_out = math.prod(m.shape[:-1]), math.prod(df.shape[:-1])
+        out.append(dict(name=f"#6 warp_dfgrad C={c} level {l} {'x'.join(map(str, m.shape[1:-1]))}",
+                        kind="dfgrad", tensors=(m, df, g), cf=False,
+                        bytes=4 * (n_in * c + n_out * (c + 6)), plain=l != 0, variants=False,
+                        channels=True, paths={PATHS[-1]: 1}))
+    return out
+
+
 def training_cases(dev):
     """The box sum, squaring backward, narrow conv and df-cotangent
     cases, as `cases` gives the gathers': per level of the flagship and
@@ -434,11 +562,14 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
     half, new, parent, each where there is one)."""
     import torch
 
-    from chip_smoke import graph_ms
+    from chip_smoke import graph_ms, misaligned
     from pulpo_tpu_torch.kernels import box_sum, conv_narrow, gather, squaring, warp
 
     name, kind, tensors, bytes_ = (case[k] for k in ("name", "kind", "tensors", "bytes"))
+    channels = case.get("channels", False)  # the C = 36 df-cotangent
     sides = ["new"] + (["half", "twice"] if case["variants"] else [])
+    if channels:
+        sides += ["scalar", "lanes"]
     if "parent" in libs:
         sides.append("parent")
     if kind == "box":
@@ -475,11 +606,18 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
         plain = lambda: conv_narrow.conv_narrow_plain(x, w)
     elif kind == "dfgrad":
         m, df, g = tensors
-        plans = {"new": warp.tile_plan(m.shape, df.shape)}
+        b, c, _, s_out = warp._shapes(m.shape, df.shape, False)
+        plans = {"new": warp.dfgrad_plan(m.shape, df.shape),
+                 "lanes": gather.warp_plan(s_out, df.shape[0], b, c=c)}
+        plans["scalar"] = plans["new"]
+        plans["parent"] = plans["new"] if "pulpo_warp_dfgrad" in PARENT_PLANS else False
         mk = lambda: torch.empty_like(df)
-        with_plan = "pulpo_warp_dfgrad" in PARENT_PLANS
-        call = lambda k, o: dfgrad_call(libs["parent" if k == "parent" else "new"]["warp_bwd"],
-                                        m, df, g, o, k != "parent" or with_plan)
+        lib_of = {"parent": lambda: libs["parent"]["warp_bwd"],
+                  "lanes": lambda: libs["probes"]["dfgrad_lanes"]}
+        # the single-channel body: the same values 4 bytes past a 16-byte boundary
+        args = {"scalar": (misaligned(m), df, misaligned(g))} if channels else {}
+        call = lambda k, o: dfgrad_call(lib_of.get(k, lambda: libs["new"]["warp_bwd"])(),
+                                        *args.get(k, (m, df, g)), o, plans[k])
         plain = lambda: warp.warp_dfgrad_plain(m, df, g)
     else:
         v, g = tensors
@@ -503,10 +641,10 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
         ref = (plain() if case["plain"] else outs["new"]).float()
     scale = max(1.0, float(ref.abs().max()))
     err = {k: float((outs[k].float() - ref).abs().max()) for k in sides}
-    tol = {"box": 0.0, "dfgrad": 0.0, "bwd": 1e-5 * scale,
+    tol = {"box": 0.0, "dfgrad": 1e-5 * scale if channels else 0.0, "bwd": 1e-5 * scale,
            "conv": 2.0 ** (math.floor(math.log2(scale)) - 7)}[kind]
     same = {k: err[k] <= tol for k in sides}
-    order = [k for k in ("parent", "new", "half", "twice") if k in sides]
+    order = [k for k in ("parent", "new", "half", "twice", "scalar", "lanes") if k in sides]
     order += order[::-1]
     times = {}
     for k in order:
@@ -516,7 +654,7 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
     best = statistics.median(times["new"])
     record = {"case": name, "bound_ms": bound, "equal": same, "max_abs_err": err,
               "device_graph": True, "paths": case["paths"], "ms": times,
-              "plans": {k: plans[k] for k in plans if k in sides and plans[k] is not None}}
+              "plans": {k: plans[k] for k in plans if k in sides and plans[k]}}
     line = f"{name:48s} bound {bound:8.4f}  new {best:.4f} ({bound / best:.2f} of bound)"
     for k in [k for k in sides if k != "new"]:
         if k in times:
@@ -529,9 +667,10 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
 
 
 def run_case(case: dict, libs: dict, dev) -> dict:
-    """Run one case on both plans of this checkout and on the parent:
-    outputs held equal to `v1`'s (and `v1`'s to the plain version's where
-    small), then timed in turns. Prints a line; returns the record."""
+    """Run one case on this checkout's plans or bodies and on the parent:
+    outputs held equal to the wrappers' choice's (`new`; it to the plain
+    version's where small), then timed in turns. Prints a line; returns
+    the record. The probe copies' outputs are not compared."""
     import torch
 
     from chip_smoke import graph_ms, time_ms
@@ -539,57 +678,69 @@ def run_case(case: dict, libs: dict, dev) -> dict:
 
     name, kind, tensors, cf, bytes_ = (case[k] for k in ("name", "kind", "tensors", "cf",
                                                           "bytes"))
-    sides = {"v1": ("new", 1)}
+    # side: (library set, library, voxels a thread, channels a chunk)
+    sides = {"v1": ("new", "warp", 1, 0)}
     if kind == "warp" and cf:
-        sides["v4"] = ("new", 4)
+        sides["v4"] = ("new", "warp", 4, 0)
+    probes = []
     if kind == "warp":
         mov, df = tensors
         _, c, s_in, s_out = warp._shapes(mov.shape, df.shape, cf)
         shape = (df.shape[0], c, *s_out) if cf else (df.shape[0], *s_out, c)
         mk = lambda: torch.empty(shape, device=dev)
-        call = lambda k, o: warp_call(libs[sides[k][0]]["warp"], mov, df, o, cf, sides[k][1])
+        call = lambda k, o: warp_call(libs[sides[k][0]][sides[k][1]], mov, df, o, cf,
+                                      sides[k][2], sides[k][3])
         plain = (lambda: warp.warp_cf_plain(mov, df)) if cf else (lambda: warp.warp_plain(mov, df))
-        chosen = warp.tile_plan(mov.shape, df.shape, cf)["v"]
+        plan = warp.tile_plan(mov.shape, df.shape, cf)
+        if plan["ch"]:
+            sides = {"quads": ("new", "warp", 1, 4), "scalar": ("new", "warp", 1, 1)}
+            if "parent" in libs:
+                probes = [k for k in PARENT_WARP_PROBES if k in libs["probes"]]
+        chosen = {4: "quads", 1: "scalar"}.get(plan["ch"], f"v{plan['v']}")
         entry = "pulpo_warp_cf" if cf else ("pulpo_warp_2d" if len(s_in) == 2 else "pulpo_warp")
+        chosen_v = plan["v"]
     else:
         (vec,) = tensors
         mk = lambda: torch.empty_like(vec)
-        call = lambda k, o: step_call(libs[sides[k][0]]["squaring"], vec, o, cf, sides[k][1])
+        call = lambda k, o: step_call(libs[sides[k][0]]["squaring"], vec, o, cf, sides[k][2])
         plain = ((lambda: squaring.squaring_step_cf_plain(vec)) if cf
                  else (lambda: squaring.squaring_step_plain(vec)))
-        chosen = squaring.tile_plan(vec.shape, cf)["v"]
+        chosen_v = squaring.tile_plan(vec.shape, cf)["v"]
+        chosen = f"v{chosen_v}"
         nd = vec.dim() - 2
         entry = ("pulpo_squaring_step_cf" if cf else
                  ("pulpo_squaring_step_2d" if nd == 2 else "pulpo_squaring_step"))
     if "parent" in libs:
-        sides["parent"] = ("parent", parent_plan(entry, chosen))
+        sides["parent"] = ("parent", "warp", parent_plan(entry, chosen_v), 0)
+    for k in probes:
+        sides[k] = ("probes", k, 1, 0)
     outs = {}
     for k in sides:
         outs[k] = mk()
         call(k, outs[k])
     torch.cuda.synchronize()
-    same = {k: bool(torch.equal(outs[k], outs["v1"])) for k in sides}
+    same = {k: bool(torch.equal(outs[k], outs[chosen])) for k in sides if k not in probes}
     if case["plain"]:
-        same["plain"] = bool(torch.equal(outs["v1"], plain()))
+        same["plain"] = bool(torch.equal(outs[chosen], plain()))
     # device times of a graph where a call's host side would outlast its kernel
     on_graph = bytes_ < 2e8
     timer = graph_ms if on_graph else (lambda fn: time_ms(fn, 5 if bytes_ > 4e9 else 20))
-    order = [k for k in ("v1", "v4", "v4", "v1") if k in sides]
+    order = [k for k in ("v1", "v4", "quads", "scalar", *probes) if k in sides]
+    order += order[::-1]
     if "parent" in sides:
         order = ["parent", *order, "parent"]
     times = {}
     for k in order:
         o = outs[k]
         times.setdefault(k, []).append(timer(lambda k=k, o=o: call(k, o)))
-    times["new"] = times[f"v{chosen}"]
+    times["new"] = times[chosen]
     bound = bytes_ / HBM_BYTES_PER_S * 1e3
     record = {"case": name, "bound_ms": bound, "equal": same, "device_graph": on_graph,
-              "paths": case["paths"], "v": chosen, "ms": times}
+              "paths": case["paths"], "v": chosen_v, "chosen": chosen, "ms": times}
     best = statistics.median(times["new"])
-    line = f"{name:48s} bound {bound:8.4f}  new (v{chosen}) {best:.4f} ({bound / best:.2f} of bound)"
-    for k in ("v1", "v4", "parent"):
-        if k in times:
-            line += f"  {k} {' / '.join(f'{t:.4f}' for t in times[k])}"
+    line = f"{name:48s} bound {bound:8.4f}  new ({chosen}) {best:.4f} ({bound / best:.2f} of bound)"
+    for k in [k for k in times if k != "new"]:
+        line += f"  {k} {' / '.join(f'{t:.4f}' for t in times[k])}"
     print(line + f"  equal {same}", flush=True)
     del outs, tensors
     torch.cuda.empty_cache()
@@ -618,7 +769,7 @@ def main() -> int:
     ap.add_argument("--json", default=None)
     ap.add_argument("--sass", default=None, help="write the kernels' SASS under this directory "
                     "and print each kernel's instruction mix")
-    ap.add_argument("--cases", default="all", choices=("all", "gather", "training"))
+    ap.add_argument("--cases", default="all", choices=("all", "gather", "training", "seg"))
     args = ap.parse_args()
 
     import torch
@@ -635,7 +786,7 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     dev = torch.device("cuda")
     training = ("box_sum", "squaring_bwd", "conv_narrow", "warp_bwd")
-    names = {"gather": ("warp", "squaring"), "training": training,
+    names = {"gather": ("warp", "squaring"), "training": training, "seg": ("warp", "warp_bwd"),
              "all": ("warp", "squaring", *training)}[args.cases]
     _build.build_all(names)
     libs = {"new": {k: _build.load(k) for k in names}}
@@ -648,12 +799,17 @@ def main() -> int:
     if args.parent:
         libs["parent"] = {k: build_parent(args.parent, k) for k in names}
         PARENT_PLANS.update(entries_with_plan(args.parent))
+    libs["probes"] = build_probes(args.parent if "warp" in names else None)
 
     records = []
-    if args.cases != "training":
+    if args.cases in ("all", "gather"):
         records += [run_case(case, libs, dev) for case in cases(dev)]
-    if args.cases != "gather":
+    if args.cases in ("all", "gather", "seg"):
+        records += [run_case(case, libs, dev) for case in seg_cases(dev)]
+    if args.cases in ("all", "training"):
         records += [run_training_case(case, libs, dev) for case in training_cases(dev)]
+    if args.cases in ("all", "training", "seg"):
+        records += [run_training_case(case, libs, dev) for case in seg_training_cases(dev)]
     for side in [k for k in ("new", "parent") if k in libs]:
         path_sums(records, side)
     bad = [r["case"] for r in records if not all(r["equal"].values())]

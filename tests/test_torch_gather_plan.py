@@ -15,6 +15,11 @@ once; a 16-byte access is taken only at an aligned address, and on
 every quad of the paths' aligned sizes; the plans of every shape the
 paths launch pass the checks the C entry points make (`gather::valid`)
 and take 4-voxel quads exactly on the large channels-first warps.
+The warp's channel body (a channels-last launch of 5 channels or more:
+`gather.channel_plan`) is walked the same way at the segmentation
+paths' C = 36 shapes and at a ragged C = 5: every (row, voxel, channel)
+written once, 16-byte chunks only where aligned; the df-cotangent keeps
+the voxel plan at every C, walked at the same shapes.
 No JAX and no card are needed.
 """
 
@@ -215,11 +220,11 @@ def test_16_byte_accesses_only_where_aligned(size, k, base):
 
 
 def test_plan_arg_is_the_plan_in_the_kernels_order():
-    """The 9 ints the C entry points read as gather::Plan."""
+    """The 10 ints the C entry points read as gather::Plan."""
     plan = gather.warp_plan((20, 24, 28), 32, 1)
     assert list(gather.plan_arg(plan)) == [plan[k] for k in gather.KEYS]
     assert gather.KEYS == ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups",
-                           "rows", "v")
+                           "rows", "v", "ch")
 
 
 def _axis_counts(plan, size):
@@ -239,7 +244,8 @@ def _dfgrad_launches():
     """(moving shape, df shape) of the df-cotangent's launches: each level
     of a B = 1 flagship and LungCT training step (each level's image by
     its df, level 0 at the input size), and the kernel checks' cases:
-    2 df rows of one image, the full-size image under a level-0 df."""
+    2 df rows of one image, the full-size image under a level-0 df; the
+    C = 36 segmentation maps at each flagship level, 1 and 10 df rows."""
     out = []
     for full, levels in (((160, 192, 224), [(40, 48, 56), (20, 24, 28), (10, 12, 14)]),
                          ((192, 192, 208), [(48, 48, 52), (24, 24, 26), (12, 12, 13)])):
@@ -247,19 +253,23 @@ def _dfgrad_launches():
             out.append(((1, *size, 1), (1, *size, 3)))
         out.append(((1, *full, 1), (2, *full, 3)))
     out.append(((1, 160, 192, 224, 1), (2, 80, 96, 112, 3)))
+    for size in ((160, 192, 224), (40, 48, 56), (20, 24, 28), (10, 12, 14)):
+        out += [((1, *size, 36), (rows, *size, 3)) for rows in (1, 10)]
     return out
 
 
 @pytest.mark.parametrize("moving,df", _dfgrad_launches())
 def test_dfgrad_plan_at_the_training_shapes(moving, df):
-    """The df-cotangent takes the forward warp's plan over the df's output
-    space (kernels/warp.py:_launch): one voxel a thread, the entry's checks
+    """The df-cotangent takes the forward warp's voxel plan over the df's
+    output space (kernels/warp.py:dfgrad_plan) at every C, the C = 36
+    segmentation shapes too: one voxel a thread, the entry's checks
     passed, every output voxel of every df row computed and written once."""
-    plan = warp.tile_plan(moving, df)
+    plan = warp.dfgrad_plan(moving, df)
+    assert plan == warp.tile_plan(moving[:-1] + (1,), df)
     size = gather.axes(df[1:-1])
     n = math.prod(size)
-    assert plan["v"] == 1
-    assert _admissible(plan, size, df[0] // moving[0], moving[0], n * 3)
+    assert plan["v"] == 1 and plan["ch"] == 0
+    assert _admissible(plan, size, df[0] // moving[0], moving[0], n * max(3, moving[-1]))
     for counts in _axis_counts(plan, size):
         assert (counts == 1).all()
     grid = _grid(plan, moving[0])
@@ -271,8 +281,162 @@ def test_dfgrad_plan_at_the_training_shapes(moving, df):
 def test_dfgrad_walk_matches_the_axis_decode(size):
     """On ragged sizes the block-by-block walk (`_walk`) and the per-axis
     decode above agree: the decode is the walk's product."""
-    plan = warp.tile_plan((2, *size, 1), (6, *size, 3))
+    plan = warp.dfgrad_plan((2, *size, 1), (6, *size, 3))
     stored, _ = _walk(plan, size, 2, 6)
     zc, yc, xc = _axis_counts(plan, size)
     assert (stored == 1).all()
     assert (zc[:, None, None] * yc[None, :, None] * xc[None, None, :] == stored[0]).all()
+
+
+# ----------------------------------------------------------------------
+# the channel bodies (plan ch = 4 or 1): threads run across channels
+# ----------------------------------------------------------------------
+
+def _seg_launches():
+    """(moving shape, df shape) of the C = 36 warps the paths launch:
+    `transform_segmentation` at each flagship level (the OASIS step, 1
+    row; the tables and figures, 1 row and N = 10 rows reading one map),
+    and the 2D OASIS evaluation's 10 rows of 160x192."""
+    out = []
+    for size in ((160, 192, 224), (40, 48, 56), (20, 24, 28), (10, 12, 14)):
+        for rows in (1, 10):
+            out.append(((1, *size, 36), (rows, *size, 3)))
+    for rows in (1, 10):
+        out.append(((rows, 160, 192, 36), (rows, 160, 192, 2)))
+    return out
+
+
+def _forward_threads(plan, c):
+    """(voxel j of the line's tx, lane) of each thread of a forward block
+    (csrc/warp.cu:warp_channels_kernel: threadIdx.x = j * L + lane)."""
+    lanes = gather.lanes(c, plan["ch"])
+    t = np.arange(plan["tx"] * lanes)
+    return t // lanes, t % lanes
+
+
+def _channel_walk(plan, size, c, movings, b_df):
+    """How often each (df row, z, y, x, channel) is written by a forward
+    launch: block by block, the block's threads (j, lane) over the tile's
+    lines and planes and the group's rows, a lane's chunks lane, lane + L,
+    ... of plan["ch"] channels."""
+    z_, y_, x_ = size
+    ch, lanes = plan["ch"], gather.lanes(c, plan["ch"])
+    j, lane = _forward_threads(plan, c)
+    counts = np.zeros((b_df, z_, y_, x_, c), np.int32)
+    gx, gy, gz = _grid(plan, movings)
+    for bz in range(gz):
+        _, rows = _block_rows(plan, bz, movings, b_df)
+        for by in range(gy):
+            for bx in range(gx):
+                z0, y0, x0 = _tile(plan, bx, by)
+                x = x0 + j
+                for lz in range(plan["tz"]):
+                    for ly in range(plan["ty"]):
+                        z, y = z0 + lz, y0 + ly
+                        if z >= z_ or y >= y_:
+                            continue
+                        for q0 in range(0, c // ch, lanes):
+                            q = lane + q0
+                            ok = (x < x_) & (q < c // ch)
+                            for r in rows:
+                                for e in range(ch):
+                                    np.add.at(counts, (r, z, y, x[ok], q[ok] * ch + e), 1)
+    return counts
+
+
+def _admissible_channels(plan, size, c, rows_per_moving, movings):
+    """The checks `gather::valid` makes before a channel body's launch."""
+    z_, y_, x_ = size
+    return (plan["ch"] in (1, 4) and c % plan["ch"] == 0 and plan["v"] == 1
+            and plan["tx"] * gather.lanes(c, plan["ch"]) <= gather.THREADS
+            and (plan["tx"] << plan["log_strips"]) >= x_ and plan["ty"] * plan["tiles_y"] >= y_
+            and plan["tz"] * plan["tiles_z"] >= z_ and plan["tiles_z"] <= 65535
+            and plan["groups"] == gather.cdiv(rows_per_moving, plan["rows"])
+            and movings * plan["groups"] <= 65535)
+
+
+@pytest.mark.parametrize("moving,df", _seg_launches())
+def test_channel_plan_at_the_segmentation_shapes(moving, df):
+    """At C = 36 on aligned tensors the warp takes the quad body (ch = 4,
+    9 lanes a voxel); the plan passes the entry's checks; along each axis
+    every voxel is reached once (the walk is the product of the axes,
+    `test_channel_walk_is_the_axes_product`), every channel of a voxel by
+    one lane, and the df rows once, in groups that read one moving row."""
+    spatial = df[1:-1]
+    size = gather.axes(spatial)
+    plan = warp.tile_plan(moving, df)
+    assert plan["ch"] == 4 and gather.lanes(36, 4) == 9
+    assert _admissible_channels(plan, size, 36, df[0] // moving[0], moving[0])
+    for counts in _axis_counts(plan, size):
+        assert (counts == 1).all()
+    j, lane = _forward_threads(plan, 36)
+    pairs = set(zip(j.tolist(), lane.tolist()))
+    assert pairs == {(a, b) for a in range(plan["tx"]) for b in range(9)} and len(pairs) == len(j)
+    grid = _grid(plan, moving[0])
+    rows = [_block_rows(plan, bz, moving[0], df[0])[1] for bz in range(grid[2])]
+    assert sorted(r for rs in rows for r in rs) == list(range(df[0]))
+
+
+CHANNEL_CASES = [((1, 6, 7, 9), (1, 6, 7, 9), 36, True), ((2, 5, 6, 11), (4, 5, 6, 11), 5, True),
+                 ((1, 4, 5, 13), (3, 4, 5, 13), 36, False), ((1, 3, 4, 5), (2, 3, 4, 5), 132, True),
+                 ((2, 7, 9), (4, 7, 9), 36, True), ((1, 5, 6, 11), (2, 5, 6, 11), 8, True)]
+
+
+@pytest.mark.parametrize("blocks", [gather.TARGET_BLOCKS, 1])
+@pytest.mark.parametrize("moving,df,c,is_aligned", CHANNEL_CASES)
+def test_channel_walk_writes_every_channel_once(monkeypatch, moving, df, c, is_aligned,
+                                                blocks):
+    """Ragged sizes, C = 5 (single channels), C = 36 on a misaligned base
+    (single channels), C = 132 (quads past a warp's 32 lanes), a 2D
+    field, df rows read as r % B: block by block, the forward's threads
+    write every (row, voxel, channel) exactly once, at the launch's own
+    plan and (`blocks` 1) with tiles of several lines and one group of
+    all df rows."""
+    monkeypatch.setattr(gather, "TARGET_BLOCKS", blocks)
+    b, b_df = moving[0], df[0]
+    plan = gather.warp_plan(df[1:], b_df, b, c=c, is_aligned=is_aligned)
+    assert plan["ch"] == (4 if c % 4 == 0 and is_aligned else 1)
+    size = gather.axes(df[1:])
+    assert _admissible_channels(plan, size, c, b_df // b, b)
+    assert (_channel_walk(plan, size, c, b, b_df) == 1).all()
+
+
+@pytest.mark.parametrize("moving,df,c,is_aligned", CHANNEL_CASES[:3])
+def test_channel_walk_is_the_axes_product(moving, df, c, is_aligned):
+    """The block-by-block walk of one row is the product of the per-axis
+    decode and the lanes' chunks, so the axis checks at the paths' full
+    sizes stand for the walk."""
+    plan = gather.warp_plan(df[1:], 1, 1, c=c, is_aligned=is_aligned)
+    size = gather.axes(df[1:])
+    walk = _channel_walk(plan, size, c, 1, 1)[0]
+    zc, yc, xc = _axis_counts(plan, size)
+    assert (walk == (zc[:, None, None] * yc[None, :, None] * xc[None, None, :])[..., None]).all()
+
+
+@pytest.mark.parametrize("c", [36, 8, 5, 132])
+@pytest.mark.parametrize("base", [0, 4, 8, 12])
+def test_16_byte_chunks_only_where_aligned(c, base):
+    """A channel plan takes 16-byte chunks (ch = 4) only where C is a
+    multiple of 4 and the base is 16-byte aligned (the wrappers'
+    `gather.aligned`; the df-cotangent's launch makes the same test of the
+    map and the cotangent); then every chunk of every voxel starts on a
+    16-byte boundary (element (v, q) at byte base + 4 (v C + 4 q)).
+    Elsewhere it takes single channels; C <= 4 and channels-first
+    launches keep the voxel bodies (ch = 0)."""
+    plan = gather.warp_plan((6, 7, 9), 1, 1, c=c, is_aligned=base % 16 == 0)
+    assert plan["ch"] == (4 if c % 4 == 0 and base % 16 == 0 else 1)
+    if plan["ch"] == 4:
+        v, q = np.meshgrid(np.arange(6 * 7 * 9), np.arange(c // 4), indexing="ij")
+        assert ((base + 4 * (v * c + 4 * q)) % 16 == 0).all()
+    for small in (1, 3, 4):
+        assert gather.warp_plan((6, 7, 9), 1, 1, c=small)["ch"] == 0
+    assert gather.warp_plan((6, 7, 9), 1, 1, cf=True, c=c)["ch"] == 0
+
+
+def test_aligned_reads_the_data_pointers():
+    """`gather.aligned`: every tensor's data on a 16-byte boundary; a
+    contiguous view one float in is not."""
+    import torch
+
+    t = torch.zeros(64)
+    assert gather.aligned(t) and not gather.aligned(t, t[1:]) and gather.aligned(t[4:])

@@ -69,6 +69,20 @@ def test_warp_plain_matches_halo_kernel_within_halo():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
+def test_warp_plain_matches_halo_kernel_at_36_channels():
+    """The one-hot segmentation maps' width (C = 36, the OASIS path's), 2
+    df rows reading one map, within the halo."""
+    from pulpo_tpu.kernels.warp_halo import _warp_halo_pallas, halo_bound_ok
+
+    labels = np.random.default_rng(9).integers(0, 36, (1, 8, 8, 8))
+    m = np.eye(36, dtype=np.float32)[labels]
+    d = _field((2, 8, 8, 8, 3), 1.5, 10)
+    assert bool(halo_bound_ok(jnp.asarray(d), 2))
+    ref = _warp_halo_pallas(jnp.asarray(m), jnp.asarray(d), 2, interpret=True)
+    got = warp.warp(torch.from_numpy(m), torch.from_numpy(d))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
 def test_warp_plain_matches_cascade_beyond_halo():
     """Displacements past every halo tier: the cascade's repair and
     gather branches, and ops/warp.warp_image, agree with the plain warp."""

@@ -79,6 +79,22 @@ def test_warp_dfgrad_plain_matches_pallas_within_halo():
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+def test_warp_dfgrad_plain_matches_pallas_at_36_channels():
+    """The one-hot segmentation maps' width (C = 36, the OASIS path's), 2
+    df rows reading one map, within the halo."""
+    from pulpo_tpu.kernels.warp_halo import _warp_halo_dfgrad_pallas, halo_bound_ok
+
+    rng = np.random.default_rng(11)
+    m = np.eye(36, dtype=np.float32)[rng.integers(0, 36, (1, 8, 8, 8))]
+    d = _field((2, 8, 8, 8, 3), 1.5, 12)
+    g = rng.standard_normal((2, 8, 8, 8, 36)).astype(np.float32)
+    assert bool(halo_bound_ok(jnp.asarray(d), 2))
+    ref = _warp_halo_dfgrad_pallas(jnp.asarray(m), jnp.asarray(d), jnp.asarray(g), 2,
+                                   interpret=True)
+    got = warp.warp_dfgrad(*(torch.from_numpy(a) for a in (m, d, g)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
 def test_warp_mgrad_plain_matches_pallas_within_halo():
     from pulpo_tpu.kernels.warp_halo import _warp_halo_mgrad_pallas, halo_bound_ok
 
