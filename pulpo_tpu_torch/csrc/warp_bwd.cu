@@ -20,22 +20,19 @@
 // them), as the forward does, and writes its own 3 values; df and g are read,
 // and gdf written, evict-first; the block walks its group's df rows, loading
 // the next row's df while it gathers the current one. C = 1, the training
-// step's image, is its own instantiation. Other C (the 36-channel one-hot
-// segmentation maps of the OASIS step) take the channels in chunks of 4, one
-// 16-byte access, where C % 4 == 0 and the map and cotangent are 16-byte
-// aligned, else of 1: each chunk of g is loaded once and taken against the
-// matching chunk of each of the 8 corners, 8 partial dot products in
-// registers; at C = 36 the 9 chunks of g stay in registers and a corner's 9
-// chunks are loaded together, a whole slab in flight a thread (a loop over
-// the chunks, with 9 loads in flight, measured slower). The first C > 1 body
-// reloaded all C channels of g for each corner with 4-byte loads at a 4C-byte
-// lane stride (288 loads of the same 144 bytes a voxel at C = 36) and ran at
-// 0.04 of the byte bound, 7.8x the time of grid_sample's VJP; 9-lane groups
-// across the channels, a voxel's partial dot products summed by shuffles
-// (scripts/probe_dfgrad_lanes.cu), measured slower than this body at the
-// large shapes (PERF.md, scripts/bench_gather.py). No atomics, so the result
-// is deterministic; moving and df may have different spatial shapes (the
-// level_res cross-resolution warp).
+// step's image, is its own instantiation. C = 36 (the one-hot segmentation
+// maps of the OASIS step), where the map and cotangent are 16-byte aligned,
+// takes the channels in 16-byte quads: the 9 quads of g are loaded once and
+// stay in registers, and a corner's 9 quads are loaded together, a whole slab
+// in flight a thread (a loop over the quads, with 9 loads in flight, measured
+// slower). Any other C, or a misaligned pointer, takes a runtime loop over
+// single channels. The first C > 1 body reloaded all C channels of g for each
+// corner with 4-byte loads at a 4C-byte lane stride (288 loads of the same 144
+// bytes a voxel at C = 36) and ran at 0.04 of the byte bound, 7.8x the time of
+// grid_sample's VJP; 9-lane groups across the channels, a voxel's partial dot
+// products summed by shuffles, measured slower than this body at the large
+// shapes (PERF.md). No atomics, so the result is deterministic; moving and df
+// may have different spatial shapes (the level_res cross-resolution warp).
 //
 // pulpo_warp_mgrad replaces _warp_halo_mgrad_pallas (and its cascade):
 // the moving-cotangent, the transpose of the gather. One thread per
@@ -134,32 +131,28 @@ __device__ __forceinline__ float axis_weight(const Axis& a, int hi) {
   return hi ? a.w : 1.0f - a.w;
 }
 
-// CH channels from p: evict-first (EF, the cotangent g, read once) or
-// through the read-only path (the moving corners, read again by the
-// neighbours); 16-byte aligned where CH = 4.
-template <int CH, bool EF>
-__device__ __forceinline__ void load_chunk(const float* p, float (&q)[CH]) {
-  if constexpr (CH == 4) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    const float4 t = EF ? __ldcs(p4) : __ldg(p4);
-    q[0] = t.x;
-    q[1] = t.y;
-    q[2] = t.z;
-    q[3] = t.w;
-  } else {
-    q[0] = EF ? __ldcs(p) : __ldg(p);
-  }
+// 4 channels from a 16-byte aligned p: evict-first (EF, the cotangent g,
+// read once) or through the read-only path (the moving corners, read again
+// by the neighbours).
+template <bool EF>
+__device__ __forceinline__ void load_quad(const float* p, float (&q)[4]) {
+  const float4* p4 = reinterpret_cast<const float4*>(p);
+  const float4 t = EF ? __ldcs(p4) : __ldg(p4);
+  q[0] = t.x;
+  q[1] = t.y;
+  q[2] = t.z;
+  q[3] = t.w;
 }
 
 // One voxel of row r: the 8 corners of moving row `m` (offsets inside
-// the row, 32-bit), C channels of g at `gv`, 3 values to `o`. CT = 1:
-// one channel. CT = 36 (the one-hot segmentation maps): g held in
-// registers as 36 / CH chunks of CH channels (16-byte quads where
-// CH = 4), each corner's chunks loaded together, so a thread has a
-// corner's whole slab in flight. CT = 0: the runtime C, chunk by chunk,
-// each chunk of g taken against the matching chunk of each corner. Each
-// corner's dot product adds its channels in order in every body.
-template <int CT, int CH>
+// the row, 32-bit), C channels of g at `gv`, 3 values to `o`. CT = 36
+// (the one-hot segmentation maps, 16-byte aligned): g held in registers
+// as 9 quads, each corner's quads loaded together, so a thread has a
+// corner's whole slab in flight. Else (C = CT = 1, or CT = 0 and the
+// runtime C) a loop over the channels, each channel of g taken against
+// the same channel of each corner. Each corner's dot product adds its
+// channels in order in every body.
+template <int CT>
 __device__ __forceinline__ void dfgrad_voxel(const float* __restrict__ m,
                                              const float* __restrict__ gv, float* o,
                                              const Axis (&ax)[3], int C, int I1, int I2,
@@ -173,36 +166,26 @@ __device__ __forceinline__ void dfgrad_voxel(const float* __restrict__ m,
     off[corner] = ((z * I1 + y) * I2 + x) * C;
   }
   float gm[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if constexpr (CT == 1) {
-    const float g1 = __ldcs(gv);
+  if constexpr (CT == 36) {
+    constexpr int NQ = CT / 4;
+    float gq[NQ][4];
 #pragma unroll
-    for (int corner = 0; corner < 8; ++corner) gm[corner] += g1 * __ldg(m + off[corner]);
-  } else if constexpr (CT > 1) {
-    constexpr int NQ = CT / CH;
-    float gq[NQ][CH];
-#pragma unroll
-    for (int q = 0; q < NQ; ++q) load_chunk<CH, true>(gv + q * CH, gq[q]);
+    for (int q = 0; q < NQ; ++q) load_quad<true>(gv + q * 4, gq[q]);
 #pragma unroll
     for (int corner = 0; corner < 8; ++corner) {
-      float mq[NQ][CH];
+      float mq[NQ][4];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) load_chunk<CH, false>(m + off[corner] + q * CH, mq[q]);
+      for (int q = 0; q < NQ; ++q) load_quad<false>(m + off[corner] + q * 4, mq[q]);
 #pragma unroll
       for (int q = 0; q < NQ; ++q)
 #pragma unroll
-        for (int e = 0; e < CH; ++e) gm[corner] += gq[q][e] * mq[q][e];
+        for (int e = 0; e < 4; ++e) gm[corner] += gq[q][e] * mq[q][e];
     }
   } else {
-    for (int q = 0; q < C / CH; ++q) {
-      float gq[CH], mq[8][CH];
-      load_chunk<CH, true>(gv + q * CH, gq);
+    for (int ch = 0; ch < C; ++ch) {
+      const float g1 = __ldcs(gv + ch);
 #pragma unroll
-      for (int corner = 0; corner < 8; ++corner)
-        load_chunk<CH, false>(m + off[corner] + q * CH, mq[corner]);
-#pragma unroll
-      for (int corner = 0; corner < 8; ++corner)
-#pragma unroll
-        for (int e = 0; e < CH; ++e) gm[corner] += gq[e] * mq[corner][e];
+      for (int corner = 0; corner < 8; ++corner) gm[corner] += g1 * __ldg(m + off[corner] + ch);
     }
   }
   float gw[3] = {0.0f, 0.0f, 0.0f};
@@ -223,8 +206,9 @@ __device__ __forceinline__ void dfgrad_voxel(const float* __restrict__ m,
   for (int a = 0; a < 3; ++a) __stcs(o + a, gw[a] * (ax[a].dclip * f[a]));
 }
 
-// CT: C at compile time (1 or 36), or 0 for the runtime `C`; chunks of CH.
-template <int CT, int CH>
+// CT: C at compile time (1, or 36 with 16-byte aligned map and cotangent),
+// or 0 for the runtime `C`.
+template <int CT>
 __global__ void __launch_bounds__(gather::THREADS)
 dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
               const float* __restrict__ g, float* __restrict__ out, int B,
@@ -261,8 +245,8 @@ dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
 #pragma unroll
       for (int a = 0; a < 3; ++a) d[a] = __ldcs(dn + a);
     }
-    dfgrad_voxel<CT, CH>(m, g + r * C * n_out + (long long)v * C, out + r * 3 * n_out + v * 3, ax,
-                     C, I1, I2, f);
+    dfgrad_voxel<CT>(m, g + r * C * n_out + (long long)v * C, out + r * 3 * n_out + v * 3, ax,
+                  C, I1, I2, f);
   }
 }
 
@@ -311,21 +295,19 @@ extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);
   const cudaStream_t s = (cudaStream_t)stream;
-  // the body: one channel; 16-byte chunks where C % 4 == 0 and the map
-  // and cotangent are 16-byte aligned, else single channels; 36 channels
-  // (the segmentation maps) with their chunks unrolled
-  const bool quads = C % 4 == 0 && gather::aligned16(mov) && gather::aligned16(g);
+  // the body: one channel; 36 channels in 16-byte quads where the map and
+  // cotangent are 16-byte aligned; else a loop over single channels
   auto launch = [&](auto kernel) {
     kernel<<<grid, block, 0, s>>>((const float*)mov, (const float*)df, (const float*)g,
                                   (float*)out, B, B_df / B, C, I0, I1, I2, O0, O1, O2, f0, f1,
                                   f2, p);
   };
   if (C == 1)
-    launch(dfgrad_kernel<1, 1>);
-  else if (C == 36)
-    launch(quads ? dfgrad_kernel<36, 4> : dfgrad_kernel<36, 1>);
+    launch(dfgrad_kernel<1>);
+  else if (C == 36 && gather::aligned16(mov) && gather::aligned16(g))
+    launch(dfgrad_kernel<36>);
   else
-    launch(quads ? dfgrad_kernel<0, 4> : dfgrad_kernel<0, 1>);
+    launch(dfgrad_kernel<0>);
   return (int)cudaGetLastError();
 }
 

@@ -16,15 +16,14 @@ its own voxel; or, in a large channels-first warp, 4, moved as 16-byte
 quads through a tile in shared memory) and `ch` (0 but in a channel
 body). Axes are (z, y, x) with x the innermost; a 2D field has z = 1.
 
-A channels-last warp (and its df-cotangent) of CHANNELS_FROM channels or
-more takes a channel body (`channel_plan`): its threads run across
-channels, `lanes(c, ch)` threads a voxel, each moving chunks of `ch`
-channels: 4 (16-byte quads) where the channels are a multiple of 4 and
-the pointers the kernel moves quads of are 16-byte aligned (`aligned`),
-else 1. There `tx` is the voxels of a line a block takes (the forward's
-block: tx * lanes threads; the df-cotangent's: whole warps of
-32 // lanes voxels each) and `ty, tz` the lines and planes it walks in
-turn.
+A channels-last warp of CHANNELS_FROM channels or more takes a channel
+body (`channel_plan`): its threads run across channels, `lanes(c, ch)`
+threads a voxel, each moving chunks of `ch` channels: 4 (16-byte quads)
+where the channels are a multiple of 4 and the pointers the kernel moves
+quads of are 16-byte aligned (`aligned`), else 1. There `tx` is the
+voxels of a line a block takes (tx * lanes threads) and `ty, tz` the
+lines and planes it walks in turn. The df-cotangent takes the voxel
+plan at every C.
 
 The squaring backward's plan (`squaring_bwd_plan`) is the same 10 ints
 read another way: a block of tx x ty threads, one source column each,
@@ -127,19 +126,18 @@ def axes(spatial) -> tuple[int, int, int]:
 
 
 def warp_plan(out_spatial, b_df: int, movings: int, cf: bool = False,
-              v: int | None = None, c: int = 1, is_aligned: bool = True,
-              ch: int | None = None) -> dict:
-    """The plan of `pulpo_warp{,_cf,_2d}` (and of `pulpo_warp_dfgrad`)
-    for a df of `b_df` rows over `out_spatial`, reading `movings` moving
-    rows of `c` channels (channels-first with `cf`). `ch`, unless given:
-    a channel body on a channels-last launch of CHANNELS_FROM channels or
-    more, of 16-byte quads where `c` is a multiple of 4 and the launch's
-    pointers are aligned (`is_aligned`), else of single channels; else 0,
-    a voxel body of `v` voxels a thread: 4 on a channels-first launch of
-    at least WARP_CF_QUADS_FROM voxels, else 1, unless given."""
+              v: int | None = None, c: int = 1, is_aligned: bool = True) -> dict:
+    """The plan of `pulpo_warp{,_cf,_2d}` (and, at the default `c`, of
+    `pulpo_warp_dfgrad`) for a df of `b_df` rows over `out_spatial`,
+    reading `movings` moving rows of `c` channels (channels-first with
+    `cf`): a channel body on a channels-last launch of CHANNELS_FROM
+    channels or more, of 16-byte quads where `c` is a multiple of 4 and
+    the launch's pointers are aligned (`is_aligned`), else of single
+    channels; else a voxel body of `v` voxels a thread: 4 on a
+    channels-first launch of at least WARP_CF_QUADS_FROM voxels, else 1,
+    unless given."""
     z, y, x = axes(out_spatial)
-    if ch is None:
-        ch = 0 if cf or c < CHANNELS_FROM else (4 if c % 4 == 0 and is_aligned else 1)
+    ch = 0 if cf or c < CHANNELS_FROM else (4 if c % 4 == 0 and is_aligned else 1)
     if ch:
         return channel_plan(x, y, z, b_df // movings, movings, c, ch)
     if v is None:

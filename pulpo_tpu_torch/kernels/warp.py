@@ -301,8 +301,8 @@ def dfgrad_plan(moving_shape, df_shape) -> dict:
     any C. The launch takes its body from C and the pointers: one
     channel, 16-byte chunks of the channels where C % 4 == 0 and the map
     and cotangent are 16-byte aligned, else single channels."""
-    b, c, _, s_out = _shapes(moving_shape, df_shape, False)
-    return gather.warp_plan(s_out, df_shape[0], b, c=c, ch=0)
+    b, _, _, s_out = _shapes(moving_shape, df_shape, False)
+    return gather.warp_plan(s_out, df_shape[0], b)
 
 
 def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False,

@@ -34,11 +34,9 @@ points of:
   warp's plan; at C = 36 the channel bodies instead (`quads`, 16-byte
   chunks, the one the wrappers take; `scalar`, one channel a thread, the
   body of a misaligned or C % 4 != 0 launch); for the df-cotangent
-  `new` (one voxel a thread, 16-byte chunks of its channels), `scalar`
-  (the same call on copies of the map and cotangent 4 bytes past a
-  16-byte boundary: single channels) and `lanes`
-  (scripts/probe_dfgrad_lanes.cu: 9-lane groups across the channels,
-  shuffles, on the forward's channel plan);
+  `new` (one voxel a thread, 16-byte chunks of its channels) and
+  `scalar` (the same call on copies of the map and cotangent 4 bytes
+  past a 16-byte boundary: single channels);
 - `parent`: with --parent, the same sources of the checkout at DIR,
   built with the same flags; an entry point of it that takes a plan
   (its source says so) gets the plan `new` takes, one that takes none
@@ -143,14 +141,11 @@ PARENT_WARP_PROBES = {
 
 
 def build_probes(root: str | None) -> dict:
-    """The probe libraries by name: `dfgrad_lanes` (this checkout's
-    scripts/probe_dfgrad_lanes.cu) and, with a parent checkout at `root`,
-    the probe copies of its warp.cu."""
+    """The probe copies of the warp.cu of the parent checkout at `root`,
+    by name (none without one)."""
     from pulpo_tpu_torch.kernels import _build
 
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = {"dfgrad_lanes": build_lib(os.path.join(here, "scripts", "probe_dfgrad_lanes.cu"),
-                                     "probe_dfgrad_lanes", "warp_bwd", include=_build.CSRC)}
+    out = {}
     if root is None:
         return out
     csrc = os.path.join(root, "pulpo_tpu_torch", "csrc")
@@ -256,8 +251,12 @@ def warp_call(lib, mov, df, out, cf, v=None, ch=0):
     nd = len(s_in)
     entry = "pulpo_warp_cf" if cf else ("pulpo_warp_2d" if nd == 2 else "pulpo_warp")
     fn = getattr(lib, entry)
-    plan = [] if v is None else [gather.plan_arg(gather.warp_plan(s_out, df.shape[0], b, cf, v,
-                                                                    c=c, ch=ch))]
+    plan = []
+    if v is not None:
+        z, y, x = gather.axes(s_out)
+        rows = df.shape[0] // b
+        plan = [gather.plan_arg(gather.channel_plan(x, y, z, rows, b, c, ch) if ch
+                                else gather.make_plan(x, y, z, rows, b, v))]
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * (3 + 2 * nd)
                    + [ctypes.c_float] * nd + [ctypes.c_void_p] * (len(plan) + 1))
     f = [warp._factor(s_in[i], s_out[i]) for i in range(nd)]
@@ -569,7 +568,7 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
     channels = case.get("channels", False)  # the C = 36 df-cotangent
     sides = ["new"] + (["half", "twice"] if case["variants"] else [])
     if channels:
-        sides += ["scalar", "lanes"]
+        sides.append("scalar")
     if "parent" in libs:
         sides.append("parent")
     if kind == "box":
@@ -606,17 +605,13 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
         plain = lambda: conv_narrow.conv_narrow_plain(x, w)
     elif kind == "dfgrad":
         m, df, g = tensors
-        b, c, _, s_out = warp._shapes(m.shape, df.shape, False)
-        plans = {"new": warp.dfgrad_plan(m.shape, df.shape),
-                 "lanes": gather.warp_plan(s_out, df.shape[0], b, c=c)}
+        plans = {"new": warp.dfgrad_plan(m.shape, df.shape)}
         plans["scalar"] = plans["new"]
         plans["parent"] = plans["new"] if "pulpo_warp_dfgrad" in PARENT_PLANS else False
         mk = lambda: torch.empty_like(df)
-        lib_of = {"parent": lambda: libs["parent"]["warp_bwd"],
-                  "lanes": lambda: libs["probes"]["dfgrad_lanes"]}
         # the single-channel body: the same values 4 bytes past a 16-byte boundary
         args = {"scalar": (misaligned(m), df, misaligned(g))} if channels else {}
-        call = lambda k, o: dfgrad_call(lib_of.get(k, lambda: libs["new"]["warp_bwd"])(),
+        call = lambda k, o: dfgrad_call(libs["parent" if k == "parent" else "new"]["warp_bwd"],
                                         *args.get(k, (m, df, g)), o, plans[k])
         plain = lambda: warp.warp_dfgrad_plain(m, df, g)
     else:
@@ -644,7 +639,7 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
     tol = {"box": 0.0, "dfgrad": 1e-5 * scale if channels else 0.0, "bwd": 1e-5 * scale,
            "conv": 2.0 ** (math.floor(math.log2(scale)) - 7)}[kind]
     same = {k: err[k] <= tol for k in sides}
-    order = [k for k in ("parent", "new", "half", "twice", "scalar", "lanes") if k in sides]
+    order = [k for k in ("parent", "new", "half", "twice", "scalar") if k in sides]
     order += order[::-1]
     times = {}
     for k in order:

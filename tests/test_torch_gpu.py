@@ -443,35 +443,37 @@ def _cpu_draws(monkeypatch):
                         plain(seed, samples, level, shape, "cpu").to(device))
 
 
-# The largest relative difference between two runs of the Trainer test's
-# two steps on the card, under cuDNN's deterministic algorithms: 1.037e-3
-# (2/val/regularization_loss; 30 runs in one process, and 1.034e-3 over 36
-# runs in 12 processes; scripts/probe_trainer_spread.py on an NVIDIA H100
-# 80GB HBM3 at 700 W). The squaring step's backward adds its scatter with
-# float32 atomics in an order that changes from run to run; with it
-# replaced by its plain version the 30 runs were bit-identical.
+# The Trainer test's two steps on an NVIDIA H100 80GB HBM3 at 700 W
+# (scripts/probe_trainer_spread.py: 72 runs under cuDNN's deterministic
+# algorithms, in 14 processes over 3 machines). CARD_SPREAD: the largest
+# relative difference between two runs in one process (30 runs;
+# 2/val/regularization_loss; 1.35e-3 between any two of the 72), from the
+# squaring step's backward, which adds its scatter with float32 atomics in
+# an order that changes from run to run. CPU_GAP: with that backward
+# replaced by its plain version too, the runs were bit-identical and at
+# most 3.77e-4 from the CPU (step 2; 3.3e-4 at step 1).
 CARD_SPREAD = 1.037e-3
+CPU_GAP = 3.8e-4
 
 
 def test_trainer_on_the_card_matches_the_cpu(cuda_device, monkeypatch, tmp_path):
     """Two Trainer steps (validation, checkpoints and logging after each)
     on the card and on the CPU from the same seed: every logged loss of
-    step 1 within 1e-3 relative, of step 2 within 1e-3 plus the card's
-    own run-to-run spread (CARD_SPREAD).
+    step 1 within 1e-3 relative, of step 2 within the deterministic
+    card's gap to the CPU plus the card's own run-to-run spread
+    (CPU_GAP + CARD_SPREAD, 1.417e-3).
 
     The card's runs differ from one another from the first update on: the
     squaring step's backward (csrc/squaring_bwd.cu) sums with float32
     atomics, and cuDNN's default backward algorithms are not
-    deterministic either. Measured (scripts/probe_trainer_spread.py, 30
-    runs in one process and 36 in 12 processes): with cuDNN's defaults two
-    card runs differed by up to 1.40e-3 and runs came up to 1.48e-3 from
-    the CPU (the test failed 1 run in 6); with
-    `torch.backends.cudnn.deterministic`, set here, up to 1.04e-3 apart
-    and up to 1.22e-3 from the CPU at step 2 (7.5e-4 at step 1); with the
-    squaring backward's plain version too, bit-identical and at most
-    3.8e-4 from the CPU. Step 2 keeps the 1e-3 that holds that
-    deterministic difference and adds the measured spread; the validation
-    regularization loss moves most."""
+    deterministic either. Measured (scripts/probe_trainer_spread.py, 72
+    runs): with cuDNN's defaults runs came up to 1.48e-3 from the CPU (the
+    test failed 1 run in 6 at rtol 1e-3); with
+    `torch.backends.cudnn.deterministic`, set here, up to 1.22e-3 from the
+    CPU at step 2 (mean 5.4e-4, standard deviation 2.7e-4) and 7.5e-4 at
+    step 1; with the squaring backward's plain version too, bit-identical
+    and at most 3.77e-4 from the CPU. The validation regularization loss
+    moves most."""
     from pulpo_tpu_torch import PULPoConfig
     from pulpo_tpu_torch.data.loader import DataLoader
     from pulpo_tpu_torch.data.synthetic import SyntheticDataset
@@ -495,7 +497,7 @@ def test_trainer_on_the_card_matches_the_cpu(cuda_device, monkeypatch, tmp_path)
     ref, got = rows["cpu"], rows[str(cuda_device)]
     assert [r["step"] for r in got] == [1, 2] and [sorted(r) for r in got] == [sorted(r) for r in ref]
     for r, g in zip(ref, got):
-        rtol = 1e-3 if r["step"] == 1 else 1e-3 + CARD_SPREAD
+        rtol = 1e-3 if r["step"] == 1 else CPU_GAP + CARD_SPREAD
         for k in r:
             np.testing.assert_allclose(g[k], r[k], rtol=rtol, atol=1e-6, err_msg=k)
 
@@ -1113,11 +1115,12 @@ def _channel_case(case, dev):
 @pytest.mark.parametrize("blocks", [None, 1])
 @pytest.mark.parametrize("case", ["c36", "c5", "misaligned", "rows10", "cross_res", "c132"])
 def test_channel_bodies_match_plain(cuda_device, monkeypatch, case, blocks):
-    """The channel bodies of #4 (kernels/gather.py:channel_plan) and #6
-    (one voxel a thread, chunks of its channels): 16-byte quads at C = 36
-    and 132 (past a warp's 32 lanes, so a lane of #4 takes several
-    chunks); single channels at C = 5 and on a moving map (and cotangent)
-    that start 4 bytes past a 16-byte boundary; 10 df rows reading one
+    """The channel bodies of #4 (kernels/gather.py:channel_plan): 16-byte
+    quads at C = 36 and 132 (past a warp's 32 lanes, so a lane takes
+    several chunks); single channels at C = 5 and on a moving map (and
+    cotangent) that start 4 bytes past a 16-byte boundary. #6 (one voxel
+    a thread) takes 16-byte quads at C = 36 and a loop over single
+    channels in the other cases. Also 10 df rows reading one
     moving row; a moving map of another size than the df; with the
     launch's own plans and (`blocks` 1) with tiles of up to 8 lines and
     one group of all df rows. The forward bit-equal to its plain version,
