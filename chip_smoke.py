@@ -169,7 +169,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `F.grid_sample`;
 9e. `Evaluate.compare_models` over phase 8's run and a second run of
    the same config with weights from seed 1, at N = 2 (reduced from 10):
-   one row a model, no NaN where a metric applies, exact launch counts.
+   one row a model, no NaN where a metric applies, exact launch counts;
+10. the native loader: phase 8's store (training and validation splits,
+   int16 labels, 36 classes) converted to volume stores
+   (`native.convert_h5_to_store`), served by the C++ loader (built with
+   g++ from `pulpo_tpu_torch/native/dataloader.cc`) through
+   `DataLoader(NativeDataset(...))` to 4 OASIS Trainer steps (B = 1, NCC
+   + Dice) without validation: the first batch equal to
+   `convert_to_onehot` of its labels bit for bit, exact launch counts
+   (#4 and #6 at C = 36 counted apart), read + one-hot seconds a batch
+   and the loader's share of the iteration beside phase 8's h5py reader;
+10b. ingest on the card: a raw B = 2 batch at BraTS's 240x240x155 from
+   seed 0 through `data/ingest.ingest(target=(144, 192, 160),
+   normalize="znorm")`, within 1e-5 of scale of the CPU result; its ms
+   (CUDA events) and peak memory;
+10c. the data-parallel step over NCCL at world size 1, the flagship at
+   full width: `make_dp_train_step` against `make_train_step` on the
+   same weights, batch and draws: losses and BatchNorm statistics equal
+   bit for bit, gradients within the plain step's own run-to-run spread
+   (#2's float32 atomics), exact launch counts, the step time beside
+   phase 5b's;
+10d. `train_cli --data_parallel 2 --dist_backend gloo` as two torchrun
+   processes on the one card (a BraTS store at 64x64x64, 3 levels, 2
+   steps, one validation): finite losses, the ranks' states equal bit
+   for bit, rank 0 alone writing the run, `latest` reloading bit for
+   bit, exact launch counts on each rank. A failed native build or NCCL
+   start fails the run; nothing falls back.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -1844,6 +1869,12 @@ class MemoryGroup(dict):
         super().__init__(children)
         self.attrs = dict(attrs or {})
 
+    def __enter__(self):  # `with h5py.File(path) as f:`
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
 
 class memory_stores:
     """Serve `stores` ({path: MemoryGroup}) to the readers as the `h5py`
@@ -2416,25 +2447,37 @@ VAL_TAGS = ("val/x", "val/y", "val/y_pred", "val/distance", "val/DF")
 
 class RecordedWarps:
     """Notes the (moving, df) shapes of each image-warp launch while open
-    (`kernels/warp._warp_kernel`, 3D and 2D), for per-path device times."""
+    (`kernels/warp._warp_kernel`, 3D and 2D), for per-path device times,
+    and of each df-cotangent launch (`warp_dfgrad`) in `dfgrad_shapes`."""
 
     def __enter__(self):
         from pulpo_tpu_torch.kernels import warp
 
-        self.shapes = []
-        self.fn = fn = warp._warp_kernel
+        self.shapes, self.dfgrad_shapes = [], []
+        self.fns = fn, dfgrad = warp._warp_kernel, warp.warp_dfgrad
 
         def recorded(moving, df):
             self.shapes.append((tuple(moving.shape), tuple(df.shape)))
             return fn(moving, df)
 
-        warp._warp_kernel = recorded
+        def recorded_dfgrad(moving, df, g):
+            self.dfgrad_shapes.append((tuple(moving.shape), tuple(df.shape)))
+            return dfgrad(moving, df, g)
+
+        warp._warp_kernel, warp.warp_dfgrad = recorded, recorded_dfgrad
         return self
 
     def __exit__(self, *exc):
         from pulpo_tpu_torch.kernels import warp
 
-        warp._warp_kernel = self.fn
+        warp._warp_kernel, warp.warp_dfgrad = self.fns
+
+    def by_channels(self) -> tuple[dict[int, int], dict[int, int]]:
+        """Launches of the 3D warp and of its df-cotangent by the moving
+        map's channel count."""
+        count = lambda shapes: {c: sum(1 for m, d in shapes if len(d) == 5 and m[-1] == c)
+                                for c in sorted({m[-1] for m, d in shapes if len(d) == 5})}
+        return count(self.shapes), count(self.dfgrad_shapes)
 
 
 def figure_launches(cfg, loaders, seg_loaders, uq_decodes, requests):
@@ -2841,6 +2884,410 @@ def run_compare_path(dev, run_dir, stores, n, out_root):
 # ----------------------------------------------------------------------
 # phase 6: times
 # ----------------------------------------------------------------------
+
+# ----------------------------------------------------------------------
+# phases 10-10d: the native loader, ingest and data parallelism
+# ----------------------------------------------------------------------
+
+INGEST_RAW = (240, 240, 155)    # BraTS's raw t1ce volume
+INGEST_TARGET = (144, 192, 160)  # the converted BraTS volume
+DP_SIZE = (64, 64, 64)          # phase 10d's BraTS store
+DP_SPLITS = (40, 2, 2)          # 20 global batches of 2: one validation in 2 steps
+DP_STEPS = 2
+DP_WORLD = 2
+DP_TIMED_STEPS = 3              # phase 10c, after a warm-up step
+
+
+def run_native_path(dev, cfg_kw, steps, stores, oasis, run_root):
+    """Phase 10: phase 8's OASIS store (its training and validation
+    splits) converted to volume stores (`native.convert_h5_to_store`,
+    which writes them with `write_volume_store`) and served by the C++
+    loader (`native.NativeDataset`, built with g++ here) through the
+    port's `DataLoader` and `prefetch_to_device` to the OASIS Trainer
+    (B = 1, NCC + Dice, 36 one-hot classes) for `steps` steps without
+    validation, as phase 8 times its h5py reader. The first batch must
+    equal `convert_to_onehot` of the same labels bit for bit; the launch
+    counts must be exact, #4 and #6 at C = 36 counted apart."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig, native
+    from pulpo_tpu_torch.data.loader import DataLoader, _collate
+    from pulpo_tpu_torch.data.oasis import convert_to_onehot
+    from pulpo_tpu_torch.train.loop import Trainer
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1, max_epochs=steps, log_every_n_steps=1,
+                      val_check_interval=10.0)
+    key = next(iter(stores))
+    run_root.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    with memory_stores(stores):
+        paths = {split: native.convert_h5_to_store(key, split, run_root / f"{split}.bin",
+                                                   with_segs=True)
+                 for split in ("training", "validation")}
+    convert_s = time.perf_counter() - t
+    t = time.perf_counter()
+    train_ds = native.NativeDataset(paths["training"], segs=True, n_slots=2)
+    val_ds = native.NativeDataset(paths["validation"], segs=True, n_slots=2)
+    open_s = time.perf_counter() - t
+    group = stores[key]["training"]
+    n = int(group.attrs["N"])
+    if (len(train_ds), train_ds.input_size, train_ds.num_classes) != (n, cfg.input_size,
+                                                                    SEG_CLASSES):
+        raise SystemExit(f"native store: {len(train_ds)} items {train_ds.input_size} "
+                         f"{train_ds.num_classes} classes")
+    log(f"native path: {n} + {len(val_ds)} volumes converted to stores in {convert_s:.2f} s "
+        f"({paths['training'].stat().st_size} B training), opened (g++ build, slots) in "
+        f"{open_s:.2f} s")
+    K = cfg.latent_levels
+    try:
+        # the first batch of the Trainer's loader, against the host one-hot
+        first = next(iter(DataLoader(train_ds, 1, shuffle=True, seed=cfg.random_seed)))
+        which = {}
+        for k in ("x", "y"):
+            match = [i for i in range(n) if np.array_equal(first[k][0, ..., 0],
+                                                           group["image"][str(i)])]
+            if len(match) != 1:
+                raise SystemExit(f"native path: the first batch's {k} is no store volume")
+            which[k] = match[0]
+        for k, i in (("seg_x", which["x"]), ("seg_y", which["y"])):
+            ref = convert_to_onehot(np.asarray(group["seg"][str(i)]), SEG_CLASSES)
+            if first[k].dtype != ref.dtype or not np.array_equal(first[k][0], ref):
+                raise SystemExit(f"native path: the first batch's {k} differs from "
+                                 "convert_to_onehot of the same labels")
+        del first
+        log(f"native path: the first batch (volumes {which['x']} and {which['y']}) equals the "
+            "store's volumes and convert_to_onehot of their labels bit for bit")
+
+        # the loader alone: read and one-hot a batch; then its parts: a
+        # pair from the C++ loader (its fill and one-hot, then the copy
+        # out of the slot), that copy alone, and the collate
+        t = time.perf_counter()
+        host = list(DataLoader(train_ds, 1, shuffle=True, seed=cfg.random_seed))
+        read_s = (time.perf_counter() - t) / len(host)
+        del host
+        rng = np.random.default_rng(0)
+        t = time.perf_counter()
+        items = [train_ds.get_pair(i, rng) for i in range(n)]
+        pair_s = (time.perf_counter() - t) / n
+        t = time.perf_counter()
+        for item in items:
+            [v.copy() for v in item.values() if v is not None]
+        copy_s = (time.perf_counter() - t) / n
+        t = time.perf_counter()
+        for item in items:
+            _collate([item])
+        collate_s = (time.perf_counter() - t) / n
+        del items
+
+        trainer = Trainer(cfg, run_dir=run_root, experiment="oasis-native", device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with RecordedWarps() as rec:
+            state = trainer.fit(DataLoader(train_ds, 1, shuffle=True, seed=cfg.random_seed),
+                                DataLoader(val_ds, 1, seed=cfg.random_seed + 1),
+                                max_steps=steps)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t
+        counts = read_counts()
+        trainer.close()
+    finally:
+        train_ds.close()
+        val_ds.close()
+    times = trainer.times["step"]
+    if len(times) != steps or state.nan_flag:
+        raise SystemExit(f"native path: {len(times)} steps, nan_flag {state.nan_flag}")
+    rows = read_metrics(trainer.run_dir)
+    for row in rows:
+        if not all(math.isfinite(row[f"train/{k}"]) for k in ("kl_loss", "reconstruction_loss",
+                                                             "regularization_loss",
+                                                             "total_loss")):
+            raise SystemExit(f"native path: step {row['step']} losses {row}")
+    if [r["step"] for r in rows] != list(range(1, steps + 1)):
+        raise SystemExit(f"native path: logged steps {[r['step'] for r in rows]}")
+    expect(counts, step_launches(cfg, steps, dice=True), f"native path ({steps} steps)")
+    by_c = rec.by_channels()
+    c36 = {"warp": by_c[0].get(SEG_CLASSES, 0), "warp_dfgrad": by_c[1].get(SEG_CLASSES, 0)}
+    if c36 != {"warp": K * steps, "warp_dfgrad": K * steps} or \
+            sum(by_c[0].values()) != counts["warp"]:
+        raise SystemExit(f"native path: C = {SEG_CLASSES} launches {c36}, by channels {by_c}")
+    iteration = fit_s / steps
+    step_s = statistics.median(times[1:])
+    share = (iteration - step_s) / iteration
+    h5_share = (oasis["iteration_s"] - oasis["step_s"]) / oasis["iteration_s"]
+    log(f"native path: launches at C = {SEG_CLASSES}: #4 {c36['warp']}, #6 "
+        f"{c36['warp_dfgrad']} (by channel count: #4 {by_c[0]}, #6 {by_c[1]})")
+    log(f"native path: steps {' '.join(f'{x:.3f}' for x in times)} s, losses "
+        f"{' '.join(str(r['train/total_loss']) for r in rows)}")
+    log(f"native loader: read and one-hot {read_s:.3f} s a batch (phase 8's h5py reader "
+        f"{oasis['read_s']:.3f} s): a pair from the C++ loader {pair_s:.3f} s (of which the "
+        f"copy out of its slot, timed alone, {copy_s:.3f} s), the collate {collate_s:.3f} s; "
+        f"Trainer iteration (no validation) {iteration:.3f} s "
+        f"(step {step_s:.3f} s), phase 8's {oasis['iteration_s']:.3f} s (step "
+        f"{oasis['step_s']:.3f} s); the loader's share of the iteration {share:.3f}, phase "
+        f"8's h5py reader {h5_share:.3f}")
+    return counts, {"read_s": read_s, "iteration_s": iteration, "step_s": step_s,
+                    "share": share, "h5_share": h5_share, "c36": c36, "convert_s": convert_s,
+                    "pair_s": pair_s, "copy_s": copy_s, "collate_s": collate_s}
+
+
+def run_ingest_path(dev):
+    """Phase 10b: `data/ingest.ingest` on the card (target 144x192x160,
+    normalize "znorm") of a raw B = 2 batch at BraTS's raw 240x240x155
+    made from seed 0, against the port's CPU result within 1e-5 of
+    scale; its time (CUDA events) and peak memory. It launches no kernel
+    of the port (resize GEMMs and reductions)."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch.data.ingest import ingest
+
+    raw = np.random.default_rng(0).gamma(2.0, 300.0, (2, *INGEST_RAW, 1)).astype(np.float32)
+    t = time.perf_counter()
+    ref = ingest(raw, target=INGEST_TARGET, normalize="znorm", device="cpu")
+    cpu_s = time.perf_counter() - t
+    x = torch.from_numpy(raw).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    got = ingest(x, target=INGEST_TARGET, normalize="znorm")
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    expect(read_counts(), {}, "ingest")
+    if tuple(got.shape) != (2, *INGEST_TARGET, 1) or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"ingest: shape {tuple(got.shape)} or not finite")
+    err = float((got.cpu() - ref).abs().max()) / float(ref.abs().max())
+    if not err <= 1e-5:
+        raise SystemExit(f"ingest: card vs CPU {err:.3e} of scale")
+    ms = time_ms(lambda: ingest(x, target=INGEST_TARGET, normalize="znorm"), 1)
+    bytes_moved = raw.nbytes + got.numel() * 4
+    log(f"ingest: (2, {INGEST_RAW}) -> {tuple(got.shape)} znorm on the card {ms:.3f} ms (CUDA "
+        f"events), {bytes_moved / (ms * 1e-3) / 1e9:.1f} GB/s of input and output, peak "
+        f"{peak:.3f} GiB above the input; the CPU {cpu_s:.2f} s; card vs CPU {err:.2e} of "
+        "scale (tolerance 1e-5)")
+    return {"ms": ms, "peak_gib": peak, "err": err, "cpu_s": cpu_s}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_dp_world1(dev, cfg_kw, steps, plain_step_s):
+    """Phase 10c: `make_dp_train_step` over NCCL at world size 1 against
+    `make_train_step`, the flagship config at full width (B = 1), the
+    same weights, batch and draws (`noise=`). With cuDNN deterministic,
+    the DP gradients (`dp_compute_grads`) against the plain step's twice
+    (its own run-to-run spread: #2's float32 atomics): the loss and the
+    BatchNorm statistics must be equal bit for bit, the gradients no
+    further from the plain step's than its second run is (twice that, or
+    1e-5 relative L2). Then 1 + `steps` steps of each from the same
+    state, timed, with exact launch counts of the DP steps."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.parallel import multihost
+    from pulpo_tpu_torch.parallel.dp import make_dp_train_step, replicate_state
+    from pulpo_tpu_torch.parallel.mesh import make_mesh
+    from pulpo_tpu_torch.train import create_train_state, make_train_step
+    from pulpo_tpu_torch.train.step import compute_grads, dp_compute_grads
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1)
+    t = time.perf_counter()
+    multihost.initialize(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    init_s = time.perf_counter() - t
+    try:
+        backend = torch.distributed.get_backend()
+        if dev.type == "cuda" and backend != "nccl":
+            raise SystemExit(f"dp world 1: backend {backend}, not nccl")
+        mesh = make_mesh(1)
+        pair = SyntheticDataset(shape=cfg.input_size, n=2, seed=1).get_pair(
+            0, np.random.default_rng(1))
+        batch = {k: torch.as_tensor(pair[k][None]).to(dev) for k in ("x", "y")}
+        g = np.random.default_rng(7)
+        noise = {l: torch.from_numpy(g.standard_normal((1, *cfg.level_sizes[l], cfg.zdim),
+                                                       dtype=np.float32))
+                 for l in range(cfg.latent_levels)}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            model = PULPoModel(cfg, device=dev)
+            model.init(0)
+            plain = [compute_grads(model, batch, noise=noise) for _ in range(2)]
+            dp = dp_compute_grads(model, batch, mesh, noise=noise)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        (ref_g, ref_s, ref_m), (again_g, _, _), (dp_g, dp_s, dp_m) = plain[0], plain[1], dp
+        spread = grad_spread(again_g, ref_g)[0]
+        rel, worst, leaf = grad_spread(dp_g, ref_g)
+        bit_equal = all(torch.equal(v, ref_g[n]) for n, v in dp_g.items())
+        loss_equal = all(float(dp_m[k]) == float(ref_m[k]) for k in
+                         ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss"))
+        stats_equal = all(torch.equal(v, ref_s[n]) for n, v in dp_s.items())
+        log(f"dp world 1 ({backend}, init {init_s:.2f} s): losses "
+            f"{'equal' if loss_equal else 'DIFFER'} (total {float(dp_m['total_loss'])!r} vs "
+            f"{float(ref_m['total_loss'])!r}), BatchNorm statistics "
+            f"{'equal' if stats_equal else 'DIFFER'}, gradients "
+            f"{'bit-equal' if bit_equal else 'not bit-equal'}: {rel:.3e} from the plain step's "
+            f"(relative L2; worst leaf {worst:.3e} of its scale, {leaf}), the plain step's "
+            f"second run {spread:.3e} from its first")
+        if not (loss_equal and stats_equal) or rel > max(2 * spread, 1e-5):
+            raise SystemExit("dp world 1: the DP step differs from the plain step")
+        del model, plain, dp, ref_g, again_g, dp_g
+        torch.cuda.empty_cache()
+
+        results = {}
+        for name in ("plain", "dp"):
+            model = PULPoModel(cfg, device=dev)
+            state, tx = create_train_state(model, seed=0)
+            if name == "dp":
+                replicate_state(state, mesh)
+                step = make_dp_train_step(model, tx, mesh)
+                reset_counts()
+            else:
+                step = make_train_step(model, tx)
+            times, losses = [], []
+            for i in range(1 + steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, metrics = step(state, batch, noise=noise)
+                torch.cuda.synchronize()
+                if i:
+                    times.append(time.perf_counter() - t)
+                losses.append(float(metrics["total_loss"]))
+                if not math.isfinite(losses[-1]) or state.nan_flag:
+                    raise SystemExit(f"dp world 1: {name} step {i} loss {losses[-1]}")
+            if name == "dp":
+                counts = read_counts()
+            results[name] = (statistics.median(times), losses,
+                             {n: p.detach().clone() for n, p in model.module.named_parameters()})
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        multihost.shutdown()
+    expect(counts, step_launches(cfg, 1 + steps), f"dp world 1 ({1 + steps} steps)")
+    params_rel = grad_spread(results["dp"][2], results["plain"][2])[0]
+    log(f"dp world 1 steps: DP {results['dp'][0]:.3f} s, plain {results['plain'][0]:.3f} s "
+        f"(median of {steps}; phase 5b's step {plain_step_s:.3f} s); total losses DP "
+        f"{results['dp'][1]}, plain {results['plain'][1]}; parameters after "
+        f"{1 + steps} steps {params_rel:.3e} apart (relative L2)")
+    return counts, {"dp_step_s": results["dp"][0], "plain_step_s": results["plain"][0],
+                    "bit_equal": bit_equal, "rel": rel, "spread": spread}
+
+
+def run_train_cli_dp(dev, run_root):
+    """Phase 10d: `train_cli --data_parallel 2` as two processes sharing
+    the one card (torchrun; gloo on CUDA tensors, named with
+    `--dist_backend gloo`: NCCL refuses two ranks on one device), on an
+    in-memory BraTS store at 64x64x64 (3 levels, n0 32, f32, global
+    batch 2), 2 steps and one validation. Checks: finite validation
+    losses, the two ranks' states equal bit for bit, one run directory
+    written by rank 0 alone (one metrics line a logged step), `latest`
+    equal to the ranks' states and reloading bit for bit, exact launch
+    counts on each rank."""
+    import torch
+
+    from pulpo_tpu_torch.train.checkpoint import CheckpointManager, read_checkpoint
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    out = run_root / "ranks"
+    out.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(DP_WORLD), os.path.abspath(__file__), "--dp-worker", str(out),
+           str(run_root / "runs"), "gpu" if dev.type == "cuda" else "cpu"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise SystemExit(f"train_cli dp: torchrun rc {proc.returncode}\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+    run_dir = pathlib.Path(ranks[0]["run_dir"])
+    if any(pathlib.Path(r["run_dir"]) != run_dir for r in ranks):
+        raise SystemExit(f"train_cli dp: run directories {[r['run_dir'] for r in ranks]}")
+    versions = sorted(p for p in (run_root / "runs").glob("**/version_*") if p.is_dir())
+    if versions != [run_dir]:
+        raise SystemExit(f"train_cli dp: run directories on disk {versions}")
+    writers = [r["writer"] for r in ranks]
+    if writers != ["MetricWriter"] + ["_Silent"] * (DP_WORLD - 1):
+        raise SystemExit(f"train_cli dp: writers by rank {writers}")
+    for r in ranks[1:]:
+        equal_payloads(r["payload"], ranks[0]["payload"], f"train_cli dp: rank {r['rank']} vs 0")
+    cfg = CheckpointManager.load_config(run_dir)
+    if (cfg.data_parallel, cfg.batch_size, tuple(cfg.input_size)) != (DP_WORLD, DP_WORLD,
+                                                                      DP_SIZE):
+        raise SystemExit(f"train_cli dp: config {cfg.data_parallel} {cfg.batch_size} "
+                         f"{cfg.input_size}")
+    rows = read_metrics(run_dir)
+    if [r["step"] for r in rows] != [DP_STEPS] or any(r["steps"] != DP_STEPS for r in ranks):
+        raise SystemExit(f"train_cli dp: logged steps {[r['step'] for r in rows]}")
+    val = {k: rows[0][f"val/{k}"] for k in ("kl_loss", "reconstruction_loss",
+                                            "regularization_loss", "total_loss")}
+    if not all(math.isfinite(v) for v in val.values()) or ranks[0]["payload"]["nan_flag"]:
+        raise SystemExit(f"train_cli dp: validation losses {val}")
+    equal_payloads(read_checkpoint(run_dir, "latest"), ranks[0]["payload"],
+                   "train_cli dp: latest vs the ranks' state")
+    check_reload(run_dir, None, cfg, dev, "train_cli dp")
+    per_rank = step_launches(cfg, DP_STEPS, ranks[0]["validations"] * -(-DP_SPLITS[1] // DP_WORLD))
+    for r in ranks:
+        expect(r["counts"], per_rank, f"train_cli dp rank {r['rank']}")
+    counts = add_counts(*(r["counts"] for r in ranks))
+    log(f"train_cli dp: {DP_WORLD} processes on one card (gloo), {cfg.input_size} levels "
+        f"{cfg.total_levels}/{cfg.latent_levels} n0 {cfg.n0} {cfg.compute_dtype}, global batch "
+        f"{cfg.batch_size}, {DP_STEPS} steps and {ranks[0]['validations']} validation in "
+        f"{wall:.1f} s (torchrun, start-up included); validation losses {val}; the ranks' "
+        "states equal bit for bit, rank 0 alone wrote the run, latest reloads bit for bit")
+    return counts, {"wall_s": wall}
+
+
+def dp_worker(out_dir, run_root, accelerator="gpu") -> int:
+    """One rank of phase 10d, under torchrun: `train_cli --data_parallel
+    2 --dist_backend gloo` on an in-memory BraTS store, then its state,
+    kernel launch counts and writer saved to `out_dir/rank_<r>.pt`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from pulpo_tpu_torch import train_cli
+    from pulpo_tpu_torch.train import loop
+    from pulpo_tpu_torch.train.checkpoint import state_payload
+
+    key = "memory://BraTS-dp.h5"
+    stores = {key: brats_store(DP_SIZE, DP_SPLITS, seed=91)}
+    fit, kept = loop.Trainer.fit, {}
+
+    def recorded(trainer, *args, **kw):
+        state = fit(trainer, *args, **kw)
+        kept.update(state=state, rank=trainer.rank, writer=type(trainer.writer).__name__,
+                    validations=len(trainer.times["validate"]),
+                    steps=len(trainer.times["step"]))
+        return state
+
+    loop.Trainer.fit = recorded
+    reset_counts()
+    with memory_stores(stores):
+        run_dir = train_cli.main([
+            "--data_path", key, "--max_steps", str(DP_STEPS), "--skip_eval",
+            "--run_dir", str(run_root), "--accelerator", accelerator, "--data_parallel",
+            str(DP_WORLD), "--dist_backend", "gloo", "--batch_size", str(DP_WORLD),
+            "--total_levels", "3", "--latent_levels", "2"])
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    state = kept.pop("state")
+    torch.save({"payload": state_payload(state), "counts": read_counts(),
+                "run_dir": str(run_dir), **kept},
+               pathlib.Path(out_dir) / f"rank_{kept['rank']}.pt")
+    return 0
+
 
 def time_ms(fn, iters, warmup=2):
     """ms per call: the median of TIME_REPEATS CUDA-event timings of
@@ -3541,11 +3988,26 @@ def main() -> int:
         torch.cuda.empty_cache()
         cmp_counts, cmp = run_compare_path(dev, oasis["run_dir"], stores, COMPARE_SAMPLES,
                                            oasis_root)
+        torch.cuda.empty_cache()
+        native_counts, native = run_native_path(dev, OASIS, OASIS_STEPS, stores, oasis,
+                                                oasis_root / "native")
         del stores
         torch.cuda.empty_cache()
         brats_counts, brats = run_brats_path(dev, BRATS_STEPS, oasis_root / "brats")
     finally:
         shutil.rmtree(oasis_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    reset_counts()
+    ingest = run_ingest_path(dev)
+    ingest_counts = read_counts()
+    torch.cuda.empty_cache()
+    dp_counts, dp = run_dp_world1(dev, FLAGSHIP, DP_TIMED_STEPS, train["step_s"])
+    torch.cuda.empty_cache()
+    dp_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_dp_"))
+    try:
+        cli_dp_counts, cli_dp = run_train_cli_dp(dev, dp_root)
+    finally:
+        shutil.rmtree(dp_root, ignore_errors=True)
     torch.cuda.empty_cache()
 
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
@@ -3638,7 +4100,9 @@ def main() -> int:
                    "oasis_remat": remat_counts[name], "brats_train": brats_counts[name],
                    "figures": fig_counts[name], "figures_2d": fig2d_counts[name],
                    "vxm_eval": vxm["eval_counts"][name], "vxm_train": vxm["train_counts"][name],
-                   "compare": cmp_counts[name]}
+                   "compare": cmp_counts[name], "native_oasis_train": native_counts[name],
+                   "ingest": ingest_counts[name], "dp_step": dp_counts[name],
+                   "train_cli_dp": cli_dp_counts[name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -3707,6 +4171,18 @@ def main() -> int:
         f"{vxm['pred_ms']:.3f} ms (peak {vxm['pair_peak_gib']:.2f} GiB), training step "
         f"{vxm['step_ms']:.3f} ms (peak {vxm['train_peak_gib']:.2f} GiB); compare_models "
         f"{cmp['compare_s']:.3f} s")
+    log(f"native loader (phase 10; {card}): read and one-hot {native['read_s']:.3f} s a batch, "
+        f"iteration {native['iteration_s']:.3f} s (step {native['step_s']:.3f} s), the loader's "
+        f"share {native['share']:.3f}; phase 8's h5py reader {oasis['read_s']:.3f} s a batch, "
+        f"share {native['h5_share']:.3f}; launches at C = {SEG_CLASSES}: #4 "
+        f"{native['c36']['warp']}, #6 {native['c36']['warp_dfgrad']}")
+    log(f"ingest (phase 10b; {card}): {ingest['ms']:.3f} ms on the card, peak {ingest['peak_gib']:.3f} "
+        f"GiB, {ingest['err']:.2e} of scale from the CPU")
+    log(f"dp world 1 (phase 10c; {card}): step {dp['dp_step_s']:.3f} s, plain {dp['plain_step_s']:.3f} "
+        f"s (phase 5b {train['step_s']:.3f} s); gradients "
+        f"{'bit-equal' if dp['bit_equal'] else 'not bit-equal'} ({dp['rel']:.3e} relative L2, "
+        f"the plain step's own spread {dp['spread']:.3e})")
+    log(f"train_cli dp (phase 10d; {card}): {cli_dp['wall_s']:.1f} s for 2 processes")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -3717,4 +4193,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 10d, under torchrun
+        sys.exit(dp_worker(*sys.argv[2:5]))
     sys.exit(main())

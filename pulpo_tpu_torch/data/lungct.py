@@ -9,8 +9,9 @@ groups `exhale` / `inhale` holding `image/<i>` (and optionally
 
 `h5py` is imported when a reader is opened, not when this module is
 imported, so the module loads on a machine without it. The NIfTI
-converter (`convert_lungct` of the JAX package) is not ported yet
-(ROADMAP Queue 1).
+converter `convert_lungct` (pulpo_tpu/data/lungct.py:70-116) imports
+nibabel when it is called; the NIfTI read itself is untested (no host
+of this repository has nibabel).
 """
 
 from __future__ import annotations
@@ -80,3 +81,53 @@ def split_loaders(train, val, test, batch_size, seed=0):
         DataLoader(val, batch_size, shuffle=False, seed=seed + 1),
         DataLoader(test, 1, shuffle=False, seed=seed + 2),
     )
+
+
+def convert_lungct(source_pairs, out_path, shape=(192, 192, 208),
+                   splits: dict[str, list[int]] | None = None,
+                   clip_hu: tuple[float, float] = (-1100.0, 200.0)):
+    """NIfTI inhale/exhale pairs -> LungCT.h5.
+
+    source_pairs: a list of dicts {inhale: path, exhale: path,
+    inhale_lms?: array, exhale_lms?: array, inhale_mask?: path, ...}.
+    Volumes are clipped to the lung HU window and min-max normalised.
+    Without `splits`, 70 / 15 / 15 % into training, validation and test.
+    """
+    try:
+        import nibabel as nib
+    except ImportError as e:
+        raise ImportError("nibabel required for conversion") from e
+    import h5py
+
+    n = len(source_pairs)
+    if splits is None:
+        idx = list(range(n))
+        splits = {"training": idx[: int(0.7 * n)],
+                  "validation": idx[int(0.7 * n): int(0.85 * n)],
+                  "test": idx[int(0.85 * n):]}
+
+    def load_norm(p):
+        img = np.asarray(nib.load(p).get_fdata(), np.float32)
+        img = np.clip(img, *clip_hu)
+        return (img - clip_hu[0]) / (clip_hu[1] - clip_hu[0])
+
+    with h5py.File(out_path, "w") as f:
+        f.attrs["shape"] = np.asarray(shape)
+        for split, indices in splits.items():
+            g = f.create_group(split)
+            g.attrs["N"] = len(indices)
+            for side in ("inhale", "exhale"):
+                gg = g.create_group(side)
+                gi = gg.create_group("image")
+                gl = gg.create_group("landmarks")
+                gm = gg.create_group("mask")
+                for j, i in enumerate(indices):
+                    pair = source_pairs[i]
+                    gi.create_dataset(str(j), data=load_norm(pair[side]))
+                    lms = pair.get(f"{side}_lms")
+                    if lms is not None:
+                        gl.create_dataset(str(j), data=np.asarray(lms, np.float32))
+                    mk = pair.get(f"{side}_mask")
+                    if mk is not None:
+                        gm.create_dataset(str(j), data=load_norm(mk))
+    return out_path

@@ -1,8 +1,9 @@
 """Synthetic registration data: smooth random volumes and known warps.
 
-The port's own copy of pulpo_tpu/data/synthetic.py:15-97 (numpy only),
-so that the same seed gives the same volumes in both packages. It
-supplies the inputs of `chip_smoke.py` and of the tests.
+The port's own copy of pulpo_tpu/data/synthetic.py:15-128 (numpy, and
+h5py inside `write_oasis_style_h5`), so that the same seed gives the
+same volumes in both packages. It supplies the inputs of
+`chip_smoke.py` and of the tests.
 """
 
 from __future__ import annotations
@@ -91,3 +92,39 @@ class SyntheticDataset:
             "mask_y": None,
         }
         return item
+
+
+def write_oasis_style_h5(
+    path,
+    shape=(24, 28, 32),
+    n_per_split=(4, 2, 2, 2),
+    seg_dim: int = 5,
+    num_landmarks: int = 4,
+    seed: int = 0,
+):
+    """Write a store in OASIS.h5's layout (data/oasis.py) for tests."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    splits = ("training", "validation", "test_seg", "test_lm")
+    with h5py.File(path, "w") as f:
+        f.attrs["shape"] = np.asarray(shape)
+        for split, n in zip(splits, n_per_split):
+            g = f.create_group(split)
+            g.attrs["N"] = n
+            g.attrs["seg_dim"] = seg_dim
+            gi = g.create_group("image")
+            gs = g.create_group("seg")
+            gl = g.create_group("landmarks")
+            for i in range(n):
+                img = random_smooth_volume(rng, shape)
+                gi.create_dataset(str(i), data=img)
+                gs.create_dataset(
+                    str(i), data=blobby_segmentation(img, seg_dim).astype(np.int16)
+                )
+                if split == "test_lm":
+                    lms = np.stack(
+                        [rng.integers(1, s - 1, num_landmarks) for s in shape], -1
+                    ).astype(np.float32)
+                    gl.create_dataset(str(i), data=lms)
+    return path

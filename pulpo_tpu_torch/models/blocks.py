@@ -34,6 +34,7 @@ from torch import nn
 
 from pulpo_tpu_torch.kernels import conv_chain, conv_narrow
 from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky, velocity_head
+from pulpo_tpu_torch.parallel.mesh import mean_over
 
 
 def conv_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
@@ -84,10 +85,19 @@ class BatchNorm(nn.Module):
     ``0.9 * old + 0.1 * batch`` in `pending`, which the training step
     commits (or drops, when its NaN guard fires). A recomputation of the
     forward in the backward (`replaying`, under remat) records nothing:
-    the forward recorded the update, from the same batch."""
+    the forward recorded the update, from the same batch.
+
+    Inside `synced(mesh)` (the data-parallel step) a train call averages
+    its float32 ``E[x]`` and ``E[x^2]``, as one tensor, over the mesh's
+    ranks before it forms the variance: flax's BatchNorm with an
+    `axis_name` (a `pmean` of both moments), so every rank normalises
+    with the global batch's statistics and records the same running
+    update. `nn.SyncBatchNorm` would weight by counts and update with the
+    unbiased variance."""
 
     momentum = 0.9
     _replaying = False  # process-wide: autograd may recompute on its own thread
+    _mesh = None  # process-wide, as `_replaying`: the mesh of `synced`
 
     @classmethod
     @contextlib.contextmanager
@@ -98,6 +108,16 @@ class BatchNorm(nn.Module):
             yield
         finally:
             cls._replaying = before
+
+    @classmethod
+    @contextlib.contextmanager
+    def synced(cls, mesh):
+        """Train BatchNorms inside take their statistics over `mesh`'s ranks."""
+        before, cls._mesh = cls._mesh, mesh
+        try:
+            yield
+        finally:
+            cls._mesh = before
 
     def __init__(self, c: int):
         super().__init__()
@@ -114,7 +134,10 @@ class BatchNorm(nn.Module):
         dims = tuple(range(x.dim() - 1))
         xf = x.float()
         mean = xf.mean(dims)
-        var = torch.clamp_min(torch.mean(xf * xf, dims) - mean * mean, 0.0)
+        mean2 = torch.mean(xf * xf, dims)
+        if BatchNorm._mesh is not None:
+            mean, mean2 = mean_over(torch.stack([mean, mean2]), BatchNorm._mesh).unbind(0)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
         if not BatchNorm._replaying:
             assert self.pending is None, "a BatchNorm ran twice in one train forward"
             m = self.momentum

@@ -18,8 +18,21 @@ guard acts on the step that fired it (the JAX loop reads the flag one
 step late so as not to stall its asynchronous dispatch). Every
 `image_logging_frequency`-th validation round logs the last validation
 batch's image panels (`MetricWriter.log_validation_images` and
-`log_level_images`: `<run>/images/step_<s>.npz`). Data parallelism
-(`data_parallel > 1`) is not ported yet.
+`log_level_images`: `<run>/images/step_<s>.npz`).
+
+Data parallelism (`data_parallel > 1`, pulpo_tpu/train/loop.py:58-92):
+one process a replica, started by torchrun (`train_cli`) or
+`parallel.multihost.initialize`; `data_parallel` must equal the world
+size. Every rank reads the same global batches (the loaders' seeds are
+the same) and keeps its rows (`parallel.mesh.shard_batch_spec`), so a
+step is the JAX single-process data-parallel step on that global batch
+(`parallel.dp.make_dp_train_step`). Only rank 0 writes the run
+directory (its version number is broadcast), the metrics, the panels
+and the checkpoints; a resume loads the same `latest` on every rank,
+then rank 0's state is broadcast. Validation runs on every rank's rows
+and its losses are averaged over the ranks. At `data_parallel = 1` the
+Trainer takes the single-process path, as the JAX Trainer uses no mesh
+there.
 
 `times` keeps the host-clock seconds of each step, validation round and
 checkpoint round; each ends in a host read of a result (the NaN latch,
@@ -38,7 +51,9 @@ import torch
 from pulpo_tpu_torch.config import PULPoConfig
 from pulpo_tpu_torch.data.loader import prefetch_to_device
 from pulpo_tpu_torch.models.api import PULPoModel
-from pulpo_tpu_torch.train.checkpoint import CheckpointManager
+from pulpo_tpu_torch.parallel.dp import make_dp_train_step, replicate_state
+from pulpo_tpu_torch.parallel.mesh import bucket_mean, fold_in, make_mesh, shard_batch_spec, world
+from pulpo_tpu_torch.train.checkpoint import CheckpointManager, load_payload, read_checkpoint
 from pulpo_tpu_torch.train.metrics import MetricWriter
 from pulpo_tpu_torch.train.step import create_train_state, make_eval_step, make_train_step
 
@@ -51,26 +66,43 @@ def _host(v):
     return float(v)
 
 
+class _Silent:
+    """The metric writer and checkpoint manager of a rank other than 0:
+    every call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kw: None
+
+
 class Trainer:
     def __init__(self, cfg: PULPoConfig, run_dir: str | None = None,
                  experiment: str = "default", profile_dir: str | None = None,
                  device=None):
-        if cfg.data_parallel > 1:
-            raise NotImplementedError(
-                "data_parallel > 1 needs parallel/ (DDP with a cross-replica "
-                "BatchNorm), which is not ported yet")
         self.cfg = cfg
+        # a mesh whenever there is more than one replica or process:
+        # make_mesh refuses data_parallel != the world size
+        self.mesh = (make_mesh(cfg.data_parallel)
+                     if cfg.data_parallel > 1 or world()[0] > 1 else None)
+        self.rank = 0 if self.mesh is None else self.mesh.rank
         self.model = PULPoModel(cfg, device=device)
         base = pathlib.Path(run_dir or cfg.run_dir) / experiment
         version = 0
-        while (base / f"version_{version}").exists():
-            version += 1
+        if self.rank == 0:
+            while (base / f"version_{version}").exists():
+                version += 1
+            (base / f"version_{version}").mkdir(parents=True)
+        if self.mesh is not None:
+            box = [version]
+            torch.distributed.broadcast_object_list(box, src=0, group=self.mesh.group)
+            version = box[0]
         self.run_dir = base / f"version_{version}"
-        self.run_dir.mkdir(parents=True)
         self.version = version
-        self.profile_dir = profile_dir
-        self.writer = MetricWriter(self.run_dir)
-        self.ckpt = CheckpointManager(self.run_dir, cfg)
+        self.profile_dir = profile_dir if self.rank == 0 else None
+        if self.rank == 0:
+            self.writer = MetricWriter(self.run_dir)
+            self.ckpt = CheckpointManager(self.run_dir, cfg)
+        else:
+            self.writer = self.ckpt = _Silent()
         self.should_stop = False
         self.validation_counter = 0
         self.times: dict[str, list[float]] = {"step": [], "validate": [], "checkpoint": []}
@@ -83,10 +115,14 @@ class Trainer:
         dev = self.model.device
         state, tx = create_train_state(self.model, seed=cfg.random_seed)
         if resume:
-            self.ckpt.restore(state, name="latest")
+            load_payload(state, read_checkpoint(self.run_dir, "latest"))
             print(f"resumed from step {state.step}")
         self.state = state
-        train_step = make_train_step(self.model, tx)
+        if self.mesh is not None:
+            replicate_state(state, self.mesh)
+            train_step = make_dp_train_step(self.model, tx, self.mesh)
+        else:
+            train_step = make_train_step(self.model, tx)
         eval_step = make_eval_step(self.model)
         val_every = max(1, int(len(train_loader) * cfg.val_check_interval))
         done = lambda: self.should_stop or bool(max_steps and state.step >= max_steps)
@@ -97,7 +133,7 @@ class Trainer:
             else contextlib.nullcontext()
         with anomaly:
             for _epoch in range(cfg.max_epochs):
-                for batch in prefetch_to_device(iter(train_loader), dev):
+                for batch in prefetch_to_device(self._rows(train_loader), dev):
                     if self.profile_dir and state.step == PROFILE_STEPS[0]:
                         profiler = torch.profiler.profile()
                         profiler.start()
@@ -115,7 +151,7 @@ class Trainer:
                         self.ckpt.save_emergency(state, state.step)
                         self.should_stop = True
                         break
-                    if state.step % cfg.log_every_n_steps == 0:
+                    if self.rank == 0 and state.step % cfg.log_every_n_steps == 0:
                         self._log_train(state.step, _host(metrics))
                     if state.step % val_every == 0:
                         t = time.perf_counter()
@@ -132,10 +168,20 @@ class Trainer:
         if profiler is not None:
             profiler.stop()
         self.writer.flush()
+        if self.mesh is not None:  # rank 0's files are whole before any rank goes on
+            torch.distributed.barrier(group=self.mesh.group)
         elapsed = time.perf_counter() - t_start
-        print(f"training finished: {state.step} steps in {elapsed:.1f}s "
-              f"({state.step / max(elapsed, 1e-9):.2f} steps/s)")
+        if self.rank == 0:
+            print(f"training finished: {state.step} steps in {elapsed:.1f}s "
+                  f"({state.step / max(elapsed, 1e-9):.2f} steps/s)")
         return state
+
+    def _rows(self, loader):
+        """The loader's batches, each cut to this rank's rows."""
+        for batch in loader:
+            if self.mesh is not None:
+                batch = {k: v[shard_batch_spec(self.mesh, len(v))] for k, v in batch.items()}
+            yield batch
 
     def close(self) -> None:
         self.writer.close()
@@ -156,19 +202,28 @@ class Trainer:
     def _validate(self, eval_step, val_loader, step: int) -> dict:
         """Mean validation losses over the loader; each batch draws its
         posterior sample from a seed taken from a generator seeded by
-        (random_seed + validation round)."""
+        (random_seed + validation round), folded with the rank under data
+        parallelism, whose ranks average their means."""
         self.validation_counter += 1
         g = torch.Generator().manual_seed(self.cfg.random_seed + self.validation_counter)
         agg: dict[str, list] = {}
         last = None
-        for batch in prefetch_to_device(iter(val_loader), self.model.device):
+        for batch in prefetch_to_device(self._rows(val_loader), self.model.device):
             seed = int(torch.randint(0, 2**62, (1,), generator=g))
+            if self.mesh is not None:
+                seed = fold_in(seed, self.rank)
             metrics, imgs = eval_step(batch, seed=seed)
             for k, v in metrics.items():
                 if not isinstance(v, dict) and k != "nan_flag":
                     agg.setdefault(k, []).append(float(v))
             last = batch, imgs
         val_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
+        if self.mesh is not None:
+            keys = sorted(val_metrics)
+            means = bucket_mean([torch.tensor([val_metrics[k] for k in keys],
+                                              dtype=torch.float64, device=self.model.device)],
+                                self.mesh)[0]
+            val_metrics = dict(zip(keys, means.tolist()))
         self.writer.scalars(val_metrics, step, prefix="val/")
         if last is not None and self.validation_counter % max(
                 1, self.cfg.image_logging_frequency) == 0:

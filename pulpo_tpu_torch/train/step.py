@@ -11,7 +11,16 @@ Each step draws its posterior noise from a seed that it takes from the
 state's generator, as the JAX step splits its key; `noise=` replaces the
 draws (the tests feed the JAX package's).
 
-Data parallelism (`axis_name` in the JAX package) is not ported.
+Data parallelism (`axis_name` in the JAX package, `mesh` here; built by
+parallel/dp.py): every rank runs the step on its rows of the global
+batch with the same weights. Its train BatchNorms take the global
+batch's statistics (`BatchNorm.synced`), its draws come from the step's
+seed folded with its rank, and after the backward its gradients and
+floating metrics (the NaN flag as a float) are averaged over the ranks
+in one flat float32 all-reduce each, JAX's `pmean`. The weights, Adam
+state and running statistics therefore stay the same on every rank.
+The model is not wrapped in DDP: `compute_grads` takes its gradients
+with `torch.autograd.grad`, which DDP's backward hooks do not see.
 """
 
 from __future__ import annotations
@@ -23,8 +32,10 @@ import torch
 
 from pulpo_tpu_torch.config import PULPoConfig
 from pulpo_tpu_torch.models.api import PULPoModel, _as_tensor, transform_segmentation
+from pulpo_tpu_torch.models.blocks import BatchNorm
 from pulpo_tpu_torch.models.pulpo import prior_like
 from pulpo_tpu_torch.ops import losses as L
+from pulpo_tpu_torch.parallel.mesh import Mesh, bucket_mean, fold_in
 
 LevelDict = dict[int, torch.Tensor]
 
@@ -154,15 +165,66 @@ def compute_grads(model: PULPoModel, batch: dict, seed: int = 0,
     return grads, new_stats, metrics
 
 
-def make_train_step(model: PULPoModel, tx: Adam):
+def _flat_metrics(metrics: dict) -> list[tuple[tuple, torch.Tensor]]:
+    """(path, tensor) of every metric, nested level dicts included, in a
+    fixed order (the same on every rank)."""
+    out = []
+    for k in sorted(metrics):
+        v = metrics[k]
+        if isinstance(v, dict):
+            out += [((k, l), v[l]) for l in sorted(v)]
+        else:
+            out.append(((k,), v))
+    return out
+
+
+def mean_metrics(metrics: dict, mesh: Mesh) -> dict:
+    """The metrics averaged over the ranks (JAX's `pmean` of the floating
+    ones), the NaN flag as a float: any rank's NaN makes it positive on
+    every rank."""
+    flat = _flat_metrics(metrics)
+    means = bucket_mean([v.float() for _, v in flat], mesh)
+    out: dict = {}
+    for (path, _), v in zip(flat, means):
+        if len(path) == 1:
+            out[path[0]] = v
+        else:
+            out.setdefault(path[0], {})[path[1]] = v
+    return out
+
+
+def dp_compute_grads(model: PULPoModel, batch: dict, mesh: Mesh, seed: int = 0,
+                     noise: LevelDict | None = None):
+    """`compute_grads` on this rank's rows with BatchNorm statistics over
+    the mesh, then the gradients and metrics averaged over the ranks: the
+    gradient of the mean of the ranks' losses, as the JAX data-parallel
+    step takes it. `seed` and `noise` are this rank's."""
+    with BatchNorm.synced(mesh):
+        grads, new_stats, metrics = compute_grads(model, batch, seed, noise)
+    names = list(grads)
+    grads = dict(zip(names, bucket_mean([grads[n] for n in names], mesh)))
+    return grads, new_stats, mean_metrics(metrics, mesh)
+
+
+def make_train_step(model: PULPoModel, tx: Adam, mesh: Mesh | None = None):
     """The training step: ``train_step(state, batch, noise=None) ->
     (state, metrics)``, updating `state` (and the model's weights) in
     place. `batch` holds "x", "y" (B, *input_size, 1) and, with a dice
-    loss, "seg_x", "seg_y"."""
+    loss, "seg_x", "seg_y".
+
+    With a `mesh` (parallel/dp.py:make_dp_train_step) `batch` and `noise`
+    are this rank's rows, and the step is the data-parallel one (module
+    doc)."""
 
     def train_step(state: TrainState, batch: dict, noise: LevelDict | None = None):
         seed = int(torch.randint(0, 2**62, (1,), generator=state.rng))
-        grads, new_stats, metrics = compute_grads(model, batch, seed, noise)
+        if mesh is None:
+            grads, new_stats, metrics = compute_grads(model, batch, seed, noise)
+        else:
+            # decorrelate the ranks' posterior draws (the JAX step's
+            # fold_in of axis_index)
+            grads, new_stats, metrics = dp_compute_grads(
+                model, batch, mesh, fold_in(seed, mesh.rank), noise)
         # The NaN guard is a sticky latch, as in the JAX step: once a step
         # has seen a NaN, params, Adam state and BatchNorm statistics stay
         # frozen while `step` and the generator still advance. The flag is

@@ -13,11 +13,23 @@ slices or 64x64 synthetic ones. After training the run is evaluated
 (`Evaluate.run_one_model`: the performance and uncertainty tables)
 unless `--skip_eval` is given. Unlike the JAX CLI, it draws no figures
 there: `evaluate_cli` draws them.
+
+Data parallelism: one process a replica, under torchrun,
+
+    torchrun --nproc_per_node 4 -m pulpo_tpu_torch.train_cli \
+        --data_parallel 4 --batch_size 4 ...
+
+(`--batch_size` is the global batch; each rank trains on its rows).
+The process group starts from torchrun's environment with NCCL on `gpu`
+and gloo on `cpu`, or the backend `--dist_backend` names (gloo also
+carries CUDA tensors, as two ranks sharing one card need). Only rank 0
+writes the run directory and evaluates the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import subprocess
 
 ACCELERATORS = {"gpu": "cuda", "cpu": "cpu"}
@@ -74,7 +86,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute_dtype", type=str, default="float32",
                    help="float32 or bfloat16")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="data-parallel replicas (not ported yet: > 1 raises)")
+                   help="data-parallel replicas: the torchrun world size")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   help="process-group backend (default nccl on gpu, gloo on cpu)")
     p.add_argument("--max_steps", type=int, default=None)
     p.add_argument("--run_dir", type=str, default="runs")
     p.add_argument("--data_path", type=str, default=None,
@@ -163,18 +177,31 @@ def main(args=None):
         data_parallel=args.data_parallel,
     )
 
+    import torch.distributed as dist
+
+    from pulpo_tpu_torch.parallel import multihost
     from pulpo_tpu_torch.train.loop import Trainer
 
-    experiment = "-".join([get_git_revision_short_hash(), f"seed={args.random_seed}", ""])
-    trainer = Trainer(cfg, run_dir=args.run_dir, experiment=experiment,
-                      profile_dir=args.profile_dir, device=device)
-    print(f"RUNNING FOR {cfg.max_epochs} EPOCHS. Run dir: {trainer.run_dir}")
+    # a replica a process: the group starts from torchrun's environment
+    # (the Trainer refuses a world size other than --data_parallel)
+    started = False
+    if (args.data_parallel > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1) and \
+            not dist.is_initialized():
+        started = multihost.initialize(backend=args.dist_backend, device=device)
     try:
-        trainer.fit(train_loader, val_loader, max_steps=args.max_steps)
+        experiment = "-".join([get_git_revision_short_hash(), f"seed={args.random_seed}", ""])
+        trainer = Trainer(cfg, run_dir=args.run_dir, experiment=experiment,
+                          profile_dir=args.profile_dir, device=device)
+        print(f"RUNNING FOR {cfg.max_epochs} EPOCHS. Run dir: {trainer.run_dir}")
+        try:
+            trainer.fit(train_loader, val_loader, max_steps=args.max_steps)
+        finally:
+            trainer.close()
     finally:
-        trainer.close()
+        if started:
+            multihost.shutdown()
 
-    if not args.skip_eval:
+    if not args.skip_eval and trainer.rank == 0:
         print("TRAINING FINISHED, STARTING EVALUATION.")
         from pulpo_tpu_torch.eval.evaluator import Evaluate
 

@@ -156,7 +156,7 @@ def _finalize_entropy(moments, n: int) -> torch.Tensor:
 def predict_with_uncertainty(
     model: PULPoModel, x, y, N: int, seed: int = 0, mask=None,
     chunk: int | None = None, keep_samples: bool = False, lm=None,
-    noise: LevelDict | None = None,
+    noise: LevelDict | None = None, encode_chunk: int | None = None,
 ) -> UQResult:
     """N-sample uncertainty prediction for the pairs (x, y), each
     (B, *input_size, 1).
@@ -166,12 +166,20 @@ def predict_with_uncertainty(
     the CPU, N. `keep_samples` retains the per-sample dfs and outputs;
     `lm` (B, n_lm, nd) retains per-sample warped landmarks. `noise`:
     float32 draws {level: (N, B, *level_size, zdim)} used instead of the
-    generators (a test hook)."""
+    generators (a test hook). `encode_chunk`: encode the B pairs that
+    many at a time when B is larger and a multiple of it
+    (pulpo_tpu/uq/predict.py:220-240, `PULPO_UQ_ENCODE_CHUNK` there): the
+    eval encode is per pair, so only the transient working set changes."""
     cfg = model.cfg
     dev = model.device
     x, y = _as_tensor(x, dev), _as_tensor(y, dev)
     batch = x.shape[0]
-    acts = model.module.encode(x, y)
+    if encode_chunk and batch > encode_chunk and batch % encode_chunk == 0:
+        parts = [model.module.encode(x[i:i + encode_chunk], y[i:i + encode_chunk])
+                 for i in range(0, batch, encode_chunk)]
+        acts = {l: torch.cat([p[l] for p in parts]) for l in parts[0]}
+    else:
+        acts = model.module.encode(x, y)
 
     if chunk is None:
         if dev.type == "cuda":

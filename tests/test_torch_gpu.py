@@ -1340,3 +1340,91 @@ def test_run_one_model_writes_the_figures_on_the_card(cuda_device, tmp_path):
                        for row in p.axes for a in row)
             assert (tmp_path / "vis" / f"allvis{loader}_{pred}.png").exists() == png
             assert (tmp_path / "jdet" / f"jdet_{loader}_{pred}.csv").exists()
+
+
+# ----------------------------------------------------------------------
+# ingest and the data-parallel step
+# ----------------------------------------------------------------------
+
+def test_ingest_on_the_card_matches_the_cpu(cuda_device):
+    """`data/ingest.ingest` (resample and each normalisation) on the
+    card against its CPU run on the same raw batch, within 1e-5 of
+    scale."""
+    from pulpo_tpu_torch.data.ingest import ingest
+
+    raw = np.random.default_rng(70).gamma(2.0, 300.0, (2, 40, 48, 36, 1)).astype(np.float32)
+    for target, normalize in (((24, 32, 28), "znorm"), ((24, 32, 28), "minmax"),
+                              (None, "znorm"), ((48, 40, 44), "none")):
+        ref = ingest(raw, target=target, normalize=normalize, device="cpu")
+        got = ingest(raw, target=target, normalize=normalize)
+        assert got.device.type == "cuda" and got.shape == ref.shape
+        scale = float(ref.abs().max())
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * scale, (target, normalize)
+
+
+def test_dp_step_at_world_size_1_over_nccl_matches_the_plain_step(cuda_device):
+    """`make_dp_train_step` over NCCL at world size 1 against
+    `make_train_step` on the same weights, batch and draws, with cuDNN
+    deterministic: the losses and BatchNorm statistics equal bit for
+    bit, the gradients within the plain step's own run-to-run spread
+    (twice it, or 1e-5 relative L2: #2's float32 atomics), and the
+    weights after one step of each within 2 * lr (Adam's first step is
+    lr * sign(g))."""
+    import socket
+
+    from chip_smoke import grad_spread
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.parallel import multihost
+    from pulpo_tpu_torch.parallel.dp import make_dp_train_step, replicate_state
+    from pulpo_tpu_torch.parallel.mesh import make_mesh
+    from pulpo_tpu_torch.train import create_train_state, make_train_step
+    from pulpo_tpu_torch.train.step import compute_grads, dp_compute_grads
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    cfg = PULPoConfig(input_size=(24, 28, 32), total_levels=3, latent_levels=2, n0=8,
+                      batch_size=2)
+    rng = np.random.default_rng(71)
+    batch = {k: torch.from_numpy(rng.random((2, 24, 28, 32, 1), dtype=np.float32)).to(cuda_device)
+             for k in ("x", "y")}
+    noise = {l: torch.from_numpy(rng.standard_normal((2, *cfg.level_sizes[l], cfg.zdim),
+                                                     dtype=np.float32))
+             for l in range(cfg.latent_levels)}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    assert multihost.initialize(f"tcp://localhost:{port}", 1, 0, device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        mesh = make_mesh(1)
+        model = PULPoModel(cfg, device=cuda_device)
+        model.init(8)
+        ref = compute_grads(model, batch, noise=noise)
+        again = compute_grads(model, batch, noise=noise)
+        got = dp_compute_grads(model, batch, mesh, noise=noise)
+        for k in ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss"):
+            assert float(got[2][k]) == float(ref[2][k]), k
+        for n, v in ref[1].items():
+            assert torch.equal(got[1][n], v), n
+        spread = grad_spread(again[0], ref[0])[0]
+        assert grad_spread(got[0], ref[0])[0] <= max(2 * spread, 1e-5)
+
+        after = {}
+        for name in ("plain", "dp"):
+            m = PULPoModel(cfg, device=cuda_device)
+            state, tx = create_train_state(m, seed=8)
+            if name == "dp":
+                replicate_state(state, mesh)
+                step = make_dp_train_step(m, tx, mesh)
+            else:
+                step = make_train_step(m, tx)
+            state, metrics = step(state, batch, noise=noise)
+            assert state.step == 1 and not state.nan_flag
+            after[name] = m.state_dict()
+        for n, v in after["plain"].items():
+            atol = 1e-5 if "running_" in n else 2 * cfg.lr
+            torch.testing.assert_close(after["dp"][n], v, rtol=0, atol=atol)
+    finally:
+        multihost.shutdown()
+        torch.backends.cudnn.deterministic = deterministic

@@ -11,7 +11,10 @@ import torch
 from test_torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "pulpo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, chip_smoke.py and the tests' worker scripts that run the port
+# in processes of their own (tests/torch_*.py)
+PORT_FILES = (sorted((ROOT / "pulpo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tests").glob("torch_*.py")))
 FORBIDDEN = ("jax", "flax", "pulpo_tpu")
 
 

@@ -201,8 +201,12 @@ def test_nan_stops_the_loop_with_the_pre_nan_state(tmp_path):
 
 
 def test_data_parallel_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """Data parallelism is ported (tests/test_torch_parallel.py): in a
+    one-process world, data_parallel = 2 is refused before anything is
+    written, with the world size and the launch it needs."""
+    with pytest.raises(ValueError, match="world of 2 processes.*has 1.*torchrun"):
         Trainer(_cfg(data_parallel=2), run_dir=tmp_path, device="cpu")
+    assert not any(tmp_path.iterdir())
 
 
 def test_train_cli_runs_on_the_cpu(tmp_path):
