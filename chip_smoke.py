@@ -194,7 +194,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps, one validation): finite losses, the ranks' states equal bit
    for bit, rank 0 alone writing the run, `latest` reloading bit for
    bit, exact launch counts on each rank. A failed native build or NCCL
-   start fails the run; nothing falls back.
+   start fails the run; nothing falls back;
+11. the slab launches of the depth-sharded model (parallel/spatial.py)
+   at the flagship's shapes split 2 ways: the warp (#4) and its
+   df-cotangent (#6) at C = 1 of the level-0 df and of each split latent
+   level's, the squaring step (#1) at each split latent level, each slab
+   bit-equal to the matching planes of the whole launch and to the plain
+   version at its offset; the step backward's (#2) slab shares within
+   1e-5 of scale of the whole backward of their cotangents;
+11a-11c. two torchrun processes sharing the card over gloo (NCCL
+   refuses two ranks on one device), the flagship at full width (B = 1):
+   11a `make_spatial_forward` at mesh (data 1, space 2), each rank's slab
+   of the level-0 final df and warped image against the unsharded
+   forward's planes; 11b the step's gradients and losses at that mesh
+   (`spatial_compute_grads`) against the unsharded step's (losses within
+   1e-5 relative, gradients within twice the unsharded step's own
+   run-to-run distance, relative L2); 11c the output-channel split at
+   model 2 (parallel/tp.py) against the replicated
+   `predict_deterministic`. Exact launch counts on each rank; each
+   rank's time, peak memory and exchanges (halo, all-gather, all-reduce
+   bytes) beside the unsharded run's. The two ranks share one card, so
+   their times are no multi-card figures.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -2456,13 +2476,13 @@ class RecordedWarps:
         self.shapes, self.dfgrad_shapes = [], []
         self.fns = fn, dfgrad = warp._warp_kernel, warp.warp_dfgrad
 
-        def recorded(moving, df):
+        def recorded(moving, df, *slab):
             self.shapes.append((tuple(moving.shape), tuple(df.shape)))
-            return fn(moving, df)
+            return fn(moving, df, *slab)
 
-        def recorded_dfgrad(moving, df, g):
+        def recorded_dfgrad(moving, df, g, *slab):
             self.dfgrad_shapes.append((tuple(moving.shape), tuple(df.shape)))
-            return dfgrad(moving, df, g)
+            return dfgrad(moving, df, g, *slab)
 
         warp._warp_kernel, warp.warp_dfgrad = recorded, recorded_dfgrad
         return self
@@ -3289,6 +3309,424 @@ def dp_worker(out_dir, run_root, accelerator="gpu") -> int:
     return 0
 
 
+# ----------------------------------------------------------------------
+# phases 11-11c: the depth-sharded forward and step, the output-channel
+# split (parallel/spatial.py, parallel/tp.py)
+# ----------------------------------------------------------------------
+
+SPACE = 2                  # ranks of the space axis (and of the model axis): sharing the card
+SPATIAL_FWD_REL = 1e-3     # of scale: the floor of the sharded forward's distance
+SPATIAL_LOSS_REL = 1e-5    # relative: the floor of the sharded step's losses' distance
+STEP_DTYPES = ("bfloat16", "float32")  # 11b: the flagship's step, and the same network in f32
+TP_REL = 1e-2              # of scale: the split forward against the replicated one
+LOSS_KEYS = ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss")
+
+
+def check_slab_kernels(dev, cfg, checks):
+    """Phase 11: the slab launches of the depth-sharded model at the
+    flagship's shapes, each split SPACE ways: the warp (#4) and its
+    df-cotangent (#6) at C = 1 of the level-0 df (the input size) over the
+    image and of each split latent level's df over its pooled image, the
+    squaring step (#1, with the first step's 1/2**nsteps scale and
+    without) at each split latent level: each slab bit-equal to the
+    matching planes of the whole launch and to the plain version at its
+    offset; the step backward's (#2) share of each slab within 1e-5 of
+    scale of the whole backward of that slab's cotangent (float32
+    atomics), the shares' sum of the whole backward. Then the fused eval
+    kernels on a slab with the halo the sharded forward gives them (the
+    conv chain #13 3 planes at the input size, the posterior head #11 4
+    and the velocity head #10 2 at latent level 0; bf16, cropped): each
+    against the matching planes of the whole launch, which they equal
+    where a voxel's arithmetic does not depend on where its launch
+    starts (held to BF16_CHAIN_REL of scale; the error is logged)."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import conv_chain, pos_head, squaring, vel_head, warp
+    from pulpo_tpu_torch.parallel.spatial import splits
+
+    g = torch.Generator().manual_seed(111)
+    rand = lambda *shape: torch.rand(shape, generator=g).to(dev)
+    normal = lambda *shape: torch.randn(shape, generator=g).to(dev)
+    parts = lambda depth: [(r * (depth // SPACE), depth // SPACE) for r in range(SPACE)]
+    warps = [(cfg.input_size, rand(1, *cfg.input_size, 1))]
+    warps += [(cfg.level_sizes[l], rand(1, *cfg.level_sizes[l], 1))
+              for l in range(1, cfg.latent_levels)]
+    for size, moving in warps:
+        if not splits(size[0], SPACE):
+            continue
+        df, cot = smooth_field(1, size, 3.0, 112, dev), normal(1, *size, 1)
+        whole, whole_grad = warp.warp(moving, df), warp.warp_dfgrad(moving, df, cot)
+        for z0, per in parts(size[0]):
+            sl = slice(z0, z0 + per)
+            d, c = df[:, sl].contiguous(), cot[:, sl].contiguous()
+            case = f"slab {z0}+{per} of {size}"
+            got = warp.warp(moving, d, z0, size[0])
+            checks.record("warp", f"{case} vs whole", got, whole[:, sl], 0.0)
+            checks.record("warp", f"{case} vs plain", got,
+                          warp.warp_plain(moving, d, z0, size[0]), 0.0)
+            got = warp.warp_dfgrad(moving, d, c, z0, size[0])
+            checks.record("warp_dfgrad", f"{case} vs whole", got, whole_grad[:, sl], 0.0)
+            checks.record("warp_dfgrad", f"{case} vs plain", got,
+                          warp.warp_dfgrad_plain(moving, d, c, z0, size[0]), 0.0)
+    for l, size in cfg.level_sizes.items():
+        if not splits(size[0], SPACE):
+            continue
+        v, cot = smooth_field(1, size, 2.0, 113 + l, dev), normal(1, *size, 3)
+        for scale in (1.0 / 2**cfg.nsteps, 1.0):
+            whole = squaring.squaring_step(v, scale=scale)
+            for z0, per in parts(size[0]):
+                sl = slice(z0, z0 + per)
+                case = f"slab {z0}+{per} of {size} x{scale:g}"
+                got = squaring.squaring_step(v, scale=scale, z0=z0, depth=per)
+                checks.record("squaring", f"{case} vs whole", got, whole[:, sl], 0.0)
+                checks.record("squaring", f"{case} vs plain", got,
+                              squaring.squaring_step_plain(v * scale, z0, per), 0.0)
+        ref = squaring.squaring_step_bwd(v, cot)
+        total = torch.zeros_like(ref)
+        for z0, per in parts(size[0]):
+            sl = slice(z0, z0 + per)
+            share = squaring.squaring_step_bwd(v, cot[:, sl].contiguous(), z0)
+            masked = torch.zeros_like(cot)
+            masked[:, sl] = cot[:, sl]
+            slab_ref = squaring.squaring_step_bwd(v, masked)
+            checks.record("squaring_bwd", f"share {z0}+{per} of {size}", share, slab_ref,
+                          scaled(slab_ref, 1e-5))
+            total += share
+        checks.record("squaring_bwd", f"shares' sum at {size}", total, ref, scaled(ref, 1e-5))
+
+    bf = torch.bfloat16
+    level0 = cfg.level_sizes[0]
+    widths = pos_head_widths(cfg, 0)
+    stages = chain_stages((2, cfg.n0, cfg.n0, cfg.n0), 114, dev)
+    p, hp = pos_head_params(widths, cfg.zdim, 115, dev), head_params(cfg.zdim, cfg.n0, 116, dev)
+    fused = [
+        ("conv_chain", 3, lambda x: conv_chain.conv_chain(x[0], stages),
+         [rand(1, *cfg.input_size, 2).to(bf)]),
+        ("pos_head", 4, lambda x: pos_head.posterior_head(x[0], x[1], p)[0],
+         [normal(1, *level0, widths[0]).to(bf), normal(1, *level0, widths[2]).to(bf)]),
+        ("vel_head", 2, lambda x: vel_head.velocity_head(x[0], hp),
+         [normal(1, *level0, cfg.zdim).to(bf)])]
+    for name, h, fn, args in fused:
+        whole = fn(args)
+        depth = args[0].shape[1]
+        for z0, per in parts(depth):
+            lo, hi = min(h, z0), min(h, depth - z0 - per)
+            got = fn([a[:, z0 - lo:z0 + per + hi].contiguous() for a in args])[:, lo:lo + per]
+            checks.record(name, f"slab {z0}+{per} on a {h}-plane halo vs whole",
+                          got, whole[:, z0:z0 + per], scaled(whole, BF16_CHAIN_REL))
+
+
+def spatial_inputs(cfg, dev):
+    """Phases 11a-11c's pair (B = 1, phase 10c's synthetic pair) and the
+    step's draws, the same in every process."""
+    import numpy as np
+    import torch
+
+    from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+
+    pair = SyntheticDataset(shape=cfg.input_size, n=2, seed=1).get_pair(0, np.random.default_rng(1))
+    batch = {k: torch.as_tensor(pair[k][None]).to(dev) for k in ("x", "y")}
+    g = np.random.default_rng(7)
+    noise = {l: torch.from_numpy(g.standard_normal((1, *cfg.level_sizes[l], cfg.zdim),
+                                                   dtype=np.float32))
+             for l in range(cfg.latent_levels)}
+    return batch, noise
+
+
+def timed(fn):
+    """(result, host seconds) of fn() between two synchronizes (of the
+    card, where there is one: the CPU rehearsal has none)."""
+    import torch
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t
+
+
+def peak_of(fn, before=None):
+    """(result, host seconds, peak GiB above the memory held before) of a
+    second call of fn (the first warms the kernels and cuDNN; `before` is
+    called between the two); 0 GiB without a card."""
+    import torch
+
+    fn()
+    if before is not None:
+        before()
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    out, seconds = timed(fn)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if card else 0.0
+    return out, seconds, peak
+
+
+def tp_launches(cfg):
+    """Launches of one `predict_deterministic` under the output-channel
+    split: each eval unit alone on the conv-unit kernel (3 a down block,
+    2 an up block, a merge block and a velocity head), the integrations
+    and warps as unsplit."""
+    K = cfg.latent_levels
+    units = 3 * cfg.total_levels + 2 * (K - 1) * 2 + 2 * K
+    return {"conv_chain": units, "warp": K, "squaring": cfg.nsteps * K}
+
+
+def spatial_references(dev, cfg):
+    """The unsharded runs phases 11a-11c are held to, on the card: the
+    deterministic forward's level-0 final df and warped image and
+    `predict_deterministic`'s outputs; for each of STEP_DTYPES the step's
+    gradients and losses, again (its run-to-run distance) and on inputs
+    moved by one float32 ulp (its distance under a float32 rounding);
+    each with its time and peak. cuDNN is deterministic in the steps."""
+    import torch
+
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.train.step import compute_grads
+
+    batch, noise = spatial_inputs(cfg, dev)
+    model = PULPoModel(cfg, device=dev)
+    model.init(0)
+    out = {}
+    outs, out["fwd_s"], out["fwd_peak"] = peak_of(
+        lambda: model.apply_eval(batch["x"], batch["y"], deterministic=True))
+    out["df"], out["warped"] = outs[6][0], outs[7][0]
+    del outs
+    moved = {k: v * (1 + 2.0**-23) for k, v in batch.items()}
+    outs = model.apply_eval(moved["x"], moved["y"], deterministic=True)
+    out["fwd_moved"] = {k: float((o[0] - out[k]).abs().max()) / float(out[k].abs().max())
+                        for k, o in (("df", outs[6]), ("warped", outs[7]))}
+    del outs
+    (out["tp"], out["tp_s"], out["tp_peak"]) = peak_of(
+        lambda: model.predict_deterministic(batch["x"], batch["y"]))
+    del model
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dtype in STEP_DTYPES:
+            model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+            model.init(0)
+            (grads, _, metrics), seconds, peak = peak_of(
+                lambda: compute_grads(model, batch, noise=noise))
+            again, _, again_m = compute_grads(model, batch, noise=noise)
+            ulp, _, ulp_m = compute_grads(model, moved, noise=noise)
+            grads = {n: v.cpu() for n, v in grads.items()}
+            loss = lambda m: {k: float(m[k]) for k in LOSS_KEYS}
+            out[dtype] = {"s": seconds, "peak": peak, "grads": grads, "losses": loss(metrics),
+                          "again": loss(again_m), "ulp": loss(ulp_m),
+                          "rr": grad_spread({n: v.cpu() for n, v in again.items()}, grads)[0],
+                          "moved": grad_spread({n: v.cpu() for n, v in ulp.items()}, grads)[0]}
+            del model, again, ulp
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def spatial_worker(out_dir, accelerator, cfg_json) -> int:
+    """One rank of phases 11a-11c, under torchrun (SPACE ranks over gloo
+    on the one card): the sharded forward and step at mesh (1, SPACE),
+    then the split forward at model SPACE, each with its launch counts,
+    time, peak and exchanges; writes `out_dir/rank_<r>.pt`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.parallel import multihost, spatial, tp
+
+    dev = torch.device("cuda" if accelerator == "gpu" else "cpu")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(device=dev, backend="gloo")
+    try:
+        rank = torch.distributed.get_rank()
+        cfg = PULPoConfig(**json.loads(cfg_json), batch_size=1)
+        batch, noise = spatial_inputs(cfg, dev)
+        model = PULPoModel(cfg, device=dev)
+        model.init(0)
+        mesh = spatial.make_2d_mesh(1, SPACE)
+        block = {k: spatial.shard_volume(v, mesh) for k, v in batch.items()}
+        out = {"rank": rank}
+
+        fwd = spatial.make_spatial_forward(model, mesh)
+        fresh = lambda: (reset_counts(), spatial.reset_traffic())
+        (df, warped), seconds, peak = peak_of(lambda: fwd(block["x"], block["y"]), fresh)
+        out["forward"] = {"df": df.cpu(), "warped": warped.cpu(), "s": seconds, "peak": peak,
+                          "counts": read_counts(), "traffic": dict(spatial.traffic)}
+        del df, warped
+        torch.backends.cudnn.deterministic = True
+        for dtype in STEP_DTYPES:
+            smodel = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+            smodel.init(0)
+            compute = lambda: spatial.spatial_compute_grads(smodel, block, mesh, noise=noise)
+            (grads, _, metrics), seconds, peak = peak_of(compute, fresh)
+            out[f"step {dtype}"] = {
+                "s": seconds, "peak": peak, "counts": read_counts(),
+                "traffic": dict(spatial.traffic),
+                "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
+                "grads": {n: v.cpu() for n, v in grads.items()} if rank == 0 else None}
+            del smodel, grads, metrics
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+
+        tmesh = tp.make_model_mesh(SPACE)
+        tp.shard_params(model, tmesh)
+        with tp.sharded(tmesh):
+            run = lambda: model.predict_deterministic(batch["x"], batch["y"])
+            (warped, dfs), seconds, peak = peak_of(run, reset_counts)
+        out["tp"] = {"s": seconds, "peak": peak, "counts": read_counts(),
+                     "warped": {l: v.cpu() for l, v in warped.items()},
+                     "dfs": {l: v.cpu() for l, v in dfs.items()}}
+        torch.save(out, pathlib.Path(out_dir) / f"rank_{rank}.pt")
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
+    """Phases 11a-11c: SPACE processes sharing the one card (torchrun,
+    gloo on CUDA tensors: NCCL refuses two ranks on one device), the
+    flagship at full width (160x192x224, n0 32, bf16, level_res, B = 1).
+    11a: `make_spatial_forward` at mesh (data 1, space SPACE), each
+    rank's slab of the level-0 final df and warped image against the
+    unsharded forward's planes, within twice the unsharded forward's own
+    distance on inputs moved by one float32 ulp (max-abs of scale; at
+    least SPATIAL_FWD_REL): cuDNN may take another algorithm on a slab
+    with its halo, and a bf16 rounding that flips moves the output as
+    such a move of the inputs does. 11b:
+    `spatial_compute_grads` (the step's gradients and metrics) in bf16
+    and in f32 against the unsharded step in the same dtype: the sharded
+    step reorders float32 sums (halo convs, slab partial losses, summed
+    squaring cotangents), a perturbation of float32 rounding's size, so
+    it is held to twice the unsharded step's own distance under such
+    perturbations: the larger of its run-to-run distance (#2's atomics)
+    and its distance on inputs moved by one float32 ulp, for the
+    gradients (relative L2, at least 1e-5) and each loss term (at least
+    SPATIAL_LOSS_REL of it; the KL, which is computed in the compute
+    dtype and whose slab partials each round to it, at least one ulp of
+    that dtype; the total, the sum of its terms' allowances). 11c: the output-channel split at model
+    SPACE against the replicated `predict_deterministic`, within TP_REL
+    of scale. Exact launch counts on each rank (a sharded forward and
+    step launch what the unsharded ones do; the split forward 35 unit
+    launches); each rank's time, peak and exchanges beside the unsharded
+    run's. Every check runs before any failure stops the phase."""
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1)
+    ref = spatial_references(dev, cfg)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = run_root / "ranks"
+    out.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(SPACE), os.path.abspath(__file__), "--spatial-worker", str(out),
+           "gpu" if dev.type == "cuda" else "cpu", json.dumps(cfg_kw)]
+    proc, wall = timed(lambda: subprocess.run(cmd, capture_output=True, text=True, timeout=900))
+    if proc.returncode != 0:
+        raise SystemExit(f"spatial paths: torchrun rc {proc.returncode}\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(SPACE)]
+    per = cfg.input_size[0] // SPACE
+    steps = [f"step {d}" for d in STEP_DTYPES]
+    phases = ["forward", *steps, "tp"]
+    failures = []
+    errs = {"df": 0.0, "warped": 0.0}
+    for r in ranks:
+        sl = slice(r["rank"] * per, (r["rank"] + 1) * per)
+        f = r["forward"]
+        for k in errs:
+            want = ref[k][:, sl].float().cpu()
+            got = f[k].float()
+            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                failures.append(f"forward rank {r['rank']}: {k} {tuple(got.shape)}")
+                continue
+            diff = (got - want).abs()
+            errs[k] = max(errs[k], float(diff.max()) / float(ref[k].abs().max()))
+            plane = int(diff.amax(dim=(0, 2, 3, 4)).argmax()) + sl.start
+            log(f"spatial forward rank {r['rank']}: {k} {float(diff.max()):.3e} at most (plane "
+                f"{plane}), {float(diff.square().sum().sqrt() / want.square().sum().sqrt()):.3e} "
+                "relative L2")
+        for phase, want in (("forward", decode_launches(cfg, 1, 1)), ("tp", tp_launches(cfg)),
+                            *((name, step_launches(cfg, 1)) for name in steps)):
+            try:
+                expect(r[phase]["counts"], want, f"spatial {phase} rank {r['rank']}")
+            except SystemExit as e:
+                failures.append(str(e))
+    moved = ref["fwd_moved"]
+    log(f"spatial forward: {errs} of scale from the unsharded forward; the unsharded forward "
+        f"on inputs moved by one float32 ulp {moved}")
+    if any(errs[k] > max(2 * moved[k], SPATIAL_FWD_REL) for k in errs):
+        failures.append(f"forward: {errs} of scale from the unsharded forward (its own "
+                        f"distance under a one-ulp move of the inputs {moved})")
+    step_info = {}
+    for dtype, name in zip(STEP_DTYPES, steps):
+        mine, theirs = ranks[0][name], ref[dtype]
+        if any(r[name]["losses"] != mine["losses"] for r in ranks):
+            failures.append(f"{name}: the ranks' losses differ")
+        away = lambda a: {k: abs(a[k] - theirs["losses"][k]) for k in LOSS_KEYS}
+        loss = away(mine["losses"])
+        own = {k: max(away(theirs["again"])[k], away(theirs["ulp"])[k]) for k in LOSS_KEYS}
+        # the KL is computed in the compute dtype, each rank's partial KL
+        # rounded to it: one ulp of that dtype; the other terms are float32
+        floor = {"kl_loss": max(SPATIAL_LOSS_REL, float(torch.finfo(getattr(torch, dtype)).eps)),
+                 "reconstruction_loss": SPATIAL_LOSS_REL, "regularization_loss": SPATIAL_LOSS_REL}
+        allowed = {k: max(2 * own[k], f * abs(theirs["losses"][k])) for k, f in floor.items()}
+        allowed["total_loss"] = sum(allowed.values())
+        grad, worst, leaf = grad_spread(mine["grads"], theirs["grads"])
+        spread = max(theirs["rr"], theirs["moved"])
+        step_info[dtype] = {"loss_abs": loss, "own_loss_abs": own, "allowed": allowed,
+                            "losses": theirs["losses"], "grad_rel": grad, "worst": worst,
+                            "leaf": leaf, "rr": theirs["rr"], "moved": theirs["moved"]}
+        log(f"spatial {name}: losses {mine['losses']}, the unsharded step's {theirs['losses']}: "
+            f"{loss} apart (allowed {allowed}; the unsharded step's own {own}); gradients "
+            f"{grad:.3e} (relative L2; worst leaf {worst:.3e} of its scale, {leaf}); the "
+            f"unsharded step's run-to-run {theirs['rr']:.3e}, on inputs moved by one float32 "
+            f"ulp {theirs['moved']:.3e}")
+        if any(loss[k] > allowed[k] for k in LOSS_KEYS):
+            failures.append(f"{name}: losses {loss} apart, allowed {allowed}")
+        if not grad <= max(2 * spread, 1e-5):
+            failures.append(f"{name}: gradients {grad:.3e} against {spread:.3e}")
+    tp_err = 0.0
+    for i, key in enumerate(("warped", "dfs")):
+        for l, want in ref["tp"][i].items():
+            got = ranks[0]["tp"][key][l].float()
+            if not bool(torch.isfinite(got).all()):
+                failures.append(f"tp forward: {key}[{l}] not finite")
+            tp_err = max(tp_err, float((got - want.float().cpu()).abs().max())
+                         / float(want.float().abs().max()))
+    if tp_err > TP_REL:
+        failures.append(f"tp forward: {tp_err:.3e} of scale from the replicated forward")
+    for r in ranks:
+        for phase in phases:
+            x = r[phase]
+            log(f"spatial {phase} rank {r['rank']}: {x['s']:.3f} s, peak {x['peak']:.3f} GiB"
+                + (f", exchanges {x['traffic']}" if "traffic" in x else ""))
+    log(f"spatial (phases 11a-11c): {SPACE} processes on one card (gloo), the flagship at "
+        f"{cfg.input_size}; unsharded forward {ref['fwd_s']:.3f} s peak {ref['fwd_peak']:.3f} "
+        f"GiB, predict_deterministic {ref['tp_s']:.3f} s peak {ref['tp_peak']:.3f} GiB, steps "
+        + ", ".join(f"{d} {ref[d]['s']:.3f} s peak {ref[d]['peak']:.3f} GiB" for d in STEP_DTYPES)
+        + f"; sharded forward {errs} of scale; split forward {tp_err:.3e} of scale; "
+        f"{wall:.1f} s with start-up")
+    if failures:
+        raise SystemExit(f"spatial paths failed: {failures}")
+    info = {"wall_s": wall, "errs": errs, "fwd_moved": moved, "tp_err": tp_err,
+            "steps": step_info,
+            "ref": {k: ref[k] for k in ("fwd_s", "fwd_peak", "tp_s", "tp_peak")}
+            | {d: {k: ref[d][k] for k in ("s", "peak")} for d in STEP_DTYPES},
+            "ranks": [{p: {k: v for k, v in r[p].items() if k in ("s", "peak", "traffic")}
+                       for p in phases} for r in ranks]}
+    counts = {p: add_counts(*(r[p]["counts"] for r in ranks)) for p in phases}
+    return counts, info
+
+
 def time_ms(fn, iters, warmup=2):
     """ms per call: the median of TIME_REPEATS CUDA-event timings of
     `iters` calls each (one timing alone moves by up to 2x between runs)."""
@@ -4009,6 +4447,16 @@ def main() -> int:
     finally:
         shutil.rmtree(dp_root, ignore_errors=True)
     torch.cuda.empty_cache()
+    check_slab_kernels(dev, cfg, checks)
+    if checks.failures:
+        raise SystemExit(f"slab checks failed: {checks.failures}")
+    torch.cuda.empty_cache()
+    sp_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_spatial_"))
+    try:
+        sp_counts, sp = run_spatial_paths(dev, sp_root)
+    finally:
+        shutil.rmtree(sp_root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     times = time_kernels(dev, full, level0, chunk, cfg.zdim, cfg.n0)
     times.update(time_backward_kernels(dev, cfg))
@@ -4102,7 +4550,10 @@ def main() -> int:
                    "vxm_eval": vxm["eval_counts"][name], "vxm_train": vxm["train_counts"][name],
                    "compare": cmp_counts[name], "native_oasis_train": native_counts[name],
                    "ingest": ingest_counts[name], "dp_step": dp_counts[name],
-                   "train_cli_dp": cli_dp_counts[name]}
+                   "train_cli_dp": cli_dp_counts[name],
+                   "spatial_forward": sp_counts["forward"][name],
+                   **{f"spatial_step_{d}": sp_counts[f"step {d}"][name] for d in STEP_DTYPES},
+                   "tp_forward": sp_counts["tp"][name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -4183,6 +4634,15 @@ def main() -> int:
         f"{'bit-equal' if dp['bit_equal'] else 'not bit-equal'} ({dp['rel']:.3e} relative L2, "
         f"the plain step's own spread {dp['spread']:.3e})")
     log(f"train_cli dp (phase 10d; {card}): {cli_dp['wall_s']:.1f} s for 2 processes")
+    ref = sp["ref"]
+    log(f"spatial (phases 11a-11c; {card}): unsharded forward {ref['fwd_s']:.3f} s / "
+        f"{ref['fwd_peak']:.3f} GiB, predict_deterministic {ref['tp_s']:.3f} s / "
+        f"{ref['tp_peak']:.3f} GiB, steps " + ", ".join(
+            f"{d} {ref[d]['s']:.3f} s / {ref[d]['peak']:.3f} GiB" for d in STEP_DTYPES)
+        + "; per rank " + "; ".join(
+            f"rank {i}: " + ", ".join(f"{p} {x['s']:.3f} s / {x['peak']:.3f} GiB"
+                                      for p, x in r.items())
+            for i, r in enumerate(sp["ranks"])) + f"; {sp['wall_s']:.1f} s for {SPACE} processes")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -4195,4 +4655,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 10d, under torchrun
         sys.exit(dp_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--spatial-worker"]:  # one rank of phases 11a-11c, under torchrun
+        sys.exit(spatial_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -40,6 +40,14 @@
 // flattening of (voxel, chunk) in memory order, so a warp's accesses
 // are contiguous) and walks ty lines and tz planes of its tile in turn;
 // the tile decode is the same.
+//
+// A slab launch (the depth-sharded model, parallel/spatial.py) computes
+// planes z0 .. z0 + Z - 1 of an output whose whole depth is zg: the
+// plan's z0 and zg. Its threads walk the slab's Z planes as above, and the
+// source coordinate of a voxel of local plane z takes its global grid index
+// z + z0, with the axis-0 factor S_in / (zg - 1) passed in by the host, so
+// that a slab launch is bit-equal to the matching planes of the whole
+// launch. A whole launch has z0 = 0 and zg = Z.
 
 #pragma once
 
@@ -57,10 +65,20 @@ struct Plan {
   int groups, rows;      // df row groups per moving row, df rows a group
   int v;                 // voxels a thread along x: 4 or 1
   int ch;                // channels a chunk of a channel body: 4 or 1; 0: a voxel body
+  int z0, zg;            // the slab's first plane in the whole output, the whole depth
 };
 
+constexpr int PLAN_INTS = 12;
+
 inline Plan read_plan(const int* q) {
-  return Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9]};
+  return Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], q[10], q[11]};
+}
+
+// Whether the plan's slab lies in its whole output of depth zg (Z the
+// slab's planes); a 2D launch (Z = 1 by its axes) takes no slab.
+inline bool valid_slab(const Plan& p, int Z, bool flat = false) {
+  if (flat) return p.z0 == 0 && p.zg == 1;
+  return p.z0 >= 0 && p.zg >= 1 && (long long)p.z0 + Z <= p.zg;
 }
 
 // Threads a voxel in a channel body: one a chunk, at most a warp's.

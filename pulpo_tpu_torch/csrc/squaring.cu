@@ -46,6 +46,13 @@
 // PyTorch version's rounding. The arithmetic per voxel is the first
 // version's; only the addressing changed.
 //
+// Slab launch (the depth-sharded model, parallel/spatial.py; channels-last
+// 3D only): the input is the whole field, all-gathered along depth (its
+// depth is the plan's zg), and the launch computes the output planes z0 ..
+// z0 + S0 - 1 (S0 the slab's depth): a voxel reads its own displacement at
+// global plane z + z0 and gathers its corners from the whole field, so the
+// slab is bit-equal to the matching planes of the whole step.
+//
 // Layouts: one kernel body, instantiated for the layout of component ch
 // of voxel v in row b:
 //   channels-last  (B, *S, ND):  (b * n + v) * ND + ch
@@ -75,25 +82,30 @@ squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
     s[a] = s3[a];
     f[a] = f3[a];
   }
+  // the output's (slab's) planes Z; the input's s[0] is the whole depth
   const int X = s[ND - 1], Y = s[ND - 2], Z = ND == 3 ? s[0] : 1;
+  if (ND == 3) s[0] = p.zg;
   const gather::Tile t = gather::tile_of<1>(p);
   const int x = t.x0 + threadIdx.x, y = t.y0 + threadIdx.y, z = t.z0 + threadIdx.z;
   if (x >= X || y >= Y || z >= Z) return;
   const int n = X * Y * Z;
+  const int n_in = ND == 3 ? X * Y * p.zg : n;
   // a voxel's element offset along each axis, and a component's
   int st[ND];
   st[ND - 1] = CF ? 1 : ND;
 #pragma unroll
   for (int a = ND - 2; a >= 0; --a) st[a] = st[a + 1] * s[a + 1];
   const int cs = CF ? n : 1;
-  const float* row = vin + (long long)blockIdx.z * ND * n;
+  const float* row = vin + (long long)blockIdx.z * ND * n_in;
   const int v = (z * Y + y) * X + x;
+  const int zg = z + p.z0;  // the voxel's plane in the whole field
+  const int vg = (zg * Y + y) * X + x;
 
-  const int g3[3] = {z, y, x};
+  const int g3[3] = {zg, y, x};
   float d[ND], c[ND];
 #pragma unroll
   for (int a = 0; a < ND; ++a) {
-    d[a] = __ldg(row + v * st[ND - 1] + a * cs) * scale;
+    d[a] = __ldg(row + vg * st[ND - 1] + a * cs) * scale;
     c[a] = gather::src_coord(g3[a + 3 - ND], d[a], f[a], s[a]);
   }
   const gather::Corners<ND> k = gather::corners<ND>(c, s);
@@ -120,7 +132,10 @@ int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
   const long long n = (long long)X * Y * Z;
   if (B == 0 || n == 0) return 0;
   const gather::Plan p = gather::read_plan(plan);
-  if (p.v != 1 || !gather::valid(p, X, Y, Z, 1, B, n * ND)) return (int)cudaErrorInvalidValue;
+  // a slab only on a channels-last 3D field; its input row is the whole field's
+  if (p.v != 1 || !gather::valid_slab(p, Z, ND == 2) || (CF && (p.z0 != 0 || p.zg != Z)) ||
+      !gather::valid(p, X, Y, Z, 1, B, n / Z * p.zg * ND))
+    return (int)cudaErrorInvalidValue;
   squaring_kernel<CF, ND><<<gather::grid(p, B), gather::block(p), 0, (cudaStream_t)stream>>>(
       (const float*)vin, (float*)vout, S0, S1, S2, f0, f1, f2, scale, p);
   return (int)cudaGetLastError();
@@ -128,8 +143,10 @@ int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
 
 }  // namespace
 
-// plan: the launch's tile plan, 10 ints (gather::Plan) from
-// kernels/gather.py:squaring_plan.
+// plan: the launch's tile plan, 12 ints (gather::Plan) from
+// kernels/gather.py:squaring_plan. S0 is the output's depth: the whole
+// field's, or the slab's (plan z0, zg: vin holds the whole field of
+// depth zg, vout the slab, f0 = zg / (zg - 1)).
 extern "C" int pulpo_squaring_step(const void* vin, void* vout, int B,
                                    int S0, int S1, int S2,
                                    float f0, float f1, float f2, float scale,

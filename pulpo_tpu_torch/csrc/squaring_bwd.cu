@@ -38,6 +38,11 @@
 // see PERF.md. The order of the adds is not fixed; the result is held
 // to a tolerance.
 //
+// Slab launch (the depth-sharded model's step, parallel/spatial.py): the
+// forward slab's source voxels are planes z0 .. z0 + S0 - 1 of a whole
+// field of depth zg; the block marches those planes at their global index,
+// reads v from the whole field and sends into a whole-field cotangent.
+//
 // Clamp convention, as csrc/warp_bwd.cu: clip'(u) is 1 inside, 1/2 at a
 // tie with a bound (jax.grad through jnp.clip), 0 outside.
 //
@@ -74,14 +79,15 @@ squaring_bwd_kernel(const float* __restrict__ vin, const float* __restrict__ g,
   const gather::Tile t = gather::tile_of<1>(p);
   const int nthreads = p.tx * p.ty;
   const int tid = threadIdx.y * p.tx + threadIdx.x;
-  const int n3 = S0 * S1 * S2 * 3;
-  const float* vrow = vin + (long long)blockIdx.z * n3;
+  // v and out are whole fields (depth p.zg), g the slab of S0 planes from z0
+  const int n3 = S0 * S1 * S2 * 3, n3_whole = p.zg * S1 * S2 * 3;
+  const float* vrow = vin + (long long)blockIdx.z * n3_whole;
   const float* grow = g + (long long)blockIdx.z * n3;
-  float* orow = out + (long long)blockIdx.z * n3;
+  float* orow = out + (long long)blockIdx.z * n3_whole;
   const int x = t.x0 + threadIdx.x, y = t.y0 + threadIdx.y;
   const bool mine = x < S2 && y < S1;
   const int z1 = min(t.z0 + p.tz, S0);
-  const int S[3] = {S0, S1, S2};
+  const int S[3] = {p.zg, S1, S2};
   const float f[3] = {f0, f1, f2};
   const int lane = tid & 31;
   const int lanes = min(32, nthreads - (tid - lane));  // threads of this warp
@@ -111,12 +117,13 @@ squaring_bwd_kernel(const float* __restrict__ vin, const float* __restrict__ g,
     for (int k = 0; k < 8; ++k) val[k][0] = val[k][1] = val[k][2] = 0.0f;
     if (have) {
       const int o = ((z * S1 + y) * S2 + x) * 3;
+      const int og = o + p.z0 * S1 * S2 * 3;  // the voxel in the whole field
       const float gv[3] = {grow[o], grow[o + 1], grow[o + 2]};
-      const int pos[3] = {z, y, x};
+      const int pos[3] = {z + p.z0, y, x};
       float w[3], dclip[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
-        axis_terms(pos[a], vrow[o + a], f[a], S[a], &i0[a], &i1[a], &w[a], &dclip[a]);
+        axis_terms(pos[a], vrow[og + a], f[a], S[a], &i0[a], &i1[a], &w[a], &dclip[a]);
       // the lower-z corners are the held upper-z ones: their v is at hand
       const bool same = held_z >= 0 && i0[0] == held_z && i0[1] == held_y && i0[2] == held_x;
 
@@ -151,7 +158,7 @@ squaring_bwd_kernel(const float* __restrict__ vin, const float* __restrict__ g,
       const float own[3] = {gv[0] + gw[0] * (dclip[0] * f[0]),
                             gv[1] + gw[1] * (dclip[1] * f[1]),
                             gv[2] + gw[2] * (dclip[2] * f[2])};
-      send(z, y, x, own);
+      send(z + p.z0, y, x, own);
     }
     // the upper-z corners held from plane z - 1: merged into this plane's
     // lower-z corners where the cells are the same, else sent
@@ -203,9 +210,10 @@ squaring_bwd_kernel(const float* __restrict__ vin, const float* __restrict__ g,
 
 // Whether plan p walks B rows of S0 x S1 x S2 voxels: blocks of tx x ty
 // threads (at most gather::THREADS), tiles covering each plane, chunks of
-// tz planes covering z, within the launch limits, and offsets of a row's
-// 3 n floats in 32 bits.
+// tz planes covering z, within the launch limits, the slab inside the
+// whole field, and offsets of a whole row's 3 n floats in 32 bits.
 bool valid(const gather::Plan& p, int B, int S0, int S1, int S2) {
+  if (!gather::valid_slab(p, S0)) return false;
   if (p.v != 1 || p.ch != 0 || p.tx < 1 || p.ty < 1 || p.tz < 1 || p.log_strips < 0 ||
       p.log_strips > 20 || p.tiles_y < 1 || p.tiles_z < 1 || p.groups != 1 || p.rows != 1)
     return false;
@@ -213,24 +221,28 @@ bool valid(const gather::Plan& p, int B, int S0, int S1, int S2) {
   return (long long)p.tx * p.ty <= gather::THREADS && p.tx * strips >= S2 &&
          (long long)p.ty * p.tiles_y >= S1 && (long long)p.tz * p.tiles_z >= S0 &&
          p.tiles_y * strips < (1LL << 31) && p.tiles_z <= 65535 && B <= 65535 &&
-         (long long)S0 * S1 * S2 * 3 < (1LL << 31);
+         (long long)p.zg * S1 * S2 * 3 < (1LL << 31);
 }
 
 }  // namespace
 
 // vbar (B, S0, S1, S2, 3) = g + dfgrad(v, v, g) + mgrad(v, v, g); plan:
-// 10 ints, gather::Plan with tz the planes a block marches
-// (kernels/gather.py:squaring_bwd_plan). `out` must not alias v or g.
+// 12 ints, gather::Plan with tz the planes a block marches
+// (kernels/gather.py:squaring_bwd_plan). With a slab (plan z0, zg; the
+// depth-sharded model's step): v and vbar are whole fields of depth zg, g
+// the cotangent of the forward slab's S0 planes from z0 (f0 = zg / (zg -
+// 1)); vbar is then the slab's share of the whole cotangent, which the
+// caller sums over the slabs. `out` must not alias v or g.
 // Returns the first CUDA error, or 0 (cudaErrorInvalidValue for a plan
 // the kernel cannot walk).
 extern "C" int pulpo_squaring_step_bwd(const void* vin, const void* g, void* out,
                                        int B, int S0, int S1, int S2,
                                        float f0, float f1, float f2, const int* plan,
                                        void* stream) {
-  const long long total = (long long)B * S0 * S1 * S2;
-  if (total == 0) return 0;
+  if ((long long)B * S0 * S1 * S2 == 0) return 0;
   const gather::Plan p = gather::read_plan(plan);
   if (!valid(p, B, S0, S1, S2)) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)B * p.zg * S1 * S2;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(out, 0, (size_t)total * 3 * sizeof(float), s);
   if (err != cudaSuccess) return (int)err;

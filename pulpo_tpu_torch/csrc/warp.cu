@@ -76,6 +76,13 @@
 // the access widths changed, so every body is bit-equal to the plain
 // version.
 //
+// Slab launch (the depth-sharded model, parallel/spatial.py): the df and
+// the output are planes z0 .. z0 + O0 - 1 of a whole output of depth zg
+// (the plan's), the moving volume is whole (all-gathered along depth): a
+// voxel's source coordinate takes its global plane z + z0, and the host
+// passes f0 = I0 / (zg - 1), so a slab is bit-equal to the matching planes
+// of the whole warp.
+//
 // Layouts: one kernel body, instantiated for the layout (n = voxels of a
 // row):
 //   channels-last:  moving (B, *S_in, C), df (B_df, *S_out, ND),
@@ -188,7 +195,7 @@ warp_kernel(const float* __restrict__ mov, const float* __restrict__ df, float* 
       if (k + 1 < nrows && valid > 0)
         load_df<CF, ND, 1>(df + (r + B) * ND * n_out, n_out, line + xq, valid, dq);
       if (valid == 0) continue;
-      const int g3[3] = {z, y, xq};
+      const int g3[3] = {z + p.z0, y, xq};
       float c[ND];
 #pragma unroll
       for (int a = 0; a < ND; ++a) c[a] = gather::src_coord(g3[a + 3 - ND], d[a], f[a], s_in[a]);
@@ -212,7 +219,7 @@ warp_kernel(const float* __restrict__ mov, const float* __restrict__ df, float* 
           const int lx = i + p.tx * j;
           const int x = t.x0 + lx;
           if (!line_ok || x >= X) continue;
-          const int g3[3] = {z, y, x};
+          const int g3[3] = {z + p.z0, y, x};
           float c[ND];
 #pragma unroll
           for (int a = 0; a < ND; ++a)
@@ -314,7 +321,7 @@ warp_channels_kernel(const float* __restrict__ mov, const float* __restrict__ df
       const int y = t.y0 + ly;
       if (y >= Y) break;
       const int v = (z * Y + y) * X + x;
-      const int g3[3] = {z, y, x};
+      const int g3[3] = {z + p.z0, y, x};
       for (int k = 0; k < nrows; ++k) {
         const long long rv = (row0 + (long long)B * k) * n_out + v;  // the output voxel
         float c[ND];
@@ -364,6 +371,7 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
   const long long widest = n_out * (C > ND ? C : ND);
   if ((p.v == 4 && !CF) || (p.ch != 0 && CF) ||
       (p.ch == 4 && !(gather::aligned16(mov) && gather::aligned16(out))) ||
+      !gather::valid_slab(p, Z, ND == 2) ||
       !gather::valid(p, X, Y, Z, B_df / B, B, widest > n_in * C ? widest : n_in * C, C))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);
@@ -396,8 +404,9 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
 
 }  // namespace
 
-// plan: the launch's tile plan, 10 ints (gather::Plan) from
-// kernels/gather.py:warp_plan.
+// plan: the launch's tile plan, 12 ints (gather::Plan) from
+// kernels/gather.py:warp_plan; with a slab (z0, zg) the df and output are
+// O0 planes of a whole output of depth zg, and f0 = I0 / (zg - 1).
 extern "C" int pulpo_warp(const void* mov, const void* df, void* out,
                           int B, int B_df, int C,
                           int I0, int I1, int I2, int O0, int O1, int O2,

@@ -237,7 +237,7 @@ dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
   for (int k = 0; k < nrows; ++k) {
     const long long r = row0 + (long long)B * k;
     Axis ax[3];
-    ax[0] = axis_terms(z, d[0], f0, I0);
+    ax[0] = axis_terms(z + p.z0, d[0], f0, I0);
     ax[1] = axis_terms(y, d[1], f1, I1);
     ax[2] = axis_terms(x, d[2], f2, I2);
     if (k + 1 < nrows) {
@@ -278,8 +278,11 @@ unsigned int blocks_for(long long total, int threads) {
 
 // gdf (B_df, O0, O1, O2, 3) from moving (B, I0, I1, I2, C), df (B_df, O.., 3)
 // and g (B_df, O.., C); plan: the forward's tile plan of the df's output
-// space, 10 ints (gather::Plan, kernels/gather.py:warp_plan), refused
-// unless it covers the output. Returns cudaGetLastError().
+// space, 12 ints (gather::Plan, kernels/gather.py:warp_plan), refused
+// unless it covers the output; with a slab (z0, zg: df, g and gdf are O0
+// planes of a whole output of depth zg, the moving volume whole, f0 = I0 /
+// (zg - 1)) each voxel takes its global plane, as the forward's slab does.
+// Returns cudaGetLastError().
 extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
                                  void* out, int B, int B_df, int C,
                                  int I0, int I1, int I2, int O0, int O1, int O2,
@@ -290,7 +293,7 @@ extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
   if (B < 1 || C < 1 || B_df % B != 0) return (int)cudaErrorInvalidValue;
   const gather::Plan p = gather::read_plan(plan);
   const long long widest = n_out * (C > 3 ? C : 3);
-  if (p.v != 1 || p.ch != 0 ||
+  if (p.v != 1 || p.ch != 0 || !gather::valid_slab(p, O0) ||
       !gather::valid(p, O2, O1, O0, B_df / B, B, widest > n_in * C ? widest : n_in * C))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);

@@ -2,7 +2,7 @@
 and of the squaring step's backward (`csrc/squaring_bwd.cu`).
 
 The wrappers compute each launch's plan here and pass it to the C entry
-points as 10 ints (`plan_arg`, `gather::Plan` in `csrc/gather.cuh`); the
+points as 12 ints (`plan_arg`, `gather::Plan` in `csrc/gather.cuh`); the
 kernels walk exactly that plan, and the entry points refuse one that
 does not cover the output. `tests/test_torch_gather_plan.py` holds the
 plans the paths launch to the kernels' walk: every output voxel of
@@ -25,7 +25,13 @@ voxels of a line a block takes (tx * lanes threads) and `ty, tz` the
 lines and planes it walks in turn. The df-cotangent takes the voxel
 plan at every C.
 
-The squaring backward's plan (`squaring_bwd_plan`) is the same 10 ints
+`z0, zg`: a slab launch (`slab`; the depth-sharded model,
+parallel/spatial.py) computes output planes z0 .. z0 + Z - 1 of a whole
+output of depth zg, its voxels' source coordinates taken at their
+global plane; a whole launch has z0 = 0 and zg = Z. The squaring step
+and its backward then read (and the backward writes) the whole field.
+
+The squaring backward's plan (`squaring_bwd_plan`) is the same 12 ints
 read another way: a block of tx x ty threads, one source column each,
 marches `tz` planes along z (a chunk; `tiles_z` chunks), merging the
 terms of a cell it sends twice before it sends them.
@@ -49,7 +55,8 @@ BWD_TARGET_BLOCKS = 264    # its chunks along z: as few as give a launch as many
 CHANNELS_FROM = 5  # a channels-last warp of this many channels or more runs across channels
 LINES = 8          # lines a channel body's block walks, at most
 
-KEYS = ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups", "rows", "v", "ch")
+KEYS = ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups", "rows", "v", "ch",
+        "z0", "zg")
 
 
 def cdiv(a: int, b: int) -> int:
@@ -78,7 +85,8 @@ def make_plan(x: int, y: int, z: int, rows_per_moving: int, movings: int, v: int
     rows = cdiv(rows_per_moving, max(groups, 1))
     groups = cdiv(rows_per_moving, rows)
     return {"tx": tx, "ty": ty, "tz": tz, "log_strips": log_strips, "tiles_y": tiles_y,
-            "tiles_z": tiles_z, "groups": groups, "rows": rows, "v": v, "ch": 0}
+            "tiles_z": tiles_z, "groups": groups, "rows": rows, "v": v, "ch": 0, "z0": 0,
+            "zg": z}
 
 
 def lanes(c: int, ch: int) -> int:
@@ -116,7 +124,7 @@ def channel_plan(x: int, y: int, z: int, rows_per_moving: int, movings: int, c: 
     rows = cdiv(rows_per_moving, max(groups, 1))
     return {"tx": cdiv(x, strips), "ty": ty, "tz": 1, "log_strips": log_strips,
             "tiles_y": cdiv(y, ty), "tiles_z": z, "groups": cdiv(rows_per_moving, rows),
-            "rows": rows, "v": 1, "ch": ch}
+            "rows": rows, "v": 1, "ch": ch, "z0": 0, "zg": z}
 
 
 def axes(spatial) -> tuple[int, int, int]:
@@ -162,9 +170,15 @@ def squaring_bwd_plan(spatial, rows: int) -> dict:
     plan = make_plan(x, y, 1, 1, rows, 1, strip=BWD_STRIP)
     per_chunk = (plan["tiles_y"] << plan["log_strips"]) * rows
     tz = cdiv(z, min(z, cdiv(BWD_TARGET_BLOCKS, per_chunk)))
-    return dict(plan, tz=tz, tiles_z=cdiv(z, tz))
+    return dict(plan, tz=tz, tiles_z=cdiv(z, tz), zg=z)
+
+
+def slab(plan: dict, z0: int, zg: int) -> dict:
+    """`plan` (over a slab's planes) as a slab launch: output planes z0 ..
+    of a whole output of depth `zg`."""
+    return dict(plan, z0=int(z0), zg=int(zg))
 
 
 def plan_arg(plan: dict):
-    """`plan` as the C entry points take it (`gather::Plan`): 10 ints."""
+    """`plan` as the C entry points take it (`gather::Plan`): 12 ints."""
     return (ctypes.c_int * len(KEYS))(*(plan[k] for k in KEYS))

@@ -46,6 +46,14 @@ The step takes each thread's voxel from a tile of the field
 (`csrc/gather.cuh`) by the plan that `tile_plan` computes and the launch
 passes in (`kernels/gather.py`).
 
+Slab launches (the depth-sharded model, parallel/spatial.py; 3D
+channels-last): `squaring_step(whole, z0=, depth=)` reads the whole
+field (all-gathered along depth) and writes planes z0 .. z0 + depth - 1
+of the step, bit-equal to those planes of the whole step;
+`squaring_step_bwd(whole, g_slab, z0)` takes the cotangent of such a
+slab and returns its share of the whole field's cotangent (the caller
+sums the shares over the slabs). The plain versions take the same.
+
 Layout: (B, *S, nd) channels-last float32 (nd = 3, or 2 in 2D); the CF
 functions (B, 3, *S).
 """
@@ -76,17 +84,30 @@ def reset_count() -> None:
     launches = launches_2d = bwd_launches = cf_launches = 0
 
 
-def squaring_step_plain(vec: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version: ``vec + warp(vec, vec)``."""
-    return vec + warp_plain(vec, vec)
+def squaring_step_plain(vec: torch.Tensor, z0: int = 0, depth: int | None = None) -> torch.Tensor:
+    """The kernel's plain PyTorch version: ``vec + warp(vec, vec)``; with
+    `depth`, planes z0 .. z0 + depth - 1 of it (a slab launch's)."""
+    if depth is None:
+        return vec + warp_plain(vec, vec)
+    part = vec[:, z0:z0 + depth]
+    return part + warp_plain(vec, part, z0, vec.shape[1])
 
 
-def squaring_step_bwd_plain(vec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def squaring_step_bwd_plain(vec: torch.Tensor, g: torch.Tensor, z0: int = 0) -> torch.Tensor:
     """The backward kernel's plain version: the VJP of
     ``vec + warp(vec, vec)`` for cotangent g, written out as
-    ``g + dfgrad(v, v, g) + mgrad(v, v, g)``."""
-    return (g.float() + warp_dfgrad_plain(vec, vec, g)
-            + warp_mgrad_plain(vec.shape, vec, g))
+    ``g + dfgrad(v, v, g) + mgrad(v, v, g)``. A g of fewer planes than vec
+    is the cotangent of a slab from z0: the result is then that slab's
+    share of the whole cotangent."""
+    if g.shape[1] == vec.shape[1]:
+        return (g.float() + warp_dfgrad_plain(vec, vec, g)
+                + warp_mgrad_plain(vec.shape, vec, g))
+    depth, zg = g.shape[1], vec.shape[1]
+    part = vec[:, z0:z0 + depth]
+    own = g.float() + warp_dfgrad_plain(vec, part, g, z0, zg)
+    out = warp_mgrad_plain(vec.shape, part, g, z0, zg)
+    out[:, z0:z0 + depth] = own + out[:, z0:z0 + depth]
+    return out
 
 
 def integrate_svf_plain(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
@@ -138,46 +159,57 @@ def tile_plan(shape, cf: bool = False) -> dict:
 
 
 def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
-                 ndims: int = 3) -> torch.Tensor:
+                 ndims: int = 3, z0: int = 0, depth: int | None = None) -> torch.Tensor:
     """One launch of C entry `entry` of the squaring library on a CUDA
     field of `ndims` spatial axes (channels-last, or channels-first with
-    `cf`)."""
+    `cf`); with `depth`, the slab launch of planes z0 .. z0 + depth - 1."""
     _check(_cl(vec) if cf else vec, "squaring kernel", ndims)
     if math.prod(vec.shape[1:]) >= 2**31:
         raise ValueError(f"squaring kernel addresses a row in 32 bits, got {tuple(vec.shape)}")
     vec = vec.contiguous()
+    shape = tuple(vec.shape)
+    if depth is not None:
+        if cf or ndims != 3 or not (0 <= z0 and z0 + depth <= vec.shape[1]):
+            raise ValueError(f"a slab of {depth} planes from {z0} takes a channels-last 3D "
+                             f"field of at least {z0 + depth} planes, got {shape}")
+        shape = (shape[0], depth, *shape[2:])
     if out is None:
-        out = torch.empty_like(vec, memory_format=torch.contiguous_format)
-    if out.shape != vec.shape or out.dtype != vec.dtype or not out.is_contiguous():
+        out = vec.new_empty(shape)
+    if tuple(out.shape) != shape or out.dtype != vec.dtype or not out.is_contiguous():
         raise ValueError("squaring kernel writes a contiguous float32 `out` "
-                         f"of the input's shape, got {tuple(out.shape)} {out.stride()}")
+                         f"of shape {shape}, got {tuple(out.shape)} {out.stride()}")
     cl = _cl(vec) if cf else vec
     fn = getattr(_build.load("squaring"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * (ndims + 1)
                    + [ctypes.c_float] * (ndims + 1) + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    plan = gather.plan_arg(tile_plan(vec.shape, cf))
+    sizes = list(cl.shape[1:-1])
+    plan = tile_plan(vec.shape, cf)
+    if depth is not None:
+        plan = gather.slab(tile_plan(shape), z0, vec.shape[1])
+        sizes[0] = depth
     with torch.cuda.device(vec.device):
-        rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *cl.shape[1:-1], *_factors(cl),
-                float(scale), plan, _build.stream_ptr(vec))
+        rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *sizes, *_factors(cl),
+                float(scale), gather.plan_arg(plan), _build.stream_ptr(vec))
     _build.check(rc, entry)
     return out
 
 
 def squaring_step(vec: torch.Tensor, out: torch.Tensor | None = None,
-                  scale: float = 1.0) -> torch.Tensor:
+                  scale: float = 1.0, z0: int = 0, depth: int | None = None) -> torch.Tensor:
     """One step ``v + warp(v, v)`` with ``v = scale * vec`` on a 3D
     (B, S0, S1, S2, 3) or 2D (B, S0, S1, 2) field: the CUDA kernel for a
     tensor on the card, the plain version on the CPU. `scale` must be a
-    power of two (it is then exact)."""
+    power of two (it is then exact). With `depth` (3D), the slab launch:
+    planes z0 .. z0 + depth - 1 of the step of the whole field `vec`."""
     if vec.device.type == "cpu":
-        return squaring_step_plain(vec * scale if scale != 1.0 else vec)
+        return squaring_step_plain(vec * scale if scale != 1.0 else vec, z0, depth)
     global launches, launches_2d
     if vec.dim() == 4:
         out = _launch_step("pulpo_squaring_step_2d", vec, out, scale, cf=False, ndims=2)
         launches_2d += 1
         return out
-    out = _launch_step("pulpo_squaring_step", vec, out, scale, cf=False)
+    out = _launch_step("pulpo_squaring_step", vec, out, scale, cf=False, z0=z0, depth=depth)
     launches += 1
     return out
 
@@ -222,25 +254,29 @@ def integrate_svf_cf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
                            lambda v: integrate_svf_cf_plain(v, nsteps), vec)
 
 
-def squaring_step_bwd(vec: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def squaring_step_bwd(vec: torch.Tensor, g: torch.Tensor, z0: int = 0) -> torch.Tensor:
     """The VJP of one step at `vec` for cotangent g: the CUDA kernel
     (f32 atomics, so the summation order is not fixed) for tensors on
-    the card, the plain version on the CPU."""
+    the card, the plain version on the CPU. A g of fewer planes than vec
+    is the cotangent of the slab launch from z0: the result (vec's shape)
+    is then that slab's share of the whole cotangent."""
     if vec.device.type == "cpu":
-        return squaring_step_bwd_plain(vec, g)
+        return squaring_step_bwd_plain(vec, g, z0)
     _check(vec, "squaring backward kernel")
     _check(g, "squaring backward kernel")
-    if g.shape != vec.shape or g.device != vec.device:
-        raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} does not match "
+    depth = g.shape[1]
+    if (g.shape[0] != vec.shape[0] or g.shape[2:] != vec.shape[2:]
+            or not 0 <= z0 <= vec.shape[1] - depth or g.device != vec.device):
+        raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} is not planes {z0}.. of "
                          f"the field {tuple(vec.shape)} on {vec.device}")
     vec, g = vec.contiguous(), g.contiguous()
     out = torch.empty_like(vec, memory_format=torch.contiguous_format)
-    b, s = vec.shape[0], vec.shape[1:4]
+    b, s = vec.shape[0], (depth, *vec.shape[2:4])
     fn = _build.load("squaring_bwd").pulpo_squaring_step_bwd
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
                    + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
-    plan = gather.plan_arg(gather.squaring_bwd_plan(s, b))
+    plan = gather.plan_arg(gather.slab(gather.squaring_bwd_plan(s, b), z0, vec.shape[1]))
     global bwd_launches
     with torch.cuda.device(vec.device):
         rc = fn(vec.data_ptr(), g.data_ptr(), out.data_ptr(), b, *s, *_factors(vec), plan,

@@ -55,6 +55,13 @@ or output is not 16-byte aligned, `gather.aligned`). The df-cotangent
 takes the forward's voxel plan at every C (`dfgrad_plan`); its launch
 moves the channels of a voxel in 16-byte chunks where it can.
 
+Slab launches (the depth-sharded model, parallel/spatial.py): `warp`,
+`warp_dfgrad` and their plain versions take `z0, zg`: the df (and g,
+and the output) are planes z0 .. of a whole output of depth zg, the
+moving volume whole; each voxel's source coordinate takes its global
+plane and the axis-0 factor S_in / (zg - 1), so a slab is bit-equal to
+the matching planes of the whole launch (`gather.slab`).
+
 Layout: moving (B, *S_in, C) and df (B_df, *S_out, nd) channels-last
 float32, nd = 3 or, in 2D, 2 (the CF functions: (B, C, *S_in) and
 (B_df, 3, *S_out)); df channel i = displacement along spatial axis i;
@@ -88,15 +95,26 @@ def _factor(s_in: int, s_out: int) -> float:
     return float(torch.tensor(s_in / (s_out - 1), dtype=torch.float32))
 
 
-def _unclamped(df: torch.Tensor, in_spatial, i: int) -> torch.Tensor:
-    """``u = (g + d) * S_in / (S_out - 1) - 0.5`` along axis i."""
+def _whole(df: torch.Tensor, i: int, z0: int, zg) -> tuple[int, int]:
+    """(first global index, whole output size) of the df's axis i: a slab
+    of planes z0 .. of a whole depth zg along axis 0, else the df's own."""
+    s_out = df.shape[1 + i]
+    if i == 0 and zg is not None:
+        return z0, zg
+    return 0, s_out
+
+
+def _unclamped(df: torch.Tensor, in_spatial, i: int, z0: int = 0, zg=None) -> torch.Tensor:
+    """``u = (g + d) * S_in / (S_out - 1) - 0.5`` along axis i (g the
+    global grid index, S_out the whole output's size)."""
     out_spatial = df.shape[1:-1]
     s_out, s_in = out_spatial[i], in_spatial[i]
+    g0, whole = _whole(df, i, z0, zg)
     shape = [1] * (len(out_spatial) + 1)
     shape[i + 1] = s_out
-    g = torch.arange(s_out, device=df.device, dtype=torch.float32).view(shape)
+    g = torch.arange(g0, g0 + s_out, device=df.device, dtype=torch.float32).view(shape)
     loc = g + df[..., i].to(torch.float32)
-    return loc * (s_in / (s_out - 1)) - 0.5
+    return loc * (s_in / (whole - 1)) - 0.5
 
 
 def _clamp(u: torch.Tensor, s_in: int) -> torch.Tensor:
@@ -105,19 +123,21 @@ def _clamp(u: torch.Tensor, s_in: int) -> torch.Tensor:
     return torch.clamp(torch.fmax(u, u.new_zeros(())), max=s_in - 1)
 
 
-def source_coords(df: torch.Tensor, in_spatial: tuple[int, ...]) -> list[torch.Tensor]:
+def source_coords(df: torch.Tensor, in_spatial: tuple[int, ...], z0: int = 0,
+                  zg=None) -> list[torch.Tensor]:
     """Per-axis clamped source coordinates into an input of size
     `in_spatial` for a df on the output grid (pulpo_tpu/ops/warp.py:33-53):
-    ``src = (g + d) * S_in / (S_out - 1) - 0.5``, clamped to [0, S_in-1]."""
-    return [_clamp(_unclamped(df, in_spatial, i), in_spatial[i])
+    ``src = (g + d) * S_in / (S_out - 1) - 0.5``, clamped to [0, S_in-1];
+    a slab's (z0, zg) as `warp_plain`'s."""
+    return [_clamp(_unclamped(df, in_spatial, i, z0, zg), in_spatial[i])
             for i in range(len(df.shape) - 2)]
 
 
-def _corners(df: torch.Tensor, in_spatial, dtype):
+def _corners(df: torch.Tensor, in_spatial, dtype, z0: int = 0, zg=None):
     """Per axis: the lower and upper corner index and the upper corner's
     weight, in `dtype`."""
     i0, i1, w = [], [], []
-    for c, size in zip(source_coords(df, in_spatial), in_spatial):
+    for c, size in zip(source_coords(df, in_spatial, z0, zg), in_spatial):
         f = torch.floor(c)
         idx0 = f.to(torch.int64)
         i0.append(idx0)
@@ -126,18 +146,18 @@ def _corners(df: torch.Tensor, in_spatial, dtype):
     return i0, i1, w
 
 
-def _clip_grad(df: torch.Tensor, in_spatial) -> list[torch.Tensor]:
+def _clip_grad(df: torch.Tensor, in_spatial, z0: int = 0, zg=None) -> list[torch.Tensor]:
     """Per axis d src / d df: the clip's derivative (1 inside, 1/2 at a
     tie, 0 outside, as jax.grad through maximum then minimum) times the
     factor S_in / (S_out - 1)."""
     out = []
     for i, s_in in enumerate(in_spatial):
-        u = _unclamped(df, in_spatial, i)
+        u = _unclamped(df, in_spatial, i, z0, zg)
         t = torch.fmax(u, u.new_zeros(()))
         half = torch.tensor(0.5, dtype=u.dtype, device=u.device)
         dmax = torch.where(u > 0, 1.0, torch.where(u == 0, half, 0.0))
         dmin = torch.where(t < s_in - 1, 1.0, torch.where(t == s_in - 1, half, 0.0))
-        out.append(dmax * dmin * _factor(s_in, df.shape[1 + i]))
+        out.append(dmax * dmin * _factor(s_in, _whole(df, i, z0, zg)[1]))
     return out
 
 
@@ -172,15 +192,16 @@ def _corner(ndims, corner, i0, i1, w, base, strides, skip=None):
     return idx, weight
 
 
-def warp_plain(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+def warp_plain(moving: torch.Tensor, df: torch.Tensor, z0: int = 0, zg=None) -> torch.Tensor:
     """The kernel's plain PyTorch version, operation for operation as
     `pulpo_tpu/ops/warp.py:warp_image`: 2**nd corner gathers, weights
-    multiplied along the axes in order, corners summed in order."""
+    multiplied along the axes in order, corners summed in order. With
+    `zg`, df is planes z0 .. of a whole output of depth zg (a slab)."""
     spatial = moving.shape[1:-1]
     ndims = len(spatial)
     assert df.shape[-1] == ndims, (df.shape, moving.shape)
     assert df.shape[0] % moving.shape[0] == 0, (df.shape, moving.shape)
-    i0, i1, w = _corners(df, spatial, moving.dtype)
+    i0, i1, w = _corners(df, spatial, moving.dtype, z0, zg)
     base, strides = _flat_index(moving.shape, df)
     c = moving.shape[-1]
     flat = moving.reshape(-1, c)
@@ -193,7 +214,7 @@ def warp_plain(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
 
 
 def warp_dfgrad_plain(moving: torch.Tensor, df: torch.Tensor,
-                      g: torch.Tensor) -> torch.Tensor:
+                      g: torch.Tensor, z0: int = 0, zg=None) -> torch.Tensor:
     """The df-cotangent of `warp_plain` written out (not autograd):
     per output voxel and axis a, ``sum_corner <g, m_corner> * (+-1) *
     prod_{b != a} w_b``, times the clip's derivative and the factor.
@@ -201,7 +222,7 @@ def warp_dfgrad_plain(moving: torch.Tensor, df: torch.Tensor,
     spatial = moving.shape[1:-1]
     ndims = len(spatial)
     moving, g = moving.float(), g.float()
-    i0, i1, w = _corners(df, spatial, torch.float32)
+    i0, i1, w = _corners(df, spatial, torch.float32, z0, zg)
     base, strides = _flat_index(moving.shape, df)
     c = moving.shape[-1]
     flat = moving.reshape(-1, c)
@@ -217,18 +238,19 @@ def warp_dfgrad_plain(moving: torch.Tensor, df: torch.Tensor,
                 gw[a] = t if gw[a] is None else gw[a] + t
             else:
                 gw[a] = -t if gw[a] is None else gw[a] - t
-    dclip = _clip_grad(df, spatial)
+    dclip = _clip_grad(df, spatial, z0, zg)
     return torch.stack([gw[a] * dclip[a] for a in range(ndims)], dim=-1)
 
 
-def warp_mgrad_plain(moving_shape, df: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def warp_mgrad_plain(moving_shape, df: torch.Tensor, g: torch.Tensor, z0: int = 0,
+                     zg=None) -> torch.Tensor:
     """The moving-cotangent of `warp_plain` written out: the gather's
     transpose, each output voxel's ``w_corner * g`` added into its 8
     source corners of moving row r % B. Returns `moving_shape` float32."""
     moving_shape = tuple(moving_shape)
     spatial = moving_shape[1:-1]
     ndims = len(spatial)
-    i0, i1, w = _corners(df, spatial, torch.float32)
+    i0, i1, w = _corners(df, spatial, torch.float32, z0, zg)
     base, strides = _flat_index(moving_shape, df)
     c = moving_shape[-1]
     gflat = g.float().reshape(-1, c)
@@ -310,14 +332,17 @@ def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool
     """Call the C entry `entry(ptrs..., B, B_df, C, I0.., O0.., f0..,
     [plan,] stream)` of kernel library `lib`, one I, O and f per spatial
     axis (the forward kernel and the df-cotangent, which walks the same
-    output space, also take a tile plan: `plan`); `cf`: the shapes are
-    channels-first."""
+    output space, also take a tile plan: `plan`, whose zg is then the
+    whole output's depth for f0); `cf`: the shapes are channels-first."""
     b, c, s_in, s_out = _shapes(moving_shape, df.shape, cf)
     nd = len(s_in)
+    whole = list(s_out)
     if plan is not None:
         check_rows(moving_shape, df.shape, cf)
+        if nd == 3:
+            whole[0] = plan["zg"]
     plan = [] if plan is None else [gather.plan_arg(plan)]
-    f = [_factor(s_in[i], s_out[i]) for i in range(nd)]
+    f = [_factor(s_in[i], whole[i]) for i in range(nd)]
     fn = getattr(_build.load(lib), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (3 + 2 * nd)
                    + [ctypes.c_float] * nd + [ctypes.c_void_p] * (len(plan) + 1))
@@ -327,10 +352,22 @@ def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool
     _build.check(rc, entry)
 
 
-def _warp_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+def _slab(plan: dict, df: torch.Tensor, z0: int, zg) -> dict:
+    """`plan` as the slab launch of planes z0 .. of depth zg (whole
+    without zg)."""
+    if zg is None:
+        return plan
+    if df.dim() != 5 or not 0 <= z0 <= zg - df.shape[1]:
+        raise ValueError(f"a slab of planes {z0}.. of a depth of {zg} takes a 3D df of at most "
+                         f"{zg - z0} planes, got {tuple(df.shape)}")
+    return gather.slab(plan, z0, zg)
+
+
+def _warp_kernel(moving: torch.Tensor, df: torch.Tensor, z0: int = 0,
+                 zg=None) -> torch.Tensor:
     """The forward: the CUDA kernel on the card, the plain version on the CPU."""
     if moving.device.type == "cpu":
-        return warp_plain(moving, df)
+        return warp_plain(moving, df, z0, zg)
     nd = df.dim() - 2
     _check(moving, df, 2 if nd == 2 else 3)
     moving, df = moving.contiguous(), df.contiguous()
@@ -339,7 +376,8 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     global launches, launches_2d
     _launch("warp", "pulpo_warp_2d" if nd == 2 else "pulpo_warp",
             [moving.data_ptr(), df.data_ptr(), out.data_ptr()], moving.shape, df,
-            plan=tile_plan(moving.shape, df.shape, is_aligned=gather.aligned(moving, out)))
+            plan=_slab(tile_plan(moving.shape, df.shape, is_aligned=gather.aligned(moving, out)),
+                       df, z0, zg))
     if nd == 2:
         launches_2d += 1
     else:
@@ -376,11 +414,13 @@ def warp_cf(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     return plain_vjp.apply(_warp_cf_kernel, warp_cf_plain, moving, df)
 
 
-def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor, z0: int = 0,
+                zg=None) -> torch.Tensor:
     """df-cotangent of the warp for cotangent g (B_df, *S_out, C): the CUDA
-    kernel on the card, the plain version on the CPU."""
+    kernel on the card, the plain version on the CPU; a slab's (z0, zg) as
+    `warp`'s."""
     if moving.device.type == "cpu":
-        return warp_dfgrad_plain(moving, df, g)
+        return warp_dfgrad_plain(moving, df, g, z0, zg)
     _check(moving, df)
     _check_g(g, df, moving.shape[-1])
     moving, df, g = moving.contiguous(), df.contiguous(), g.contiguous()
@@ -388,17 +428,21 @@ def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor) -> torc
     global dfgrad_launches
     _launch("warp_bwd", "pulpo_warp_dfgrad",
             [moving.data_ptr(), df.data_ptr(), g.data_ptr(), out.data_ptr()],
-            moving.shape, df, plan=dfgrad_plan(moving.shape, df.shape))
+            moving.shape, df, plan=_slab(dfgrad_plan(moving.shape, df.shape), df, z0, zg))
     dfgrad_launches += 1
     return out
 
 
-def warp_mgrad(moving_shape, df: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def warp_mgrad(moving_shape, df: torch.Tensor, g: torch.Tensor, z0: int = 0,
+               zg=None) -> torch.Tensor:
     """moving-cotangent of the warp, of shape `moving_shape`: the CUDA
     kernel (f32 atomics, so the summation order is not fixed) on the
-    card, the plain version on the CPU."""
+    card, the plain version on the CPU. The kernel takes no slab (no
+    path differentiates a warped image)."""
     if df.device.type == "cpu":
-        return warp_mgrad_plain(moving_shape, df, g)
+        return warp_mgrad_plain(moving_shape, df, g, z0, zg)
+    if zg is not None:
+        raise ValueError("warp_mgrad kernel takes no slab")
     moving_shape = tuple(moving_shape)
     if len(moving_shape) != 5 or df.dim() != 5 or df.shape[-1] != 3 \
             or df.dtype != torch.float32 or df.shape[0] % moving_shape[0] != 0:
@@ -419,25 +463,30 @@ class Warp(torch.autograd.Function):
     moving-cotangent only when moving needs a gradient."""
 
     @staticmethod
-    def forward(ctx, moving, df):
+    def forward(ctx, moving, df, z0=0, zg=None):
         ctx.save_for_backward(moving, df)
-        return _warp_kernel(moving, df)
+        ctx.slab = (z0, zg)
+        return _warp_kernel(moving, df, z0, zg)
 
     @staticmethod
     def backward(ctx, g):
         moving, df = ctx.saved_tensors
         g = g.float()
-        gm = (warp_mgrad(moving.shape, df, g).to(moving.dtype)
+        gm = (warp_mgrad(moving.shape, df, g, *ctx.slab).to(moving.dtype)
               if ctx.needs_input_grad[0] else None)
-        gd = (warp_dfgrad(moving, df, g).to(df.dtype)
+        gd = (warp_dfgrad(moving, df, g, *ctx.slab).to(df.dtype)
               if ctx.needs_input_grad[1] else None)
-        return gm, gd
+        return gm, gd, None, None
 
 
-def warp(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+def warp(moving: torch.Tensor, df: torch.Tensor, z0: int = 0, zg=None) -> torch.Tensor:
     """Warp `moving` by `df`, differentiable in both: the CUDA kernels for
     tensors on the card, the plain versions for tensors on the CPU. A 2D
-    warp (df (B_df, S0, S1, 2)) is differentiated as its plain version."""
+    warp (df (B_df, S0, S1, 2)) is differentiated as its plain version.
+    With `zg`, a slab launch: df is planes z0 .. of a whole output of depth
+    zg (3D only)."""
     if df.shape[-1] == 2:
+        if zg is not None:
+            raise ValueError("a 2D warp takes no slab")
         return plain_vjp.apply(_warp_kernel, warp_plain, moving, df)
-    return Warp.apply(moving, df)
+    return Warp.apply(moving, df, z0, zg)

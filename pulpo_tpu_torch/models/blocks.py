@@ -20,6 +20,13 @@ narrow-conv kernel (`conv_cl`). The eval kernels (velocity head,
 posterior head, conv chain, narrow conv) are 3D: a 2D network runs the
 library convs, as the JAX package runs XLA's there.
 
+Under spatial sharding (parallel/spatial.py) a conv runs on this
+rank's depth slab with a halo, and the fused eval chains on a halo as
+deep as the chain (`spatial.conv`, `spatial.on_halo`); under the
+output-channel split (parallel/tp.py) each eval unit computes its
+channel slice and the channels are all-gathered before the next conv
+(`tp.sequence`, `tp.velocity`).
+
 Not ported: the 96->128 channel pad and the tap-sum conv backward of
 the JAX `_RawConv` (TPU workarounds that compute the same function).
 """
@@ -34,6 +41,7 @@ from torch import nn
 
 from pulpo_tpu_torch.kernels import conv_chain, conv_narrow
 from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky, velocity_head
+from pulpo_tpu_torch.parallel import spatial, tp
 from pulpo_tpu_torch.parallel.mesh import mean_over
 
 
@@ -42,6 +50,8 @@ def conv_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
     weight, in x's dtype. A 3D k = 3, pad = 1 conv of an input with at
     most 4 channels is the narrow-conv kernel's (kernels/conv_narrow.py),
     on every device."""
+    if spatial.active():
+        return spatial.conv(x, w, pad)
     w = w.to(x.dtype)
     if pad == 1 and conv_narrow.takes(x, w):
         return conv_narrow.conv_narrow(x, w)
@@ -203,10 +213,15 @@ class ConvSequence(nn.Module):
 
     def forward(self, x: torch.Tensor, x2: torch.Tensor | None = None,
                 train: bool = False) -> torch.Tensor:
+        if tp.active():
+            return tp.sequence(self, x, x2, train)
         if x2 is None and not train:
             xt = x.to(self._op[0].dtype)
             stages = self.stages()
             if conv_chain.takes(xt, stages):
+                if spatial.active():
+                    return spatial.on_halo(lambda t: conv_chain.conv_chain(t, stages), xt,
+                                           depth=len(stages))
                 return conv_chain.conv_chain(xt, stages)
         for i, unit in enumerate(self._op):
             x = unit(x, x2 if i == 0 else None, train)
@@ -230,6 +245,8 @@ class MuSigmaBlock(nn.Module):
         cm, cs = self._conv_mu, self._conv_sigma[0]
         mu = conv1x1_cl(x, cm.weight) + cm.bias.to(dt)
         sigma = conv1x1_cl(x, cs.weight) + cs.bias.to(dt)
+        if tp.active():
+            mu, sigma = tp.channels(mu, cm), tp.channels(sigma, cs)
         return mu, softplus(sigma)
 
 
@@ -278,7 +295,12 @@ class VelocityField(nn.Module):
         if self.depth == 1:
             conv = self._op[0]
             return conv_cl(z.to(dt), conv.weight, 0) + conv.bias.to(dt)
+        if tp.active():
+            return tp.velocity(self, z, train)
         if self.depth == 3 and self.ndims == 3 and not train:
+            if spatial.active():
+                return spatial.on_halo(lambda t: velocity_head(t, self.head_params()),
+                                       z.to(dt), depth=2)
             return velocity_head(z.to(dt), self.head_params())
         x = z
         for unit in self._op[:-1]:

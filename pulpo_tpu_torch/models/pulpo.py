@@ -52,6 +52,11 @@ keep channels-last.
 
 Outputs are dicts keyed by latent level, channels-last: a CF final df
 leaves as a view (a permute, no copy) of the resize's output.
+
+Under spatial sharding (parallel/spatial.py) the same code runs on this
+rank's block of every volume: the ops it calls exchange what they need,
+a level's draws are the rank's block of the whole draw, and the
+posterior head runs on a 4-plane halo.
 """
 
 from __future__ import annotations
@@ -80,6 +85,7 @@ from pulpo_tpu_torch.ops.warp import (
     resize_vecfield_cf,
     warp_image,
 )
+from pulpo_tpu_torch.parallel import spatial, tp
 
 LevelDict = dict[int, torch.Tensor]
 
@@ -328,7 +334,12 @@ class Autoencoder(nn.Module):
             return dec(z, img, parent, not batched, train, cf)
 
         def draw_eps(l: int, shape, dtype) -> torch.Tensor:
-            if noise is not None:
+            if spatial.active():  # the whole draw's block
+                per = spatial.whole_draw_shape(shape, S)
+                eps = (noise[l].to(device=x.device, dtype=torch.float32) if noise is not None
+                       else draw_normal(seed, sample_ids, l, per, x.device))
+                eps = spatial.block(eps.reshape(S * per[0], *per[1:]), S)
+            elif noise is not None:
                 eps = noise[l].to(device=x.device, dtype=torch.float32)
                 assert tuple(eps.shape) == tuple(shape), (eps.shape, shape)
             else:
@@ -359,7 +370,7 @@ class Autoencoder(nn.Module):
                 mus[l], sigmas[l] = tile_rows(mu_pp, S * B), tile_rows(sigma_pp, S * B)
                 parent_combined = None
             else:
-                down_size = down_activations[k].shape[1:-1]
+                down_size = cfg.global_level_sizes[k]
                 # concat consecutive same-size feedback tensors before
                 # resizing; run-length grouping keeps the channel order
                 runs: list[list[torch.Tensor]] = []
@@ -373,9 +384,14 @@ class Autoencoder(nn.Module):
                 enc, up = self.encoders[l], self.up_blocks[str(k)]
                 p = None if train else enc.head_params(up)
                 fbt = fb.to(self.dtype)
-                if p is not None and pos_head.takes(fbt, p):
-                    mus[l], sigmas[l] = pos_head.posterior_head(
-                        fbt, enc.merge_half(down_activations[k]), p)
+                if p is not None and not tp.active() and pos_head.takes(fbt, p):
+                    head = lambda f, a, enc=enc, p=p: pos_head.posterior_head(
+                        f, enc.merge_half(a), p)
+                    if spatial.active():  # 2 + 2 units: a 4-plane halo
+                        mus[l], sigmas[l] = spatial.on_halo(head, fbt, down_activations[k],
+                                                            depth=4)
+                    else:
+                        mus[l], sigmas[l] = head(fbt, down_activations[k])
                 else:
                     fb = up(fb, train=train)
                     mus[l], sigmas[l] = encode(enc, down_activations[k], fb)

@@ -6,6 +6,14 @@ over spatial axes, means over batch and channel, a constant window
 denominator in NCC, Bessel-corrected std). Each computes in its
 inputs' dtype, as the JAX package does. NCC's box sums go through the
 hand-written kernel (kernels/box_sum.py).
+
+Under spatial sharding (parallel/spatial.py) each loss on a rank is its
+slab's partial term (a replicated level's term times 1 / space), so
+that the sum over the space column is the whole loss: sums run over the
+slab, means divide by the whole volume's element count, and the terms
+that read a neighbouring plane (NCC's box sums, the forward differences
+of the KL and the L2 regularizer) take it from a halo. The Dice and
+Jacobian terms raise there.
 """
 
 from __future__ import annotations
@@ -15,10 +23,21 @@ import torch
 
 from pulpo_tpu_torch.kernels.box_sum import box_sum
 from pulpo_tpu_torch.ops.resize import resize_linear
+from pulpo_tpu_torch.parallel import spatial as sharding
 
 
 def _spatial_dims(x: torch.Tensor) -> tuple[int, ...]:
     return tuple(range(1, x.dim() - 1))
+
+
+def _shared(loss: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`loss` on `x` as this rank's term (parallel/spatial.py:share)."""
+    return loss * sharding.share(x) if sharding.active() else loss
+
+
+def _refuse(what: str) -> None:
+    if sharding.active():
+        raise NotImplementedError(f"{what}: {sharding.QUEUE}")
 
 
 # ---------------------------------------------------------------------------
@@ -38,7 +57,7 @@ def kl_two_gauss_diag_cov(mu0, sigma0, mu1, sigma1, eps: float = 1e-10) -> torch
     m1 = mu1.reshape(b, -1)
     per_sample = 0.5 * torch.sum(
         (s0 + torch.square(m1 - m0)) / (s1 + eps) + log_s1 - log_s0 - 1.0, dim=1)
-    return torch.mean(per_sample)
+    return _shared(torch.mean(per_sample), mu0)
 
 
 def degree_matrix(spatial: tuple[int, ...]) -> np.ndarray:
@@ -52,21 +71,37 @@ def degree_matrix(spatial: tuple[int, ...]) -> np.ndarray:
 
 
 def kl_nondiagonal(flow_mean, flow_sigma, prior_lambda: float = 20.0) -> torch.Tensor:
-    """VoxelMorph-diff KL with a smoothness prior (reference losses.py:8-44)."""
-    spatial = tuple(flow_mean.shape[1:-1])
+    """VoxelMorph-diff KL with a smoothness prior (reference losses.py:8-44).
+    Sharded: the slab's share, its last plane's depth difference taken
+    with the next slab's first plane."""
+    sharded = sharding.active()
+    spatial = sharding.whole_spatial(flow_mean) if sharded else tuple(flow_mean.shape[1:-1])
     ndims = len(spatial)
     prodsize = 1
     for s in spatial:
         prodsize *= s
     sigma2 = torch.square(flow_sigma)
-    d = torch.from_numpy(degree_matrix(spatial)).to(flow_sigma.device, flow_sigma.dtype)
+    degree = degree_matrix(spatial)
+    if sharded:
+        z0, planes = sharding.slab_of(flow_mean)
+        degree = degree[z0:z0 + planes]
+    d = torch.from_numpy(degree).to(flow_sigma.device, flow_sigma.dtype)
     sigma_term = prior_lambda * d * sigma2 - torch.log(sigma2)
+    whole = (flow_mean.shape[0], *spatial, flow_mean.shape[-1])
+    # a mean over the whole volume: the slab's sum over the whole count
+    mean = ((lambda t, shape: t.sum() / float(np.prod(shape))) if sharded
+            else (lambda t, shape: torch.mean(t)))
     sm = 0.0
     for ax in _spatial_dims(flow_mean):
-        df = torch.diff(flow_mean, dim=ax)
-        sm = sm + torch.mean(df * df)
+        x = flow_mean
+        if ax == 1 and sharded:
+            xh, lo, _ = sharding.halo(flow_mean, 1)
+            x = xh[:, lo:]
+        df = torch.diff(x, dim=ax)
+        sm = sm + mean(df * df, [n - (i == ax) for i, n in enumerate(whole)])
     precision = 0.5 * sm / ndims
-    return (torch.mean(sigma_term) + (prior_lambda / 2.0) * precision) * ndims * 0.5 * prodsize
+    kl = (mean(sigma_term, whole) + (prior_lambda / 2.0) * precision) * ndims * 0.5 * prodsize
+    return _shared(kl, flow_mean)
 
 
 # ---------------------------------------------------------------------------
@@ -76,12 +111,16 @@ def kl_nondiagonal(flow_mean, flow_sigma, prior_lambda: float = 20.0) -> torch.T
 
 def l2_loss(pred, target) -> torch.Tensor:
     """Squared error summed over spatial axes, averaged over batch and channel."""
-    return torch.mean(torch.sum(torch.square(pred - target), dim=_spatial_dims(pred)))
+    return _shared(torch.mean(torch.sum(torch.square(pred - target), dim=_spatial_dims(pred))),
+                   pred)
 
 
 def _box_sum(x: torch.Tensor, win: int) -> torch.Tensor:
     """Box sum of a single-channel (B, *spatial, 1) volume or slice."""
     assert x.shape[-1] == 1, f"NCC takes single-channel input, got C={x.shape[-1]}"
+    if sharding.active():  # the slab's box sums, on a halo of win // 2 planes
+        xh, lo, _ = sharding.halo(x, win // 2)
+        return box_sum(xh[..., 0], win)[:, lo:lo + x.shape[1], ..., None]
     return box_sum(x[..., 0], win)[..., None]
 
 
@@ -105,11 +144,12 @@ def ncc_loss(y_pred, y_true, win_size: int = 9, gamma: float = 0.05) -> torch.Te
     j_var = j2_sum - 2 * u_j * j_sum + u_j * u_j * w
     cc = cross * cross / (i_var * j_var + 1e-8)
     cc = torch.mean(cc, dim=0)
-    return -torch.sum(cc) * gamma
+    return _shared(-torch.sum(cc) * gamma, y_pred)
 
 
 def soft_dice_loss(pred, target, dice_factor: float = 1.0) -> torch.Tensor:
     """Soft dice over the spatial axes (reference losses.py:137-145)."""
+    _refuse("the Dice loss")
     dims = _spatial_dims(pred)
     prod_size = 1
     for s in pred.shape[1:-1]:
@@ -160,17 +200,25 @@ def jacobian_det(df: torch.Tensor, normalize: bool = True) -> torch.Tensor:
 
 def jdet_std(df: torch.Tensor, lamb: float = 0.0, normalize: bool = True) -> torch.Tensor:
     """lamb * std(jacobian_det(df)), Bessel-corrected."""
+    _refuse("the jdet regularizer")
     return lamb * torch.std(jacobian_det(df, normalize=normalize), correction=1)
 
 
 def l2_reg(df: torch.Tensor, lamb: float = 0.0) -> torch.Tensor:
     """Diffusion regularizer: mean squared forward differences (cropped
-    [1:] on every other axis, as the reference) * lamb * prod(spatial)."""
-    spatial = df.shape[1:-1]
+    [1:] on every other axis, as the reference) * lamb * prod(spatial).
+    Sharded: the slab's share, its first plane's difference taken with
+    the previous slab's last plane."""
+    sharded = sharding.active()
+    spatial = sharding.whole_spatial(df) if sharded else df.shape[1:-1]
     ndims = len(spatial)
     prod_size = 1.0
     for s in spatial:
         prod_size *= s
+    whole = df
+    if sharded:
+        xh, lo, _ = sharding.halo(df, 1)
+        df = xh[:, :lo + df.shape[1]]
 
     def crop_except(x, keep):
         for i in range(ndims):
@@ -184,7 +232,10 @@ def l2_reg(df: torch.Tensor, lamb: float = 0.0) -> torch.Tensor:
     total = 0.0
     for i in range(ndims):
         total = total + torch.square(base - crop_except(df, i))
-    return torch.mean(total) * lamb * prod_size
+    if not sharded:
+        return torch.mean(total) * lamb * prod_size
+    count = whole.shape[0] * whole.shape[-1] * float(np.prod([s - 1 for s in spatial]))
+    return _shared(total.sum() / count * lamb * prod_size, whole)
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +267,9 @@ def hierarchical_reconstruction_loss(y_hat, y, weight_dict, recon_loss, window_s
     total = 0.0
     levels = {}
     for l, w in weight_dict.items():
-        target = resize_linear(y, tuple(y_hat[l].shape[1:-1]))
+        size = (sharding.whole_spatial(y_hat[l]) if sharding.active()
+                else tuple(y_hat[l].shape[1:-1]))
+        target = resize_linear(y, size)
         lvl = 0.0
         if "mse" in recon_loss:
             lvl = lvl + w * l2_loss(y_hat[l], target)

@@ -11,6 +11,9 @@ so both packages use bit-identical matrices:
   the last, clipped window divides by its actual element count.
 
 Layout: channels-last, spatial axes default to all but the first and last.
+
+Under spatial sharding (parallel/spatial.py) a call over the default
+axes runs on this rank's slab (`spatial.resize`, `spatial.avg_pool`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ import functools
 
 import numpy as np
 import torch
+
+from pulpo_tpu_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=None)
@@ -83,6 +88,8 @@ def resize_linear(
     (as when torch is called with scale_factor); None means out/in per axis.
     """
     if spatial_axes is None:
+        if spatial.active():
+            return spatial.resize(x, out_size, scales)
         spatial_axes = tuple(range(1, x.ndim - 1))
     assert len(out_size) == len(spatial_axes)
     for i, ax in enumerate(spatial_axes):
@@ -97,6 +104,8 @@ def resize_linear(
 def avg_pool_ceil(x: torch.Tensor, spatial_axes: tuple[int, ...] | None = None) -> torch.Tensor:
     """k=2 s=2 ceil-mode average pooling over the spatial axes."""
     if spatial_axes is None:
+        if spatial.active():
+            return spatial.avg_pool(x)
         spatial_axes = tuple(range(1, x.ndim - 1))
     for ax in spatial_axes:
         x = _apply_axis_matrix(x, ("avgpool", x.shape[ax]), ax)

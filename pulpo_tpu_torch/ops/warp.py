@@ -21,6 +21,10 @@ repeats the channels-last resize on a view. Unlike the JAX package's
 fields they hold no tile padding and no halo: those exist for the
 TPU's layout.
 
+Under spatial sharding (parallel/spatial.py) `warp_image` and
+`integrate_svf` run on this rank's slab by slab launches of the kernels
+(`spatial.warp_image`, `spatial.integrate_svf`).
+
 Layout: images (B, *spatial, C); displacement fields (B, *spatial, ndims)
 with channel i = displacement along spatial axis i in voxels; the CF
 fields (B, ndims, *spatial).
@@ -33,6 +37,7 @@ import torch
 from pulpo_tpu_torch.kernels import squaring
 from pulpo_tpu_torch.kernels import warp as warp_kernel
 from pulpo_tpu_torch.ops.resize import resize_linear
+from pulpo_tpu_torch.parallel import spatial
 
 
 def warp_image(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
@@ -42,12 +47,16 @@ def warp_image(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     df's spatial shape; moving may have another resolution (the mapping
     of pulpo_tpu/ops/warp.py:_source_coords). df row r reads moving row
     r % B (samples folded into the df's batch)."""
+    if spatial.active():
+        return spatial.warp_image(moving, df)
     return warp_kernel.warp(moving, df)
 
 
 def integrate_svf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
     """Scaling and squaring: ``vec *= 1/2**nsteps``, then ``nsteps`` times
     ``vec = vec + warp(vec, vec)`` (the reference VecInt)."""
+    if spatial.active():
+        return spatial.integrate_svf(vec, nsteps)
     return squaring.integrate_svf(vec, nsteps)
 
 
@@ -99,10 +108,10 @@ def resize_vecfield(
     every axis is the one given (the caller derives it from axis 0),
     not out/in per axis."""
     factor = 1.0 / vel_resize
-    spatial = x.shape[1:-1]
+    size = x.shape[1:-1]
     if out_size is None:
-        out_size = tuple(int(s * factor) for s in spatial)
-    scales = tuple(factor for _ in spatial)
+        out_size = tuple(int(s * factor) for s in size)
+    scales = tuple(factor for _ in size)
     if factor < 1:
         x = resize_linear(x, out_size, scales=scales)
         x = x * factor
@@ -132,10 +141,10 @@ def warp_landmarks(lm: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     b = lm.shape[0]
     lmi = lm.to(torch.int64)
     lm = lmi.to(lm.dtype)
-    spatial = df.shape[1:-1]
-    ndims = len(spatial)
+    size = df.shape[1:-1]
+    ndims = len(size)
     strides, acc = [], 1
-    for s in reversed(spatial):
+    for s in reversed(size):
         strides.append(acc)
         acc *= s
     strides = strides[::-1]

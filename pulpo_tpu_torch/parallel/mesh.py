@@ -1,13 +1,21 @@
-"""The data-parallel mesh: a process group and its world size.
+"""The meshes: a process group and its world size, and the 2D (data,
+space) mesh of the depth-sharded model.
 
 Port of pulpo_tpu/parallel/mesh.py. The JAX package lays a 1D `data`
 mesh over devices and lets XLA insert the collectives; here a rank is a
 process with one device, the mesh is its process group, and the
 collectives are called by hand: `mean_over` (differentiable: its
 backward averages the cotangents over the ranks too, as the transpose
-of JAX's `pmean` does) and `bucket_mean` (one flat float32 all-reduce
-for many tensors). Without an initialised process group the world is
-one rank and every collective is the identity.
+of JAX's `pmean` does) and `bucket_mean` / `bucket_sum` (one flat
+float32 all-reduce for many tensors). Without an initialised process
+group the world is one rank and every collective is the identity.
+
+`make_2d_mesh(data, space)` (pulpo_tpu/parallel/spatial.py:23) puts
+rank r at (r // space, r % space) and holds a 1D mesh for each axis: its
+`space` column (the ranks that split one volume's depth: same data
+index) and its `data` row (the ranks of one depth slab: same space
+index), and the `world` (both axes), so that `mean_over` and the bucket
+collectives run over either axis or both.
 """
 
 from __future__ import annotations
@@ -99,11 +107,11 @@ class _MeanOver(torch.autograd.Function):
         return _all_reduce_mean(g, ctx.mesh), None
 
 
-def _all_reduce_mean(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _all_reduce_mean(x: torch.Tensor, mesh: Mesh, mean: bool = True) -> torch.Tensor:
     dev = mesh.device(x)
     buf = x.detach().to(dev, copy=True).contiguous()
     dist.all_reduce(buf, group=mesh.group)
-    return (buf / mesh.size).to(x.device)
+    return ((buf / mesh.size) if mean else buf).to(x.device)
 
 
 def mean_over(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
@@ -114,19 +122,63 @@ def mean_over(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     return _MeanOver.apply(x, mesh)
 
 
-def bucket_mean(tensors: list[torch.Tensor], mesh: Mesh | None) -> list[torch.Tensor]:
-    """Each tensor's mean over the ranks, by one all-reduce of a flat
-    float32 bucket; each comes back in its own shape, dtype and device."""
+def bucket_mean(tensors: list[torch.Tensor], mesh: Mesh | None,
+                mean: bool = True) -> list[torch.Tensor]:
+    """Each tensor's mean (or, `mean` False, sum) over the ranks, by one
+    all-reduce of a flat float32 bucket; each comes back in its own
+    shape, dtype and device."""
     if mesh is None or not mesh.active or not tensors:
         return list(tensors)
     flat = torch.cat([t.detach().reshape(-1).float().to(tensors[0].device) for t in tensors])
-    flat = _all_reduce_mean(flat, mesh)
+    flat = _all_reduce_mean(flat, mesh, mean)
     out, start = [], 0
     for t in tensors:
         n = t.numel()
         out.append(flat[start:start + n].view(t.shape).to(device=t.device, dtype=t.dtype))
         start += n
     return out
+
+
+def bucket_sum(tensors: list[torch.Tensor], mesh: Mesh | None) -> list[torch.Tensor]:
+    """Each tensor's sum over the ranks (`bucket_mean`'s one all-reduce)."""
+    return bucket_mean(tensors, mesh, mean=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """The (data, space) mesh: rank `rank` of the world sits at `coords`
+    = (rank // space, rank % space). `space` is its column (the ranks
+    that split one volume's depth), `data` its row (the ranks that hold
+    the same depth slab of other batch rows), `world` both."""
+    shape: tuple[int, int]
+    rank: int
+    world: Mesh
+    data: Mesh
+    space: Mesh
+
+    @property
+    def coords(self) -> tuple[int, int]:
+        return divmod(self.rank, self.shape[1])
+
+
+def make_2d_mesh(data: int, space: int) -> Mesh2D:
+    """The (data, space) mesh over the whole world, which must hold
+    data * space ranks; every rank creates every row and column group,
+    in the same order."""
+    size, rank = world()
+    if data * space != size:
+        raise ValueError(f"a ({data}, {space}) mesh needs a world of {data * space} processes; "
+                         f"this one has {size} (launch with `torchrun --nproc_per_node "
+                         f"{data * space}`)")
+    whole = Mesh(size=size, rank=rank)
+    if size == 1:
+        one = Mesh(size=1, rank=0)
+        return Mesh2D((data, space), rank, whole, one, one)
+    d, s = divmod(rank, space)
+    columns = [dist.new_group([i * space + j for j in range(space)]) for i in range(data)]
+    rows = [dist.new_group([i * space + j for i in range(data)]) for j in range(space)]
+    return Mesh2D((data, space), rank, whole, Mesh(size=data, rank=d, group=rows[s]),
+                  Mesh(size=space, rank=s, group=columns[d]))
 
 
 def broadcast_(tensors: list[torch.Tensor], mesh: Mesh | None, src: int = 0) -> None:

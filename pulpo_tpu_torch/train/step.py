@@ -35,6 +35,7 @@ from pulpo_tpu_torch.models.api import PULPoModel, _as_tensor, transform_segment
 from pulpo_tpu_torch.models.blocks import BatchNorm
 from pulpo_tpu_torch.models.pulpo import prior_like
 from pulpo_tpu_torch.ops import losses as L
+from pulpo_tpu_torch.parallel import spatial
 from pulpo_tpu_torch.parallel.mesh import Mesh, bucket_mean, fold_in
 
 LevelDict = dict[int, torch.Tensor]
@@ -126,6 +127,8 @@ def compute_losses(cfg: PULPoConfig, outs: tuple, x: torch.Tensor, y: torch.Tens
     total = kl_loss + recon_loss + reg_loss
 
     d = lambda t: t.detach()
+    # under spatial sharding a rank's share, summed over the column (parallel/spatial.py)
+    mean = spatial.partial_mean if spatial.active() else torch.mean
     metrics = {
         "kl_loss": d(kl_loss),
         "reconstruction_loss": d(recon_loss),
@@ -134,8 +137,8 @@ def compute_losses(cfg: PULPoConfig, outs: tuple, x: torch.Tensor, y: torch.Tens
         "levels/kl": {l: d(v) for l, v in kl_levels.items()},
         "levels/recon": {l: d(v) for l, v in recon_levels.items()},
         "levels/reg": {l: d(v) for l, v in reg_levels.items()},
-        "levels/mean_posterior_mu": {l: d(v.mean()) for l, v in post_mus.items()},
-        "levels/mean_posterior_sigma": {l: d(v.mean()) for l, v in post_sigmas.items()},
+        "levels/mean_posterior_mu": {l: d(mean(v)) for l, v in post_mus.items()},
+        "levels/mean_posterior_sigma": {l: d(mean(v)) for l, v in post_sigmas.items()},
         # NaN guard (reference models.py:188-194): NaN in any level's reg loss
         "nan_flag": sum(torch.isnan(d(v)).sum() for v in reg_levels.values()) > 0,
     }
@@ -215,16 +218,24 @@ def make_train_step(model: PULPoModel, tx: Adam, mesh: Mesh | None = None):
     With a `mesh` (parallel/dp.py:make_dp_train_step) `batch` and `noise`
     are this rank's rows, and the step is the data-parallel one (module
     doc)."""
+    if mesh is None:
+        return make_step(model, tx, lambda batch, seed, noise: compute_grads(
+            model, batch, seed, noise))
+    # decorrelate the ranks' posterior draws (the JAX step's fold_in of
+    # axis_index)
+    return make_step(model, tx, lambda batch, seed, noise: dp_compute_grads(
+        model, batch, mesh, fold_in(seed, mesh.rank), noise))
+
+
+def make_step(model: PULPoModel, tx: Adam, compute):
+    """The step around ``compute(batch, seed, noise) -> (grads,
+    new_stats, metrics)`` (the gradients and metrics as the update takes
+    them): the seed from the state's generator, the NaN latch, the update
+    and the BatchNorm statistics' commit."""
 
     def train_step(state: TrainState, batch: dict, noise: LevelDict | None = None):
         seed = int(torch.randint(0, 2**62, (1,), generator=state.rng))
-        if mesh is None:
-            grads, new_stats, metrics = compute_grads(model, batch, seed, noise)
-        else:
-            # decorrelate the ranks' posterior draws (the JAX step's
-            # fold_in of axis_index)
-            grads, new_stats, metrics = dp_compute_grads(
-                model, batch, mesh, fold_in(seed, mesh.rank), noise)
+        grads, new_stats, metrics = compute(batch, seed, noise)
         # The NaN guard is a sticky latch, as in the JAX step: once a step
         # has seen a NaN, params, Adam state and BatchNorm statistics stay
         # frozen while `step` and the generator still advance. The flag is

@@ -20,6 +20,12 @@ The warp's channel body (a channels-last launch of 5 channels or more:
 paths' C = 36 shapes and at a ragged C = 5: every (row, voxel, channel)
 written once, 16-byte chunks only where aligned; the df-cotangent keeps
 the voxel plan at every C, walked at the same shapes.
+A slab launch (the depth-sharded model: `gather.slab`, the plan's z0
+and zg) is walked as the kernels map it: each local plane to its global
+plane z + z0, every plane of the slab once and none outside; and the
+plain versions of the warp, its df-cotangent, the squaring step and its
+backward at an offset are the matching slices of the whole (the step
+backward's share: the whole backward of the slab's cotangent).
 No JAX and no card are needed.
 """
 
@@ -27,6 +33,7 @@ import math
 
 import numpy as np
 import pytest
+import torch
 
 from pulpo_tpu_torch.kernels import gather, squaring, warp
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -130,10 +137,12 @@ def _path_shapes():
 
 
 def _admissible(plan, size, rows_per_moving, movings, row_elements):
-    """The checks `gather::valid` makes before a launch."""
+    """The checks `gather::valid` and `gather::valid_slab` make before a
+    launch (a whole launch: z0 = 0, zg = its depth)."""
     z_, y_, x_ = size
     strips = 1 << plan["log_strips"]
-    return (plan["v"] in (1, 4) and plan["tx"] * plan["ty"] * plan["tz"] <= gather.THREADS
+    return (plan["z0"] >= 0 and plan["zg"] >= 1 and plan["z0"] + z_ <= plan["zg"]
+            and plan["v"] in (1, 4) and plan["tx"] * plan["ty"] * plan["tz"] <= gather.THREADS
             and plan["tx"] * plan["v"] * strips >= x_ and plan["ty"] * plan["tiles_y"] >= y_
             and plan["tz"] * plan["tiles_z"] >= z_
             and plan["groups"] == gather.cdiv(rows_per_moving, plan["rows"])
@@ -220,11 +229,12 @@ def test_16_byte_accesses_only_where_aligned(size, k, base):
 
 
 def test_plan_arg_is_the_plan_in_the_kernels_order():
-    """The 10 ints the C entry points read as gather::Plan."""
+    """The 12 ints the C entry points read as gather::Plan."""
     plan = gather.warp_plan((20, 24, 28), 32, 1)
     assert list(gather.plan_arg(plan)) == [plan[k] for k in gather.KEYS]
     assert gather.KEYS == ("tx", "ty", "tz", "log_strips", "tiles_y", "tiles_z", "groups",
-                           "rows", "v", "ch")
+                           "rows", "v", "ch", "z0", "zg")
+    assert (plan["z0"], plan["zg"]) == (0, 20)
 
 
 def _axis_counts(plan, size):
@@ -440,3 +450,88 @@ def test_aligned_reads_the_data_pointers():
 
     t = torch.zeros(64)
     assert gather.aligned(t) and not gather.aligned(t, t[1:]) and gather.aligned(t[4:])
+
+
+# ----------------------------------------------------------------------
+# slab launches
+# ----------------------------------------------------------------------
+
+def _global_planes(plan, size, movings, b_df):
+    """Per df row, how often each global output plane's voxels are
+    computed by a slab launch (local plane z of a tile -> z + z0)."""
+    z_, y_, x_ = size
+    counts = np.zeros((b_df, plan["zg"], y_, x_), np.int32)
+    stored, _ = _walk(plan, size, movings, b_df)
+    counts[:, plan["z0"]:plan["z0"] + z_] = stored
+    return counts
+
+
+@pytest.mark.parametrize("whole,parts", [(16, 4), (16, 2), (20, 2), (80, 2), (8, 4)])
+def test_slab_plans_walk_their_planes_once(whole, parts):
+    """The warp's and the squaring step's slab launches, each slab's plan
+    made over its own planes: every voxel of every global plane written by
+    exactly one slab, once; each plan passes the entry points' checks."""
+    y_, x_ = 7, 13
+    per = whole // parts
+    warp_total = np.zeros((3, whole, y_, x_), np.int32)
+    step_total = np.zeros((2, whole, y_, x_), np.int32)
+    for r in range(parts):
+        size = (per, y_, x_)
+        wplan = gather.slab(gather.warp_plan(size, 3, 1), r * per, whole)
+        splan = gather.slab(gather.squaring_plan(size, 2), r * per, whole)
+        assert _admissible(wplan, size, 3, 1, whole * y_ * x_ * 3)
+        assert _admissible(splan, size, 1, 2, whole * y_ * x_ * 3)
+        warp_total += _global_planes(wplan, size, 1, 3)
+        step_total += _global_planes(splan, size, 2, 2)
+    assert (warp_total == 1).all() and (step_total == 1).all()
+    bad = gather.slab(gather.squaring_plan((per, y_, x_), 2), whole - per + 1, whole)
+    assert not _admissible(bad, (per, y_, x_), 1, 2, whole * y_ * x_ * 3)
+
+
+def test_squaring_bwd_slab_plan_covers_the_slab():
+    """The step backward's slab plan: its chunks of tz planes cover the
+    slab's planes, and the slab lies in the whole field."""
+    for whole, per, z0 in ((80, 40, 40), (16, 4, 12), (10, 5, 0)):
+        plan = gather.slab(gather.squaring_bwd_plan((per, 24, 28), 1), z0, whole)
+        assert plan["tz"] * plan["tiles_z"] >= per > plan["tz"] * (plan["tiles_z"] - 1)
+        assert plan["zg"] == whole and 0 <= plan["z0"] <= whole - per
+
+
+def _slab_fields():
+    rng = np.random.default_rng(90)
+    shape = (2, 8, 6, 7)
+    v = torch.from_numpy(rng.uniform(-2, 2, (*shape, 3)).astype(np.float32))
+    moving = torch.from_numpy(rng.random((2, 11, 5, 9, 1), dtype=np.float32))
+    df = torch.from_numpy(rng.uniform(-3, 3, (4, *shape[1:], 3)).astype(np.float32))
+    g1 = torch.from_numpy(rng.standard_normal((4, *shape[1:], 1)).astype(np.float32))
+    g3 = torch.from_numpy(rng.standard_normal((*shape, 3)).astype(np.float32))
+    return v, moving, df, g1, g3
+
+
+@pytest.mark.parametrize("z0,planes", [(0, 4), (4, 4), (2, 3), (6, 2), (0, 8)])
+def test_plain_versions_at_an_offset_are_slices_of_the_whole(z0, planes):
+    v, moving, df, g1, g3 = _slab_fields()
+    sl = slice(z0, z0 + planes)
+    whole = v.shape[1]
+    assert torch.equal(warp.warp_plain(moving, df[:, sl], z0, whole),
+                       warp.warp_plain(moving, df)[:, sl])
+    assert torch.equal(warp.warp_dfgrad_plain(moving, df[:, sl], g1[:, sl], z0, whole),
+                       warp.warp_dfgrad_plain(moving, df, g1)[:, sl])
+    assert torch.equal(squaring.squaring_step_plain(v, z0, planes),
+                       squaring.squaring_step_plain(v)[:, sl])
+    masked = torch.zeros_like(g3)
+    masked[:, sl] = g3[:, sl]
+    share = squaring.squaring_step_bwd_plain(v, g3[:, sl], z0)
+    assert share.shape == v.shape
+    assert torch.equal(share, squaring.squaring_step_bwd_plain(v, masked))
+    assert torch.equal(squaring.squaring_step(v, z0=z0, depth=planes, scale=0.5),
+                       squaring.squaring_step(v * 0.5)[:, sl])
+
+
+def test_the_slabs_shares_sum_to_the_whole_backward():
+    """The step backward's shares of two slabs add up to the whole
+    backward (within float32 rounding: the sums are reordered)."""
+    v, _, _, _, g3 = _slab_fields()
+    whole = squaring.squaring_step_bwd_plain(v, g3)
+    shares = sum(squaring.squaring_step_bwd_plain(v, g3[:, z0:z0 + 4], z0) for z0 in (0, 4))
+    assert float((shares - whole).abs().max()) <= 1e-6 * float(whole.abs().max())

@@ -1428,3 +1428,49 @@ def test_dp_step_at_world_size_1_over_nccl_matches_the_plain_step(cuda_device):
     finally:
         multihost.shutdown()
         torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.parametrize("whole,parts", [(20, 2), (16, 4), (80, 2)])
+def test_slab_launches_are_bit_equal_to_the_whole_launch(cuda_device, whole, parts):
+    """The slab launches of the depth-sharded model (#4 the warp and #6 its
+    df-cotangent at C = 1, #1 the squaring step, #2 its backward): each
+    slab bit-equal to the matching planes of the whole launch and to the
+    plain version at its offset; #2's share (float32 atomics) within 1e-5
+    of scale of the whole backward of the slab's cotangent, and the
+    shares' sum of the whole backward."""
+    rng = np.random.default_rng(31)
+    size = (whole, 24, 28)
+    per = whole // parts
+    m = torch.from_numpy(rng.random((1, whole // 2, 12, 14, 1), dtype=np.float32)).to(cuda_device)
+    df = _field((2, *size, 3), 3.0, 32).to(cuda_device)
+    v = _field((1, *size, 3), 2.5, 33).to(cuda_device)
+    g1 = torch.from_numpy(rng.standard_normal((2, *size, 1)).astype(np.float32)).to(cuda_device)
+    g3 = torch.from_numpy(rng.standard_normal((1, *size, 3)).astype(np.float32)).to(cuda_device)
+    whole_warp, whole_grad = warp.warp(m, df), warp.warp_dfgrad(m, df, g1)
+    whole_step = squaring.squaring_step(v, scale=0.5)
+    shares = torch.zeros_like(v)
+    for r in range(parts):
+        z0, sl = r * per, slice(r * per, (r + 1) * per)
+        counts = (warp.launches, warp.dfgrad_launches, squaring.launches, squaring.bwd_launches)
+        got = warp.warp(m, df[:, sl].contiguous(), z0, whole)
+        grad = warp.warp_dfgrad(m, df[:, sl].contiguous(), g1[:, sl].contiguous(), z0, whole)
+        step = squaring.squaring_step(v, scale=0.5, z0=z0, depth=per)
+        share = squaring.squaring_step_bwd(v, g3[:, sl].contiguous(), z0)
+        torch.cuda.synchronize()
+        assert (warp.launches, warp.dfgrad_launches, squaring.launches,
+                squaring.bwd_launches) == tuple(c + 1 for c in counts)
+        assert torch.equal(got, whole_warp[:, sl])
+        assert torch.equal(grad, whole_grad[:, sl])
+        assert torch.equal(step, whole_step[:, sl])
+        cpu = lambda t: t.cpu()
+        assert torch.equal(got.cpu(), warp.warp_plain(cpu(m), cpu(df[:, sl]), z0, whole))
+        assert torch.equal(grad.cpu(), warp.warp_dfgrad_plain(cpu(m), cpu(df[:, sl]),
+                                                              cpu(g1[:, sl]), z0, whole))
+        assert torch.equal(step.cpu(), squaring.squaring_step_plain(cpu(v) * 0.5, z0, per))
+        masked = torch.zeros_like(g3)
+        masked[:, sl] = g3[:, sl]
+        ref = squaring.squaring_step_bwd(v, masked)
+        assert float((share - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+        shares += share
+    ref = squaring.squaring_step_bwd(v, g3)
+    assert float((shares - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
