@@ -198,23 +198,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 11. the slab launches of the depth-sharded model (parallel/spatial.py)
    at the flagship's shapes split 2 ways: the warp (#4) and its
    df-cotangent (#6) at C = 1 of the level-0 df and of each split latent
-   level's, the squaring step (#1) at each split latent level, each slab
-   bit-equal to the matching planes of the whole launch and to the plain
-   version at its offset; the step backward's (#2) slab shares within
-   1e-5 of scale of the whole backward of their cotangents;
-11a-11c. two torchrun processes sharing the card over gloo (NCCL
+   level's, and at C = 36 over the segmentation step's one-hot maps
+   (160x192x224, 40x48x56, 20x24x28), the squaring step (#1) at each
+   split latent level, each slab bit-equal to the matching planes of the
+   whole launch and to the plain version at its offset; the step
+   backward's (#2) slab shares within 1e-5 of scale of the whole
+   backward of their cotangents; each slab's device time beside the
+   whole launch's, and the body each C = 36 slab launch took;
+11a-11d. two torchrun processes sharing the card over gloo (NCCL
    refuses two ranks on one device), the flagship at full width (B = 1):
-   11a `make_spatial_forward` at mesh (data 1, space 2), each rank's slab
-   of the level-0 final df and warped image against the unsharded
-   forward's planes; 11b the step's gradients and losses at that mesh
-   (`spatial_compute_grads`) against the unsharded step's (losses within
-   1e-5 relative, gradients within twice the unsharded step's own
-   run-to-run distance, relative L2); 11c the output-channel split at
-   model 2 (parallel/tp.py) against the replicated
-   `predict_deterministic`. Exact launch counts on each rank; each
-   rank's time, peak memory and exchanges (halo, all-gather, all-reduce
-   bytes) beside the unsharded run's. The two ranks share one card, so
-   their times are no multi-card figures.
+   11a `make_spatial_forward` at mesh (data 1, space 2), in bf16 and in
+   f32, each rank's slab of the level-0 final df and warped image
+   against the unsharded forward's planes; 11b the step's gradients and
+   losses at that mesh (`spatial_compute_grads`) against the unsharded
+   step's (losses within 1e-5 relative, gradients within twice the
+   unsharded step's own run-to-run or one-ulp distance, relative L2);
+   11d the same for the OASIS segmentation (Dice) step in bf16 at B = 2
+   and in f32 at B = 1 and for the flagship step with the jdet
+   regularizer in f32 at B = 1, with each rank's peak beside the
+   unsharded step's; 11c the output-channel split at model 2
+   (parallel/tp.py) against the replicated `predict_deterministic`.
+   Exact launch counts on each rank; each rank's time, peak memory and
+   exchanges (halo, all-gather, all-reduce bytes) beside the unsharded
+   run's. The two ranks share one card, so their times are no
+   multi-card figures.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -3319,26 +3326,42 @@ SPATIAL_FWD_REL = 1e-3     # of scale: the floor of the sharded forward's distan
 SPATIAL_LOSS_REL = 1e-5    # relative: the floor of the sharded step's losses' distance
 STEP_DTYPES = ("bfloat16", "float32")  # 11b: the flagship's step, and the same network in f32
 TP_REL = 1e-2              # of scale: the split forward against the replicated one
+SPATIAL_F32_REL = 1e-5     # of scale: the floor of the f32 sharded forward's distance (11a)
+# 11d: the OASIS configuration's segmentation (Dice) step and the
+# flagship step with the jdet regularizer: (name, keywords over the
+# phase's config, dtype, batch rows)
+DICE_KW = {k: OASIS[k] for k in ("segs", "recon_loss", "dice_factor")}
+SEG_STEPS = (("dice bfloat16 B=2", DICE_KW, "bfloat16", 2),
+             ("dice float32 B=1", DICE_KW, "float32", 1),
+             ("jdet float32 B=1", dict(regularizer="jdet"), "float32", 1))
+PLAIN_SEG_PEAK_GIB = 38.20  # phase 8b's unsharded B = 2 segmentation step (PERF.md §5, PR 11)
 LOSS_KEYS = ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss")
 
 
-def check_slab_kernels(dev, cfg, checks):
+def check_slab_kernels(dev, cfg, checks, seg_cfg):
     """Phase 11: the slab launches of the depth-sharded model at the
     flagship's shapes, each split SPACE ways: the warp (#4) and its
     df-cotangent (#6) at C = 1 of the level-0 df (the input size) over the
-    image and of each split latent level's df over its pooled image, the
-    squaring step (#1, with the first step's 1/2**nsteps scale and
-    without) at each split latent level: each slab bit-equal to the
-    matching planes of the whole launch and to the plain version at its
-    offset; the step backward's (#2) share of each slab within 1e-5 of
-    scale of the whole backward of that slab's cotangent (float32
-    atomics), the shares' sum of the whole backward. Then the fused eval
-    kernels on a slab with the halo the sharded forward gives them (the
-    conv chain #13 3 planes at the input size, the posterior head #11 4
-    and the velocity head #10 2 at latent level 0; bf16, cropped): each
-    against the matching planes of the whole launch, which they equal
-    where a voxel's arithmetic does not depend on where its launch
-    starts (held to BF16_CHAIN_REL of scale; the error is logged)."""
+    image and of each split latent level's df over its pooled image, and
+    at C = 36 over each split level's one-hot map of the segmentation
+    step (`seg_cfg`'s `transform_segmentation` shapes: 160x192x224 in
+    slabs of 80, 40x48x56 of 20, 20x24x28 of 10), the squaring step (#1,
+    with the first step's 1/2**nsteps scale and without) at each split
+    latent level: each slab bit-equal to the matching planes of the whole
+    launch and to the plain version at its offset (the plain df-cotangent
+    adds a corner's channels in order, as the kernel's bodies do); the
+    step backward's (#2) share of each slab within 1e-5 of scale of the
+    whole backward of that slab's cotangent (float32 atomics), the
+    shares' sum of the whole backward. Each slab launch's device time
+    (CUDA-graph replay) beside the whole launch's, and the body each C =
+    36 slab launch took. Then the fused eval kernels on a slab with the
+    halo the sharded forward gives them (the conv chain #13 3 planes at
+    the input size, the posterior head #11 4 and the velocity head #10 2
+    at latent level 0; bf16, cropped): each against the matching planes
+    of the whole launch, which they equal where a voxel's arithmetic
+    does not depend on where its launch starts (held to BF16_CHAIN_REL
+    of scale; the error is logged). Returns ({kernel: {case: {"ms",
+    "whole_ms"}}}, {C = 36 case: {(kernel, body): launches}})."""
     import torch
 
     from pulpo_tpu_torch.kernels import conv_chain, pos_head, squaring, vel_head, warp
@@ -3348,26 +3371,52 @@ def check_slab_kernels(dev, cfg, checks):
     rand = lambda *shape: torch.rand(shape, generator=g).to(dev)
     normal = lambda *shape: torch.randn(shape, generator=g).to(dev)
     parts = lambda depth: [(r * (depth // SPACE), depth // SPACE) for r in range(SPACE)]
+    card = dev.type == "cuda"
+    times = {"warp": {}, "warp_dfgrad": {}, "squaring": {}, "squaring_bwd": {}}
+    bodies = {}
+    fmt = lambda s: "x".join(map(str, s))
+
+    def timed_slab(kernel, case, slab_fn, whole_fn):
+        if card:
+            times[kernel][case] = {"ms": graph_ms(slab_fn, 5), "whole_ms": graph_ms(whole_fn, 5)}
+
     warps = [(cfg.input_size, rand(1, *cfg.input_size, 1))]
     warps += [(cfg.level_sizes[l], rand(1, *cfg.level_sizes[l], 1))
               for l in range(1, cfg.latent_levels)]
+    warps += [(dshape[1:-1], onehot_volume(mshape, 400 + i, dev))
+              for i, (mshape, dshape) in enumerate(seg_shapes(seg_cfg))]
     for size, moving in warps:
         if not splits(size[0], SPACE):
             continue
-        df, cot = smooth_field(1, size, 3.0, 112, dev), normal(1, *size, 1)
+        c = moving.shape[-1]
+        df, cot = smooth_field(1, size, 3.0, 112, dev), normal(1, *size, c)
         whole, whole_grad = warp.warp(moving, df), warp.warp_dfgrad(moving, df, cot)
         for z0, per in parts(size[0]):
             sl = slice(z0, z0 + per)
-            d, c = df[:, sl].contiguous(), cot[:, sl].contiguous()
-            case = f"slab {z0}+{per} of {size}"
+            d, gc = df[:, sl].contiguous(), cot[:, sl].contiguous()
+            case = f"C={c} slab {z0}+{per} of {fmt(size)}"
+            warp.slab_bodies.clear()
             got = warp.warp(moving, d, z0, size[0])
             checks.record("warp", f"{case} vs whole", got, whole[:, sl], 0.0)
             checks.record("warp", f"{case} vs plain", got,
                           warp.warp_plain(moving, d, z0, size[0]), 0.0)
-            got = warp.warp_dfgrad(moving, d, c, z0, size[0])
+            del got
+            got = warp.warp_dfgrad(moving, d, gc, z0, size[0])
             checks.record("warp_dfgrad", f"{case} vs whole", got, whole_grad[:, sl], 0.0)
             checks.record("warp_dfgrad", f"{case} vs plain", got,
-                          warp.warp_dfgrad_plain(moving, d, c, z0, size[0]), 0.0)
+                          warp.warp_dfgrad_plain(moving, d, gc, z0, size[0]), 0.0)
+            del got
+            if c > 1:
+                bodies[case] = dict(warp.slab_bodies)
+                log(f"slab bodies {case}: {bodies[case]}")
+            timed_slab("warp", case, lambda: warp.warp(moving, d, z0, size[0]),
+                       lambda: warp.warp(moving, df))
+            timed_slab("warp_dfgrad", case, lambda: warp.warp_dfgrad(moving, d, gc, z0, size[0]),
+                       lambda: warp.warp_dfgrad(moving, df, cot))
+        del whole, whole_grad, df, cot
+        if card:
+            torch.cuda.empty_cache()
+    del warps
     for l, size in cfg.level_sizes.items():
         if not splits(size[0], SPACE):
             continue
@@ -3381,18 +3430,29 @@ def check_slab_kernels(dev, cfg, checks):
                 checks.record("squaring", f"{case} vs whole", got, whole[:, sl], 0.0)
                 checks.record("squaring", f"{case} vs plain", got,
                               squaring.squaring_step_plain(v * scale, z0, per), 0.0)
+                timed_slab("squaring", f"slab {z0}+{per} of {fmt(size)} x{scale:g}",
+                           lambda: squaring.squaring_step(v, scale=scale, z0=z0, depth=per),
+                           lambda: squaring.squaring_step(v, scale=scale))
         ref = squaring.squaring_step_bwd(v, cot)
         total = torch.zeros_like(ref)
         for z0, per in parts(size[0]):
             sl = slice(z0, z0 + per)
-            share = squaring.squaring_step_bwd(v, cot[:, sl].contiguous(), z0)
+            gs = cot[:, sl].contiguous()
+            share = squaring.squaring_step_bwd(v, gs, z0)
             masked = torch.zeros_like(cot)
             masked[:, sl] = cot[:, sl]
             slab_ref = squaring.squaring_step_bwd(v, masked)
             checks.record("squaring_bwd", f"share {z0}+{per} of {size}", share, slab_ref,
                           scaled(slab_ref, 1e-5))
             total += share
+            timed_slab("squaring_bwd", f"share {z0}+{per} of {fmt(size)}",
+                       lambda: squaring.squaring_step_bwd(v, gs, z0),
+                       lambda: squaring.squaring_step_bwd(v, cot))
         checks.record("squaring_bwd", f"shares' sum at {size}", total, ref, scaled(ref, 1e-5))
+    for kernel, cases in times.items():
+        for case, r in cases.items():
+            log(f"time slab {kernel} {case}: {r['ms']:.5f} ms, the whole launch "
+                f"{r['whole_ms']:.5f} ms")
 
     bf = torch.bfloat16
     level0 = cfg.level_sizes[0]
@@ -3414,23 +3474,38 @@ def check_slab_kernels(dev, cfg, checks):
             got = fn([a[:, z0 - lo:z0 + per + hi].contiguous() for a in args])[:, lo:lo + per]
             checks.record(name, f"slab {z0}+{per} on a {h}-plane halo vs whole",
                           got, whole[:, z0:z0 + per], scaled(whole, BF16_CHAIN_REL))
+    return times, bodies
 
 
-def spatial_inputs(cfg, dev):
-    """Phases 11a-11c's pair (B = 1, phase 10c's synthetic pair) and the
-    step's draws, the same in every process."""
+def spatial_inputs(cfg, dev, rows=1, segs=False):
+    """Phases 11a-11d's batch (`rows` of phase 10c's synthetic pairs; with
+    `segs`, a 36-class one-hot map of smooth labels for each volume, as
+    phase 8b's batch holds) and the step's draws, the same in every
+    process."""
     import numpy as np
     import torch
 
     from pulpo_tpu_torch.data.synthetic import SyntheticDataset
 
-    pair = SyntheticDataset(shape=cfg.input_size, n=2, seed=1).get_pair(0, np.random.default_rng(1))
-    batch = {k: torch.as_tensor(pair[k][None]).to(dev) for k in ("x", "y")}
+    ds = SyntheticDataset(shape=cfg.input_size, n=2 * rows, seed=1)
+    pairs = [ds.get_pair(i, np.random.default_rng(1 + i)) for i in range(rows)]
+    batch = {k: torch.as_tensor(np.stack([p[k] for p in pairs])).to(dev) for k in ("x", "y")}
+    if segs:
+        for i, k in enumerate(("seg_x", "seg_y")):
+            batch[k] = onehot_volume((rows, *cfg.input_size, SEG_CLASSES), 500 + i, dev)
     g = np.random.default_rng(7)
-    noise = {l: torch.from_numpy(g.standard_normal((1, *cfg.level_sizes[l], cfg.zdim),
+    noise = {l: torch.from_numpy(g.standard_normal((rows, *cfg.level_sizes[l], cfg.zdim),
                                                    dtype=np.float32))
              for l in range(cfg.latent_levels)}
     return batch, noise
+
+
+def seg_step_cfg(cfg_kw, kw, dtype, rows):
+    """Phase 11d's configuration: the phase's config with a SEG_STEPS
+    case's keywords, dtype and batch."""
+    from pulpo_tpu_torch import PULPoConfig
+
+    return PULPoConfig(**{**cfg_kw, **kw, "compute_dtype": dtype, "batch_size": rows})
 
 
 def timed(fn):
@@ -3475,67 +3550,101 @@ def tp_launches(cfg):
     return {"conv_chain": units, "warp": K, "squaring": cfg.nsteps * K}
 
 
-def spatial_references(dev, cfg):
-    """The unsharded runs phases 11a-11c are held to, on the card: the
-    deterministic forward's level-0 final df and warped image and
-    `predict_deterministic`'s outputs; for each of STEP_DTYPES the step's
-    gradients and losses, again (its run-to-run distance) and on inputs
-    moved by one float32 ulp (its distance under a float32 rounding);
-    each with its time and peak. cuDNN is deterministic in the steps."""
+def step_reference(cfg, batch, noise, dev):
+    """The unsharded step a sharded one is held to, on the card: its
+    gradients (on the host) and losses, again (its run-to-run distance)
+    and on x and y moved by one float32 ulp (its distance under a float32
+    rounding), its time and peak (cuDNN deterministic)."""
     import torch
 
     from pulpo_tpu_torch.models import PULPoModel
     from pulpo_tpu_torch.train.step import compute_grads
 
-    batch, noise = spatial_inputs(cfg, dev)
-    model = PULPoModel(cfg, device=dev)
-    model.init(0)
-    out = {}
-    outs, out["fwd_s"], out["fwd_peak"] = peak_of(
-        lambda: model.apply_eval(batch["x"], batch["y"], deterministic=True))
-    out["df"], out["warped"] = outs[6][0], outs[7][0]
-    del outs
-    moved = {k: v * (1 + 2.0**-23) for k, v in batch.items()}
-    outs = model.apply_eval(moved["x"], moved["y"], deterministic=True)
-    out["fwd_moved"] = {k: float((o[0] - out[k]).abs().max()) / float(out[k].abs().max())
-                        for k, o in (("df", outs[6]), ("warped", outs[7]))}
-    del outs
-    (out["tp"], out["tp_s"], out["tp_peak"]) = peak_of(
-        lambda: model.predict_deterministic(batch["x"], batch["y"]))
-    del model
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        for dtype in STEP_DTYPES:
-            model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
-            model.init(0)
-            (grads, _, metrics), seconds, peak = peak_of(
-                lambda: compute_grads(model, batch, noise=noise))
-            again, _, again_m = compute_grads(model, batch, noise=noise)
-            ulp, _, ulp_m = compute_grads(model, moved, noise=noise)
-            grads = {n: v.cpu() for n, v in grads.items()}
-            loss = lambda m: {k: float(m[k]) for k in LOSS_KEYS}
-            out[dtype] = {"s": seconds, "peak": peak, "grads": grads, "losses": loss(metrics),
-                          "again": loss(again_m), "ulp": loss(ulp_m),
-                          "rr": grad_spread({n: v.cpu() for n, v in again.items()}, grads)[0],
-                          "moved": grad_spread({n: v.cpu() for n, v in ulp.items()}, grads)[0]}
-            del model, again, ulp
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+        model = PULPoModel(cfg, device=dev)
+        model.init(0)
+        (grads, _, metrics), seconds, peak = peak_of(
+            lambda: compute_grads(model, batch, noise=noise))
+        grads = {n: v.cpu() for n, v in grads.items()}
+        again, _, again_m = compute_grads(model, batch, noise=noise)
+        again = {n: v.cpu() for n, v in again.items()}
+        moved = {k: v * (1 + 2.0**-23) if k in ("x", "y") else v for k, v in batch.items()}
+        ulp, _, ulp_m = compute_grads(model, moved, noise=noise)
+        ulp = {n: v.cpu() for n, v in ulp.items()}
+        del model, moved
     finally:
         torch.backends.cudnn.deterministic = deterministic
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    loss = lambda m: {k: float(m[k]) for k in LOSS_KEYS}
+    return {"s": seconds, "peak": peak, "grads": grads, "losses": loss(metrics),
+            "again": loss(again_m), "ulp": loss(ulp_m), "rr": grad_spread(again, grads)[0],
+            "moved": grad_spread(ulp, grads)[0]}
+
+
+def spatial_references(dev, cfg, cfg_kw):
+    """The unsharded runs phases 11a-11d are held to, on the card: the
+    deterministic forward's level-0 final df and warped image, in the
+    flagship's bf16 and in f32, each also on inputs moved by one float32
+    ulp (its distance under a float32 rounding), and
+    `predict_deterministic`'s outputs; for each of STEP_DTYPES the step
+    and for each of SEG_STEPS the segmentation or jdet step
+    (`step_reference`); each with its time and peak. Every tensor the
+    ranks are compared with is on the host, and the card's cache is
+    emptied, before the ranks start."""
+    import torch
+
+    from pulpo_tpu_torch.models import PULPoModel
+
+    batch, noise = spatial_inputs(cfg, dev)
+    moved = {k: v * (1 + 2.0**-23) for k, v in batch.items()}
+    out = {}
+    for dtype in STEP_DTYPES:
+        model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+        model.init(0)
+        outs, s, peak = peak_of(lambda: model.apply_eval(batch["x"], batch["y"],
+                                                         deterministic=True))
+        fwd = {"s": s, "peak": peak, "df": outs[6][0].cpu(), "warped": outs[7][0].cpu()}
+        del outs
+        outs = model.apply_eval(moved["x"], moved["y"], deterministic=True)
+        fwd["moved"] = {k: float((o[0].cpu() - fwd[k]).abs().max()) / float(fwd[k].abs().max())
+                        for k, o in (("df", outs[6]), ("warped", outs[7]))}
+        del outs
+        out[f"forward {dtype}"] = fwd
+        if dtype == cfg.compute_dtype:
+            (tp_out, out["tp_s"], out["tp_peak"]) = peak_of(
+                lambda: model.predict_deterministic(batch["x"], batch["y"]))
+            out["tp"] = tuple({l: v.cpu() for l, v in d.items()} for d in tp_out)
+            del tp_out
+        del model
+    for dtype in STEP_DTYPES:
+        out[f"step {dtype}"] = step_reference(cfg.replace(compute_dtype=dtype), batch, noise, dev)
+    del batch, moved
+    for name, kw, dtype, rows in SEG_STEPS:
+        scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
+        sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
+        out[name] = step_reference(scfg, sbatch, snoise, dev)
+        del sbatch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
 def spatial_worker(out_dir, accelerator, cfg_json) -> int:
-    """One rank of phases 11a-11c, under torchrun (SPACE ranks over gloo
-    on the one card): the sharded forward and step at mesh (1, SPACE),
-    then the split forward at model SPACE, each with its launch counts,
-    time, peak and exchanges; writes `out_dir/rank_<r>.pt`."""
+    """One rank of phases 11a-11d, under torchrun (SPACE ranks over gloo
+    on the one card): the sharded forward (bf16 and f32) and step (each
+    of STEP_DTYPES) at mesh (1, SPACE), the sharded segmentation and jdet
+    steps (SEG_STEPS), then the split forward at model SPACE, each with
+    its launch counts, time, peak and exchanges (and the body each slab
+    launch of the warp and its df-cotangent took); writes
+    `out_dir/rank_<r>.pt`."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
     from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import warp
     from pulpo_tpu_torch.models import PULPoModel
     from pulpo_tpu_torch.parallel import multihost, spatial, tp
 
@@ -3545,36 +3654,57 @@ def spatial_worker(out_dir, accelerator, cfg_json) -> int:
     multihost.initialize(device=dev, backend="gloo")
     try:
         rank = torch.distributed.get_rank()
-        cfg = PULPoConfig(**json.loads(cfg_json), batch_size=1)
+        cfg_kw = json.loads(cfg_json)
+        cfg = PULPoConfig(**cfg_kw, batch_size=1)
         batch, noise = spatial_inputs(cfg, dev)
-        model = PULPoModel(cfg, device=dev)
-        model.init(0)
         mesh = spatial.make_2d_mesh(1, SPACE)
         block = {k: spatial.shard_volume(v, mesh) for k, v in batch.items()}
         out = {"rank": rank}
-
-        fwd = spatial.make_spatial_forward(model, mesh)
         fresh = lambda: (reset_counts(), spatial.reset_traffic())
-        (df, warped), seconds, peak = peak_of(lambda: fwd(block["x"], block["y"]), fresh)
-        out["forward"] = {"df": df.cpu(), "warped": warped.cpu(), "s": seconds, "peak": peak,
-                          "counts": read_counts(), "traffic": dict(spatial.traffic)}
-        del df, warped
+        bodies = lambda: {f"{k} {b}": n for (k, b), n in sorted(warp.slab_bodies.items())}
+
+        def step_record(seconds, peak, metrics, grads):
+            return {"s": seconds, "peak": peak, "counts": read_counts(),
+                    "traffic": dict(spatial.traffic), "bodies": bodies(),
+                    "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
+                    "grads": {n: v.cpu() for n, v in grads.items()} if rank == 0 else None}
+
+        for dtype in STEP_DTYPES:
+            fmodel = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+            fmodel.init(0)
+            fwd = spatial.make_spatial_forward(fmodel, mesh)
+            (df, warped), seconds, peak = peak_of(lambda: fwd(block["x"], block["y"]), fresh)
+            out[f"forward {dtype}"] = {
+                "df": df.cpu(), "warped": warped.cpu(), "s": seconds, "peak": peak,
+                "counts": read_counts(), "traffic": dict(spatial.traffic)}
+            del df, warped, fmodel
         torch.backends.cudnn.deterministic = True
         for dtype in STEP_DTYPES:
             smodel = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
             smodel.init(0)
             compute = lambda: spatial.spatial_compute_grads(smodel, block, mesh, noise=noise)
             (grads, _, metrics), seconds, peak = peak_of(compute, fresh)
-            out[f"step {dtype}"] = {
-                "s": seconds, "peak": peak, "counts": read_counts(),
-                "traffic": dict(spatial.traffic),
-                "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
-                "grads": {n: v.cpu() for n, v in grads.items()} if rank == 0 else None}
+            out[f"step {dtype}"] = step_record(seconds, peak, metrics, grads)
             del smodel, grads, metrics
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        for name, kw, dtype, rows in SEG_STEPS:
+            scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
+            sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
+            sblock = {k: spatial.shard_volume(v, mesh).contiguous() for k, v in sbatch.items()}
+            del sbatch
+            smodel = PULPoModel(scfg, device=dev)
+            smodel.init(0)
+            compute = lambda: spatial.spatial_compute_grads(smodel, sblock, mesh, noise=snoise)
+            (grads, _, metrics), seconds, peak = peak_of(compute, fresh)
+            out[name] = step_record(seconds, peak, metrics, grads)
+            del smodel, grads, metrics, sblock
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = False
 
+        model = PULPoModel(cfg, device=dev)
+        model.init(0)
         tmesh = tp.make_model_mesh(SPACE)
         tp.shard_params(model, tmesh)
         with tp.sharded(tmesh):
@@ -3589,28 +3719,70 @@ def spatial_worker(out_dir, accelerator, cfg_json) -> int:
     return 0
 
 
+def held_step(name, mine, theirs, dtype, failures):
+    """Phases 11b and 11d: a sharded step's losses and gradients (rank 0's)
+    against the unsharded step's in the same dtype. The sharded step
+    reorders float32 sums (halo convs, slab partial losses and
+    statistics, summed squaring cotangents), a perturbation of float32
+    rounding's size, so it is held to twice the unsharded step's own
+    distance under such perturbations: the larger of its run-to-run
+    distance (#2's atomics) and its distance on inputs moved by one
+    float32 ulp, for the gradients (relative L2, at least 1e-5) and, in
+    bf16, each loss term (at least SPATIAL_LOSS_REL of it; the KL, which
+    is computed in the compute dtype and whose slab partials each round
+    to it, at least one ulp of that dtype; the total, the sum of its
+    terms' allowances). In f32 each loss is held to SPATIAL_LOSS_REL of
+    it, relative. Returns the step's record of distances."""
+    import torch
+
+    away = lambda a: {k: abs(a[k] - theirs["losses"][k]) for k in LOSS_KEYS}
+    loss = away(mine["losses"])
+    own = {k: max(away(theirs["again"])[k], away(theirs["ulp"])[k]) for k in LOSS_KEYS}
+    if dtype == "float32":
+        allowed = {k: SPATIAL_LOSS_REL * abs(theirs["losses"][k]) for k in LOSS_KEYS}
+    else:
+        floor = {"kl_loss": max(SPATIAL_LOSS_REL, float(torch.finfo(getattr(torch, dtype)).eps)),
+                 "reconstruction_loss": SPATIAL_LOSS_REL,
+                 "regularization_loss": SPATIAL_LOSS_REL}
+        allowed = {k: max(2 * own[k], f * abs(theirs["losses"][k])) for k, f in floor.items()}
+        allowed["total_loss"] = sum(allowed.values())
+    grad, worst, leaf = grad_spread(mine["grads"], theirs["grads"])
+    spread = max(theirs["rr"], theirs["moved"])
+    log(f"spatial {name}: losses {mine['losses']}, the unsharded step's {theirs['losses']}: "
+        f"{loss} apart (allowed {allowed}; the unsharded step's own {own}); gradients "
+        f"{grad:.3e} (relative L2; worst leaf {worst:.3e} of its scale, {leaf}); the "
+        f"unsharded step's run-to-run {theirs['rr']:.3e}, on inputs moved by one float32 "
+        f"ulp {theirs['moved']:.3e}")
+    if any(loss[k] > allowed[k] for k in LOSS_KEYS):
+        failures.append(f"{name}: losses {loss} apart, allowed {allowed}")
+    if not grad <= max(2 * spread, 1e-5):
+        failures.append(f"{name}: gradients {grad:.3e} against {spread:.3e}")
+    return {"loss_abs": loss, "own_loss_abs": own, "allowed": allowed,
+            "losses": theirs["losses"], "grad_rel": grad, "worst": worst, "leaf": leaf,
+            "rr": theirs["rr"], "moved": theirs["moved"]}
+
+
 def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
-    """Phases 11a-11c: SPACE processes sharing the one card (torchrun,
+    """Phases 11a-11d: SPACE processes sharing the one card (torchrun,
     gloo on CUDA tensors: NCCL refuses two ranks on one device), the
     flagship at full width (160x192x224, n0 32, bf16, level_res, B = 1).
-    11a: `make_spatial_forward` at mesh (data 1, space SPACE), each
-    rank's slab of the level-0 final df and warped image against the
-    unsharded forward's planes, within twice the unsharded forward's own
-    distance on inputs moved by one float32 ulp (max-abs of scale; at
-    least SPATIAL_FWD_REL): cuDNN may take another algorithm on a slab
-    with its halo, and a bf16 rounding that flips moves the output as
-    such a move of the inputs does. 11b:
-    `spatial_compute_grads` (the step's gradients and metrics) in bf16
-    and in f32 against the unsharded step in the same dtype: the sharded
-    step reorders float32 sums (halo convs, slab partial losses, summed
-    squaring cotangents), a perturbation of float32 rounding's size, so
-    it is held to twice the unsharded step's own distance under such
-    perturbations: the larger of its run-to-run distance (#2's atomics)
-    and its distance on inputs moved by one float32 ulp, for the
-    gradients (relative L2, at least 1e-5) and each loss term (at least
-    SPATIAL_LOSS_REL of it; the KL, which is computed in the compute
-    dtype and whose slab partials each round to it, at least one ulp of
-    that dtype; the total, the sum of its terms' allowances). 11c: the output-channel split at model
+    11a: `make_spatial_forward` at mesh (data 1, space SPACE), in the
+    flagship's bf16 and in f32, each rank's slab of the level-0 final df
+    and warped image against the unsharded forward's planes in the same
+    dtype, within twice the unsharded forward's own distance on inputs
+    moved by one float32 ulp (max-abs of scale; at least SPATIAL_FWD_REL
+    in bf16, SPATIAL_F32_REL in f32): cuDNN may take another algorithm
+    on a slab with its halo, and a bf16 rounding that flips moves the
+    output as such a move of the inputs does; the f32 forward shows
+    whether the bf16 gap is rounding only. 11b: `spatial_compute_grads`
+    (the step's gradients and metrics) in bf16 and in f32 against the
+    unsharded step in the same dtype (`held_step`). 11d: the
+    segmentation (Dice) step of the OASIS configuration (36 one-hot
+    classes, dice_factor 50) in bf16 at B = 2 and in f32 at B = 1, and
+    the flagship step with the jdet regularizer in f32 at B = 1, each
+    against the unsharded step (`held_step`); each rank's peak beside
+    the unsharded step's and phase 8b's PLAIN_SEG_PEAK_GIB, and the body
+    each C = 36 slab launch took. 11c: the output-channel split at model
     SPACE against the replicated `predict_deterministic`, within TP_REL
     of scale. Exact launch counts on each rank (a sharded forward and
     step launch what the unsharded ones do; the split forward 35 unit
@@ -3621,7 +3793,7 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
     from pulpo_tpu_torch import PULPoConfig
 
     cfg = PULPoConfig(**cfg_kw, batch_size=1)
-    ref = spatial_references(dev, cfg)
+    ref = spatial_references(dev, cfg, cfg_kw)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = run_root / "ranks"
@@ -3635,72 +3807,59 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
                          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     ranks = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(SPACE)]
     per = cfg.input_size[0] // SPACE
+    forwards = [f"forward {d}" for d in STEP_DTYPES]
     steps = [f"step {d}" for d in STEP_DTYPES]
-    phases = ["forward", *steps, "tp"]
+    segs = [name for name, *_ in SEG_STEPS]
+    phases = [*forwards, *steps, *segs, "tp"]
     failures = []
-    errs = {"df": 0.0, "warped": 0.0}
+    errs = {f: {"df": 0.0, "warped": 0.0} for f in forwards}
     for r in ranks:
         sl = slice(r["rank"] * per, (r["rank"] + 1) * per)
-        f = r["forward"]
-        for k in errs:
-            want = ref[k][:, sl].float().cpu()
-            got = f[k].float()
-            if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-                failures.append(f"forward rank {r['rank']}: {k} {tuple(got.shape)}")
-                continue
-            diff = (got - want).abs()
-            errs[k] = max(errs[k], float(diff.max()) / float(ref[k].abs().max()))
-            plane = int(diff.amax(dim=(0, 2, 3, 4)).argmax()) + sl.start
-            log(f"spatial forward rank {r['rank']}: {k} {float(diff.max()):.3e} at most (plane "
-                f"{plane}), {float(diff.square().sum().sqrt() / want.square().sum().sqrt()):.3e} "
-                "relative L2")
-        for phase, want in (("forward", decode_launches(cfg, 1, 1)), ("tp", tp_launches(cfg)),
-                            *((name, step_launches(cfg, 1)) for name in steps)):
+        for fname in forwards:
+            f, want_all = r[fname], ref[fname]
+            for k in ("df", "warped"):
+                want = want_all[k][:, sl].float()
+                got = f[k].float()
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    failures.append(f"{fname} rank {r['rank']}: {k} {tuple(got.shape)}")
+                    continue
+                diff = (got - want).abs()
+                errs[fname][k] = max(errs[fname][k],
+                                     float(diff.max()) / float(want_all[k].abs().max()))
+                plane = int(diff.amax(dim=(0, 2, 3, 4)).argmax()) + sl.start
+                log(f"spatial {fname} rank {r['rank']}: {k} {float(diff.max()):.3e} at most "
+                    f"(plane {plane}), {float(diff.square().sum().sqrt() / want.square().sum().sqrt()):.3e} "
+                    "relative L2")
+        expected = [(f, decode_launches(cfg, 1, 1)) for f in forwards]
+        expected += [("tp", tp_launches(cfg))] + [(name, step_launches(cfg, 1)) for name in steps]
+        expected += [(name, step_launches(seg_step_cfg(cfg_kw, kw, dtype, rows), 1,
+                                          dice="dice" in kw.get("recon_loss", ())))
+                     for name, kw, dtype, rows in SEG_STEPS]
+        for phase, want in expected:
             try:
                 expect(r[phase]["counts"], want, f"spatial {phase} rank {r['rank']}")
             except SystemExit as e:
                 failures.append(str(e))
-    moved = ref["fwd_moved"]
-    log(f"spatial forward: {errs} of scale from the unsharded forward; the unsharded forward "
-        f"on inputs moved by one float32 ulp {moved}")
-    if any(errs[k] > max(2 * moved[k], SPATIAL_FWD_REL) for k in errs):
-        failures.append(f"forward: {errs} of scale from the unsharded forward (its own "
-                        f"distance under a one-ulp move of the inputs {moved})")
+    for fname, dtype in zip(forwards, STEP_DTYPES):
+        moved = ref[fname]["moved"]
+        floor = SPATIAL_FWD_REL if dtype == "bfloat16" else SPATIAL_F32_REL
+        log(f"spatial {fname}: {errs[fname]} of scale from the unsharded forward; the unsharded "
+            f"forward on inputs moved by one float32 ulp {moved}")
+        if any(errs[fname][k] > max(2 * moved[k], floor) for k in errs[fname]):
+            failures.append(f"{fname}: {errs[fname]} of scale from the unsharded forward (its "
+                            f"own distance under a one-ulp move of the inputs {moved})")
     step_info = {}
-    for dtype, name in zip(STEP_DTYPES, steps):
-        mine, theirs = ranks[0][name], ref[dtype]
-        if any(r[name]["losses"] != mine["losses"] for r in ranks):
+    for name, dtype in [*zip(steps, STEP_DTYPES), *((n, d) for n, _, d, _ in SEG_STEPS)]:
+        if any(r[name]["losses"] != ranks[0][name]["losses"] for r in ranks):
             failures.append(f"{name}: the ranks' losses differ")
-        away = lambda a: {k: abs(a[k] - theirs["losses"][k]) for k in LOSS_KEYS}
-        loss = away(mine["losses"])
-        own = {k: max(away(theirs["again"])[k], away(theirs["ulp"])[k]) for k in LOSS_KEYS}
-        # the KL is computed in the compute dtype, each rank's partial KL
-        # rounded to it: one ulp of that dtype; the other terms are float32
-        floor = {"kl_loss": max(SPATIAL_LOSS_REL, float(torch.finfo(getattr(torch, dtype)).eps)),
-                 "reconstruction_loss": SPATIAL_LOSS_REL, "regularization_loss": SPATIAL_LOSS_REL}
-        allowed = {k: max(2 * own[k], f * abs(theirs["losses"][k])) for k, f in floor.items()}
-        allowed["total_loss"] = sum(allowed.values())
-        grad, worst, leaf = grad_spread(mine["grads"], theirs["grads"])
-        spread = max(theirs["rr"], theirs["moved"])
-        step_info[dtype] = {"loss_abs": loss, "own_loss_abs": own, "allowed": allowed,
-                            "losses": theirs["losses"], "grad_rel": grad, "worst": worst,
-                            "leaf": leaf, "rr": theirs["rr"], "moved": theirs["moved"]}
-        log(f"spatial {name}: losses {mine['losses']}, the unsharded step's {theirs['losses']}: "
-            f"{loss} apart (allowed {allowed}; the unsharded step's own {own}); gradients "
-            f"{grad:.3e} (relative L2; worst leaf {worst:.3e} of its scale, {leaf}); the "
-            f"unsharded step's run-to-run {theirs['rr']:.3e}, on inputs moved by one float32 "
-            f"ulp {theirs['moved']:.3e}")
-        if any(loss[k] > allowed[k] for k in LOSS_KEYS):
-            failures.append(f"{name}: losses {loss} apart, allowed {allowed}")
-        if not grad <= max(2 * spread, 1e-5):
-            failures.append(f"{name}: gradients {grad:.3e} against {spread:.3e}")
+        step_info[name] = held_step(name, ranks[0][name], ref[name], dtype, failures)
     tp_err = 0.0
     for i, key in enumerate(("warped", "dfs")):
         for l, want in ref["tp"][i].items():
             got = ranks[0]["tp"][key][l].float()
             if not bool(torch.isfinite(got).all()):
                 failures.append(f"tp forward: {key}[{l}] not finite")
-            tp_err = max(tp_err, float((got - want.float().cpu()).abs().max())
+            tp_err = max(tp_err, float((got - want.float()).abs().max())
                          / float(want.float().abs().max()))
     if tp_err > TP_REL:
         failures.append(f"tp forward: {tp_err:.3e} of scale from the replicated forward")
@@ -3708,21 +3867,33 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
         for phase in phases:
             x = r[phase]
             log(f"spatial {phase} rank {r['rank']}: {x['s']:.3f} s, peak {x['peak']:.3f} GiB"
-                + (f", exchanges {x['traffic']}" if "traffic" in x else ""))
-    log(f"spatial (phases 11a-11c): {SPACE} processes on one card (gloo), the flagship at "
-        f"{cfg.input_size}; unsharded forward {ref['fwd_s']:.3f} s peak {ref['fwd_peak']:.3f} "
-        f"GiB, predict_deterministic {ref['tp_s']:.3f} s peak {ref['tp_peak']:.3f} GiB, steps "
-        + ", ".join(f"{d} {ref[d]['s']:.3f} s peak {ref[d]['peak']:.3f} GiB" for d in STEP_DTYPES)
-        + f"; sharded forward {errs} of scale; split forward {tp_err:.3e} of scale; "
+                + (f", exchanges {x['traffic']}" if "traffic" in x else "")
+                + (f", slab bodies {x['bodies']}" if x.get("bodies") else ""))
+    for name in segs:
+        log(f"spatial {name}: a rank's peak " + ", ".join(
+            f"{r[name]['peak']:.3f}" for r in ranks) + f" GiB, the unsharded step's "
+            f"{ref[name]['peak']:.3f} GiB (phase 8b's B = 2 segmentation step "
+            f"{PLAIN_SEG_PEAK_GIB} GiB); {ranks[0][name]['s']:.3f} s a step a rank, the "
+            f"unsharded {ref[name]['s']:.3f} s")
+    log(f"spatial (phases 11a-11d): {SPACE} processes on one card (gloo), the flagship at "
+        f"{cfg.input_size}; unsharded forwards " + ", ".join(
+            f"{d} {ref[f]['s']:.3f} s peak {ref[f]['peak']:.3f} GiB"
+            for f, d in zip(forwards, STEP_DTYPES))
+        + f", predict_deterministic {ref['tp_s']:.3f} s peak {ref['tp_peak']:.3f} GiB, steps "
+        + ", ".join(f"{n} {ref[n]['s']:.3f} s peak {ref[n]['peak']:.3f} GiB"
+                    for n in [*steps, *segs])
+        + f"; sharded forwards {errs} of scale; split forward {tp_err:.3e} of scale; "
         f"{wall:.1f} s with start-up")
     if failures:
         raise SystemExit(f"spatial paths failed: {failures}")
-    info = {"wall_s": wall, "errs": errs, "fwd_moved": moved, "tp_err": tp_err,
+    info = {"wall_s": wall, "errs": errs,
+            "fwd_moved": {f: ref[f]["moved"] for f in forwards}, "tp_err": tp_err,
             "steps": step_info,
-            "ref": {k: ref[k] for k in ("fwd_s", "fwd_peak", "tp_s", "tp_peak")}
-            | {d: {k: ref[d][k] for k in ("s", "peak")} for d in STEP_DTYPES},
-            "ranks": [{p: {k: v for k, v in r[p].items() if k in ("s", "peak", "traffic")}
-                       for p in phases} for r in ranks]}
+            "ref": {k: ref[k] for k in ("tp_s", "tp_peak")}
+            | {n: {k: ref[n][k] for k in ("s", "peak")} for n in [*forwards, *steps, *segs]},
+            "ranks": [{p: {k: v for k, v in r[p].items()
+                           if k in ("s", "peak", "traffic", "bodies")} for p in phases}
+                      for r in ranks]}
     counts = {p: add_counts(*(r[p]["counts"] for r in ranks)) for p in phases}
     return counts, info
 
@@ -4447,7 +4618,7 @@ def main() -> int:
     finally:
         shutil.rmtree(dp_root, ignore_errors=True)
     torch.cuda.empty_cache()
-    check_slab_kernels(dev, cfg, checks)
+    slab_times, slab_bodies = check_slab_kernels(dev, cfg, checks, PULPoConfig(**OASIS))
     if checks.failures:
         raise SystemExit(f"slab checks failed: {checks.failures}")
     torch.cuda.empty_cache()
@@ -4551,8 +4722,12 @@ def main() -> int:
                    "compare": cmp_counts[name], "native_oasis_train": native_counts[name],
                    "ingest": ingest_counts[name], "dp_step": dp_counts[name],
                    "train_cli_dp": cli_dp_counts[name],
-                   "spatial_forward": sp_counts["forward"][name],
+                   # the flagship's bf16 sharded forward keeps its key
+                   "spatial_forward": sp_counts["forward bfloat16"][name],
+                   "spatial_forward_float32": sp_counts["forward float32"][name],
                    **{f"spatial_step_{d}": sp_counts[f"step {d}"][name] for d in STEP_DTYPES},
+                   **{f"spatial_{n.replace(' ', '_')}": sp_counts[n][name]
+                      for n, *_ in SEG_STEPS},
                    "tp_forward": sp_counts["tp"][name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4575,6 +4750,8 @@ def main() -> int:
             record["shapes"] = r["shapes"]
         if name in seg_times:
             record[f"seg_c{SEG_CLASSES}"] = seg_times[name]
+        if slab_times.get(name):
+            record["slabs"] = slab_times[name]
         if name in vxm_times:
             record["vxm"] = {"ms": vxm_times[name],
                              "path_ms": {p: v[name] for p, v in vxm_path_ms.items() if name in v},
@@ -4635,10 +4812,11 @@ def main() -> int:
         f"the plain step's own spread {dp['spread']:.3e})")
     log(f"train_cli dp (phase 10d; {card}): {cli_dp['wall_s']:.1f} s for 2 processes")
     ref = sp["ref"]
-    log(f"spatial (phases 11a-11c; {card}): unsharded forward {ref['fwd_s']:.3f} s / "
-        f"{ref['fwd_peak']:.3f} GiB, predict_deterministic {ref['tp_s']:.3f} s / "
-        f"{ref['tp_peak']:.3f} GiB, steps " + ", ".join(
-            f"{d} {ref[d]['s']:.3f} s / {ref[d]['peak']:.3f} GiB" for d in STEP_DTYPES)
+    log(f"slab bodies at C = {SEG_CLASSES} (phase 11; {card}): {slab_bodies}")
+    log(f"spatial (phases 11a-11d; {card}): unsharded " + ", ".join(
+            f"{n} {x['s']:.3f} s / {x['peak']:.3f} GiB" for n, x in ref.items()
+            if isinstance(x, dict))
+        + f", predict_deterministic {ref['tp_s']:.3f} s / {ref['tp_peak']:.3f} GiB"
         + "; per rank " + "; ".join(
             f"rank {i}: " + ", ".join(f"{p} {x['s']:.3f} s / {x['peak']:.3f} GiB"
                                       for p, x in r.items())

@@ -26,9 +26,11 @@
 // stay in registers, and a corner's 9 quads are loaded together, a whole slab
 // in flight a thread (a loop over the quads, with 9 loads in flight, measured
 // slower). Any other C, or a misaligned pointer, takes a runtime loop over
-// single channels. The first C > 1 body reloaded all C channels of g for each
-// corner with 4-byte loads at a 4C-byte lane stride (288 loads of the same 144
-// bytes a voxel at C = 36) and ran at 0.04 of the byte bound, 7.8x the time of
+// single channels. The wrapper chooses the body (kernels/warp.py:
+// dfgrad_body) and passes it; the entry refuses one that does not fit. The
+// first C > 1 body reloaded all C channels of g for each corner with 4-byte
+// loads at a 4C-byte lane stride (288 loads of the same 144 bytes a voxel at
+// C = 36) and ran at 0.04 of the byte bound, 7.8x the time of
 // grid_sample's VJP; 9-lane groups across the channels, a voxel's partial dot
 // products summed by shuffles, measured slower than this body at the large
 // shapes (PERF.md). No atomics, so the result is deterministic; moving and df
@@ -277,20 +279,27 @@ unsigned int blocks_for(long long total, int threads) {
 }  // namespace
 
 // gdf (B_df, O0, O1, O2, 3) from moving (B, I0, I1, I2, C), df (B_df, O.., 3)
-// and g (B_df, O.., C); plan: the forward's tile plan of the df's output
-// space, 12 ints (gather::Plan, kernels/gather.py:warp_plan), refused
-// unless it covers the output; with a slab (z0, zg: df, g and gdf are O0
-// planes of a whole output of depth zg, the moving volume whole, f0 = I0 /
-// (zg - 1)) each voxel takes its global plane, as the forward's slab does.
-// Returns cudaGetLastError().
+// and g (B_df, O.., C); body: the body the caller chose (kernels/warp.py:
+// dfgrad_body), 1 (C = 1), 36 (C = 36 in 16-byte quads, map and cotangent
+// 16-byte aligned) or 0 (a loop over single channels, any C), refused where
+// it does not fit C and the pointers; plan: the forward's tile plan of the
+// df's output space, 12 ints (gather::Plan, kernels/gather.py:warp_plan),
+// refused unless it covers the output; with a slab (z0, zg: df, g and gdf
+// are O0 planes of a whole output of depth zg, the moving volume whole,
+// f0 = I0 / (zg - 1)) each voxel takes its global plane, as the forward's
+// slab does. Returns cudaGetLastError().
 extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
                                  void* out, int B, int B_df, int C,
                                  int I0, int I1, int I2, int O0, int O1, int O2,
-                                 float f0, float f1, float f2, const int* plan, void* stream) {
+                                 float f0, float f1, float f2, int body, const int* plan,
+                                 void* stream) {
   const long long n_out = (long long)O0 * O1 * O2;
   const long long n_in = (long long)I0 * I1 * I2;
   if (B_df == 0 || n_out == 0) return 0;
   if (B < 1 || C < 1 || B_df % B != 0) return (int)cudaErrorInvalidValue;
+  const bool fits = body == 0 || (body == 1 && C == 1) ||
+                    (body == 36 && C == 36 && gather::aligned16(mov) && gather::aligned16(g));
+  if (!fits) return (int)cudaErrorInvalidValue;
   const gather::Plan p = gather::read_plan(plan);
   const long long widest = n_out * (C > 3 ? C : 3);
   if (p.v != 1 || p.ch != 0 || !gather::valid_slab(p, O0) ||
@@ -298,16 +307,14 @@ extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);
   const cudaStream_t s = (cudaStream_t)stream;
-  // the body: one channel; 36 channels in 16-byte quads where the map and
-  // cotangent are 16-byte aligned; else a loop over single channels
   auto launch = [&](auto kernel) {
     kernel<<<grid, block, 0, s>>>((const float*)mov, (const float*)df, (const float*)g,
                                   (float*)out, B, B_df / B, C, I0, I1, I2, O0, O1, O2, f0, f1,
                                   f2, p);
   };
-  if (C == 1)
+  if (body == 1)
     launch(dfgrad_kernel<1>);
-  else if (C == 36 && gather::aligned16(mov) && gather::aligned16(g))
+  else if (body == 36)
     launch(dfgrad_kernel<36>);
   else
     launch(dfgrad_kernel<0>);

@@ -60,7 +60,12 @@ Slab launches (the depth-sharded model, parallel/spatial.py): `warp`,
 and the output) are planes z0 .. of a whole output of depth zg, the
 moving volume whole; each voxel's source coordinate takes its global
 plane and the axis-0 factor S_in / (zg - 1), so a slab is bit-equal to
-the matching planes of the whole launch (`gather.slab`).
+the matching planes of the whole launch (`gather.slab`). Each 3D slab
+launch records the body it took in `slab_bodies` (the forward's channel
+body of 16-byte quads or of single channels, or its voxel body, from its
+plan's `ch`; the df-cotangent's `<1>`, `<36>` or `<0>`, from the body
+`dfgrad_body` passes to its launch): a slab view off a 16-byte boundary
+takes the single-channel body, right but slower.
 
 Layout: moving (B, *S_in, C) and df (B_df, *S_out, nd) channels-last
 float32, nd = 3 or, in 2D, 2 (the CF functions: (B, C, *S_in) and
@@ -84,9 +89,30 @@ mgrad_launches = 0   # kernel launches of `warp_mgrad`
 cf_launches = 0      # kernel launches of `warp_cf`
 
 
+# slab launches by (kernel, body) since `reset_count`: ("warp", "ch4" | "ch1"
+# | "voxel"), ("warp_dfgrad", "<1>" | "<36>" | "<0>")
+slab_bodies: dict[tuple[str, str], int] = {}
+
+
 def reset_count() -> None:
     global launches, launches_2d, dfgrad_launches, mgrad_launches, cf_launches
     launches = launches_2d = dfgrad_launches = mgrad_launches = cf_launches = 0
+    slab_bodies.clear()
+
+
+def _record_slab(kernel: str, body: str) -> None:
+    slab_bodies[(kernel, body)] = slab_bodies.get((kernel, body), 0) + 1
+
+
+def dfgrad_body(moving: torch.Tensor, g: torch.Tensor) -> int:
+    """The body of the df-cotangent's launch, passed to `pulpo_warp_dfgrad`
+    (`csrc/warp_bwd.cu`, which refuses one that does not fit): 1 at C = 1,
+    36 at C = 36 with map and cotangent 16-byte aligned, else 0 (a loop
+    over single channels)."""
+    c = moving.shape[-1]
+    if c == 1:
+        return 1
+    return 36 if c == 36 and gather.aligned(moving, g) else 0
 
 
 def _factor(s_in: int, s_out: int) -> float:
@@ -218,7 +244,8 @@ def warp_dfgrad_plain(moving: torch.Tensor, df: torch.Tensor,
     """The df-cotangent of `warp_plain` written out (not autograd):
     per output voxel and axis a, ``sum_corner <g, m_corner> * (+-1) *
     prod_{b != a} w_b``, times the clip's derivative and the factor.
-    Returns (B_df, *S_out, 3) float32."""
+    Each corner's dot product adds its channels in order, as the kernel's
+    bodies do. Returns (B_df, *S_out, 3) float32."""
     spatial = moving.shape[1:-1]
     ndims = len(spatial)
     moving, g = moving.float(), g.float()
@@ -230,7 +257,11 @@ def warp_dfgrad_plain(moving: torch.Tensor, df: torch.Tensor,
     gw = [None] * ndims
     for corner in range(2**ndims):
         idx, _ = _corner(ndims, corner, i0, i1, w, base, strides)
-        gm = (flat[idx.reshape(-1)] * gflat).sum(-1).reshape(idx.shape)
+        rows = flat[idx.reshape(-1)]
+        gm = rows.new_zeros(rows.shape[0])
+        for ch in range(c):
+            gm = gm + rows[:, ch] * gflat[:, ch]
+        gm = gm.reshape(idx.shape)
         for a in range(ndims):
             _, others = _corner(ndims, corner, i0, i1, w, base, strides, skip=a)
             t = gm * others
@@ -320,20 +351,21 @@ def tile_plan(moving_shape, df_shape, cf: bool = False, is_aligned: bool = True)
 def dfgrad_plan(moving_shape, df_shape) -> dict:
     """The tile plan of the df-cotangent kernel's launch: the forward's
     voxel plan over the df's output space (one voxel a thread, ch = 0) at
-    any C. The launch takes its body from C and the pointers: one
-    channel, 16-byte chunks of the channels where C % 4 == 0 and the map
-    and cotangent are 16-byte aligned, else single channels."""
+    any C. The launch's body is `dfgrad_body`'s: one channel, 16-byte
+    chunks of the 36 channels where the map and cotangent are 16-byte
+    aligned, else single channels."""
     b, _, _, s_out = _shapes(moving_shape, df_shape, False)
     return gather.warp_plan(s_out, df_shape[0], b)
 
 
 def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool = False,
-            plan: dict | None = None):
+            plan: dict | None = None, body: int | None = None):
     """Call the C entry `entry(ptrs..., B, B_df, C, I0.., O0.., f0..,
-    [plan,] stream)` of kernel library `lib`, one I, O and f per spatial
-    axis (the forward kernel and the df-cotangent, which walks the same
-    output space, also take a tile plan: `plan`, whose zg is then the
-    whole output's depth for f0); `cf`: the shapes are channels-first."""
+    [body,] [plan,] stream)` of kernel library `lib`, one I, O and f per
+    spatial axis (the forward kernel and the df-cotangent, which walks the
+    same output space, also take a tile plan: `plan`, whose zg is then the
+    whole output's depth for f0; the df-cotangent its `body`); `cf`: the
+    shapes are channels-first."""
     b, c, s_in, s_out = _shapes(moving_shape, df.shape, cf)
     nd = len(s_in)
     whole = list(s_out)
@@ -342,13 +374,16 @@ def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool
         if nd == 3:
             whole[0] = plan["zg"]
     plan = [] if plan is None else [gather.plan_arg(plan)]
+    body = [] if body is None else [body]
     f = [_factor(s_in[i], whole[i]) for i in range(nd)]
     fn = getattr(_build.load(lib), entry)
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * (3 + 2 * nd)
-                   + [ctypes.c_float] * nd + [ctypes.c_void_p] * (len(plan) + 1))
+                   + [ctypes.c_float] * nd + [ctypes.c_int] * len(body)
+                   + [ctypes.c_void_p] * (len(plan) + 1))
     fn.restype = ctypes.c_int
     with torch.cuda.device(df.device):
-        rc = fn(*ptrs, b, df.shape[0], c, *s_in, *s_out, *f, *plan, _build.stream_ptr(df))
+        rc = fn(*ptrs, b, df.shape[0], c, *s_in, *s_out, *f, *body, *plan,
+                _build.stream_ptr(df))
     _build.check(rc, entry)
 
 
@@ -374,10 +409,12 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor, z0: int = 0,
     out = torch.empty((df.shape[0], *df.shape[1:-1], moving.shape[-1]),
                       device=df.device, dtype=torch.float32)
     global launches, launches_2d
+    plan = tile_plan(moving.shape, df.shape, is_aligned=gather.aligned(moving, out))
     _launch("warp", "pulpo_warp_2d" if nd == 2 else "pulpo_warp",
             [moving.data_ptr(), df.data_ptr(), out.data_ptr()], moving.shape, df,
-            plan=_slab(tile_plan(moving.shape, df.shape, is_aligned=gather.aligned(moving, out)),
-                       df, z0, zg))
+            plan=_slab(plan, df, z0, zg))
+    if zg is not None:
+        _record_slab("warp", f"ch{plan['ch']}" if plan["ch"] else "voxel")
     if nd == 2:
         launches_2d += 1
     else:
@@ -426,10 +463,14 @@ def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor, z0: int
     moving, df, g = moving.contiguous(), df.contiguous(), g.contiguous()
     out = torch.empty(df.shape, device=df.device, dtype=torch.float32)
     global dfgrad_launches
+    body = dfgrad_body(moving, g)
     _launch("warp_bwd", "pulpo_warp_dfgrad",
             [moving.data_ptr(), df.data_ptr(), g.data_ptr(), out.data_ptr()],
-            moving.shape, df, plan=_slab(dfgrad_plan(moving.shape, df.shape), df, z0, zg))
+            moving.shape, df, plan=_slab(dfgrad_plan(moving.shape, df.shape), df, z0, zg),
+            body=body)
     dfgrad_launches += 1
+    if zg is not None:
+        _record_slab("warp_dfgrad", f"<{body}>")
     return out
 
 

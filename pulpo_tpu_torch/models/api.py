@@ -98,7 +98,14 @@ def combine_dfs_cf(cfg: PULPoConfig, individual_dfs: LevelDict) -> tuple[LevelDi
 def transform_segmentation(cfg: PULPoConfig, dfs: LevelDict, seg: torch.Tensor) -> LevelDict:
     """Warp a segmentation pyramid by the per-level final dfs
     (pulpo_tpu/models/api.py:127-144): level 0 at the input resolution,
-    level l > 0 the ceil-mode average-pooled pyramid under level_res."""
+    level l > 0 the ceil-mode average-pooled pyramid under level_res.
+
+    Under spatial sharding (parallel/spatial.py) the pyramid pools this
+    rank's slab (locally between split levels) and each level's warp
+    all-gathers that level's map for its slab launch. Gathering the
+    level-0 map once and pooling the whole pyramid from it would move 2 %
+    fewer bytes (the pooled levels are 1/64 and less of it) but pool the
+    whole map on every rank, so each level gathers its own."""
     if cfg.df_resolution == "full_res":
         return _warp_levels(seg, dfs)
     level_seg: LevelDict = {}

@@ -12,8 +12,13 @@ slab's partial term (a replicated level's term times 1 / space), so
 that the sum over the space column is the whole loss: sums run over the
 slab, means divide by the whole volume's element count, and the terms
 that read a neighbouring plane (NCC's box sums, the forward differences
-of the KL and the L2 regularizer) take it from a halo. The Dice and
-Jacobian terms raise there.
+of the KL and the L2 regularizer, the Jacobian determinant's central
+difference) take it from a halo. The Dice ratio and the Jacobian
+determinant's standard deviation are not sums of per-voxel terms: they
+are built on the slabs' partial statistics summed over the ranks
+(`spatial.sum_partials`) and weighted by 1 / space
+(`spatial.statistic_weight`; the rule and its derivation are in
+parallel/spatial.py's module doc).
 """
 
 from __future__ import annotations
@@ -33,11 +38,6 @@ def _spatial_dims(x: torch.Tensor) -> tuple[int, ...]:
 def _shared(loss: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """`loss` on `x` as this rank's term (parallel/spatial.py:share)."""
     return loss * sharding.share(x) if sharding.active() else loss
-
-
-def _refuse(what: str) -> None:
-    if sharding.active():
-        raise NotImplementedError(f"{what}: {sharding.QUEUE}")
 
 
 # ---------------------------------------------------------------------------
@@ -148,16 +148,23 @@ def ncc_loss(y_pred, y_true, win_size: int = 9, gamma: float = 0.05) -> torch.Te
 
 
 def soft_dice_loss(pred, target, dice_factor: float = 1.0) -> torch.Tensor:
-    """Soft dice over the spatial axes (reference losses.py:137-145)."""
-    _refuse("the Dice loss")
+    """Soft dice over the spatial axes (reference losses.py:137-145).
+    Sharded: each (row, channel) sum is the slab's partial sum, summed over
+    the space column before the ratio (a replicated level's are whole
+    already); the mean over the local (row, channel)s, times 1 / space."""
+    sharded = sharding.active()
     dims = _spatial_dims(pred)
     prod_size = 1
-    for s in pred.shape[1:-1]:
+    for s in (sharding.whole_spatial(pred) if sharded else pred.shape[1:-1]):
         prod_size *= s
     eps = 1e-6
-    dice = (2.0 * torch.sum(target * pred, dim=dims) + eps) / (
-        torch.sum(target**2, dim=dims) + torch.sum(pred**2, dim=dims) + eps)
-    return torch.mean(1.0 - dice) * prod_size / dice_factor
+    inter = torch.sum(target * pred, dim=dims)
+    t2, p2 = torch.sum(target**2, dim=dims), torch.sum(pred**2, dim=dims)
+    if sharded:
+        inter, t2, p2 = sharding.sum_partials(torch.stack([inter, t2, p2]), pred, "space")
+    dice = (2.0 * inter + eps) / (t2 + p2 + eps)
+    loss = torch.mean(1.0 - dice) * prod_size / dice_factor
+    return loss * sharding.statistic_weight() if sharded else loss
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +180,24 @@ def _central_diff(x: torch.Tensor, dim: int) -> torch.Tensor:
     return 0.5 * (upper - lower)
 
 
+def _central_diff_depth(x: torch.Tensor) -> torch.Tensor:
+    """`_central_diff` along the depth of this rank's slab: the planes
+    past the slab from a 1-plane halo, the edge plane replicated only at
+    the volume's own first and last plane."""
+    xh, lo, hi = sharding.halo(x, 1)
+    xh = torch.cat(([xh[:, :1]] if lo == 0 else []) + [xh] + ([xh[:, -1:]] if hi == 0 else []),
+                   1)
+    return 0.5 * (xh[:, 2:] - xh[:, :-2])
+
+
 def jacobian_det(df: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     """Jacobian determinant of a displacement field (B, *spatial, nd) ->
     (B, *spatial), with the reference's flip-and-scale: channels flipped,
-    then scaled by ((size_axis - 1) - 1) / 2 in the unflipped axis order."""
-    spatial = df.shape[1:-1]
+    then scaled by ((size_axis - 1) - 1) / 2 in the unflipped axis order.
+    Sharded: this rank's slab of it (the whole volume's sizes; the depth
+    difference on a halo)."""
+    sharded = sharding.active()
+    spatial = sharding.whole_spatial(df) if sharded else df.shape[1:-1]
     ndims = len(spatial)
     assert ndims in (2, 3)
     if normalize:
@@ -185,7 +205,8 @@ def jacobian_det(df: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     flipped = torch.flip(df, dims=(-1,))
     vox = torch.tensor([(s - 1 - 1) / 2.0 for s in spatial], dtype=df.dtype, device=df.device)
     disp_vox = flipped * vox
-    grads = [_central_diff(disp_vox, 1 + i) for i in range(ndims)]
+    grads = [_central_diff_depth(disp_vox) if sharded and i == 0
+             else _central_diff(disp_vox, 1 + i) for i in range(ndims)]
     if ndims == 2:
         j00 = grads[0][..., 0] + 1.0
         j01 = grads[0][..., 1]
@@ -199,9 +220,19 @@ def jacobian_det(df: torch.Tensor, normalize: bool = True) -> torch.Tensor:
 
 
 def jdet_std(df: torch.Tensor, lamb: float = 0.0, normalize: bool = True) -> torch.Tensor:
-    """lamb * std(jacobian_det(df)), Bessel-corrected."""
-    _refuse("the jdet regularizer")
-    return lamb * torch.std(jacobian_det(df, normalize=normalize), correction=1)
+    """lamb * std(jacobian_det(df)), Bessel-corrected. Sharded: the std of
+    the whole global batch (the JAX step is one global-batch function, so
+    not a mean of per-data-row stds), from two sums over the world (a
+    replicated level's over the data row): the sum, which gives the
+    mean, then the squared deviations'; N - 1 with N the global batch
+    times the whole voxel count; times 1 / space."""
+    j = jacobian_det(df, normalize=normalize)
+    if not sharding.active():
+        return lamb * torch.std(j, correction=1)
+    n = sharding.global_rows(df) * float(np.prod(sharding.whole_spatial(df)))
+    mean = sharding.sum_partials(j.sum(), df, "world") / n
+    ss = sharding.sum_partials(torch.square(j - mean).sum(), df, "world")
+    return lamb * torch.sqrt(ss / (n - 1)) * sharding.statistic_weight()
 
 
 def l2_reg(df: torch.Tensor, lamb: float = 0.0) -> torch.Tensor:
@@ -276,7 +307,12 @@ def hierarchical_reconstruction_loss(y_hat, y, weight_dict, recon_loss, window_s
         if "ncc" in recon_loss:
             lvl = lvl + w * ncc_loss(y_hat[l], target, win_size=window_size[l], gamma=gamma)
         if "dice" in recon_loss:
-            seg_target = resize_linear(seg_y, tuple(y_hat_seg[l].shape[1:-1]))
+            # the warped map is on y_hat[l]'s grid; sharded, its target takes
+            # the same planes (the band resize of this rank's output rows)
+            seg_target = resize_linear(seg_y, size)
+            if seg_target.shape[:-1] != y_hat_seg[l].shape[:-1]:
+                raise ValueError(f"level {l}: the Dice target {tuple(seg_target.shape)} and its "
+                                 f"warped map {tuple(y_hat_seg[l].shape)} hold other voxels")
             lvl = lvl + w * soft_dice_loss(y_hat_seg[l], seg_target, dice_factor=dice_factor)
         levels[l] = lvl / len(recon_loss)
         total = total + levels[l]

@@ -40,7 +40,11 @@ consults `BatchNorm.synced`), and do each exchange themselves:
 - losses: every sum or mean over voxels becomes the slab's partial sum
   (a replicated level's terms count 1 / space on each rank), so that the
   loss summed over the space column is the whole one; the normalisers
-  stay the whole volume's voxel counts (ops/losses.py);
+  stay the whole volume's voxel counts (ops/losses.py). A loss that is
+  not a sum of per-voxel terms (the Dice ratio, the Jacobian
+  determinant's standard deviation) is built on partial statistics
+  summed over the ranks (`sum_partials`, a differentiable all-reduce)
+  and weighted by the rule below;
 - sampling noise: a rank draws the whole (global batch, whole depth)
   noise of each level, as the unsharded model does from the same seed,
   and takes its block (`block`).
@@ -51,10 +55,30 @@ CPU tensors only, so a gloo rank stages its CUDA tensors through the
 host (two ranks sharing one card need gloo: NCCL refuses two ranks on
 one device). No collective's failure is caught.
 
+The weight of a term on reduced statistics. `spatial_compute_grads`
+sums the gradients over the space column and averages them over the data
+row. Take a term L = f(S), S a sum of partial statistics over a group of
+G ranks (`_SumOver`: forward the all-reduce, backward the all-reduce of
+the cotangent). Each rank adds w * L to its loss; the backward gives each
+rank's partial the cotangent G * w * f'(S), and its gradient is G * w *
+f'(S) dS_r/dθ. Summed over space and averaged over data:
+- S over the space column (G = space; the Dice ratio, a mean over the
+  batch of per-row ratios): each data row's sum is space * w * dL_d/dθ,
+  L_d the mean over its own rows, and the data mean of equal local
+  batches is the global mean, so w = 1 / space gives dL/dθ;
+- S over the whole world (G = data * space; the Jacobian determinant's
+  standard deviation, a statistic of the whole global batch): the sum
+  over all ranks of data * space * w * f'(S) dS_r/dθ, divided by data, is
+  space * w * dL/dθ: again w = 1 / space.
+A replicated level keeps w = 1 / space: its statistics are whole on
+every rank of the column, so they are summed over the data row only (a
+world statistic) or not at all (a column statistic), and the column's
+space copies of w * L make one L. The metrics follow the same rule: w *
+L summed over space and averaged over data is L (`statistic_weight`).
+
 Out of scope: under `sharded`, the `full_res` channels-first decode,
-the 2D configuration, `remat` / `remat_down`, the segmentation (Dice)
-step and the `jdet` regularizer raise NotImplementedError (ROADMAP
-Queue 1).
+the 2D configuration and `remat` / `remat_down` raise
+NotImplementedError (ROADMAP Queue 1).
 
 `make_spatial_forward(model, mesh)` returns this rank's slab of the
 level-0 final df and warped image; `make_spatial_train_step(model, tx,
@@ -84,8 +108,12 @@ QUEUE = "not ported under spatial sharding yet (ROADMAP.md Queue 1)"
 
 # bytes and calls of each exchange on this rank since `reset_traffic`:
 # "halo" (all-gathers of edge planes and of their cotangents), "gather"
-# (all-gathers of whole volumes), "reduce" (all-reduces of whole-field
-# cotangents); bytes are the gathered or reduced buffer's
+# (all-gathers of whole volumes), "gather_seg" (those of the moving maps
+# of more than one channel that a warp reads: the one-hot segmentation
+# maps), "reduce" (all-reduces of whole-field cotangents
+# and of a resize's partial products), "stats" (all-reduces of a loss's
+# partial statistics and of their cotangents); bytes are the gathered or
+# reduced buffer's
 traffic: dict[str, list[int]] = {}
 
 
@@ -165,10 +193,6 @@ def _refuse(cfg) -> None:
         what.append("the full_res channels-first decode")
     if cfg.remat or cfg.remat_down:
         what.append("remat")
-    if "dice" in cfg.recon_loss or cfg.segs:
-        what.append("the segmentation (Dice) step")
-    if cfg.regularizer != "L2":
-        what.append("the jdet regularizer")
     if what:
         raise NotImplementedError(f"{', '.join(what)}: {QUEUE}")
 
@@ -258,6 +282,33 @@ def partial_mean(v: torch.Tensor) -> torch.Tensor:
     return v.mean() / _state.mesh.shape[1]
 
 
+def statistic_weight() -> float:
+    """w of a term built on statistics summed by `sum_partials` (module
+    doc): 1 / space, on a split and on a replicated level alike."""
+    return 1.0 / _state.mesh.shape[1]
+
+
+def global_rows(x: torch.Tensor) -> int:
+    """The global batch of which `x` holds this rank's rows."""
+    return x.shape[0] * _state.mesh.shape[0]
+
+
+def sum_partials(t: torch.Tensor, x: torch.Tensor, over: str = "space") -> torch.Tensor:
+    """Partial statistics `t` of a term on `x` summed over `over`: "space"
+    (the column: a statistic of each data row's own batch) or "world" (a
+    statistic of the whole global batch). Differentiable (`_SumOver`).
+    On a replicated level `t` already holds the whole volume's
+    statistics: summed over the data row for "world", left as it is for
+    "space" (a sum over the column would count them space times)."""
+    split = layout(x)[1]
+    mesh = _state.mesh
+    group = {("space", True): mesh.space, ("world", True): mesh.world,
+             ("space", False): None, ("world", False): mesh.data}[(over, split)]
+    if group is None or group.size == 1:
+        return t
+    return _SumOver.apply(t, group, "stats")
+
+
 # ----------------------------------------------------------------------
 # collectives (gloo and NCCL)
 # ----------------------------------------------------------------------
@@ -286,10 +337,27 @@ def _sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return buf
 
 
-def _gather_depth(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _gather_depth(x: torch.Tensor, mesh: Mesh, kind: str = "gather") -> torch.Tensor:
     """The whole volume from the slabs of `mesh`'s ranks (no autograd)."""
-    _count("gather", x, mesh.size)
+    _count(kind, x, mesh.size)
     return torch.cat(_gather_list(x, mesh), dim=1)
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum of `t` over the ranks of `mesh` (all-reduce); backward: the
+    cotangent summed over the same ranks (each rank's partial feeds the
+    sum that every rank's term reads)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, kind):
+        ctx.mesh, ctx.kind = mesh, kind
+        _count(kind, t)
+        return _sum(t, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        _count(ctx.kind, g)
+        return _sum(g, ctx.mesh), None, None
 
 
 class _GatherDepth(torch.autograd.Function):
@@ -297,20 +365,22 @@ class _GatherDepth(torch.autograd.Function):
     column, this rank's slab of it."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, kind):
         ctx.mesh = _space()
         ctx.z0, ctx.planes = ctx.mesh.rank * x.shape[1], x.shape[1]
-        return _gather_depth(x, ctx.mesh)
+        return _gather_depth(x, ctx.mesh, kind)
 
     @staticmethod
     def backward(ctx, g):
         _count("reduce", g)
-        return _sum(g, ctx.mesh).narrow(1, ctx.z0, ctx.planes)
+        return _sum(g, ctx.mesh).narrow(1, ctx.z0, ctx.planes), None
 
 
-def gather(x: torch.Tensor) -> torch.Tensor:
-    """The whole volume of `x` (itself where its level is replicated)."""
-    return _GatherDepth.apply(x) if layout(x)[1] else x
+def gather(x: torch.Tensor, kind: str = "gather") -> torch.Tensor:
+    """The whole volume of `x` (itself where its level is replicated),
+    counted under `traffic[kind]`. An `x` that needs no gradient builds
+    no autograd node, so its backward adds no all-reduce."""
+    return _GatherDepth.apply(x, kind) if layout(x)[1] else x
 
 
 def take(x: torch.Tensor, depth: int) -> torch.Tensor:
@@ -452,8 +522,15 @@ def resize(x: torch.Tensor, out_size, scales=None) -> torch.Tensor:
     if depth != out or scale not in (None, 1.0):
         m = _linear_matrix(depth, out, scale)
         key = (depth, out, scale)
-        if not split(out):
-            x = _rows(gather(x), m, key)
+        if not split(out) and sp:
+            # a replicated output from slabs: each rank's partial product
+            # with its columns of the matrix, summed over the column (the
+            # output's bytes exchanged, not the input's)
+            z0, planes = part(depth)
+            x = _SumOver.apply(_rows(x, m[:, z0:z0 + planes], key + ("cols", z0)), _space(),
+                               "reduce")
+        elif not split(out):
+            x = _rows(x, m, key)
         elif not sp:
             o0, n_out = part(out)
             x = _rows(x, m[o0:o0 + n_out], key + (o0,))
@@ -480,8 +557,9 @@ def resize(x: torch.Tensor, out_size, scales=None) -> torch.Tensor:
 def warp_image(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     """`ops/warp.warp_image` on this rank's slab of df: the moving volume
     all-gathered, the slab launch of the warp (#4; its backward #6 takes
-    the same slab)."""
-    moving = gather(moving)
+    the same slab). A moving map of more than one channel (the one-hot
+    segmentation) is counted as `gather_seg`."""
+    moving = gather(moving, "gather" if moving.shape[-1] == 1 else "gather_seg")
     depth, sp = layout(df)
     if not sp:
         return warp_kernel.warp(moving, df)

@@ -79,20 +79,24 @@ import sys
 HBM_BYTES_PER_S = 3.35e12
 
 
-# the parent checkout's C entry points that take a tile plan
+# the parent checkout's C entry points that take a tile plan, and those
+# that take their body from the caller
 PARENT_PLANS: set = set()
+PARENT_BODIES: set = set()
 
 
-def entries_with_plan(root: str) -> set:
+def entries_with(root: str, param: str) -> set:
     """The C entry points of the checkout at `root` whose parameters
-    include a plan (`const int* plan`), read from its sources."""
+    include one named `param` (`plan`: a tile plan, `const int* plan`;
+    `body`: the body their caller chose, `int body`), read from its
+    sources."""
     out = set()
     csrc = os.path.join(root, "pulpo_tpu_torch", "csrc")
     for name in os.listdir(csrc):
         if name.endswith(".cu"):
             with open(os.path.join(csrc, name)) as fh:
                 for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', fh.read()):
-                    if "plan" in m.group(2):
+                    if re.search(rf"\b{param}\b", m.group(2)):
                         out.add(m.group(1))
     return out
 
@@ -217,10 +221,12 @@ def conv_call(lib, x, weights, cout, out, plan=None):
     assert rc == 0, f"conv_narrow: CUDA error {rc}"
 
 
-def dfgrad_call(lib, mov, df, g, out, plan=True):
+def dfgrad_call(lib, mov, df, g, out, plan=True, body=True):
     """One launch of `lib`'s df-cotangent on (mov, df, g) at the plan the
     wrapper takes (kernels/warp.py:dfgrad_plan), or at `plan` if it is a
-    dict (kernels/gather.py); plan False: an entry that takes none."""
+    dict (kernels/gather.py); plan False: an entry that takes none. With
+    `body` the body the wrapper chooses (kernels/warp.py:dfgrad_body) is
+    passed; False: an entry that chooses its own."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
@@ -230,11 +236,12 @@ def dfgrad_call(lib, mov, df, g, out, plan=True):
     if plan is True:
         plan = warp.dfgrad_plan(mov.shape, df.shape)
     tail = [gather.plan_arg(plan)] if plan else []
+    chosen = [warp.dfgrad_body(mov, g)] if body else []
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p] * (len(tail) + 1))
+                   + [ctypes.c_int] * len(chosen) + [ctypes.c_void_p] * (len(tail) + 1))
     f = [warp._factor(s_in[i], s_out[i]) for i in range(3)]
     rc = fn(mov.data_ptr(), df.data_ptr(), g.data_ptr(), out.data_ptr(), b, df.shape[0], c,
-            *s_in, *s_out, *f, *tail, torch.cuda.current_stream().cuda_stream)
+            *s_in, *s_out, *f, *chosen, *tail, torch.cuda.current_stream().cuda_stream)
     assert rc == 0, f"warp_dfgrad: CUDA error {rc}"
 
 
@@ -612,7 +619,8 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
         # the single-channel body: the same values 4 bytes past a 16-byte boundary
         args = {"scalar": (misaligned(m), df, misaligned(g))} if channels else {}
         call = lambda k, o: dfgrad_call(libs["parent" if k == "parent" else "new"]["warp_bwd"],
-                                        *args.get(k, (m, df, g)), o, plans[k])
+                                        *args.get(k, (m, df, g)), o, plans[k],
+                                        k != "parent" or "pulpo_warp_dfgrad" in PARENT_BODIES)
         plain = lambda: warp.warp_dfgrad_plain(m, df, g)
     else:
         v, g = tensors
@@ -793,7 +801,8 @@ def main() -> int:
         sass_summary(args.sass, names)
     if args.parent:
         libs["parent"] = {k: build_parent(args.parent, k) for k in names}
-        PARENT_PLANS.update(entries_with_plan(args.parent))
+        PARENT_PLANS.update(entries_with(args.parent, "plan"))
+        PARENT_BODIES.update(entries_with(args.parent, "body"))
     libs["probes"] = build_probes(args.parent if "warp" in names else None)
 
     records = []

@@ -1474,3 +1474,50 @@ def test_slab_launches_are_bit_equal_to_the_whole_launch(cuda_device, whole, par
         shares += share
     ref = squaring.squaring_step_bwd(v, g3)
     assert float((shares - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-16-bytes"])
+@pytest.mark.parametrize("whole,parts", [(20, 2), (40, 2)])
+def test_slab_launches_at_36_channels_are_bit_equal_to_the_whole_launch(cuda_device, whole,
+                                                                        parts, aligned):
+    """The C = 36 slab launches of the Dice step's warp (#4) and its
+    df-cotangent (#6) on a one-hot map: each slab bit-equal to the
+    matching planes of the whole launch and to the plain version at its
+    offset. A slab whose map and cotangent lie 4 bytes past a 16-byte
+    boundary takes the single-channel bodies (the warp's `ch1`, the
+    df-cotangent's `<0>`), an aligned one the 16-byte quads (`ch4`,
+    `<36>`); both give the same bits. The df-cotangent's entry refuses
+    the 16-byte body on the slab off the boundary."""
+    rng = np.random.default_rng(35)
+    size = (whole, 24, 28)
+    per = whole // parts
+    labels = rng.integers(0, 36, (1, *size))
+    m = torch.from_numpy(np.eye(36, dtype=np.float32)[labels]).to(cuda_device)
+    df = _field((1, *size, 3), 3.0, 36).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal((1, *size, 36)).astype(np.float32)).to(cuda_device)
+    whole_warp, whole_grad = warp.warp(m, df), warp.warp_dfgrad(m, df, g)
+    mov = m if aligned else misaligned(m)
+    bodies = (("warp", "ch4"), ("warp_dfgrad", "<36>")) if aligned else (
+        ("warp", "ch1"), ("warp_dfgrad", "<0>"))
+    for r in range(parts):
+        z0, sl = r * per, slice(r * per, (r + 1) * per)
+        d = df[:, sl].contiguous()
+        c = g[:, sl].contiguous() if aligned else misaligned(g[:, sl])
+        warp.slab_bodies.clear()
+        got = warp.warp(mov, d, z0, whole)
+        grad = warp.warp_dfgrad(mov, d, c, z0, whole)
+        torch.cuda.synchronize()
+        assert warp.slab_bodies == {b: 1 for b in bodies}
+        assert torch.equal(got, whole_warp[:, sl])
+        assert torch.equal(grad, whole_grad[:, sl])
+        assert torch.equal(got.cpu(), warp.warp_plain(m.cpu(), d.cpu(), z0, whole))
+        assert torch.equal(grad.cpu(), warp.warp_dfgrad_plain(m.cpu(), d.cpu(), c.cpu(), z0,
+                                                              whole))
+    if not aligned:
+        # the entry refuses the 16-byte body on a map off the boundary
+        out = torch.empty_like(d)
+        with pytest.raises(RuntimeError, match="pulpo_warp_dfgrad"):
+            warp._launch("warp_bwd", "pulpo_warp_dfgrad",
+                         [mov.data_ptr(), d.data_ptr(), c.data_ptr(), out.data_ptr()], mov.shape,
+                         d, plan=warp._slab(warp.dfgrad_plan(mov.shape, d.shape), d, z0, whole),
+                         body=36)

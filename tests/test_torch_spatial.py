@@ -19,6 +19,43 @@ ones, imported into flax (`jax_variables`). The 4-level forward is held
 to the port's unsharded forward only (itself held to the JAX forward by
 tests/test_torch_model.py).
 
+Two more steps at mesh (2, 2), in the same launch: the 4-level network
+(its depth-2 coarsest level replicated at space 2) with NCC + Dice
+(dice_factor 50) on one-hot maps of 36 classes, and with the `jdet`
+regularizer: losses that are not sums of per-voxel terms, built on
+partial statistics summed over the ranks (parallel/spatial.py's weight
+rule). They are held to the same bounds as the L2 step, but that their
+gradients are held to the float64 gradient rather than to the unsharded
+step's: within 2e-5 of each leaf's scale plus the unsharded step's own
+float32 error on that leaf, the larger of its distance from the float64
+gradient and its spread (how far it moves when x and y move by one
+float32 ulp). The leaves whose float64 gradient is zero to rounding
+(below 1e-8 of the largest leaf's; the 26 conv biases that feed a train
+BatchNorm, at most 1.7e-15 of it, every other leaf at least 1.2e-3)
+allow the distance plus twice the spread: their float32 value is
+rounding noise alone, held at the floor scale. Why not the sharded step
+against the unsharded one: on 1 (Dice) and 5 (jdet) of a step's 122
+leaves, all with a real gradient (the first two levels' BatchNorm
+weights and biases, a decoder BatchNorm bias), the two steps sit on either side of the
+float64 gradient, up to 1.61 times 2e-5 of scale plus the unsharded
+step's distance apart. Measured, of each leaf's scale, the sharded /
+the unsharded step's distance from the float64 gradient: Dice 2.06e-5 /
+1.81e-5; jdet 2.88e-5 / 6.78e-6, 3.84e-5 / 9.95e-6, 3.64e-5 / 3.01e-5,
+3.05e-5 / 1.96e-5, 1.32e-4 / 2.04e-4. The cause is float32 rounding:
+these leaves sum a cotangent over every voxel of a level through the
+train BatchNorm's fast variance (a difference of two moments), and the
+unsharded step itself moves 5.5e-6 to 9.2e-5 of scale there when its
+inputs move by one ulp (4.6e-5 and 2.6e-5 on the two leaves where its
+distance is smallest). The sharded step is the closer one on 80 % (Dice)
+and 83 % (jdet) of all leaves, and its farthest leaf is 0.57 and 0.64
+times as far as the unsharded step's. The weight rule
+itself: `soft_dice_loss` and `jdet_std` under `sharded` at (2, 2) and
+(1, 4), on a split and a replicated level, each rank's term summed over
+its space column and averaged over the data row, and its gradients
+joined over the slabs (summed over a replicated level's column) and
+averaged over the data row, within 1e-6 of scale of the unsharded
+function's value and input gradient (float32 sums in another order).
+
 Tolerances:
 - the sharded forward (its slabs joined) against the JAX sharded
   forward: 1e-5 of each output's scale (the JAX test holds its own
@@ -67,6 +104,7 @@ from pulpo_tpu.train.step import TrainState as JaxTrainState
 from pulpo_tpu_torch import PULPoConfig
 from pulpo_tpu_torch.compat import from_jax_variables
 from pulpo_tpu_torch.models import PULPoModel
+from pulpo_tpu_torch.ops import losses
 from pulpo_tpu_torch.parallel import spatial
 from pulpo_tpu_torch.train.step import compute_grads
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -76,6 +114,20 @@ SIZE = (16, 14, 16)
 FORWARD = [dict(input_size=SIZE, total_levels=3, latent_levels=2, n0=2),
            dict(input_size=SIZE, total_levels=4, latent_levels=3, n0=2)]
 STEP = dict(input_size=SIZE, total_levels=3, latent_levels=2, n0=2, batch_size=2)
+# the 4-level step: the coarsest level (depth 2) runs replicated at space 2; its
+# in-plane sizes (3, 3) keep the Jacobian determinant's voxel scale (s - 2) / 2
+# nonzero there (at a size of 2 the determinant is 1 everywhere: std 0, whose
+# square root has no derivative)
+SEG_SIZE = (16, 18, 20)
+STEP4 = dict(input_size=SEG_SIZE, total_levels=4, latent_levels=3, n0=2, batch_size=2)
+SEG_STEPS = {"dice": dict(STEP4, segs=True, recon_loss=("ncc", "dice"), dice_factor=50),
+             "jdet": dict(STEP4, regularizer="jdet")}
+SEG_CLASSES = 36
+RULE_MESHES = ((2, 2), (1, 4))
+# the weight rule's levels: (24, 12, 16) splits at space 2 and 4, its
+# coarsest level (6, 3, 4) at neither
+RULE_CFG = dict(input_size=(24, 12, 16), total_levels=3, latent_levels=2, n0=2)
+RULE_LEVELS = {"split": (24, 12, 16), "replicated": (6, 3, 4)}
 LOSSES = ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss")
 WORLD = 4
 
@@ -122,13 +174,38 @@ def jax_step():
     SGD(0.1) from the float32 initial state: the state before, the
     gradients ((before - after) / 0.1), the statistics after, the
     metrics and the step's draws."""
-    jm = JaxModel(JaxConfig(**STEP))
-    variables = jax_variables(STEP, 0)
+    rng = np.random.default_rng(1)
+    batch = {k: rng.random((2, *SIZE, 1), dtype=np.float32) for k in "xy"}
+    return _jax_sharded_step(STEP, jax_variables(STEP, 0), batch)
+
+
+def _onehot(seed: int) -> np.ndarray:
+    labels = np.random.default_rng(seed).integers(0, SEG_CLASSES, (2, *SEG_SIZE))
+    return np.eye(SEG_CLASSES, dtype=np.float32)[labels]
+
+
+@pytest.fixture(scope="module")
+def jax_seg_steps():
+    """SEG_STEPS' JAX sharded steps on a (2, 2) mesh, as `jax_step`: one
+    set of weights and one pair (with one-hot maps for the Dice step)."""
+    variables = jax_variables(STEP4, 2)
+    rng = np.random.default_rng(4)
+    pair = {k: rng.random((2, *SEG_SIZE, 1), dtype=np.float32) for k in "xy"}
+    segs = {"seg_x": _onehot(5), "seg_y": _onehot(6)}
+    noise = None
+    out = {}
+    for name, kw in SEG_STEPS.items():
+        batch = dict(pair, **segs) if name == "dice" else pair
+        out[name] = _jax_sharded_step(kw, variables, batch, noise)
+        noise = out[name]["noise"]  # the same network and key: the same draws
+    return out
+
+
+def _jax_sharded_step(kw: dict, variables: dict, batch: dict, noise=None) -> dict:
+    jm = JaxModel(JaxConfig(**kw))
     state = JaxTrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                           batch_stats=variables["batch_stats"], opt_state=None,
                           rng=jax.random.key(0))
-    rng = np.random.default_rng(1)
-    batch = {k: rng.random((2, *SIZE, 1), dtype=np.float32) for k in "xy"}
     before = {"params": to_np(state.params), "batch_stats": to_np(state.batch_stats)}
     tx = optax.sgd(0.1)
     mesh = jax_make_2d_mesh(2, 2)
@@ -138,11 +215,12 @@ def jax_step():
         params, stats = f64(state.params), f64(state.batch_stats)
         state = state.replace(params=params, batch_stats=stats, opt_state=tx.init(params))
         jb = {k: jnp.asarray(v, jnp.float64) for k, v in batch.items()}
-        _, sample_rng = jax.random.split(state.rng)  # as train_step splits it
-        outs, _ = jax.jit(jm.apply_train)({"params": params, "batch_stats": stats},
-                                          jb["x"], jb["y"], sample_rng)
-        noise = {l: np.asarray((outs[2][l] - outs[0][l]) / outs[1][l], np.float32)
-                 for l in outs[0]}
+        if noise is None:
+            _, sample_rng = jax.random.split(state.rng)  # as train_step splits it
+            outs, _ = jax.jit(jm.apply_train)({"params": params, "batch_stats": stats},
+                                              jb["x"], jb["y"], sample_rng)
+            noise = {l: np.asarray((outs[2][l] - outs[0][l]) / outs[1][l], np.float32)
+                     for l in outs[0]}
         start = to_np(params)  # the step donates the state
         step = jax_make_spatial_train_step(jm, tx, mesh)
         new_state, metrics = step(jax.device_put(state, jax_replicated(mesh)),
@@ -179,8 +257,23 @@ def _run_workers(tmp: pathlib.Path, inp: pathlib.Path, mode: str, world: int) ->
     raise AssertionError("unreachable")
 
 
+def rule_inputs() -> dict:
+    """The weight-rule tests' global inputs, by (loss, level): the Dice
+    term's prediction (in (0, 1)) and one-hot target, the jdet term's
+    displacement field (voxels, about one voxel)."""
+    rng = np.random.default_rng(20)
+    out = {}
+    for level, size in RULE_LEVELS.items():
+        pred = rng.random((2, *size, SEG_CLASSES), dtype=np.float32)
+        target = np.eye(SEG_CLASSES, dtype=np.float32)[rng.integers(0, SEG_CLASSES, (2, *size))]
+        df = rng.standard_normal((2, *size, 3)).astype(np.float32)
+        out[("dice", level)] = (torch.from_numpy(pred), torch.from_numpy(target))
+        out[("jdet", level)] = (torch.from_numpy(df), None)
+    return out
+
+
 @pytest.fixture(scope="module")
-def ranks(jax_forward, jax_step, tmp_path_factory):
+def ranks(jax_forward, jax_step, jax_seg_steps, tmp_path_factory):
     """The four ranks' outputs, from the JAX weights, inputs and draws."""
     tmp = tmp_path_factory.mktemp("spatial")
     inp = tmp / "input.pt"
@@ -190,7 +283,14 @@ def ranks(jax_forward, jax_step, tmp_path_factory):
                for kw, c in zip(FORWARD, jax_forward)]
     step = {"cfg": STEP, "state_dict": from_jax_variables(jax_step["before"], PULPoConfig(**STEP)),
             "batch": tensors(jax_step["batch"]), "noise": tensors(jax_step["noise"])}
-    torch.save({"forward": forward, "step": step}, inp)
+    seg_steps = [{"name": name, "cfg": kw,
+                  "state_dict": from_jax_variables(jax_seg_steps[name]["before"],
+                                                   PULPoConfig(**kw)),
+                  "batch": tensors(jax_seg_steps[name]["batch"]),
+                  "noise": tensors(jax_seg_steps[name]["noise"])}
+                 for name, kw in SEG_STEPS.items()]
+    rule = {"cfg": RULE_CFG, "meshes": RULE_MESHES, "inputs": rule_inputs()}
+    torch.save({"forward": forward, "step": step, "seg_steps": seg_steps, "rule": rule}, inp)
     return _run_workers(tmp, inp, "spatial", WORLD)
 
 
@@ -261,8 +361,10 @@ def _scaled_close(got: dict, ref: dict, rel: float, what: str, slack: dict | Non
 
 
 def test_sharded_step_matches_the_jax_sharded_step(jax_step, ranks):
-    cfg = PULPoConfig(**STEP)
-    got = ranks[0]
+    _held_to_jax(ranks[0], jax_step, PULPoConfig(**STEP))
+
+
+def _held_to_jax(got: dict, jax_step: dict, cfg: PULPoConfig) -> None:
     ref = {k: v.float() for k, v in from_jax_variables(jax_step["grads"], cfg).items()}
     _scaled_close(got["grads"], ref, 1e-3, "gradients")
     for k in LOSSES:
@@ -276,15 +378,39 @@ def test_sharded_step_matches_the_jax_sharded_step(jax_step, ranks):
 
 
 def test_sharded_step_matches_the_unsharded_port_step(jax_step, ranks):
-    cfg = PULPoConfig(**STEP)
+    _held_to_port(ranks[0], jax_step, PULPoConfig(**STEP))
+    got = ranks[0]
+    assert float(got["metrics"]["nan_flag"]) == 0.0
+    assert float(got["step_metrics"]["total_loss"]) == float(got["metrics"]["total_loss"])
+    assert set(got["traffic"]) == {"halo", "gather", "reduce"}
+
+
+def _held_to_port(got: dict, jax_step: dict, cfg: PULPoConfig, to_exact: bool = False) -> None:
+    """`got` against the port's unsharded step. `to_exact` (the Dice and
+    jdet steps, module doc): the gradients are held to the float64
+    gradient instead, within 2e-5 of scale plus the unsharded step's own
+    float32 error on that leaf, the larger of its distance from the
+    float64 gradient and its spread (how far it moves when x and y move
+    by one float32 ulp); on a leaf whose float64 gradient is zero to
+    rounding, its distance plus twice its spread."""
     model = PULPoModel(cfg, device="cpu")
     model.load_state_dict(from_jax_variables(jax_step["before"], cfg))
     noise = {l: torch.from_numpy(v) for l, v in jax_step["noise"].items()}
     grads, stats, metrics = compute_grads(model, jax_step["batch"], noise=noise)
-    exact = from_jax_variables(jax_step["grads"], cfg)
-    own = {n: float((g.double() - exact[n].double()).abs().max()) for n, g in grads.items()}
-    got = ranks[0]
-    _scaled_close(got["grads"], grads, 2e-5, "gradients", slack=own)
+    exact = {n: v.double() for n, v in from_jax_variables(jax_step["grads"], cfg).items()}
+    own = {n: float((g.double() - exact[n]).abs().max()) for n, g in grads.items()}
+    if not to_exact:
+        _scaled_close(got["grads"], grads, 2e-5, "gradients", slack=own)
+    else:
+        batch = {k: v * np.float32(1 + 2.0**-23) if k in "xy" else v
+                 for k, v in jax_step["batch"].items()}
+        ulp, _, _ = compute_grads(model, batch, noise=noise)
+        spread = {n: float((ulp[n] - g).abs().max()) for n, g in grads.items()}
+        top = max(float(exact[n].abs().max()) for n in grads)
+        zero = {n for n in grads if float(exact[n].abs().max()) <= 1e-8 * top}
+        slack = {n: own[n] + 2 * spread[n] if n in zero else max(own[n], spread[n])
+                 for n in grads}
+        _scaled_close(got["grads"], {n: exact[n] for n in grads}, 2e-5, "gradients", slack=slack)
     for name, r in stats.items():
         scale = max(float(r.abs().max()), 1e-6)
         assert float((got["stats"][name] - r).abs().max()) <= 1e-5 * scale, name
@@ -296,9 +422,6 @@ def test_sharded_step_matches_the_unsharded_port_step(jax_step, ranks):
         for l, v in metrics[k].items():
             np.testing.assert_allclose(float(got["metrics"][k][l]), float(v), rtol=1e-5,
                                        atol=1e-7, err_msg=f"{k}[{l}]")
-    assert float(got["metrics"]["nan_flag"]) == 0.0
-    assert float(got["step_metrics"]["total_loss"]) == float(got["metrics"]["total_loss"])
-    assert set(got["traffic"]) == {"halo", "gather", "reduce"}
 
 
 def test_the_ranks_agree_bit_for_bit(ranks):
@@ -318,13 +441,79 @@ def test_the_step_updates_the_weights(jax_step, ranks):
 
 
 # ----------------------------------------------------------------------
-# what the sharded paths do not take
+# the Dice step and the jdet step at mesh (2, 2), the weight rule
 # ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(SEG_STEPS))
+def test_sharded_seg_step_matches_the_jax_sharded_step(jax_seg_steps, ranks, name):
+    _held_to_jax(ranks[0]["seg_steps"][name], jax_seg_steps[name],
+                 PULPoConfig(**SEG_STEPS[name]))
+
+
+@pytest.mark.parametrize("name", list(SEG_STEPS))
+def test_sharded_seg_step_matches_the_unsharded_port_step(jax_seg_steps, ranks, name):
+    got = ranks[0]["seg_steps"][name]
+    _held_to_port(got, jax_seg_steps[name], PULPoConfig(**SEG_STEPS[name]), to_exact=True)
+    assert float(got["metrics"]["nan_flag"]) == 0.0
+    # the partial statistics are all-reduced; the one-hot maps gathered
+    want = {"halo", "gather", "reduce", "stats"} | ({"gather_seg"} if name == "dice" else set())
+    assert set(got["traffic"]) == want
+
+
+@pytest.mark.parametrize("name", list(SEG_STEPS))
+def test_the_ranks_agree_bit_for_bit_on_the_seg_steps(ranks, name):
+    a = ranks[0]["seg_steps"][name]
+    for r in ranks[1:]:
+        b = r["seg_steps"][name]
+        for key in ("grads", "stats"):
+            for n, v in a[key].items():
+                assert torch.equal(v, b[key][n]), (key, n)
+        for k, v in a["metrics"].items():
+            pairs = v.items() if isinstance(v, dict) else [(None, v)]
+            for l, t in pairs:
+                assert torch.equal(t, b["metrics"][k] if l is None else b["metrics"][k][l]), k
+
+
+@pytest.mark.parametrize("level", list(RULE_LEVELS))
+@pytest.mark.parametrize("loss", ["dice", "jdet"])
+@pytest.mark.parametrize("shape", RULE_MESHES, ids=["2x2", "1x4"])
+def test_partial_statistics_follow_the_weight_rule(ranks, shape, loss, level):
+    """Each rank's term summed over its space column and averaged over
+    the data row is the unsharded value; its gradients joined over the
+    slabs (a replicated level's summed over the column) and averaged over
+    the data row are the unsharded input gradient."""
+    x, other = rule_inputs()[(loss, level)]
+    data = shape[0]
+    assert spatial.splits(x.shape[1], shape[1]) == (level == "split")
+    value, grad = 0.0, torch.zeros(x.shape, dtype=torch.float64)
+    for r, out in enumerate(ranks):
+        term, g = out["rule"][(shape, loss, level)]
+        rows, planes = spatial.volume_batch_spec(spatial.Mesh2D(shape, r, *(None,) * 3), x.shape)
+        value += float(term) / data
+        grad[rows, planes] += g.double() / data
+    xr = x.clone().requires_grad_(True)
+    ref = (losses.soft_dice_loss(xr, other, dice_factor=50.0) if loss == "dice"
+           else losses.jdet_std(xr, lamb=0.025))
+    (ref_grad,) = torch.autograd.grad(ref, xr)
+    assert abs(value - float(ref)) <= 1e-6 * abs(float(ref)), (value, float(ref))
+    _close(grad, ref_grad, 1e-6, "gradient")
+
+
+# ----------------------------------------------------------------------
+# what the sharded paths take, and what they do not
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(recon_loss=("ncc", "dice")), dict(segs=True),
+                                dict(regularizer="jdet")], ids=["dice", "segs", "jdet"])
+def test_segmentation_and_jdet_configurations_are_taken(kw):
+    cfg = PULPoConfig(**{**dict(input_size=SIZE, total_levels=3, latent_levels=2, n0=2), **kw})
+    with spatial.sharded(spatial.make_2d_mesh(1, 1), cfg):
+        assert spatial.active()
+
 
 @pytest.mark.parametrize("kw,what", [
     (dict(df_resolution="full_res"), "full_res"), (dict(input_size=(16, 14)), "2D"),
-    (dict(remat=True), "remat"), (dict(remat_down=(0,)), "remat"),
-    (dict(recon_loss=("ncc", "dice")), "Dice"), (dict(regularizer="jdet"), "jdet")])
+    (dict(remat=True), "remat"), (dict(remat_down=(0,)), "remat")])
 def test_unsupported_configurations_raise(kw, what):
     cfg = PULPoConfig(**{**dict(input_size=SIZE, total_levels=3, latent_levels=2, n0=2), **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1") as err:

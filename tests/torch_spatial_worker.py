@@ -9,7 +9,13 @@ the sampled `make_spatial_forward` at mesh (1, 4); then, for
 INPUT["step"] (config keywords, state_dict, global batch and draws), at
 mesh (2, 2) the gradients, BatchNorm statistics and metrics of
 `spatial_compute_grads`, and the state after one
-`make_spatial_train_step` step, with the exchanges' traffic.
+`make_spatial_train_step` step, with the exchanges' traffic; for each
+case of INPUT["seg_steps"] (the Dice step and the jdet step: config
+keywords, state_dict, global batch with or without segmentations, draws)
+the same at mesh (2, 2) without the update; then, at meshes (2, 2) and
+(1, 4), `soft_dice_loss` and `jdet_std` under `sharded` on this rank's
+block of INPUT["rule"]'s global inputs at a split and at a replicated
+level: each rank's term and its gradient to its block.
 MODE `tp` (world 2): the model split by `tp.shard_params` at model 2,
 its rules and `predict_deterministic` under `tp.sharded`, and the error
 a train forward raises there.
@@ -63,6 +69,36 @@ def run_spatial(inp: dict) -> dict:
     state, step_metrics = spatial.make_spatial_train_step(model, tx, mesh)(
         state, batch, noise=case["noise"])
     out.update(after=model.state_dict(), step_metrics=step_metrics)
+    out["seg_steps"] = {}
+    for case in inp["seg_steps"]:
+        model = _model(case)
+        batch = {k: spatial.shard_volume(v, mesh) for k, v in case["batch"].items()}
+        spatial.reset_traffic()
+        grads, stats, metrics = spatial.spatial_compute_grads(model, batch, mesh,
+                                                              noise=case["noise"])
+        out["seg_steps"][case["name"]] = dict(grads=grads, stats=stats, metrics=metrics,
+                                              traffic=dict(spatial.traffic))
+    out["rule"] = run_rule(inp["rule"])
+    return out
+
+
+def run_rule(rule: dict) -> dict:
+    """{(mesh, loss, level): (this rank's term, its gradient to the block)}."""
+    from pulpo_tpu_torch.ops import losses
+
+    cfg = PULPoConfig(**rule["cfg"])
+    fns = {"dice": lambda t, other: losses.soft_dice_loss(t, other, dice_factor=50.0),
+           "jdet": lambda t, other: losses.jdet_std(t, lamb=0.025)}
+    out = {}
+    for shape in rule["meshes"]:
+        mesh = spatial.make_2d_mesh(*shape)
+        for (name, level), (x, other) in rule["inputs"].items():
+            xb = spatial.shard_volume(x, mesh).clone().requires_grad_(True)
+            ob = None if other is None else spatial.shard_volume(other, mesh)
+            with spatial.sharded(mesh, cfg):
+                term = fns[name](xb, ob)
+            (grad,) = torch.autograd.grad(term, xb)
+            out[(shape, name, level)] = (term.detach(), grad)
     return out
 
 
