@@ -200,12 +200,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    df-cotangent (#6) at C = 1 of the level-0 df and of each split latent
    level's, and at C = 36 over the segmentation step's one-hot maps
    (160x192x224, 40x48x56, 20x24x28), the squaring step (#1) at each
-   split latent level, each slab bit-equal to the matching planes of the
+   split latent level, and the full_res decode's channels-first slabs:
+   the CF squaring step (#3) on a B = 1 field at each split latent level
+   (80x96x112 in slabs of 40, 40x48x56 of 20, 20x24x28 of 10), with and
+   without the first step's scale, and the CF image warp (#8) of the
+   image by the 4-row stacked dfs of a B = 1 forward (160x192x224 in
+   slabs of 80); each slab bit-equal to the matching planes of the
    whole launch and to the plain version at its offset; the step
    backward's (#2) slab shares within 1e-5 of scale of the whole
    backward of their cotangents; each slab's device time beside the
-   whole launch's, and the body each C = 36 slab launch took;
-11a-11d. two torchrun processes sharing the card over gloo (NCCL
+   whole launch's, and the body each C = 36 and #8 slab launch took;
+11a-11f. two torchrun processes sharing the card over gloo (NCCL
    refuses two ranks on one device), the flagship at full width (B = 1):
    11a `make_spatial_forward` at mesh (data 1, space 2), in bf16 and in
    f32, each rank's slab of the level-0 final df and warped image
@@ -216,8 +221,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    11d the same for the OASIS segmentation (Dice) step in bf16 at B = 2
    and in f32 at B = 1 and for the flagship step with the jdet
    regularizer in f32 at B = 1, with each rank's peak beside the
-   unsharded step's; 11c the output-channel split at model 2
-   (parallel/tp.py) against the replicated `predict_deterministic`.
+   unsharded step's; 11e the bf16 B = 2 Dice step under `remat=True` and
+   under `remat_down=(0,)`, against 11d's sharded step (losses equal,
+   gradients within twice its run-to-run distance, relative L2), each
+   rank's peak beside phase 8b's unsharded remat peaks and 11d's, the
+   recomputed share of the exchanged bytes; 11f the flagship at full_res
+   (the channels-first decode through slab launches of #3 and #8): the
+   forward in f32 (held as 11a's f32) and bf16 (logged beside its own
+   one-ulp distance), and the f32 B = 1 full_res step against the
+   unsharded one (as 11d's f32 steps); 11c the output-channel split at
+   model 2 (parallel/tp.py) against the replicated
+   `predict_deterministic`.
    Exact launch counts on each rank; each rank's time, peak memory and
    exchanges (halo, all-gather, all-reduce bytes) beside the unsharded
    run's. The two ranks share one card, so their times are no
@@ -2027,13 +2041,17 @@ def step_launches(cfg, steps, val_forwards=0, dice=False):
     backward; per eval forward and level: the integration, the warp, 5
     box sums, a velocity head, and its encode's and decode's conv chains.
     With a Dice loss each forward also warps the level's one-hot map (and
-    a step takes its df-cotangent: the map needs no gradient)."""
+    a step takes its df-cotangent: the map needs no gradient). At
+    full_res without "transformed" feedback a forward warps its image (and
+    map) by all levels' dfs in one launch."""
+    from pulpo_tpu_torch.models.pulpo import batch_warp
+
     K, nsteps = cfg.latent_levels, cfg.nsteps
-    maps = 2 if dice else 1
+    maps = (2 if dice else 1) * (1 if batch_warp(cfg) else K)
     return {
-        "warp": maps * K * (steps + val_forwards),
+        "warp": maps * (steps + val_forwards),
         "squaring": nsteps * K * (steps + val_forwards), "vel_head": K * val_forwards,
-        "warp_dfgrad": maps * K * steps, "warp_mgrad": 0, "squaring_bwd": nsteps * K * steps,
+        "warp_dfgrad": maps * steps, "warp_mgrad": 0, "squaring_bwd": nsteps * K * steps,
         "box_sum": 8 * K * steps + 5 * K * val_forwards, "squaring_cf": 0, "warp_cf": 0,
         "conv_narrow": train_narrow_launches(cfg) * steps,
         **eval_launches(cfg, val_forwards, val_forwards),
@@ -3336,6 +3354,16 @@ SEG_STEPS = (("dice bfloat16 B=2", DICE_KW, "bfloat16", 2),
              ("jdet float32 B=1", dict(regularizer="jdet"), "float32", 1))
 PLAIN_SEG_PEAK_GIB = 38.20  # phase 8b's unsharded B = 2 segmentation step (PERF.md §5, PR 11)
 LOSS_KEYS = ("kl_loss", "reconstruction_loss", "regularization_loss", "total_loss")
+# 11e: 11d's bf16 B = 2 Dice step under remat, held to that step sharded
+REMAT_OF = SEG_STEPS[0]
+REMAT_STEPS = tuple((f"{REMAT_OF[0]} {k}", {**REMAT_OF[1], **kw}, *REMAT_OF[2:])
+                    for k, kw in (("remat", {"remat": True}),
+                                  ("remat_down=(0,)", {"remat_down": (0,)})))
+# phase 8b's unsharded B = 2 segmentation step's peaks (PERF.md §5, PRs 11-13)
+REMAT_PEAK_GIB = {"remat": 21.79, "remat_down=(0,)": 25.63}
+# 11f: the flagship at full_res (the channels-first eval decode), B = 1
+FULLRES_FORWARDS = tuple(f"fullres forward {d}" for d in STEP_DTYPES)
+FULLRES_STEP = "fullres step float32"
 
 
 def check_slab_kernels(dev, cfg, checks, seg_cfg):
@@ -3347,21 +3375,25 @@ def check_slab_kernels(dev, cfg, checks, seg_cfg):
     step (`seg_cfg`'s `transform_segmentation` shapes: 160x192x224 in
     slabs of 80, 40x48x56 of 20, 20x24x28 of 10), the squaring step (#1,
     with the first step's 1/2**nsteps scale and without) at each split
-    latent level: each slab bit-equal to the matching planes of the whole
+    latent level, and the full_res decode's channels-first slabs: the CF
+    squaring step (#3, with and without the scale) on a B = 1 field at
+    each split latent level, the CF image warp (#8) of the image by the
+    4-row stacked dfs of a B = 1 forward at the input size (slabs of 80):
+    each slab bit-equal to the matching planes of the whole
     launch and to the plain version at its offset (the plain df-cotangent
     adds a corner's channels in order, as the kernel's bodies do); the
     step backward's (#2) share of each slab within 1e-5 of scale of the
     whole backward of that slab's cotangent (float32 atomics), the
     shares' sum of the whole backward. Each slab launch's device time
     (CUDA-graph replay) beside the whole launch's, and the body each C =
-    36 slab launch took. Then the fused eval kernels on a slab with the
+    36 slab launch and each #8 slab launch took. Then the fused eval kernels on a slab with the
     halo the sharded forward gives them (the conv chain #13 3 planes at
     the input size, the posterior head #11 4 and the velocity head #10 2
     at latent level 0; bf16, cropped): each against the matching planes
     of the whole launch, which they equal where a voxel's arithmetic
     does not depend on where its launch starts (held to BF16_CHAIN_REL
     of scale; the error is logged). Returns ({kernel: {case: {"ms",
-    "whole_ms"}}}, {C = 36 case: {(kernel, body): launches}})."""
+    "whole_ms"}}}, {C = 36 or CF case: {(kernel, body): launches}})."""
     import torch
 
     from pulpo_tpu_torch.kernels import conv_chain, pos_head, squaring, vel_head, warp
@@ -3372,7 +3404,8 @@ def check_slab_kernels(dev, cfg, checks, seg_cfg):
     normal = lambda *shape: torch.randn(shape, generator=g).to(dev)
     parts = lambda depth: [(r * (depth // SPACE), depth // SPACE) for r in range(SPACE)]
     card = dev.type == "cuda"
-    times = {"warp": {}, "warp_dfgrad": {}, "squaring": {}, "squaring_bwd": {}}
+    times = {"warp": {}, "warp_dfgrad": {}, "squaring": {}, "squaring_bwd": {},
+             "squaring_cf": {}, "warp_cf": {}}
     bodies = {}
     fmt = lambda s: "x".join(map(str, s))
 
@@ -3449,6 +3482,46 @@ def check_slab_kernels(dev, cfg, checks, seg_cfg):
                        lambda: squaring.squaring_step_bwd(v, gs, z0),
                        lambda: squaring.squaring_step_bwd(v, cot))
         checks.record("squaring_bwd", f"shares' sum at {size}", total, ref, scaled(ref, 1e-5))
+    # the full_res decode's channels-first slabs: #3 on a B = 1 forward's
+    # field at each split latent level, #8 of the image by the stacked dfs
+    # of its levels at the input size
+    cf = lambda t: t.permute(0, 4, 1, 2, 3).contiguous()
+    for l, size in cfg.level_sizes.items():
+        if not splits(size[0], SPACE):
+            continue
+        v = cf(smooth_field(1, size, 2.0, 117 + l, dev))
+        for scale in (1.0 / 2**cfg.nsteps, 1.0):
+            whole = squaring.squaring_step_cf(v, scale=scale)
+            for z0, per in parts(size[0]):
+                case = f"CF slab {z0}+{per} of {fmt(size)} x{scale:g}"
+                got = squaring.squaring_step_cf(v, scale=scale, z0=z0, depth=per)
+                checks.record("squaring_cf", f"{case} vs whole", got, whole[:, :, z0:z0 + per], 0.0)
+                checks.record("squaring_cf", f"{case} vs plain", got,
+                              squaring.squaring_step_cf_plain(v * scale, z0, per), 0.0)
+                timed_slab("squaring_cf", case,
+                           lambda: squaring.squaring_step_cf(v, scale=scale, z0=z0, depth=per),
+                           lambda: squaring.squaring_step_cf(v, scale=scale))
+        del v, whole, got
+    size, rows = cfg.input_size, cfg.latent_levels
+    img = rand(1, 1, *size)
+    df = cf(smooth_field(rows, size, 3.0, 118, dev))
+    whole = warp.warp_cf(img, df)
+    for z0, per in parts(size[0]):
+        d = df[:, :, z0:z0 + per].contiguous()
+        case = f"CF C=1 {rows} rows slab {z0}+{per} of {fmt(size)}"
+        warp.slab_bodies.clear()
+        got = warp.warp_cf(img, d, z0, size[0])
+        bodies[case] = dict(warp.slab_bodies)
+        log(f"slab bodies {case}: {bodies[case]}")
+        checks.record("warp_cf", f"{case} vs whole", got, whole[:, :, z0:z0 + per], 0.0)
+        checks.record("warp_cf", f"{case} vs plain", got, warp.warp_cf_plain(img, d, z0, size[0]),
+                      0.0)
+        del got
+        timed_slab("warp_cf", case, lambda: warp.warp_cf(img, d, z0, size[0]),
+                   lambda: warp.warp_cf(img, df))
+    del img, df, whole, d
+    if card:
+        torch.cuda.empty_cache()
     for kernel, cases in times.items():
         for case, r in cases.items():
             log(f"time slab {kernel} {case}: {r['ms']:.5f} ms, the whole launch "
@@ -3477,8 +3550,14 @@ def check_slab_kernels(dev, cfg, checks, seg_cfg):
     return times, bodies
 
 
+def fullres_forward_launches(cfg):
+    """Launches of one full_res eval forward on the channels-first decode:
+    a decode (`serving_launches`) and its encode's conv chains."""
+    return add_counts(serving_launches(cfg, 1, 0), eval_launches(cfg, 1, 0))
+
+
 def spatial_inputs(cfg, dev, rows=1, segs=False):
-    """Phases 11a-11d's batch (`rows` of phase 10c's synthetic pairs; with
+    """Phases 11a-11f's batch (`rows` of phase 10c's synthetic pairs; with
     `segs`, a 36-class one-hot map of smooth labels for each volume, as
     phase 8b's batch holds) and the step's draws, the same in every
     process."""
@@ -3585,25 +3664,25 @@ def step_reference(cfg, batch, noise, dev):
 
 
 def spatial_references(dev, cfg, cfg_kw):
-    """The unsharded runs phases 11a-11d are held to, on the card: the
+    """The unsharded runs phases 11a-11f are held to, on the card: the
     deterministic forward's level-0 final df and warped image, in the
-    flagship's bf16 and in f32, each also on inputs moved by one float32
-    ulp (its distance under a float32 rounding), and
-    `predict_deterministic`'s outputs; for each of STEP_DTYPES the step
-    and for each of SEG_STEPS the segmentation or jdet step
-    (`step_reference`); each with its time and peak. Every tensor the
-    ranks are compared with is on the host, and the card's cache is
-    emptied, before the ranks start."""
+    flagship's bf16 and in f32, at level_res and at full_res (11f), each
+    also on inputs moved by one float32 ulp (its distance under a float32
+    rounding), and `predict_deterministic`'s outputs; for each of
+    STEP_DTYPES the step, the f32 full_res step and for each of SEG_STEPS
+    the segmentation or jdet step (`step_reference`); each with its time
+    and peak. Every tensor the ranks are compared with is on the host,
+    and the card's cache is emptied, before the ranks start."""
     import torch
 
+    from pulpo_tpu_torch import PULPoConfig
     from pulpo_tpu_torch.models import PULPoModel
 
     batch, noise = spatial_inputs(cfg, dev)
     moved = {k: v * (1 + 2.0**-23) for k, v in batch.items()}
     out = {}
-    for dtype in STEP_DTYPES:
-        model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
-        model.init(0)
+
+    def forward(model):
         outs, s, peak = peak_of(lambda: model.apply_eval(batch["x"], batch["y"],
                                                          deterministic=True))
         fwd = {"s": s, "peak": peak, "df": outs[6][0].cpu(), "warped": outs[7][0].cpu()}
@@ -3611,16 +3690,25 @@ def spatial_references(dev, cfg, cfg_kw):
         outs = model.apply_eval(moved["x"], moved["y"], deterministic=True)
         fwd["moved"] = {k: float((o[0].cpu() - fwd[k]).abs().max()) / float(fwd[k].abs().max())
                         for k, o in (("df", outs[6]), ("warped", outs[7]))}
-        del outs
-        out[f"forward {dtype}"] = fwd
+        return fwd
+
+    fcfg = PULPoConfig(**{**cfg_kw, **FULLRES_KW}, batch_size=1)
+    for dtype, fname in zip(STEP_DTYPES, FULLRES_FORWARDS):
+        model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+        model.init(0)
+        out[f"forward {dtype}"] = forward(model)
         if dtype == cfg.compute_dtype:
             (tp_out, out["tp_s"], out["tp_peak"]) = peak_of(
                 lambda: model.predict_deterministic(batch["x"], batch["y"]))
             out["tp"] = tuple({l: v.cpu() for l, v in d.items()} for d in tp_out)
             del tp_out
+        model = PULPoModel(fcfg.replace(compute_dtype=dtype), device=dev)
+        model.init(0)
+        out[fname] = forward(model)
         del model
     for dtype in STEP_DTYPES:
         out[f"step {dtype}"] = step_reference(cfg.replace(compute_dtype=dtype), batch, noise, dev)
+    out[FULLRES_STEP] = step_reference(fcfg.replace(compute_dtype="float32"), batch, noise, dev)
     del batch, moved
     for name, kw, dtype, rows in SEG_STEPS:
         scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
@@ -3633,13 +3721,15 @@ def spatial_references(dev, cfg, cfg_kw):
 
 
 def spatial_worker(out_dir, accelerator, cfg_json) -> int:
-    """One rank of phases 11a-11d, under torchrun (SPACE ranks over gloo
-    on the one card): the sharded forward (bf16 and f32) and step (each
-    of STEP_DTYPES) at mesh (1, SPACE), the sharded segmentation and jdet
-    steps (SEG_STEPS), then the split forward at model SPACE, each with
-    its launch counts, time, peak and exchanges (and the body each slab
-    launch of the warp and its df-cotangent took); writes
-    `out_dir/rank_<r>.pt`."""
+    """One rank of phases 11a-11f, under torchrun (SPACE ranks over gloo
+    on the one card): the sharded forward (bf16 and f32, at level_res and
+    at full_res) and step (each of STEP_DTYPES) at mesh (1, SPACE), the
+    sharded segmentation and jdet steps (SEG_STEPS), the Dice step under
+    remat (REMAT_STEPS), the f32 full_res step, then the split forward at
+    model SPACE, each with its launch counts, time, peak and exchanges
+    (and the body each slab launch of a warp and its df-cotangent took);
+    rank 0 keeps the gradients, and of the step REMAT_STEPS are held to
+    those of its first run too; writes `out_dir/rank_<r>.pt`."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
@@ -3669,14 +3759,17 @@ def spatial_worker(out_dir, accelerator, cfg_json) -> int:
                     "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
                     "grads": {n: v.cpu() for n, v in grads.items()} if rank == 0 else None}
 
-        for dtype in STEP_DTYPES:
-            fmodel = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+        fcfg = PULPoConfig(**{**cfg_kw, **FULLRES_KW}, batch_size=1)
+        forwards = [(f"forward {d}", cfg, d) for d in STEP_DTYPES]
+        forwards += [(f, fcfg, d) for f, d in zip(FULLRES_FORWARDS, STEP_DTYPES)]
+        for fname, fwd_cfg, dtype in forwards:
+            fmodel = PULPoModel(fwd_cfg.replace(compute_dtype=dtype), device=dev)
             fmodel.init(0)
             fwd = spatial.make_spatial_forward(fmodel, mesh)
             (df, warped), seconds, peak = peak_of(lambda: fwd(block["x"], block["y"]), fresh)
-            out[f"forward {dtype}"] = {
+            out[fname] = {
                 "df": df.cpu(), "warped": warped.cpu(), "s": seconds, "peak": peak,
-                "counts": read_counts(), "traffic": dict(spatial.traffic)}
+                "counts": read_counts(), "traffic": dict(spatial.traffic), "bodies": bodies()}
             del df, warped, fmodel
         torch.backends.cudnn.deterministic = True
         for dtype in STEP_DTYPES:
@@ -3688,19 +3781,31 @@ def spatial_worker(out_dir, accelerator, cfg_json) -> int:
             del smodel, grads, metrics
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
-        for name, kw, dtype, rows in SEG_STEPS:
+        for name, kw, dtype, rows in (*SEG_STEPS, *REMAT_STEPS):
             scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
             sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
             sblock = {k: spatial.shard_volume(v, mesh).contiguous() for k, v in sbatch.items()}
             del sbatch
             smodel = PULPoModel(scfg, device=dev)
             smodel.init(0)
-            compute = lambda: spatial.spatial_compute_grads(smodel, sblock, mesh, noise=snoise)
+            runs = []
+            compute = lambda: runs.append(spatial.spatial_compute_grads(
+                smodel, sblock, mesh, noise=snoise)) or runs[-1]
             (grads, _, metrics), seconds, peak = peak_of(compute, fresh)
             out[name] = step_record(seconds, peak, metrics, grads)
-            del smodel, grads, metrics, sblock
+            if name == REMAT_OF[0] and rank == 0:  # its run-to-run spread (11e)
+                out[name]["first_grads"] = {n: v.cpu() for n, v in runs[0][0].items()}
+            del smodel, grads, metrics, sblock, runs
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
+        smodel = PULPoModel(fcfg.replace(compute_dtype="float32"), device=dev)
+        smodel.init(0)
+        compute = lambda: spatial.spatial_compute_grads(smodel, block, mesh, noise=noise)
+        (grads, _, metrics), seconds, peak = peak_of(compute, fresh)
+        out[FULLRES_STEP] = step_record(seconds, peak, metrics, grads)
+        del smodel, grads, metrics
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = False
 
         model = PULPoModel(cfg, device=dev)
@@ -3763,7 +3868,7 @@ def held_step(name, mine, theirs, dtype, failures):
 
 
 def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
-    """Phases 11a-11d: SPACE processes sharing the one card (torchrun,
+    """Phases 11a-11f: SPACE processes sharing the one card (torchrun,
     gloo on CUDA tensors: NCCL refuses two ranks on one device), the
     flagship at full width (160x192x224, n0 32, bf16, level_res, B = 1).
     11a: `make_spatial_forward` at mesh (data 1, space SPACE), in the
@@ -3782,17 +3887,29 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
     the flagship step with the jdet regularizer in f32 at B = 1, each
     against the unsharded step (`held_step`); each rank's peak beside
     the unsharded step's and phase 8b's PLAIN_SEG_PEAK_GIB, and the body
-    each C = 36 slab launch took. 11c: the output-channel split at model
-    SPACE against the replicated `predict_deterministic`, within TP_REL
-    of scale. Exact launch counts on each rank (a sharded forward and
-    step launch what the unsharded ones do; the split forward 35 unit
-    launches); each rank's time, peak and exchanges beside the unsharded
-    run's. Every check runs before any failure stops the phase."""
+    each C = 36 slab launch took. 11e: the bf16 B = 2 Dice step under
+    `remat=True` and under `remat_down=(0,)` against 11d's sharded step:
+    the losses equal (the forward has no atomics) and the gradients no
+    further from it (relative L2) than twice its own run-to-run distance
+    (at least 1e-5); each rank's peak beside phase 8b's unsharded remat
+    peaks and 11d's, its seconds, and the exchanged bytes with the
+    recomputation's share. 11f: the flagship at full_res (the
+    channels-first decode: slab launches of #3 and #8): the forward in
+    f32 held as 11a's f32 and in bf16 logged beside its own one-ulp
+    distance, and the f32 B = 1 full_res step against the unsharded one
+    (`held_step`). 11c: the output-channel split at model SPACE against
+    the replicated `predict_deterministic`, within TP_REL of scale. Exact
+    launch counts on each rank (a sharded forward and step launch what
+    the unsharded ones do, a remat step its checkpointed regions'
+    kernels again; the split forward 35 unit launches); each rank's
+    time, peak and exchanges beside the unsharded run's. Every check
+    runs before any failure stops the phase."""
     import torch
 
     from pulpo_tpu_torch import PULPoConfig
 
     cfg = PULPoConfig(**cfg_kw, batch_size=1)
+    fcfg = PULPoConfig(**{**cfg_kw, **FULLRES_KW}, batch_size=1)
     ref = spatial_references(dev, cfg, cfg_kw)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3807,10 +3924,12 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
                          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     ranks = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(SPACE)]
     per = cfg.input_size[0] // SPACE
-    forwards = [f"forward {d}" for d in STEP_DTYPES]
+    forwards = [*(f"forward {d}" for d in STEP_DTYPES), *FULLRES_FORWARDS]
+    fwd_dtype = dict(zip(forwards, 2 * STEP_DTYPES))
     steps = [f"step {d}" for d in STEP_DTYPES]
     segs = [name for name, *_ in SEG_STEPS]
-    phases = [*forwards, *steps, *segs, "tp"]
+    remats = [name for name, *_ in REMAT_STEPS]
+    phases = [*forwards, *steps, *segs, *remats, FULLRES_STEP, "tp"]
     failures = []
     errs = {f: {"df": 0.0, "warped": 0.0} for f in forwards}
     for r in ranks:
@@ -3830,29 +3949,59 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
                 log(f"spatial {fname} rank {r['rank']}: {k} {float(diff.max()):.3e} at most "
                     f"(plane {plane}), {float(diff.square().sum().sqrt() / want.square().sum().sqrt()):.3e} "
                     "relative L2")
-        expected = [(f, decode_launches(cfg, 1, 1)) for f in forwards]
+        expected = [(f"forward {d}", decode_launches(cfg, 1, 1)) for d in STEP_DTYPES]
+        expected += [(f, fullres_forward_launches(fcfg)) for f in FULLRES_FORWARDS]
         expected += [("tp", tp_launches(cfg))] + [(name, step_launches(cfg, 1)) for name in steps]
-        expected += [(name, step_launches(seg_step_cfg(cfg_kw, kw, dtype, rows), 1,
-                                          dice="dice" in kw.get("recon_loss", ())))
-                     for name, kw, dtype, rows in SEG_STEPS]
+        for name, kw, dtype, rows in (*SEG_STEPS, *REMAT_STEPS):
+            scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
+            expected.append((name, add_counts(step_launches(scfg, 1, dice="dice" in kw.get(
+                "recon_loss", ())), remat_launches(scfg, 1))))
+        expected.append((FULLRES_STEP, step_launches(fcfg, 1)))
         for phase, want in expected:
             try:
                 expect(r[phase]["counts"], want, f"spatial {phase} rank {r['rank']}")
             except SystemExit as e:
                 failures.append(str(e))
-    for fname, dtype in zip(forwards, STEP_DTYPES):
-        moved = ref[fname]["moved"]
+    for fname in forwards:
+        dtype, moved = fwd_dtype[fname], ref[fname]["moved"]
         floor = SPATIAL_FWD_REL if dtype == "bfloat16" else SPATIAL_F32_REL
         log(f"spatial {fname}: {errs[fname]} of scale from the unsharded forward; the unsharded "
             f"forward on inputs moved by one float32 ulp {moved}")
+        if fname == FULLRES_FORWARDS[0]:
+            continue  # 11f's bf16 forward is logged beside its own one-ulp distance
         if any(errs[fname][k] > max(2 * moved[k], floor) for k in errs[fname]):
             failures.append(f"{fname}: {errs[fname]} of scale from the unsharded forward (its "
                             f"own distance under a one-ulp move of the inputs {moved})")
     step_info = {}
-    for name, dtype in [*zip(steps, STEP_DTYPES), *((n, d) for n, _, d, _ in SEG_STEPS)]:
+    for name, dtype in [*zip(steps, STEP_DTYPES), *((n, d) for n, _, d, _ in SEG_STEPS),
+                        (FULLRES_STEP, "float32")]:
         if any(r[name]["losses"] != ranks[0][name]["losses"] for r in ranks):
             failures.append(f"{name}: the ranks' losses differ")
         step_info[name] = held_step(name, ranks[0][name], ref[name], dtype, failures)
+    plain = ranks[0][REMAT_OF[0]]
+    remat_spread = grad_spread(plain["first_grads"], plain["grads"])[0]
+    remat_info = {}
+    for name in remats:
+        mine = ranks[0][name]
+        rel, worst, leaf = grad_spread(mine["grads"], plain["grads"])
+        if any(r[name]["losses"] != plain["losses"] for r in ranks):
+            failures.append(f"{name}: losses {mine['losses']}, the sharded plain step's "
+                            f"{plain['losses']}")
+        if not rel <= max(2 * remat_spread, 1e-5):
+            failures.append(f"{name}: gradients {rel:.3e} from the sharded plain step's, its "
+                            f"run-to-run {remat_spread:.3e}")
+        knob = name[len(REMAT_OF[0]) + 1:]
+        recomputed = sum(v[1] for k, v in mine["traffic"].items() if k.endswith("_recomputed"))
+        total = sum(v[1] for v in mine["traffic"].values())
+        remat_info[name] = {"grad_rel": rel, "worst": worst, "leaf": leaf,
+                            "recomputed_bytes": recomputed, "bytes": total}
+        log(f"spatial {name}: losses {'equal' if mine['losses'] == plain['losses'] else 'DIFFER'}"
+            f" to the sharded plain step's; gradients {rel:.3e} from it (relative L2; worst leaf "
+            f"{worst:.3e} of its scale, {leaf}), its run-to-run {remat_spread:.3e}; a rank's peak "
+            + ", ".join(f"{r[name]['peak']:.3f}" for r in ranks) + f" GiB (the sharded plain "
+            f"step's {plain['peak']:.3f}; phase 8b's unsharded {knob} {REMAT_PEAK_GIB[knob]} "
+            f"GiB), {mine['s']:.3f} s a step a rank (plain {plain['s']:.3f} s); exchanged "
+            f"{total / 1e6:.1f} MB, {recomputed / 1e6:.1f} MB of it recomputed")
     tp_err = 0.0
     for i, key in enumerate(("warped", "dfs")):
         for l, want in ref["tp"][i].items():
@@ -3869,28 +4018,28 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
             log(f"spatial {phase} rank {r['rank']}: {x['s']:.3f} s, peak {x['peak']:.3f} GiB"
                 + (f", exchanges {x['traffic']}" if "traffic" in x else "")
                 + (f", slab bodies {x['bodies']}" if x.get("bodies") else ""))
-    for name in segs:
+    for name in [*segs, *FULLRES_FORWARDS, FULLRES_STEP]:
         log(f"spatial {name}: a rank's peak " + ", ".join(
-            f"{r[name]['peak']:.3f}" for r in ranks) + f" GiB, the unsharded step's "
-            f"{ref[name]['peak']:.3f} GiB (phase 8b's B = 2 segmentation step "
-            f"{PLAIN_SEG_PEAK_GIB} GiB); {ranks[0][name]['s']:.3f} s a step a rank, the "
-            f"unsharded {ref[name]['s']:.3f} s")
-    log(f"spatial (phases 11a-11d): {SPACE} processes on one card (gloo), the flagship at "
+            f"{r[name]['peak']:.3f}" for r in ranks) + f" GiB, the unsharded run's "
+            f"{ref[name]['peak']:.3f} GiB" + (f" (phase 8b's B = 2 segmentation step "
+            f"{PLAIN_SEG_PEAK_GIB} GiB)" if name in segs else "") + f"; {ranks[0][name]['s']:.3f}"
+            f" s a rank, the unsharded {ref[name]['s']:.3f} s")
+    log(f"spatial (phases 11a-11f): {SPACE} processes on one card (gloo), the flagship at "
         f"{cfg.input_size}; unsharded forwards " + ", ".join(
-            f"{d} {ref[f]['s']:.3f} s peak {ref[f]['peak']:.3f} GiB"
-            for f, d in zip(forwards, STEP_DTYPES))
+            f"{f} {ref[f]['s']:.3f} s peak {ref[f]['peak']:.3f} GiB" for f in forwards)
         + f", predict_deterministic {ref['tp_s']:.3f} s peak {ref['tp_peak']:.3f} GiB, steps "
         + ", ".join(f"{n} {ref[n]['s']:.3f} s peak {ref[n]['peak']:.3f} GiB"
-                    for n in [*steps, *segs])
+                    for n in [*steps, *segs, FULLRES_STEP])
         + f"; sharded forwards {errs} of scale; split forward {tp_err:.3e} of scale; "
         f"{wall:.1f} s with start-up")
     if failures:
         raise SystemExit(f"spatial paths failed: {failures}")
     info = {"wall_s": wall, "errs": errs,
             "fwd_moved": {f: ref[f]["moved"] for f in forwards}, "tp_err": tp_err,
-            "steps": step_info,
+            "steps": step_info, "remat": remat_info, "remat_spread": remat_spread,
             "ref": {k: ref[k] for k in ("tp_s", "tp_peak")}
-            | {n: {k: ref[n][k] for k in ("s", "peak")} for n in [*forwards, *steps, *segs]},
+            | {n: {k: ref[n][k] for k in ("s", "peak")}
+               for n in [*forwards, *steps, *segs, FULLRES_STEP]},
             "ranks": [{p: {k: v for k, v in r[p].items()
                            if k in ("s", "peak", "traffic", "bodies")} for p in phases}
                       for r in ranks]}
@@ -4727,7 +4876,9 @@ def main() -> int:
                    "spatial_forward_float32": sp_counts["forward float32"][name],
                    **{f"spatial_step_{d}": sp_counts[f"step {d}"][name] for d in STEP_DTYPES},
                    **{f"spatial_{n.replace(' ', '_')}": sp_counts[n][name]
-                      for n, *_ in SEG_STEPS},
+                      for n, *_ in (*SEG_STEPS, *REMAT_STEPS)},
+                   **{f"spatial_{n.replace(' ', '_')}": sp_counts[n][name]
+                      for n in (*FULLRES_FORWARDS, FULLRES_STEP)},
                    "tp_forward": sp_counts["tp"][name]}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4812,8 +4963,13 @@ def main() -> int:
         f"the plain step's own spread {dp['spread']:.3e})")
     log(f"train_cli dp (phase 10d; {card}): {cli_dp['wall_s']:.1f} s for 2 processes")
     ref = sp["ref"]
-    log(f"slab bodies at C = {SEG_CLASSES} (phase 11; {card}): {slab_bodies}")
-    log(f"spatial (phases 11a-11d; {card}): unsharded " + ", ".join(
+    log(f"slab bodies at C = {SEG_CLASSES} and of the CF warp (phase 11; {card}): {slab_bodies}")
+    log(f"spatial remat (phase 11e; {card}): " + "; ".join(
+        f"{n}: gradients {x['grad_rel']:.3e} from the sharded plain step's (relative L2), "
+        f"{x['recomputed_bytes'] / 1e6:.1f} of {x['bytes'] / 1e6:.1f} MB exchanged recomputed"
+        for n, x in sp["remat"].items()) + f"; the plain step's run-to-run "
+        f"{sp['remat_spread']:.3e}")
+    log(f"spatial (phases 11a-11f; {card}): unsharded " + ", ".join(
             f"{n} {x['s']:.3f} s / {x['peak']:.3f} GiB" for n, x in ref.items()
             if isinstance(x, dict))
         + f", predict_deterministic {ref['tp_s']:.3f} s / {ref['tp_peak']:.3f} GiB"
@@ -4833,6 +4989,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of phase 10d, under torchrun
         sys.exit(dp_worker(*sys.argv[2:5]))
-    if sys.argv[1:2] == ["--spatial-worker"]:  # one rank of phases 11a-11c, under torchrun
+    if sys.argv[1:2] == ["--spatial-worker"]:  # one rank of phases 11a-11f, under torchrun
         sys.exit(spatial_worker(*sys.argv[2:5]))
     sys.exit(main())

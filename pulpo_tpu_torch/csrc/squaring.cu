@@ -46,12 +46,14 @@
 // PyTorch version's rounding. The arithmetic per voxel is the first
 // version's; only the addressing changed.
 //
-// Slab launch (the depth-sharded model, parallel/spatial.py; channels-last
-// 3D only): the input is the whole field, all-gathered along depth (its
+// Slab launch (the depth-sharded model, parallel/spatial.py; 3D, either
+// layout): the input is the whole field, all-gathered along depth (its
 // depth is the plan's zg), and the launch computes the output planes z0 ..
 // z0 + S0 - 1 (S0 the slab's depth): a voxel reads its own displacement at
 // global plane z + z0 and gathers its corners from the whole field, so the
-// slab is bit-equal to the matching planes of the whole step.
+// slab is bit-equal to the matching planes of the whole step. In the
+// channels-first layout a component's stride differs between the two: the
+// whole field's voxel count in the input, the slab's in the output.
 //
 // Layouts: one kernel body, instantiated for the layout of component ch
 // of voxel v in row b:
@@ -95,7 +97,8 @@ squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
   st[ND - 1] = CF ? 1 : ND;
 #pragma unroll
   for (int a = ND - 2; a >= 0; --a) st[a] = st[a + 1] * s[a + 1];
-  const int cs = CF ? n : 1;
+  // a component's stride: the whole field's voxels in the input, the slab's in the output
+  const int cs_in = CF ? n_in : 1, cs_out = CF ? n : 1;
   const float* row = vin + (long long)blockIdx.z * ND * n_in;
   const int v = (z * Y + y) * X + x;
   const int zg = z + p.z0;  // the voxel's plane in the whole field
@@ -105,7 +108,7 @@ squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
   float d[ND], c[ND];
 #pragma unroll
   for (int a = 0; a < ND; ++a) {
-    d[a] = __ldg(row + vg * st[ND - 1] + a * cs) * scale;
+    d[a] = __ldg(row + vg * st[ND - 1] + a * cs_in) * scale;
     c[a] = gather::src_coord(g3[a + 3 - ND], d[a], f[a], s[a]);
   }
   const gather::Corners<ND> k = gather::corners<ND>(c, s);
@@ -116,13 +119,13 @@ squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
     const float weight = gather::corner_weight<ND>(k, corner);
 #pragma unroll
     for (int ch = 0; ch < ND; ++ch) {
-      const float contrib = (__ldg(pc + ch * cs) * scale) * weight;
+      const float contrib = (__ldg(pc + ch * cs_in) * scale) * weight;
       acc[ch] = (corner == 0) ? contrib : acc[ch] + contrib;
     }
   }
   float* o = vout + (long long)blockIdx.z * ND * n + v * st[ND - 1];
 #pragma unroll
-  for (int ch = 0; ch < ND; ++ch) o[ch * cs] = d[ch] + acc[ch];
+  for (int ch = 0; ch < ND; ++ch) o[ch * cs_out] = d[ch] + acc[ch];
 }
 
 template <bool CF, int ND>
@@ -132,8 +135,8 @@ int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
   const long long n = (long long)X * Y * Z;
   if (B == 0 || n == 0) return 0;
   const gather::Plan p = gather::read_plan(plan);
-  // a slab only on a channels-last 3D field; its input row is the whole field's
-  if (p.v != 1 || !gather::valid_slab(p, Z, ND == 2) || (CF && (p.z0 != 0 || p.zg != Z)) ||
+  // a slab only on a 3D field; its input row is the whole field's
+  if (p.v != 1 || !gather::valid_slab(p, Z, ND == 2) ||
       !gather::valid(p, X, Y, Z, 1, B, n / Z * p.zg * ND))
     return (int)cudaErrorInvalidValue;
   squaring_kernel<CF, ND><<<gather::grid(p, B), gather::block(p), 0, (cudaStream_t)stream>>>(
@@ -154,7 +157,8 @@ extern "C" int pulpo_squaring_step(const void* vin, void* vout, int B,
   return launch<false, 3>(vin, vout, B, S0, S1, S2, f0, f1, f2, scale, plan, stream);
 }
 
-// The same step on a channels-first field (B, 3, S0, S1, S2).
+// The same step on a channels-first field (B, 3, S0, S1, S2); a slab as
+// above (vin (B, 3, zg, S1, S2), vout (B, 3, S0, S1, S2)).
 extern "C" int pulpo_squaring_step_cf(const void* vin, void* vout, int B,
                                       int S0, int S1, int S2,
                                       float f0, float f1, float f2, float scale,

@@ -142,14 +142,14 @@ def warp_plan(out_spatial, b_df: int, movings: int, cf: bool = False,
     channels or more, of 16-byte quads where `c` is a multiple of 4 and
     the launch's pointers are aligned (`is_aligned`), else of single
     channels; else a voxel body of `v` voxels a thread: 4 on a
-    channels-first launch of at least WARP_CF_QUADS_FROM voxels, else 1,
-    unless given."""
+    channels-first launch of at least WARP_CF_QUADS_FROM voxels whose df
+    and output are aligned (`is_aligned`), else 1, unless given."""
     z, y, x = axes(out_spatial)
     ch = 0 if cf or c < CHANNELS_FROM else (4 if c % 4 == 0 and is_aligned else 1)
     if ch:
         return channel_plan(x, y, z, b_df // movings, movings, c, ch)
     if v is None:
-        v = 4 if cf and b_df * x * y * z >= WARP_CF_QUADS_FROM else 1
+        v = 4 if cf and is_aligned and b_df * x * y * z >= WARP_CF_QUADS_FROM else 1
     return make_plan(x, y, z, b_df // movings, movings, v)
 
 

@@ -46,13 +46,16 @@ The step takes each thread's voxel from a tile of the field
 (`csrc/gather.cuh`) by the plan that `tile_plan` computes and the launch
 passes in (`kernels/gather.py`).
 
-Slab launches (the depth-sharded model, parallel/spatial.py; 3D
-channels-last): `squaring_step(whole, z0=, depth=)` reads the whole
-field (all-gathered along depth) and writes planes z0 .. z0 + depth - 1
-of the step, bit-equal to those planes of the whole step;
-`squaring_step_bwd(whole, g_slab, z0)` takes the cotangent of such a
-slab and returns its share of the whole field's cotangent (the caller
-sums the shares over the slabs). The plain versions take the same.
+Slab launches (the depth-sharded model, parallel/spatial.py; 3D):
+`squaring_step(whole, z0=, depth=)` reads the whole field (all-gathered
+along depth) and writes planes z0 .. z0 + depth - 1 of the step,
+bit-equal to those planes of the whole step; `squaring_step_cf(whole_cf,
+z0=, depth=)` the same on a channels-first field (B, 3, zg, S1, S2) into
+a contiguous (B, 3, depth, S1, S2) slab (the sharded full_res eval
+decode; forward only, as the whole CF step); `squaring_step_bwd(whole,
+g_slab, z0)` takes the cotangent of a channels-last slab and returns its
+share of the whole field's cotangent (the caller sums the shares over
+the slabs). The plain versions take the same.
 
 Layout: (B, *S, nd) channels-last float32 (nd = 3, or 2 in 2D); the CF
 functions (B, 3, *S).
@@ -127,10 +130,12 @@ def _cf(vec: torch.Tensor) -> torch.Tensor:
     return vec.permute(0, 4, 1, 2, 3)
 
 
-def squaring_step_cf_plain(vec_cf: torch.Tensor) -> torch.Tensor:
+def squaring_step_cf_plain(vec_cf: torch.Tensor, z0: int = 0,
+                           depth: int | None = None) -> torch.Tensor:
     """The CF kernel's plain version: the channels-last step on the same
-    values, returned as a (B, 3, *S) view."""
-    return _cf(squaring_step_plain(_cl(vec_cf)))
+    values (with `depth`, its slab from z0), returned as a (B, 3, *S)
+    view."""
+    return _cf(squaring_step_plain(_cl(vec_cf), z0, depth))
 
 
 def integrate_svf_cf_plain(vec_cf: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
@@ -168,11 +173,12 @@ def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
         raise ValueError(f"squaring kernel addresses a row in 32 bits, got {tuple(vec.shape)}")
     vec = vec.contiguous()
     shape = tuple(vec.shape)
+    zaxis = 2 if cf else 1
     if depth is not None:
-        if cf or ndims != 3 or not (0 <= z0 and z0 + depth <= vec.shape[1]):
-            raise ValueError(f"a slab of {depth} planes from {z0} takes a channels-last 3D "
-                             f"field of at least {z0 + depth} planes, got {shape}")
-        shape = (shape[0], depth, *shape[2:])
+        if ndims != 3 or not (0 <= z0 and z0 + depth <= vec.shape[zaxis]):
+            raise ValueError(f"a slab of {depth} planes from {z0} takes a 3D field of at "
+                             f"least {z0 + depth} planes, got {shape}")
+        shape = (*shape[:zaxis], depth, *shape[zaxis + 1:])
     if out is None:
         out = vec.new_empty(shape)
     if tuple(out.shape) != shape or out.dtype != vec.dtype or not out.is_contiguous():
@@ -186,7 +192,7 @@ def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
     sizes = list(cl.shape[1:-1])
     plan = tile_plan(vec.shape, cf)
     if depth is not None:
-        plan = gather.slab(tile_plan(shape), z0, vec.shape[1])
+        plan = gather.slab(tile_plan(shape, cf), z0, vec.shape[zaxis])
         sizes[0] = depth
     with torch.cuda.device(vec.device):
         rc = fn(vec.data_ptr(), out.data_ptr(), cl.shape[0], *sizes, *_factors(cl),
@@ -215,14 +221,16 @@ def squaring_step(vec: torch.Tensor, out: torch.Tensor | None = None,
 
 
 def squaring_step_cf(vec: torch.Tensor, out: torch.Tensor | None = None,
-                     scale: float = 1.0) -> torch.Tensor:
+                     scale: float = 1.0, z0: int = 0, depth: int | None = None) -> torch.Tensor:
     """`squaring_step` on a channels-first field (B, 3, S0, S1, S2)
     float32: the CF kernel for a tensor on the card, the plain version on
-    the CPU. Bit-equal to the channels-last kernel on the same field."""
+    the CPU. Bit-equal to the channels-last kernel on the same field.
+    With `depth`, the slab launch: planes z0 .. z0 + depth - 1 of the step
+    of the whole field `vec`, as a (B, 3, depth, S1, S2) tensor."""
     if vec.device.type == "cpu":
-        return squaring_step_cf_plain(vec * scale if scale != 1.0 else vec)
+        return squaring_step_cf_plain(vec * scale if scale != 1.0 else vec, z0, depth)
     global cf_launches
-    out = _launch_step("pulpo_squaring_step_cf", vec, out, scale, cf=True)
+    out = _launch_step("pulpo_squaring_step_cf", vec, out, scale, cf=True, z0=z0, depth=depth)
     cf_launches += 1
     return out
 

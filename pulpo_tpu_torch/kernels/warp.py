@@ -90,7 +90,8 @@ cf_launches = 0      # kernel launches of `warp_cf`
 
 
 # slab launches by (kernel, body) since `reset_count`: ("warp", "ch4" | "ch1"
-# | "voxel"), ("warp_dfgrad", "<1>" | "<36>" | "<0>")
+# | "voxel"), ("warp_dfgrad", "<1>" | "<36>" | "<0>"), ("warp_cf", "quad" |
+# "voxel")
 slab_bodies: dict[tuple[str, str], int] = {}
 
 
@@ -343,7 +344,8 @@ def check_rows(moving_shape, df_shape, cf: bool = False) -> None:
 def tile_plan(moving_shape, df_shape, cf: bool = False, is_aligned: bool = True) -> dict:
     """The tile plan of the forward kernel's launch on these shapes
     (`kernels/gather.py:warp_plan`); `is_aligned`: the tensors the kernel
-    moves 16-byte quads of start on a 16-byte boundary."""
+    moves 16-byte quads of start on a 16-byte boundary (the map and the
+    output in a channel body, the df and the output in a CF launch)."""
     b, c, _, s_out = _shapes(moving_shape, df_shape, cf)
     return gather.warp_plan(s_out, df_shape[0], b, cf, c=c, is_aligned=is_aligned)
 
@@ -422,33 +424,41 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor, z0: int = 0,
     return out
 
 
-def warp_cf_plain(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+def warp_cf_plain(moving: torch.Tensor, df: torch.Tensor, z0: int = 0, zg=None) -> torch.Tensor:
     """The CF kernel's plain version: the channels-last warp of the same
-    values, returned as a (B_df, C, *S_out) view."""
-    out = warp_plain(moving.permute(0, 2, 3, 4, 1), df.permute(0, 2, 3, 4, 1))
+    values (a slab's (z0, zg) as `warp_plain`'s), returned as a (B_df, C,
+    *S_out) view."""
+    out = warp_plain(moving.permute(0, 2, 3, 4, 1), df.permute(0, 2, 3, 4, 1), z0, zg)
     return out.permute(0, 4, 1, 2, 3)
 
 
-def _warp_cf_kernel(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+def _warp_cf_kernel(moving: torch.Tensor, df: torch.Tensor, z0: int = 0,
+                    zg=None) -> torch.Tensor:
     _check(moving.permute(0, 2, 3, 4, 1), df.permute(0, 2, 3, 4, 1))
     moving, df = moving.contiguous(), df.contiguous()
     out = torch.empty((df.shape[0], moving.shape[1], *df.shape[2:5]),
                       device=df.device, dtype=torch.float32)
     global cf_launches
+    plan = tile_plan(moving.shape, df.shape, cf=True, is_aligned=gather.aligned(df, out))
     _launch("warp", "pulpo_warp_cf", [moving.data_ptr(), df.data_ptr(), out.data_ptr()],
-            moving.shape, df, cf=True, plan=tile_plan(moving.shape, df.shape, cf=True))
+            moving.shape, df, cf=True, plan=_slab(plan, df.permute(0, 2, 3, 4, 1), z0, zg))
+    if zg is not None:
+        _record_slab("warp_cf", "quad" if plan["v"] == 4 else "voxel")
     cf_launches += 1
     return out
 
 
-def warp_cf(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+def warp_cf(moving: torch.Tensor, df: torch.Tensor, z0: int = 0, zg=None) -> torch.Tensor:
     """Warp a channels-first moving (B, C, *S_in) by a channels-first df
     (B_df, 3, *S_out) into (B_df, C, *S_out) float32: the CF kernel for
     tensors on the card (a gradient through it is the plain version's),
-    the plain version on the CPU. Bit-equal to `warp` on the same values."""
+    the plain version on the CPU. Bit-equal to `warp` on the same values.
+    With `zg`, a slab launch: df and output are planes z0 .. of a whole
+    output of depth zg (axis 2), the moving volume whole."""
     if moving.device.type == "cpu":
-        return warp_cf_plain(moving, df)
-    return plain_vjp.apply(_warp_cf_kernel, warp_cf_plain, moving, df)
+        return warp_cf_plain(moving, df, z0, zg)
+    return plain_vjp.apply(lambda m, d: _warp_cf_kernel(m, d, z0, zg),
+                           lambda m, d: warp_cf_plain(m, d, z0, zg), moving, df)
 
 
 def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor, z0: int = 0,

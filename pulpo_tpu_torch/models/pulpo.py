@@ -56,7 +56,24 @@ leaves as a view (a permute, no copy) of the resize's output.
 Under spatial sharding (parallel/spatial.py) the same code runs on this
 rank's block of every volume: the ops it calls exchange what they need,
 a level's draws are the rank's block of the whole draw, and the
-posterior head runs on a 4-plane halo.
+posterior head runs on a 4-plane halo. At full_res the channels-first
+eval decode integrates each level's slab by slab launches of #3 and
+warps the full-res image by one slab launch of #8 over all levels' dfs;
+the train step stays channels-last, its batched warp a slab launch of
+#4 with L df rows a moving row (#6 in its backward).
+
+Remat under sharding equals the plain sharded step, as on one device:
+a checkpointed region's recomputation is a function of the region's
+saved inputs, the module's weights and the sharding flags alone. The
+inputs are the ones its forward took; the flags are restored to its
+forward's (`spatial.replay`); its exchanges (halos, gathers, the
+resizes' sums, the integration's per-step gathers, BatchNorm.synced's
+all-reduce of the moments) are collectives of the same sizes in the same
+order on every rank, since every rank's autograd replays the same
+graph, so each returns what it returned in the forward; no noise is
+drawn inside a region, and its BatchNorms record no update. Hence every
+activation it rebuilds equals the forward's, and so does every
+gradient.
 """
 
 from __future__ import annotations
@@ -132,15 +149,18 @@ def remat(fn, *args):
     (`torch.utils.checkpoint`, non-reentrant), as `nn.remat` in the JAX
     package. The recomputation runs its BatchNorms `replaying`, and runs
     the whole region (no early stop), so that each kernel in it launches
-    once more in the backward."""
+    once more in the backward. Under spatial sharding it runs under the
+    sharding flags its forward saw (`spatial.replay`), so it issues the
+    forward's exchanges again, in the same order on every rank."""
     first = True
+    flags = spatial.snapshot()
 
     def run(*a):
         nonlocal first
         if first:
             first = False
             return fn(*a)
-        with BatchNorm.replaying():
+        with BatchNorm.replaying(), spatial.replay(flags):
             return fn(*a)
 
     with set_checkpoint_early_stop(False):

@@ -21,9 +21,13 @@ repeats the channels-last resize on a view. Unlike the JAX package's
 fields they hold no tile padding and no halo: those exist for the
 TPU's layout.
 
-Under spatial sharding (parallel/spatial.py) `warp_image` and
-`integrate_svf` run on this rank's slab by slab launches of the kernels
-(`spatial.warp_image`, `spatial.integrate_svf`).
+Under spatial sharding (parallel/spatial.py) `warp_image`,
+`integrate_svf`, `integrate_svf_cf` and `batched_level_warp_cf` run on
+this rank's slab by slab launches of the kernels (`spatial.warp_image`,
+`spatial.integrate_svf`, `spatial.integrate_svf_cf`,
+`spatial.batched_level_warp_cf`: the CF ones gather along the CF depth
+axis 2); the resizes, `resize_vecfield_cf`'s too (a channels-last view),
+run `spatial.resize`.
 
 Layout: images (B, *spatial, C); displacement fields (B, *spatial, ndims)
 with channel i = displacement along spatial axis i in voxels; the CF
@@ -62,6 +66,8 @@ def integrate_svf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
 
 def integrate_svf_cf(vec_cf: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
     """`integrate_svf` of a channels-first field (B, 3, *spatial)."""
+    if spatial.active():
+        return spatial.integrate_svf_cf(vec_cf, nsteps)
     return squaring.integrate_svf_cf(vec_cf, nsteps)
 
 
@@ -90,7 +96,10 @@ def batched_level_warp_cf(moving: torch.Tensor,
     shapes = {tuple(dfs_cf[l].shape) for l in levels}
     assert len(shapes) == 1, f"batched_level_warp_cf needs equal shapes, got {shapes}"
     stacked = torch.cat([dfs_cf[l] for l in levels], dim=0)
-    warped = warp_kernel.warp_cf(moving.float().permute(0, 4, 1, 2, 3), stacked)
+    if spatial.active():
+        warped = spatial.batched_level_warp_cf(moving, stacked)
+    else:
+        warped = warp_kernel.warp_cf(moving.float().permute(0, 4, 1, 2, 3), stacked)
     warped = warped.permute(0, 2, 3, 4, 1)
     per = dfs_cf[levels[0]].shape[0]
     return {l: warped[i * per:(i + 1) * per] for i, l in enumerate(levels)}

@@ -36,7 +36,14 @@ consults `BatchNorm.synced`), and do each exchange themselves:
   along depth and the rank computes its own output slab by a slab launch
   (`kernels/gather.py:slab`); the squaring backward's share of the whole
   field's cotangent is summed over the space column, and each rank keeps
-  its slab (the backward of the all-gather);
+  its slab (the backward of the all-gather). The channels-first fields of
+  the full_res eval decode (B, 3, d, H, W) are read by their plane too
+  (`layout(x, cf=True)`) and gathered along their depth axis, 2:
+  `integrate_svf_cf` slab-launches the CF step (#3) on each step's
+  gathered field, `batched_level_warp_cf` the CF image warp (#8) of the
+  gathered image by the rank's slab of all levels' stacked dfs. The
+  full_res train step stays channels-last: its batched warp is a slab
+  launch of #4 with L df rows a moving row;
 - losses: every sum or mean over voxels becomes the slab's partial sum
   (a replicated level's terms count 1 / space on each rank), so that the
   loss summed over the space column is the whole one; the normalisers
@@ -76,8 +83,16 @@ world statistic) or not at all (a column statistic), and the column's
 space copies of w * L make one L. The metrics follow the same rule: w *
 L summed over space and averaged over data is L (`statistic_weight`).
 
-Out of scope: under `sharded`, the `full_res` channels-first decode,
-the 2D configuration and `remat` / `remat_down` raise
+Remat (`remat`, `remat_down`; models/pulpo.py:remat): a checkpointed
+region recomputes in the backward under the flags its forward saw
+(`snapshot`, `replay`), so it issues the forward's exchanges again (halo
+all-gathers, volume gathers, the resizes' and statistics' all-reduces,
+the integration's per-step gathers, `BatchNorm.synced`'s moments), the
+same collectives in the same order on every rank; `traffic` counts them
+apart ("<kind>_recomputed"). Why a remat step equals the plain sharded
+step: models/pulpo.py's module doc.
+
+Out of scope: under `sharded`, the 2D configuration raises
 NotImplementedError (ROADMAP Queue 1).
 
 `make_spatial_forward(model, mesh)` returns this rank's slab of the
@@ -96,7 +111,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pulpo_tpu_torch.kernels import squaring
+from pulpo_tpu_torch.kernels import plain_vjp, squaring
 from pulpo_tpu_torch.kernels import warp as warp_kernel
 from pulpo_tpu_torch.parallel.mesh import Mesh, Mesh2D, bucket_mean, bucket_sum, make_2d_mesh
 
@@ -113,7 +128,8 @@ QUEUE = "not ported under spatial sharding yet (ROADMAP.md Queue 1)"
 # maps), "reduce" (all-reduces of whole-field cotangents
 # and of a resize's partial products), "stats" (all-reduces of a loss's
 # partial statistics and of their cotangents); bytes are the gathered or
-# reduced buffer's
+# reduced buffer's. A checkpointed region's recomputation in the backward
+# (remat) counts its exchanges again, apart: "<kind>_recomputed"
 traffic: dict[str, list[int]] = {}
 
 
@@ -122,6 +138,8 @@ def reset_traffic() -> None:
 
 
 def _count(kind: str, t: torch.Tensor, n: int = 1) -> None:
+    if _replaying:
+        kind = f"{kind}_recomputed"
     calls, nbytes = traffic.get(kind, [0, 0])
     traffic[kind] = [calls + 1, nbytes + t.numel() * t.element_size() * n]
 
@@ -178,6 +196,7 @@ class _State:
 
 _state: _State | None = None
 _suspended = False
+_replaying = False  # a checkpointed region's recomputation (`replay`)
 
 
 def active() -> bool:
@@ -186,15 +205,8 @@ def active() -> bool:
 
 
 def _refuse(cfg) -> None:
-    what = []
     if cfg.ndims != 3:
-        what.append("the 2D configuration")
-    if cfg.df_resolution == "full_res":
-        what.append("the full_res channels-first decode")
-    if cfg.remat or cfg.remat_down:
-        what.append("remat")
-    if what:
-        raise NotImplementedError(f"{', '.join(what)}: {QUEUE}")
+        raise NotImplementedError(f"the 2D configuration: {QUEUE}")
 
 
 @contextlib.contextmanager
@@ -227,6 +239,29 @@ def suspended():
         _suspended = before
 
 
+def snapshot() -> tuple:
+    """The sharding flags in force (`sharded`'s state, `suspended`), for a
+    checkpointed region to recompute under (`replay`)."""
+    return _state, _suspended
+
+
+@contextlib.contextmanager
+def replay(flags: tuple):
+    """A checkpointed region's recomputation in the backward
+    (models/pulpo.py:remat) under the flags its forward saw (`snapshot`).
+    The flags are process-wide, and autograd may recompute on its own
+    thread while the caller's thread waits in the backward, so this sets
+    them rather than trusting them. Its exchanges are counted apart in
+    `traffic`, under "<kind>_recomputed"."""
+    global _state, _suspended, _replaying
+    before = (_state, _suspended, _replaying)
+    (_state, _suspended), _replaying = flags, True
+    try:
+        yield
+    finally:
+        _state, _suspended, _replaying = before
+
+
 def _space() -> Mesh:
     return _state.mesh.space
 
@@ -241,18 +276,21 @@ def part(depth: int) -> tuple[int, int]:
     return _state.mesh.coords[1] * per, per
 
 
-def layout(x: torch.Tensor) -> tuple[int, bool]:
+def layout(x: torch.Tensor, cf: bool = False) -> tuple[int, bool]:
     """(whole depth, split) of a channels-last (B, d, H, W, C) tensor of
-    the sharded model, read from its plane; checks its planes."""
-    plane = tuple(x.shape[2:4])
+    the sharded model, or with `cf` of a channels-first (B, C, d, H, W)
+    one, read from its plane; checks its planes."""
+    z = 2 if cf else 1
+    plane = tuple(x.shape[z + 1:z + 3])
     depth = _state.grids.get(plane) if x.dim() == 5 else None
     if depth is None:
-        raise ValueError(f"no level of the sharded model has a (B, d, H, W, C) tensor of shape "
+        what = "(B, C, d, H, W)" if cf else "(B, d, H, W, C)"
+        raise ValueError(f"no level of the sharded model has a {what} tensor of shape "
                          f"{tuple(x.shape)}")
     sp = split(depth)
-    if x.shape[1] != (depth // _state.mesh.shape[1] if sp else depth):
+    if x.shape[z] != (depth // _state.mesh.shape[1] if sp else depth):
         raise ValueError(f"a tensor of level depth {depth} ({'split' if sp else 'replicated'}) "
-                         f"has {x.shape[1]} planes")
+                         f"has {x.shape[z]} planes")
     return depth, sp
 
 
@@ -337,10 +375,12 @@ def _sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return buf
 
 
-def _gather_depth(x: torch.Tensor, mesh: Mesh, kind: str = "gather") -> torch.Tensor:
-    """The whole volume from the slabs of `mesh`'s ranks (no autograd)."""
+def _gather_depth(x: torch.Tensor, mesh: Mesh, kind: str = "gather", dim: int = 1) -> torch.Tensor:
+    """The whole volume from the slabs of `mesh`'s ranks, joined along
+    the depth axis `dim` (1 channels-last, 2 channels-first; no
+    autograd)."""
     _count(kind, x, mesh.size)
-    return torch.cat(_gather_list(x, mesh), dim=1)
+    return torch.cat(_gather_list(x, mesh), dim=dim)
 
 
 class _SumOver(torch.autograd.Function):
@@ -361,19 +401,19 @@ class _SumOver(torch.autograd.Function):
 
 
 class _GatherDepth(torch.autograd.Function):
-    """Slabs -> the whole volume; backward: the cotangent summed over the
-    column, this rank's slab of it."""
+    """Slabs -> the whole volume along the depth axis `dim`; backward: the
+    cotangent summed over the column, this rank's slab of it."""
 
     @staticmethod
-    def forward(ctx, x, kind):
-        ctx.mesh = _space()
-        ctx.z0, ctx.planes = ctx.mesh.rank * x.shape[1], x.shape[1]
-        return _gather_depth(x, ctx.mesh, kind)
+    def forward(ctx, x, kind, dim=1):
+        ctx.mesh, ctx.dim = _space(), dim
+        ctx.z0, ctx.planes = ctx.mesh.rank * x.shape[dim], x.shape[dim]
+        return _gather_depth(x, ctx.mesh, kind, dim)
 
     @staticmethod
     def backward(ctx, g):
         _count("reduce", g)
-        return _sum(g, ctx.mesh).narrow(1, ctx.z0, ctx.planes), None
+        return _sum(g, ctx.mesh).narrow(ctx.dim, ctx.z0, ctx.planes), None, None
 
 
 def gather(x: torch.Tensor, kind: str = "gather") -> torch.Tensor:
@@ -609,6 +649,51 @@ def integrate_svf(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
     if not sp or nsteps == 0:
         return squaring.integrate_svf(vec, nsteps)
     return _IntegrateSlab.apply(vec, nsteps, part(depth)[0])
+
+
+def integrate_svf_cf(vec_cf: torch.Tensor, nsteps: int) -> torch.Tensor:
+    """`ops/warp.integrate_svf_cf` on this rank's slab of a split
+    channels-first field (B, 3, d, H, W): each step all-gathers the field
+    along its depth (axis 2) and launches the CF step's slab (#3); a
+    replicated field integrates whole. An eval path: as the whole CF
+    integration, a gradient through the kernels is the plain version's
+    (`plain_vjp`), the same steps on differentiable gathers."""
+    depth, sp = layout(vec_cf, cf=True)
+    if not sp or nsteps == 0:
+        return squaring.integrate_svf_cf(vec_cf, nsteps)
+    z0, planes = part(depth)
+    scale = 1.0 / (2**nsteps)
+
+    def plain(v):
+        for k in range(nsteps):
+            whole = _GatherDepth.apply(v, "gather", 2)
+            v = squaring.squaring_step_cf_plain(whole * scale if k == 0 else whole, z0, planes)
+        return v
+
+    if vec_cf.device.type == "cpu":
+        return plain(vec_cf)
+
+    def kernel(v):
+        mesh = _space()
+        for k in range(nsteps):
+            v = squaring.squaring_step_cf(_gather_depth(v.contiguous(), mesh, dim=2),
+                                          scale=scale if k == 0 else 1.0, z0=z0, depth=planes)
+        return v
+
+    return plain_vjp.apply(kernel, plain, vec_cf)
+
+
+def batched_level_warp_cf(moving: torch.Tensor, stacked_cf: torch.Tensor) -> torch.Tensor:
+    """The batched channels-first image warp of `ops/warp.
+    batched_level_warp_cf` on this rank's rows and slab: the moving image
+    (channels-last, C = 1) all-gathered, and the stacked CF dfs (L * B,
+    3, d, H, W) of the rank's slab in one slab launch of the CF warp (#8);
+    returns the CF output's slab (L * B, C, d, H, W)."""
+    moving_cf = gather(moving.float()).permute(0, 4, 1, 2, 3)
+    depth, sp = layout(stacked_cf, cf=True)
+    if not sp:
+        return warp_kernel.warp_cf(moving_cf, stacked_cf)
+    return warp_kernel.warp_cf(moving_cf, stacked_cf, part(depth)[0], depth)
 
 
 def whole_draw_shape(shape, samples: int) -> tuple[int, ...]:

@@ -1521,3 +1521,63 @@ def test_slab_launches_at_36_channels_are_bit_equal_to_the_whole_launch(cuda_dev
                          [mov.data_ptr(), d.data_ptr(), c.data_ptr(), out.data_ptr()], mov.shape,
                          d, plan=warp._slab(warp.dfgrad_plan(mov.shape, d.shape), d, z0, whole),
                          body=36)
+
+
+@pytest.mark.parametrize("whole,parts", [(20, 2), (16, 4)])
+def test_cf_slab_launches_are_bit_equal_to_the_whole_launch(cuda_device, whole, parts):
+    """The channels-first slab launches of the sharded full_res decode (#3
+    the CF squaring step, with and without the first step's scale; #8 the
+    CF image warp of one moving image by 4 df rows): each slab bit-equal
+    to the matching planes of the whole launch and to the plain version
+    at its offset, one launch a call; at this size the warp takes the
+    voxel body."""
+    rng = np.random.default_rng(37)
+    size = (whole, 24, 28)
+    per = whole // parts
+    v = _cf(_field((2, *size, 3), 2.5, 38).to(cuda_device))
+    img = torch.from_numpy(rng.random((1, 1, *size), dtype=np.float32)).to(cuda_device)
+    df = _cf(_field((4, *size, 3), 3.0, 39).to(cuda_device))
+    for scale in (1.0 / 2**7, 1.0):
+        whole_step = squaring.squaring_step_cf(v, scale=scale)
+        for r in range(parts):
+            z0 = r * per
+            before = squaring.cf_launches
+            step = squaring.squaring_step_cf(v, scale=scale, z0=z0, depth=per)
+            assert squaring.cf_launches == before + 1 and step.shape == (2, 3, per, 24, 28)
+            assert torch.equal(step, whole_step[:, :, z0:z0 + per])
+            assert torch.equal(step.cpu(), squaring.squaring_step_cf_plain(v.cpu() * scale, z0,
+                                                                           per))
+    whole_warp = warp.warp_cf(img, df)
+    for r in range(parts):
+        z0 = r * per
+        d = df[:, :, z0:z0 + per].contiguous()
+        warp.slab_bodies.clear()
+        before = warp.cf_launches
+        got = warp.warp_cf(img, d, z0, whole)
+        assert warp.cf_launches == before + 1 and warp.slab_bodies == {("warp_cf", "voxel"): 1}
+        assert torch.equal(got, whole_warp[:, :, z0:z0 + per])
+        assert torch.equal(got.cpu(), warp.warp_cf_plain(img.cpu(), d.cpu(), z0, whole))
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-16-bytes"])
+def test_cf_warp_slab_body_follows_the_df_alignment(cuda_device, monkeypatch, aligned):
+    """A CF warp slab of as many voxels as take 16-byte quads (the bound
+    lowered to this size): an aligned df slab takes the quad body, one 4
+    bytes past a 16-byte boundary the voxel body; both bit-equal to the
+    whole launch's planes and to the plain version."""
+    from pulpo_tpu_torch.kernels import gather
+
+    monkeypatch.setattr(gather, "WARP_CF_QUADS_FROM", 1)
+    rng = np.random.default_rng(40)
+    size = (20, 24, 28)
+    img = torch.from_numpy(rng.random((1, 1, *size), dtype=np.float32)).to(cuda_device)
+    df = _cf(_field((4, *size, 3), 3.0, 41).to(cuda_device))
+    whole_warp = warp.warp_cf(img, df)
+    for z0 in (0, 10):
+        d = df[:, :, z0:z0 + 10].contiguous()
+        d = d if aligned else misaligned(d)
+        warp.slab_bodies.clear()
+        got = warp.warp_cf(img, d, z0, 20)
+        assert warp.slab_bodies == {("warp_cf", "quad" if aligned else "voxel"): 1}
+        assert torch.equal(got, whole_warp[:, :, z0:z0 + 10])
+        assert torch.equal(got.cpu(), warp.warp_cf_plain(img.cpu(), d.cpu(), z0, 20))

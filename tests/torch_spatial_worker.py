@@ -16,6 +16,12 @@ the same at mesh (2, 2) without the update; then, at meshes (2, 2) and
 (1, 4), `soft_dice_loss` and `jdet_std` under `sharded` on this rank's
 block of INPUT["rule"]'s global inputs at a split and at a replicated
 level: each rank's term and its gradient to its block.
+MODE `remat_fullres` (world 4): the deterministic and the sampled
+`make_spatial_forward` at mesh (1, 4) for each case of INPUT["forward"]
+(the full_res configurations), then at mesh (2, 2) the gradients,
+statistics, metrics and traffic of `spatial_compute_grads` for each case
+of INPUT["steps"] (the full_res step, the plain, `remat` and
+`remat_down` steps, the Dice step plain and under `remat`).
 MODE `tp` (world 2): the model split by `tp.shard_params` at model 2,
 its rules and `predict_deterministic` under `tp.sharded`, and the error
 a train forward raises there.
@@ -45,16 +51,42 @@ def _model(case: dict) -> PULPoModel:
     return model
 
 
-def run_spatial(inp: dict) -> dict:
-    out = {"forward": []}
+def run_forwards(cases: list) -> list:
+    """Each case's deterministic and sampled forward at mesh (1, 4)."""
+    out = []
     mesh = spatial.make_2d_mesh(1, 4)
-    for case in inp["forward"]:
+    for case in cases:
         model = _model(case)
         x, y = (spatial.shard_volume(case[k], mesh) for k in "xy")
         det = spatial.make_spatial_forward(model, mesh)(x, y)
         sampled = spatial.make_spatial_forward(model, mesh, deterministic=False)(
             x, y, seed=case["seed"])
-        out["forward"].append({"det": det, "sampled": sampled})
+        out.append({"det": det, "sampled": sampled})
+    return out
+
+
+def run_steps(cases: list, mesh) -> dict:
+    """{name: gradients, statistics, metrics and traffic} of each case's
+    `spatial_compute_grads` on `mesh` (no update)."""
+    out = {}
+    for case in cases:
+        model = _model(case)
+        batch = {k: spatial.shard_volume(v, mesh) for k, v in case["batch"].items()}
+        spatial.reset_traffic()
+        grads, stats, metrics = spatial.spatial_compute_grads(model, batch, mesh,
+                                                              noise=case["noise"])
+        out[case["name"]] = dict(grads=grads, stats=stats, metrics=metrics,
+                                 traffic=dict(spatial.traffic))
+    return out
+
+
+def run_remat_fullres(inp: dict) -> dict:
+    return {"forward": run_forwards(inp["forward"]),
+            "steps": run_steps(inp["steps"], spatial.make_2d_mesh(2, 2))}
+
+
+def run_spatial(inp: dict) -> dict:
+    out = {"forward": run_forwards(inp["forward"])}
     case = inp["step"]
     mesh = spatial.make_2d_mesh(2, 2)
     model = _model(case)
@@ -69,15 +101,7 @@ def run_spatial(inp: dict) -> dict:
     state, step_metrics = spatial.make_spatial_train_step(model, tx, mesh)(
         state, batch, noise=case["noise"])
     out.update(after=model.state_dict(), step_metrics=step_metrics)
-    out["seg_steps"] = {}
-    for case in inp["seg_steps"]:
-        model = _model(case)
-        batch = {k: spatial.shard_volume(v, mesh) for k, v in case["batch"].items()}
-        spatial.reset_traffic()
-        grads, stats, metrics = spatial.spatial_compute_grads(model, batch, mesh,
-                                                              noise=case["noise"])
-        out["seg_steps"][case["name"]] = dict(grads=grads, stats=stats, metrics=metrics,
-                                              traffic=dict(spatial.traffic))
+    out["seg_steps"] = run_steps(inp["seg_steps"], mesh)
     out["rule"] = run_rule(inp["rule"])
     return out
 
@@ -122,7 +146,7 @@ def main(mode: str, rank: int, world: int, url: str, inp_path: str, out_dir: str
     torch.set_num_threads(1)
     inp = torch.load(inp_path, weights_only=False)
     multihost.initialize(url, world, rank, device="cpu")
-    out = run_spatial(inp) if mode == "spatial" else run_tp(inp)
+    out = {"spatial": run_spatial, "remat_fullres": run_remat_fullres, "tp": run_tp}[mode](inp)
     torch.save(out, pathlib.Path(out_dir) / f"rank_{rank}.pt")
     multihost.shutdown()
 
