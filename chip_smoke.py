@@ -236,6 +236,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exchanges (halo, all-gather, all-reduce bytes) beside the unsharded
    run's. The two ranks share one card, so their times are no
    multi-card figures.
+11g. the 2D configuration under depth sharding (each image (B, H, W, C)
+   sharded along H): first its slab launches at `flagship-2d`'s shapes
+   split 2 ways, the 2D squaring step (#1's 2D arm) on 2 rows at
+   160x192, 80x96, 40x48 and 20x24 (slabs of 80, 40, 20, 10 lines), with
+   and without the first step's scale, the 2D warp at C = 1 of the
+   level-0 df and of each split latent level's, and at C = 36 over the
+   2D Dice step's one-hot maps (2 rows; 160x192, 40x48, 20x24): each
+   slab bit-equal to the matching lines of the whole launch and to the
+   plain version at its offset, its device time beside the whole
+   launch's, the body each 2D warp slab took; then, as two torchrun
+   processes on the card (gloo), `flagship-2d` at full width and depth
+   (160x192, 5 / 4 levels, n0 32, bf16; its 10-line coarsest level
+   replicated): the forward in bf16 and f32 held as 11a's, the step
+   at B = 1 in bf16 and f32 and the 2D OASIS Dice step in bf16 at B = 2
+   held as 11b's and 11d's (also within twice the unsharded step's
+   distance from the same step on the CPU in f32, from its f32 twin in
+   bf16), one
+   `make_spatial_train_step` update; exact launch counts on each rank,
+   each rank's time, peak and exchanged bytes beside the unsharded
+   run's.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -331,7 +351,7 @@ REPLACES = {
     "conv_narrow": "pulpo_tpu/attic/conv_narrow.py:125",
     "squaring_2d": "pulpo_tpu/kernels/warp_local.py:190",
     # no Pallas kernel: the JAX package's 2D warp is an XLA gather
-    "warp_2d": "pulpo_tpu/ops/warp.py:154",
+    "warp_2d": "pulpo_tpu/ops/warp.py:56",
     "box_sum_2d": "pulpo_tpu/kernels/box_sum.py:65",
 }
 SOURCES = {
@@ -3364,6 +3384,15 @@ REMAT_PEAK_GIB = {"remat": 21.79, "remat_down=(0,)": 25.63}
 # 11f: the flagship at full_res (the channels-first eval decode), B = 1
 FULLRES_FORWARDS = tuple(f"fullres forward {d}" for d in STEP_DTYPES)
 FULLRES_STEP = "fullres step float32"
+# 11g: `flagship-2d` sharded along H (its 160-, 80-, 40- and 20-line
+# levels split in two, the 10-line coarsest replicated): the forward in
+# bf16 and f32, the step at B = 1 in bf16 and f32 and the 2D OASIS
+# (Dice) step in bf16 at B = 2: (name, keywords over the phase's config,
+# dtype, batch rows)
+SPATIAL_2D_FORWARDS = tuple(f"2d forward {d}" for d in STEP_DTYPES)
+SPATIAL_2D_STEPS = (("2d step bfloat16 B=1", {}, "bfloat16", 1),
+                    ("2d step float32 B=1", {}, "float32", 1),
+                    ("2d dice bfloat16 B=2", DICE_KW, "bfloat16", 2))
 
 
 def check_slab_kernels(dev, cfg, checks, seg_cfg):
@@ -3550,6 +3579,89 @@ def check_slab_kernels(dev, cfg, checks, seg_cfg):
     return times, bodies
 
 
+def check_slab_kernels_2d(dev, cfg, checks, seg_cfg, rows=2):
+    """Phase 11g's kernel checks: the 2D slab launches of the sharded
+    `flagship-2d` at its shapes, each split SPACE ways along H: the 2D
+    squaring step (#1's 2D arm) on a `rows`-row field at each size that
+    splits (160x192 in slabs of 80, 80x96 of 40, 40x48 of 20, 20x24 of
+    10), with the first step's 1/2**nsteps scale and without; the 2D
+    warp at C = 1 of the level-0 df (the input size) over the image and
+    of each split latent level's df over its pooled image, and at C = 36
+    over each split level's one-hot map of the 2D Dice step (`seg_cfg`'s
+    `transform_segmentation` shapes, `rows` rows). Each slab bit-equal to
+    the matching lines of the whole launch and to the plain version at
+    its offset; each slab launch's device time (CUDA-graph replay)
+    beside the whole launch's, and the body each 2D warp slab took.
+    Returns ({kernel: {case: {"ms", "whole_ms"}}}, {case: {(kernel,
+    body): launches}})."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import squaring, warp
+    from pulpo_tpu_torch.parallel.spatial import splits
+
+    g = torch.Generator().manual_seed(211)
+    parts = lambda h: [(r * (h // SPACE), h // SPACE) for r in range(SPACE)]
+    fmt = lambda s: "x".join(map(str, s))
+    card = dev.type == "cuda"
+    times = {"squaring_2d": {}, "warp_2d": {}}
+    bodies = {}
+
+    def timed_slab(kernel, case, slab_fn, whole_fn):
+        if card:
+            times[kernel][case] = {"ms": graph_ms(slab_fn, 5), "whole_ms": graph_ms(whole_fn, 5)}
+
+    for i, size in enumerate((cfg.input_size, *cfg.level_sizes.values())):
+        if not splits(size[0], SPACE):
+            continue
+        v = smooth_field(rows, size, 2.0, 212 + i, dev, channels=2)
+        for scale in (1.0 / 2**cfg.nsteps, 1.0):
+            whole = squaring.squaring_step(v, scale=scale)
+            for z0, per in parts(size[0]):
+                case = f"slab {z0}+{per} of {fmt(size)} x{scale:g}"
+                got = squaring.squaring_step(v, scale=scale, z0=z0, depth=per)
+                checks.record("squaring_2d", f"{case} vs whole", got, whole[:, z0:z0 + per], 0.0)
+                checks.record("squaring_2d", f"{case} vs plain", got,
+                              squaring.squaring_step_plain(v * scale, z0, per), 0.0)
+                timed_slab("squaring_2d", case,
+                           lambda: squaring.squaring_step(v, scale=scale, z0=z0, depth=per),
+                           lambda: squaring.squaring_step(v, scale=scale))
+        del v, whole, got
+    warps = [(cfg.input_size, torch.rand((1, *cfg.input_size, 1), generator=g).to(dev))]
+    warps += [(cfg.level_sizes[l], torch.rand((1, *cfg.level_sizes[l], 1), generator=g).to(dev))
+              for l in range(1, cfg.latent_levels)]
+    warps += [(dshape[1:-1], onehot_volume(mshape, 220 + i, dev))
+              for i, (mshape, dshape) in enumerate(seg_shapes(seg_cfg, rows))]
+    for i, (size, moving) in enumerate(warps):
+        if not splits(size[0], SPACE):
+            continue
+        c = moving.shape[-1]
+        df = smooth_field(moving.shape[0] if c > 1 else rows, size, 3.0, 230 + i, dev,
+                          channels=2)
+        whole = warp.warp(moving, df)
+        for z0, per in parts(size[0]):
+            d = df[:, z0:z0 + per].contiguous()
+            case = f"C={c} {df.shape[0]} rows slab {z0}+{per} of {fmt(size)}"
+            warp.slab_bodies.clear()
+            got = warp.warp(moving, d, z0, size[0])
+            bodies[case] = dict(warp.slab_bodies)
+            log(f"slab bodies 2D {case}: {bodies[case]}")
+            checks.record("warp_2d", f"{case} vs whole", got, whole[:, z0:z0 + per], 0.0)
+            checks.record("warp_2d", f"{case} vs plain", got,
+                          warp.warp_plain(moving, d, z0, size[0]), 0.0)
+            del got
+            timed_slab("warp_2d", case, lambda: warp.warp(moving, d, z0, size[0]),
+                       lambda: warp.warp(moving, df))
+        del whole, df
+    del warps
+    if card:
+        torch.cuda.empty_cache()
+    for kernel, cases in times.items():
+        for case, r in cases.items():
+            log(f"time slab {kernel} {case}: {r['ms']:.5f} ms, the whole launch "
+                f"{r['whole_ms']:.5f} ms")
+    return times, bodies
+
+
 def fullres_forward_launches(cfg):
     """Launches of one full_res eval forward on the channels-first decode:
     a decode (`serving_launches`) and its encode's conv chains."""
@@ -3629,11 +3741,13 @@ def tp_launches(cfg):
     return {"conv_chain": units, "warp": K, "squaring": cfg.nsteps * K}
 
 
-def step_reference(cfg, batch, noise, dev):
+def step_reference(cfg, batch, noise, dev, on_host=False):
     """The unsharded step a sharded one is held to, on the card: its
     gradients (on the host) and losses, again (its run-to-run distance)
     and on x and y moved by one float32 ulp (its distance under a float32
-    rounding), its time and peak (cuDNN deterministic)."""
+    rounding), its time and peak (cuDNN deterministic). With `on_host`,
+    also the same step on the CPU (the plain versions: every sum in
+    another order) as a yardstick (`held_step`), "cpu"."""
     import torch
 
     from pulpo_tpu_torch.models import PULPoModel
@@ -3652,15 +3766,49 @@ def step_reference(cfg, batch, noise, dev):
         moved = {k: v * (1 + 2.0**-23) if k in ("x", "y") else v for k, v in batch.items()}
         ulp, _, ulp_m = compute_grads(model, moved, noise=noise)
         ulp = {n: v.cpu() for n, v in ulp.items()}
+        sticks = {}
+        if on_host:
+            host = PULPoModel(cfg, device="cpu")
+            host.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+            other, _, other_m = compute_grads(
+                host, {k: v.cpu() for k, v in batch.items()},
+                noise={l: v.cpu() for l, v in noise.items()})
+            sticks["cpu"] = (other, other_m)
+            del host
         del model, moved
     finally:
         torch.backends.cudnn.deterministic = deterministic
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     loss = lambda m: {k: float(m[k]) for k in LOSS_KEYS}
-    return {"s": seconds, "peak": peak, "grads": grads, "losses": loss(metrics),
-            "again": loss(again_m), "ulp": loss(ulp_m), "rr": grad_spread(again, grads)[0],
-            "moved": grad_spread(ulp, grads)[0]}
+    out = {"s": seconds, "peak": peak, "grads": grads, "losses": loss(metrics),
+           "again": loss(again_m), "ulp": loss(ulp_m), "rr": grad_spread(again, grads)[0],
+           "moved": grad_spread(ulp, grads)[0]}
+    out["yardsticks"] = {k: yardstick(out, g, loss(m)) for k, (g, m) in sticks.items()}
+    return out
+
+
+def yardstick(ref, grads, losses):
+    """How far another valid computation of `ref`'s step is from it: the
+    gradients' relative L2 distance and each loss's absolute one."""
+    return {"grad": grad_spread(grads, ref["grads"])[0],
+            "losses": {k: abs(losses[k] - ref["losses"][k]) for k in LOSS_KEYS}}
+
+
+def forward_reference(model, batch):
+    """The unsharded deterministic forward a sharded one is held to: its
+    level-0 final df and warped image (on the host), its time and peak,
+    and its distance (max-abs of scale) on inputs moved by one float32
+    ulp."""
+    outs, s, peak = peak_of(lambda: model.apply_eval(batch["x"], batch["y"],
+                                                     deterministic=True))
+    fwd = {"s": s, "peak": peak, "df": outs[6][0].cpu(), "warped": outs[7][0].cpu()}
+    del outs
+    moved = {k: v * (1 + 2.0**-23) for k, v in batch.items()}
+    outs = model.apply_eval(moved["x"], moved["y"], deterministic=True)
+    fwd["moved"] = {k: float((o[0].cpu() - fwd[k]).abs().max()) / float(fwd[k].abs().max())
+                    for k, o in (("df", outs[6]), ("warped", outs[7]))}
+    return fwd
 
 
 def spatial_references(dev, cfg, cfg_kw):
@@ -3679,19 +3827,8 @@ def spatial_references(dev, cfg, cfg_kw):
     from pulpo_tpu_torch.models import PULPoModel
 
     batch, noise = spatial_inputs(cfg, dev)
-    moved = {k: v * (1 + 2.0**-23) for k, v in batch.items()}
     out = {}
-
-    def forward(model):
-        outs, s, peak = peak_of(lambda: model.apply_eval(batch["x"], batch["y"],
-                                                         deterministic=True))
-        fwd = {"s": s, "peak": peak, "df": outs[6][0].cpu(), "warped": outs[7][0].cpu()}
-        del outs
-        outs = model.apply_eval(moved["x"], moved["y"], deterministic=True)
-        fwd["moved"] = {k: float((o[0].cpu() - fwd[k]).abs().max()) / float(fwd[k].abs().max())
-                        for k, o in (("df", outs[6]), ("warped", outs[7]))}
-        return fwd
-
+    forward = lambda model: forward_reference(model, batch)
     fcfg = PULPoConfig(**{**cfg_kw, **FULLRES_KW}, batch_size=1)
     for dtype, fname in zip(STEP_DTYPES, FULLRES_FORWARDS):
         model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
@@ -3709,7 +3846,7 @@ def spatial_references(dev, cfg, cfg_kw):
     for dtype in STEP_DTYPES:
         out[f"step {dtype}"] = step_reference(cfg.replace(compute_dtype=dtype), batch, noise, dev)
     out[FULLRES_STEP] = step_reference(fcfg.replace(compute_dtype="float32"), batch, noise, dev)
-    del batch, moved
+    del batch
     for name, kw, dtype, rows in SEG_STEPS:
         scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
         sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
@@ -3832,7 +3969,10 @@ def held_step(name, mine, theirs, dtype, failures):
     rounding's size, so it is held to twice the unsharded step's own
     distance under such perturbations: the larger of its run-to-run
     distance (#2's atomics) and its distance on inputs moved by one
-    float32 ulp, for the gradients (relative L2, at least 1e-5) and, in
+    float32 ulp, and where `theirs` holds them (its "yardsticks": phase
+    11g's), in f32 its distance from the same step on the CPU ("cpu"),
+    in bf16 from its f32 twin ("f32": its own bf16 rounding error), for
+    the gradients (relative L2, at least 1e-5) and, in
     bf16, each loss term (at least SPATIAL_LOSS_REL of it; the KL, which
     is computed in the compute dtype and whose slab partials each round
     to it, at least one ulp of that dtype; the total, the sum of its
@@ -3842,7 +3982,9 @@ def held_step(name, mine, theirs, dtype, failures):
 
     away = lambda a: {k: abs(a[k] - theirs["losses"][k]) for k in LOSS_KEYS}
     loss = away(mine["losses"])
-    own = {k: max(away(theirs["again"])[k], away(theirs["ulp"])[k]) for k in LOSS_KEYS}
+    sticks = theirs.get("yardsticks", {})
+    own = {k: max(away(theirs["again"])[k], away(theirs["ulp"])[k],
+                  *(y["losses"][k] for y in sticks.values())) for k in LOSS_KEYS}
     if dtype == "float32":
         allowed = {k: SPATIAL_LOSS_REL * abs(theirs["losses"][k]) for k in LOSS_KEYS}
     else:
@@ -3852,19 +3994,21 @@ def held_step(name, mine, theirs, dtype, failures):
         allowed = {k: max(2 * own[k], f * abs(theirs["losses"][k])) for k, f in floor.items()}
         allowed["total_loss"] = sum(allowed.values())
     grad, worst, leaf = grad_spread(mine["grads"], theirs["grads"])
-    spread = max(theirs["rr"], theirs["moved"])
+    spread = max(theirs["rr"], theirs["moved"], *(y["grad"] for y in sticks.values()))
     log(f"spatial {name}: losses {mine['losses']}, the unsharded step's {theirs['losses']}: "
         f"{loss} apart (allowed {allowed}; the unsharded step's own {own}); gradients "
         f"{grad:.3e} (relative L2; worst leaf {worst:.3e} of its scale, {leaf}); the "
         f"unsharded step's run-to-run {theirs['rr']:.3e}, on inputs moved by one float32 "
-        f"ulp {theirs['moved']:.3e}")
+        f"ulp {theirs['moved']:.3e}" + "".join(
+            f", {k} {y['grad']:.3e} (losses {y['losses']})" for k, y in sticks.items()))
     if any(loss[k] > allowed[k] for k in LOSS_KEYS):
         failures.append(f"{name}: losses {loss} apart, allowed {allowed}")
     if not grad <= max(2 * spread, 1e-5):
         failures.append(f"{name}: gradients {grad:.3e} against {spread:.3e}")
     return {"loss_abs": loss, "own_loss_abs": own, "allowed": allowed,
             "losses": theirs["losses"], "grad_rel": grad, "worst": worst, "leaf": leaf,
-            "rr": theirs["rr"], "moved": theirs["moved"]}
+            "rr": theirs["rr"], "moved": theirs["moved"],
+            "yardsticks": {k: y["grad"] for k, y in sticks.items()}}
 
 
 def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
@@ -4040,6 +4184,227 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
             "ref": {k: ref[k] for k in ("tp_s", "tp_peak")}
             | {n: {k: ref[n][k] for k in ("s", "peak")}
                for n in [*forwards, *steps, *segs, FULLRES_STEP]},
+            "ranks": [{p: {k: v for k, v in r[p].items()
+                           if k in ("s", "peak", "traffic", "bodies")} for p in phases}
+                      for r in ranks]}
+    counts = {p: add_counts(*(r[p]["counts"] for r in ranks)) for p in phases}
+    return counts, info
+
+
+def spatial_2d_steps(cfg_kw):
+    """(name, config, rows, launches of one step) of each SPATIAL_2D_STEPS
+    case: a 2D step's (`train_launches`), its Dice step's K more 2D warps
+    (each level's one-hot map; their gradients are the plain versions')."""
+    out = []
+    for name, kw, dtype, rows in SPATIAL_2D_STEPS:
+        scfg = seg_step_cfg(cfg_kw, kw, dtype, rows)
+        dice = {"warp_2d": scfg.latent_levels} if "dice" in scfg.recon_loss else {}
+        out.append((name, scfg, rows, add_counts(train_launches(scfg, 1), dice)))
+    return out
+
+
+def spatial_2d_worker(out_dir, accelerator, cfg_json) -> int:
+    """One rank of phase 11g, under torchrun (SPACE ranks over gloo on the
+    one card): `make_spatial_forward` of the 2D configuration at mesh (1,
+    SPACE) in bf16 and f32 (SPATIAL_2D_FORWARDS), then each sharded step
+    of SPATIAL_2D_STEPS (`spatial_compute_grads`), each with its launch
+    counts, time, peak, exchanges and the body each 2D warp slab took;
+    then one `make_spatial_train_step` update of the first step's model
+    (its loss, and whether the weights moved). Rank 0 keeps the
+    gradients; writes `out_dir/rank_<r>.pt`."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.kernels import warp
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.parallel import multihost, spatial
+    from pulpo_tpu_torch.train.step import Adam, TrainState
+
+    dev = torch.device("cuda" if accelerator == "gpu" else "cpu")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    multihost.initialize(device=dev, backend="gloo")
+    try:
+        rank = torch.distributed.get_rank()
+        cfg_kw = json.loads(cfg_json)
+        cfg = PULPoConfig(**cfg_kw, batch_size=1)
+        batch, _ = spatial_inputs(cfg, dev)
+        mesh = spatial.make_2d_mesh(1, SPACE)
+        block = {k: spatial.shard_volume(v, mesh) for k, v in batch.items()}
+        out = {"rank": rank}
+        fresh = lambda: (reset_counts(), spatial.reset_traffic())
+        record = lambda seconds, peak: {
+            "s": seconds, "peak": peak, "counts": read_counts(), "traffic": dict(spatial.traffic),
+            "bodies": {f"{k} {b}": n for (k, b), n in sorted(warp.slab_bodies.items())}}
+        for fname, dtype in zip(SPATIAL_2D_FORWARDS, STEP_DTYPES):
+            model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+            model.init(0)
+            fwd = spatial.make_spatial_forward(model, mesh)
+            (df, warped), seconds, peak = peak_of(lambda: fwd(block["x"], block["y"]), fresh)
+            out[fname] = {"df": df.cpu(), "warped": warped.cpu(), **record(seconds, peak)}
+            del df, warped, model
+        torch.backends.cudnn.deterministic = True
+        for i, (name, scfg, rows, _) in enumerate(spatial_2d_steps(cfg_kw)):
+            sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
+            sblock = {k: spatial.shard_volume(v, mesh).contiguous() for k, v in sbatch.items()}
+            del sbatch
+            model = PULPoModel(scfg, device=dev)
+            model.init(0)
+            compute = lambda: spatial.spatial_compute_grads(model, sblock, mesh, noise=snoise)
+            (grads, _, metrics), seconds, peak = peak_of(compute, fresh)
+            out[name] = {**record(seconds, peak),
+                         "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
+                         "grads": {n: v.cpu() for n, v in grads.items()} if rank == 0 else None}
+            del grads, metrics
+            if i == 0:  # the training step's entry point: one update
+                tx = Adam(scfg.lr)
+                before = {n: v.clone() for n, v in model.state_dict().items()}
+                state = TrainState(step=0, model=model, opt_state=tx.init(
+                    dict(model.module.named_parameters())), rng=torch.Generator().manual_seed(0))
+                state, step_metrics = spatial.make_spatial_train_step(model, tx, mesh)(
+                    state, sblock, noise=snoise)
+                out["train_step"] = {
+                    "total_loss": float(step_metrics["total_loss"]),
+                    "nan_flag": float(step_metrics["nan_flag"]),
+                    "moved": any(not torch.equal(v, before[n])
+                                 for n, v in model.state_dict().items())}
+                del state, before
+            del model, sblock
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = False
+        torch.save(out, pathlib.Path(out_dir) / f"rank_{rank}.pt")
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def run_spatial_2d(dev, run_root, cfg_kw=FLAGSHIP_2D):
+    """Phase 11g's runs: `flagship-2d` at full width and depth (160x192,
+    5 / 4 levels, n0 32, bf16) under `spatial.sharded` on SPACE torchrun
+    processes sharing the card (gloo), each 2D image sharded along H.
+    The forward (bf16 and f32) at mesh (1, SPACE), each rank's lines of
+    the level-0 final df and warped image against the unsharded forward's
+    in the same dtype, within twice the unsharded forward's own distance
+    on inputs moved by one float32 ulp (at least SPATIAL_FWD_REL in bf16,
+    SPATIAL_F32_REL in f32), as 11a; the step at B = 1 in bf16 and in
+    f32 and the 2D OASIS Dice step (36 one-hot classes, dice_factor 50)
+    in bf16 at B = 2 against the unsharded step (`held_step`), as 11b
+    and 11d, with one more yardstick of the unsharded step's own
+    distance under float rounding: in f32 the same step on the CPU
+    (every sum in another order), in bf16 its f32 twin (the same
+    network, batch and draws: its bf16 rounding error). The sharded step
+    sums in other orders (the slabs' convs take other cuDNN algorithms
+    than the whole image's, the BatchNorm moments and the weight
+    gradients are sums of the slabs'), which a one-ulp move of the f32
+    inputs does not exercise: it moves this step's gradients less than
+    the 3D flagship's (in bf16 the inputs' rounding absorbs most of it).
+    One
+    `make_spatial_train_step` update (finite loss, no NaN flag, the
+    weights moved); exact launch counts on each rank; each rank's time,
+    peak and exchanged bytes beside the unsharded run's. Every check runs
+    before any failure stops the phase."""
+    import torch
+
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.models import PULPoModel
+
+    cfg = PULPoConfig(**cfg_kw, batch_size=1)
+    batch, _ = spatial_inputs(cfg, dev)
+    ref = {}
+    for fname, dtype in zip(SPATIAL_2D_FORWARDS, STEP_DTYPES):
+        model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+        model.init(0)
+        ref[fname] = forward_reference(model, batch)
+        del model
+    del batch
+    steps = spatial_2d_steps(cfg_kw)
+    twins = {}  # a bf16 step's f32 twin (the same network, batch and draws)
+    for name, scfg, rows, _ in steps:
+        sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
+        f32 = scfg.compute_dtype == "float32"
+        ref[name] = step_reference(scfg, sbatch, snoise, dev, on_host=f32)
+        key = (rows, scfg.segs)
+        if f32:
+            twins[key] = ref[name]
+        elif key not in twins:
+            twins[key] = step_reference(scfg.replace(compute_dtype="float32"), sbatch, snoise, dev)
+        del sbatch
+    for name, scfg, rows, _ in steps:
+        if scfg.compute_dtype == "bfloat16":
+            twin = twins[(rows, scfg.segs)]
+            ref[name]["yardsticks"]["f32"] = yardstick(ref[name], twin["grads"], twin["losses"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = run_root / "ranks"
+    out.mkdir(parents=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(SPACE), os.path.abspath(__file__), "--spatial-2d-worker", str(out),
+           "gpu" if dev.type == "cuda" else "cpu", json.dumps(cfg_kw)]
+    proc, wall = timed(lambda: subprocess.run(cmd, capture_output=True, text=True, timeout=600))
+    if proc.returncode != 0:
+        raise SystemExit(f"spatial 2D: torchrun rc {proc.returncode}\n"
+                         f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    ranks = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(SPACE)]
+    per = cfg.input_size[0] // SPACE
+    names = [name for name, *_ in steps]
+    phases = [*SPATIAL_2D_FORWARDS, *names]
+    failures = []
+    errs = {f: {"df": 0.0, "warped": 0.0} for f in SPATIAL_2D_FORWARDS}
+    expected = {f: decode_launches(cfg, 1, 1) for f in SPATIAL_2D_FORWARDS}
+    expected.update({name: want for name, _, _, want in steps})
+    for r in ranks:
+        sl = slice(r["rank"] * per, (r["rank"] + 1) * per)
+        for fname in SPATIAL_2D_FORWARDS:
+            for k in ("df", "warped"):
+                want, got = ref[fname][k][:, sl].float(), r[fname][k].float()
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    failures.append(f"{fname} rank {r['rank']}: {k} {tuple(got.shape)}")
+                    continue
+                diff = (got - want).abs()
+                errs[fname][k] = max(errs[fname][k],
+                                     float(diff.max()) / float(ref[fname][k].abs().max()))
+                line = int(diff.amax(dim=(0, 2, 3)).argmax()) + sl.start
+                rel = float(diff.square().sum().sqrt() / want.square().sum().sqrt())
+                log(f"spatial {fname} rank {r['rank']}: {k} {float(diff.max()):.3e} at most "
+                    f"(line {line}), {rel:.3e} relative L2")
+        for phase, want in expected.items():
+            try:
+                expect(r[phase]["counts"], want, f"spatial {phase} rank {r['rank']}")
+            except SystemExit as e:
+                failures.append(str(e))
+        t = r["train_step"]
+        if not (math.isfinite(t["total_loss"]) and t["nan_flag"] == 0.0 and t["moved"]):
+            failures.append(f"2D make_spatial_train_step rank {r['rank']}: {t}")
+    for fname, dtype in zip(SPATIAL_2D_FORWARDS, STEP_DTYPES):
+        moved = ref[fname]["moved"]
+        floor = SPATIAL_FWD_REL if dtype == "bfloat16" else SPATIAL_F32_REL
+        log(f"spatial {fname}: {errs[fname]} of scale from the unsharded forward; the unsharded "
+            f"forward on inputs moved by one float32 ulp {moved}")
+        if any(errs[fname][k] > max(2 * moved[k], floor) for k in errs[fname]):
+            failures.append(f"{fname}: {errs[fname]} of scale from the unsharded forward (its "
+                            f"own distance under a one-ulp move of the inputs {moved})")
+    step_info = {}
+    for name, _, dtype, _ in SPATIAL_2D_STEPS:
+        if any(r[name]["losses"] != ranks[0][name]["losses"] for r in ranks):
+            failures.append(f"{name}: the ranks' losses differ")
+        step_info[name] = held_step(name, ranks[0][name], ref[name], dtype, failures)
+    for r in ranks:
+        for phase in phases:
+            x = r[phase]
+            nbytes = sum(v[1] for v in x["traffic"].values())
+            log(f"spatial {phase} rank {r['rank']}: {x['s']:.4f} s, peak {x['peak']:.3f} GiB "
+                f"(unsharded {ref[phase]['s']:.4f} s, {ref[phase]['peak']:.3f} GiB), exchanged "
+                f"{nbytes / 1e6:.2f} MB {x['traffic']}, slab bodies {x['bodies']}")
+        log(f"spatial 2D make_spatial_train_step rank {r['rank']}: {r['train_step']}")
+    log(f"spatial 2D (phase 11g): {SPACE} processes on one card (gloo), flagship-2d at "
+        f"{cfg.input_size}; sharded forwards {errs} of scale; {wall:.1f} s with start-up")
+    if failures:
+        raise SystemExit(f"spatial 2D failed: {failures}")
+    info = {"wall_s": wall, "errs": errs,
+            "fwd_moved": {f: ref[f]["moved"] for f in SPATIAL_2D_FORWARDS}, "steps": step_info,
+            "ref": {p: {k: ref[p][k] for k in ("s", "peak")} for p in phases},
             "ranks": [{p: {k: v for k, v in r[p].items()
                            if k in ("s", "peak", "traffic", "bodies")} for p in phases}
                       for r in ranks]}
@@ -4768,12 +5133,18 @@ def main() -> int:
         shutil.rmtree(dp_root, ignore_errors=True)
     torch.cuda.empty_cache()
     slab_times, slab_bodies = check_slab_kernels(dev, cfg, checks, PULPoConfig(**OASIS))
+    torch.cuda.empty_cache()
+    slab2d_times, slab2d_bodies = check_slab_kernels_2d(
+        dev, cfg_2d, checks, PULPoConfig(**dict(OASIS, input_size=cfg_2d.input_size)))
+    slab_times.update(slab2d_times)
     if checks.failures:
         raise SystemExit(f"slab checks failed: {checks.failures}")
     torch.cuda.empty_cache()
     sp_root = pathlib.Path(tempfile.mkdtemp(prefix="pulpo_spatial_"))
     try:
         sp_counts, sp = run_spatial_paths(dev, sp_root)
+        torch.cuda.empty_cache()
+        sp2d_counts, sp2d = run_spatial_2d(dev, sp_root / "2d")
     finally:
         shutil.rmtree(sp_root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4879,7 +5250,8 @@ def main() -> int:
                       for n, *_ in (*SEG_STEPS, *REMAT_STEPS)},
                    **{f"spatial_{n.replace(' ', '_')}": sp_counts[n][name]
                       for n in (*FULLRES_FORWARDS, FULLRES_STEP)},
-                   "tp_forward": sp_counts["tp"][name]}
+                   "tp_forward": sp_counts["tp"][name],
+                   **{f"spatial_{n.replace(' ', '_')}": c[name] for n, c in sp2d_counts.items()}}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -4977,6 +5349,15 @@ def main() -> int:
             f"rank {i}: " + ", ".join(f"{p} {x['s']:.3f} s / {x['peak']:.3f} GiB"
                                       for p, x in r.items())
             for i, r in enumerate(sp["ranks"])) + f"; {sp['wall_s']:.1f} s for {SPACE} processes")
+    log(f"slab bodies of the 2D warp (phase 11g; {card}): {slab2d_bodies}")
+    log(f"spatial 2D (phase 11g; {card}): unsharded " + ", ".join(
+            f"{n} {x['s']:.4f} s / {x['peak']:.3f} GiB" for n, x in sp2d["ref"].items())
+        + "; per rank " + "; ".join(
+            f"rank {i}: " + ", ".join(f"{p} {x['s']:.4f} s / {x['peak']:.3f} GiB"
+                                      for p, x in r.items())
+            for i, r in enumerate(sp2d["ranks"])) + f"; gradients " + ", ".join(
+            f"{n} {x['grad_rel']:.3e} (relative L2)" for n, x in sp2d["steps"].items())
+        + f"; {sp2d['wall_s']:.1f} s for {SPACE} processes")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -4991,4 +5372,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--spatial-worker"]:  # one rank of phases 11a-11f, under torchrun
         sys.exit(spatial_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--spatial-2d-worker"]:  # one rank of phase 11g, under torchrun
+        sys.exit(spatial_2d_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -47,7 +47,11 @@
 // source coordinate of a voxel of local plane z takes its global grid index
 // z + z0, with the axis-0 factor S_in / (zg - 1) passed in by the host, so
 // that a slab launch is bit-equal to the matching planes of the whole
-// launch. A whole launch has z0 = 0 and zg = Z.
+// launch. A whole launch has z0 = 0 and zg = Z. The slab runs along the
+// field's first spatial axis: in a 2D launch (Z = 1) that is the tile's y
+// (the slice's H), so there z0 and zg are the slab's first line and the
+// whole output's lines, a local line y taking its global index y + z0 (a
+// whole 2D launch: z0 = 0, zg = Y). slab_axis() names the axis.
 
 #pragma once
 
@@ -74,11 +78,25 @@ inline Plan read_plan(const int* q) {
   return Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], q[10], q[11]};
 }
 
-// Whether the plan's slab lies in its whole output of depth zg (Z the
-// slab's planes); a 2D launch (Z = 1 by its axes) takes no slab.
-inline bool valid_slab(const Plan& p, int Z, bool flat = false) {
-  if (flat) return p.z0 == 0 && p.zg == 1;
-  return p.z0 >= 0 && p.zg >= 1 && (long long)p.z0 + Z <= p.zg;
+// The extent of a launch's slab axis (gather::Plan's z0, zg): its planes
+// Z in 3D, its lines Y in 2D.
+template <int ND>
+__host__ __device__ constexpr int slab_axis(int Y, int Z) {
+  return ND == 3 ? Z : Y;
+}
+
+// Whether the plan's slab of E planes (2D: lines; slab_axis) lies in its
+// whole output of zg.
+inline bool valid_slab(const Plan& p, int E) {
+  return p.z0 >= 0 && p.zg >= 1 && (long long)p.z0 + E <= p.zg;
+}
+
+// A voxel's global (z, y) grid indices from its local ones in a slab
+// launch of ND spatial axes: the slab's offset on the first axis.
+template <int ND>
+__device__ __forceinline__ void global_zy(const Plan& p, int z, int y, int& zg, int& yg) {
+  zg = ND == 3 ? z + p.z0 : z;
+  yg = ND == 3 ? y : y + p.z0;
 }
 
 // Threads a voxel in a channel body: one a chunk, at most a warp's.

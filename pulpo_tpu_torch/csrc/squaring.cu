@@ -46,14 +46,15 @@
 // PyTorch version's rounding. The arithmetic per voxel is the first
 // version's; only the addressing changed.
 //
-// Slab launch (the depth-sharded model, parallel/spatial.py; 3D, either
-// layout): the input is the whole field, all-gathered along depth (its
-// depth is the plan's zg), and the launch computes the output planes z0 ..
-// z0 + S0 - 1 (S0 the slab's depth): a voxel reads its own displacement at
-// global plane z + z0 and gathers its corners from the whole field, so the
-// slab is bit-equal to the matching planes of the whole step. In the
-// channels-first layout a component's stride differs between the two: the
-// whole field's voxel count in the input, the slab's in the output.
+// Slab launch (the depth-sharded model, parallel/spatial.py; every
+// instantiation): the input is the whole field, all-gathered along its
+// first axis (depth, or a 2D field's H: the plan's zg), and the launch
+// computes the output planes (2D: lines) z0 .. z0 + S0 - 1 (S0 the slab's
+// extent): a voxel reads its own displacement at its global plane or line
+// and gathers its corners from the whole field, so the slab is bit-equal
+// to the matching planes of the whole step. In the channels-first layout
+// a component's stride differs between the two: the whole field's voxel
+// count in the input, the slab's in the output.
 //
 // Layouts: one kernel body, instantiated for the layout of component ch
 // of voxel v in row b:
@@ -84,14 +85,15 @@ squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
     s[a] = s3[a];
     f[a] = f3[a];
   }
-  // the output's (slab's) planes Z; the input's s[0] is the whole depth
+  // the output's (slab's) planes Z (2D: lines Y); the input's first axis,
+  // s[0], is the whole field's
   const int X = s[ND - 1], Y = s[ND - 2], Z = ND == 3 ? s[0] : 1;
-  if (ND == 3) s[0] = p.zg;
+  s[0] = p.zg;
   const gather::Tile t = gather::tile_of<1>(p);
   const int x = t.x0 + threadIdx.x, y = t.y0 + threadIdx.y, z = t.z0 + threadIdx.z;
   if (x >= X || y >= Y || z >= Z) return;
   const int n = X * Y * Z;
-  const int n_in = ND == 3 ? X * Y * p.zg : n;
+  const int n_in = n / gather::slab_axis<ND>(Y, Z) * p.zg;
   // a voxel's element offset along each axis, and a component's
   int st[ND];
   st[ND - 1] = CF ? 1 : ND;
@@ -101,10 +103,11 @@ squaring_kernel(const float* __restrict__ vin, float* __restrict__ vout,
   const int cs_in = CF ? n_in : 1, cs_out = CF ? n : 1;
   const float* row = vin + (long long)blockIdx.z * ND * n_in;
   const int v = (z * Y + y) * X + x;
-  const int zg = z + p.z0;  // the voxel's plane in the whole field
-  const int vg = (zg * Y + y) * X + x;
+  int zg, yg;  // the voxel's plane and line in the whole field
+  gather::global_zy<ND>(p, z, y, zg, yg);
+  const int vg = (zg * Y + yg) * X + x;
 
-  const int g3[3] = {zg, y, x};
+  const int g3[3] = {zg, yg, x};
   float d[ND], c[ND];
 #pragma unroll
   for (int a = 0; a < ND; ++a) {
@@ -135,9 +138,10 @@ int launch(const void* vin, void* vout, int B, int S0, int S1, int S2,
   const long long n = (long long)X * Y * Z;
   if (B == 0 || n == 0) return 0;
   const gather::Plan p = gather::read_plan(plan);
-  // a slab only on a 3D field; its input row is the whole field's
-  if (p.v != 1 || !gather::valid_slab(p, Z, ND == 2) ||
-      !gather::valid(p, X, Y, Z, 1, B, n / Z * p.zg * ND))
+  // a slab's input row is the whole field's
+  const int E = gather::slab_axis<ND>(Y, Z);
+  if (p.v != 1 || !gather::valid_slab(p, E) ||
+      !gather::valid(p, X, Y, Z, 1, B, n / E * p.zg * ND))
     return (int)cudaErrorInvalidValue;
   squaring_kernel<CF, ND><<<gather::grid(p, B), gather::block(p), 0, (cudaStream_t)stream>>>(
       (const float*)vin, (float*)vout, S0, S1, S2, f0, f1, f2, scale, p);
@@ -167,7 +171,8 @@ extern "C" int pulpo_squaring_step_cf(const void* vin, void* vout, int B,
 }
 
 // The same step on a 2D channels-last field (B, S0, S1, 2): the 4
-// bilinear corners of each pixel.
+// bilinear corners of each pixel; a slab as above along S0 (vin (B, zg,
+// S1, 2), vout (B, S0, S1, 2), f0 = zg / (zg - 1)).
 extern "C" int pulpo_squaring_step_2d(const void* vin, void* vout, int B,
                                       int S0, int S1, float f0, float f1,
                                       float scale, const int* plan, void* stream) {

@@ -11,8 +11,8 @@
 //   - pulpo_tpu/kernels/warp_halo.py:1560 _warp_halo_pallas_cf with its
 //     tier ladder, sparse repair and terminal fallback (warp_halo.py:
 //     1560-1685, 1722-1736): the channels-first instantiation;
-//   - pulpo_tpu/ops/warp.py:154 (the 2D warp, an XLA gather: "2D fall
-//     through to the gather path"): the 2D instantiation.
+//   - pulpo_tpu/ops/warp.py:56 warp_image (the 2D warp, an XLA gather,
+//     which warp_image_auto at :154 takes in 2D): the 2D instantiation.
 // The TPU has no vector gather, hence its halo stencil, tiers and
 // fallbacks; a gather here is exact at any displacement and input size.
 //
@@ -81,7 +81,8 @@
 // (the plan's), the moving volume is whole (all-gathered along depth): a
 // voxel's source coordinate takes its global plane z + z0, and the host
 // passes f0 = I0 / (zg - 1), so a slab is bit-equal to the matching planes
-// of the whole warp.
+// of the whole warp. In 2D the slab runs along the first axis, H: lines
+// z0 .. z0 + O0 - 1 of zg, in every body (gather.cuh: global_zy).
 //
 // Layouts: one kernel body, instantiated for the layout (n = voxels of a
 // row):
@@ -195,7 +196,9 @@ warp_kernel(const float* __restrict__ mov, const float* __restrict__ df, float* 
       if (k + 1 < nrows && valid > 0)
         load_df<CF, ND, 1>(df + (r + B) * ND * n_out, n_out, line + xq, valid, dq);
       if (valid == 0) continue;
-      const int g3[3] = {z + p.z0, y, xq};
+      int gz, gy;
+      gather::global_zy<ND>(p, z, y, gz, gy);
+      const int g3[3] = {gz, gy, xq};
       float c[ND];
 #pragma unroll
       for (int a = 0; a < ND; ++a) c[a] = gather::src_coord(g3[a + 3 - ND], d[a], f[a], s_in[a]);
@@ -219,7 +222,9 @@ warp_kernel(const float* __restrict__ mov, const float* __restrict__ df, float* 
           const int lx = i + p.tx * j;
           const int x = t.x0 + lx;
           if (!line_ok || x >= X) continue;
-          const int g3[3] = {z + p.z0, y, x};
+          int gz, gy;
+          gather::global_zy<ND>(p, z, y, gz, gy);
+          const int g3[3] = {gz, gy, x};
           float c[ND];
 #pragma unroll
           for (int a = 0; a < ND; ++a)
@@ -321,7 +326,9 @@ warp_channels_kernel(const float* __restrict__ mov, const float* __restrict__ df
       const int y = t.y0 + ly;
       if (y >= Y) break;
       const int v = (z * Y + y) * X + x;
-      const int g3[3] = {z + p.z0, y, x};
+      int gz, gy;
+      gather::global_zy<ND>(p, z, y, gz, gy);
+      const int g3[3] = {gz, gy, x};
       for (int k = 0; k < nrows; ++k) {
         const long long rv = (row0 + (long long)B * k) * n_out + v;  // the output voxel
         float c[ND];
@@ -371,7 +378,7 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
   const long long widest = n_out * (C > ND ? C : ND);
   if ((p.v == 4 && !CF) || (p.ch != 0 && CF) ||
       (p.ch == 4 && !(gather::aligned16(mov) && gather::aligned16(out))) ||
-      !gather::valid_slab(p, Z, ND == 2) ||
+      !gather::valid_slab(p, gather::slab_axis<ND>(Y, Z)) ||
       !gather::valid(p, X, Y, Z, B_df / B, B, widest > n_in * C ? widest : n_in * C, C))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = gather::grid(p, B), block = gather::block(p);
@@ -406,7 +413,8 @@ int launch(const void* mov, const void* df, void* out, int B, int B_df, int C,
 
 // plan: the launch's tile plan, 12 ints (gather::Plan) from
 // kernels/gather.py:warp_plan; with a slab (z0, zg) the df and output are
-// O0 planes of a whole output of depth zg, and f0 = I0 / (zg - 1).
+// O0 planes of a whole output of depth zg, and f0 = I0 / (zg - 1) (in 2D
+// below: O0 lines of zg).
 extern "C" int pulpo_warp(const void* mov, const void* df, void* out,
                           int B, int B_df, int C,
                           int I0, int I1, int I2, int O0, int O1, int O2,

@@ -30,6 +30,11 @@ parallel/spatial.py) computes output planes z0 .. z0 + Z - 1 of a whole
 output of depth zg, its voxels' source coordinates taken at their
 global plane; a whole launch has z0 = 0 and zg = Z. The squaring step
 and its backward then read (and the backward writes) the whole field.
+The same two ints run along the field's first spatial axis in every
+launch: in a 2D launch that is H, the plan's y (z = 1), so there they
+are the slab's first line and the whole field's lines (a whole 2D
+launch: z0 = 0, zg = Y), and the step reads the whole field of zg
+lines.
 
 The squaring backward's plan (`squaring_bwd_plan`) is the same 12 ints
 read another way: a block of tx x ty threads, one source column each,
@@ -147,17 +152,17 @@ def warp_plan(out_spatial, b_df: int, movings: int, cf: bool = False,
     z, y, x = axes(out_spatial)
     ch = 0 if cf or c < CHANNELS_FROM else (4 if c % 4 == 0 and is_aligned else 1)
     if ch:
-        return channel_plan(x, y, z, b_df // movings, movings, c, ch)
+        return whole(channel_plan(x, y, z, b_df // movings, movings, c, ch), out_spatial)
     if v is None:
         v = 4 if cf and is_aligned and b_df * x * y * z >= WARP_CF_QUADS_FROM else 1
-    return make_plan(x, y, z, b_df // movings, movings, v)
+    return whole(make_plan(x, y, z, b_df // movings, movings, v), out_spatial)
 
 
 def squaring_plan(spatial, rows: int) -> dict:
     """The plan of `pulpo_squaring_step{,_cf,_2d}` on `rows` fields over
     `spatial`: one voxel a thread."""
     z, y, x = axes(spatial)
-    return make_plan(x, y, z, 1, rows, 1)
+    return whole(make_plan(x, y, z, 1, rows, 1), spatial)
 
 
 def squaring_bwd_plan(spatial, rows: int) -> dict:
@@ -173,9 +178,15 @@ def squaring_bwd_plan(spatial, rows: int) -> dict:
     return dict(plan, tz=tz, tiles_z=cdiv(z, tz), zg=z)
 
 
+def whole(plan: dict, spatial) -> dict:
+    """`plan` as the whole launch over `spatial`: z0 = 0 and zg its first
+    axis's extent (a volume's depth, a 2D field's lines)."""
+    return dict(plan, z0=0, zg=int(tuple(spatial)[0]))
+
+
 def slab(plan: dict, z0: int, zg: int) -> dict:
-    """`plan` (over a slab's planes) as a slab launch: output planes z0 ..
-    of a whole output of depth `zg`."""
+    """`plan` (over a slab's planes, or a 2D slab's lines) as a slab
+    launch: output planes (lines) z0 .. of a whole output of `zg`."""
     return dict(plan, z0=int(z0), zg=int(zg))
 
 

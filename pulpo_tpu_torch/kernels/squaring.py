@@ -46,16 +46,18 @@ The step takes each thread's voxel from a tile of the field
 (`csrc/gather.cuh`) by the plan that `tile_plan` computes and the launch
 passes in (`kernels/gather.py`).
 
-Slab launches (the depth-sharded model, parallel/spatial.py; 3D):
+Slab launches (the depth-sharded model, parallel/spatial.py):
 `squaring_step(whole, z0=, depth=)` reads the whole field (all-gathered
-along depth) and writes planes z0 .. z0 + depth - 1 of the step,
-bit-equal to those planes of the whole step; `squaring_step_cf(whole_cf,
-z0=, depth=)` the same on a channels-first field (B, 3, zg, S1, S2) into
-a contiguous (B, 3, depth, S1, S2) slab (the sharded full_res eval
-decode; forward only, as the whole CF step); `squaring_step_bwd(whole,
-g_slab, z0)` takes the cotangent of a channels-last slab and returns its
-share of the whole field's cotangent (the caller sums the shares over
-the slabs). The plain versions take the same.
+along its first spatial axis: depth, or H of a 2D field) and writes
+planes (2D: lines) z0 .. z0 + depth - 1 of the step, bit-equal to those
+of the whole step (forward only in 2D, as the whole 2D step);
+`squaring_step_cf(whole_cf, z0=, depth=)` the same on a channels-first
+field (B, 3, zg, S1, S2) into a contiguous (B, 3, depth, S1, S2) slab
+(the sharded full_res eval decode; forward only, as the whole CF step);
+`squaring_step_bwd(whole, g_slab, z0)` takes the cotangent of a 3D
+channels-last slab and returns its share of the whole field's cotangent
+(the caller sums the shares over the slabs). The plain versions take
+the same.
 
 Layout: (B, *S, nd) channels-last float32 (nd = 3, or 2 in 2D); the CF
 functions (B, 3, *S).
@@ -175,8 +177,8 @@ def _launch_step(entry: str, vec: torch.Tensor, out, scale: float, cf: bool,
     shape = tuple(vec.shape)
     zaxis = 2 if cf else 1
     if depth is not None:
-        if ndims != 3 or not (0 <= z0 and z0 + depth <= vec.shape[zaxis]):
-            raise ValueError(f"a slab of {depth} planes from {z0} takes a 3D field of at "
+        if not 0 <= z0 <= vec.shape[zaxis] - depth:
+            raise ValueError(f"a slab of {depth} planes from {z0} takes a field of at "
                              f"least {z0 + depth} planes, got {shape}")
         shape = (*shape[:zaxis], depth, *shape[zaxis + 1:])
     if out is None:
@@ -206,13 +208,15 @@ def squaring_step(vec: torch.Tensor, out: torch.Tensor | None = None,
     """One step ``v + warp(v, v)`` with ``v = scale * vec`` on a 3D
     (B, S0, S1, S2, 3) or 2D (B, S0, S1, 2) field: the CUDA kernel for a
     tensor on the card, the plain version on the CPU. `scale` must be a
-    power of two (it is then exact). With `depth` (3D), the slab launch:
-    planes z0 .. z0 + depth - 1 of the step of the whole field `vec`."""
+    power of two (it is then exact). With `depth`, the slab launch: planes
+    (in 2D lines) z0 .. z0 + depth - 1 of the step of the whole field
+    `vec`."""
     if vec.device.type == "cpu":
         return squaring_step_plain(vec * scale if scale != 1.0 else vec, z0, depth)
     global launches, launches_2d
     if vec.dim() == 4:
-        out = _launch_step("pulpo_squaring_step_2d", vec, out, scale, cf=False, ndims=2)
+        out = _launch_step("pulpo_squaring_step_2d", vec, out, scale, cf=False, ndims=2, z0=z0,
+                           depth=depth)
         launches_2d += 1
         return out
     out = _launch_step("pulpo_squaring_step", vec, out, scale, cf=False, z0=z0, depth=depth)

@@ -34,9 +34,10 @@ ladder, sparse repair and terminal fallback (warp_halo.py:1560-1685,
 channels-last kernel. Like the JAX package's CF warp it serves the eval
 decode; a gradient through it replays the plain version (`plain_vjp`).
 
-In 2D (`warp_2d`, the 2D instantiation of `csrc/warp.cu`, counted in
+In 2D (the 2D instantiation of `csrc/warp.cu`, counted in
 `launches_2d`) the warp is the JAX package's XLA gather
-(pulpo_tpu/ops/warp.py:154-171): no Pallas kernel computes it, but a
+(pulpo_tpu/ops/warp.py:56 `warp_image`, which `warp_image_auto` at
+:154-171 takes in 2D): no Pallas kernel computes it, but a
 kernel does here, so that no plain version runs on the card's forward
 path. Its df- and moving-cotangents replay the plain version
 (`plain_vjp`), as the JAX package's 2D gradient is XLA's VJP;
@@ -60,10 +61,13 @@ Slab launches (the depth-sharded model, parallel/spatial.py): `warp`,
 and the output) are planes z0 .. of a whole output of depth zg, the
 moving volume whole; each voxel's source coordinate takes its global
 plane and the axis-0 factor S_in / (zg - 1), so a slab is bit-equal to
-the matching planes of the whole launch (`gather.slab`). Each 3D slab
-launch records the body it took in `slab_bodies` (the forward's channel
-body of 16-byte quads or of single channels, or its voxel body, from its
-plan's `ch`; the df-cotangent's `<1>`, `<36>` or `<0>`, from the body
+the matching planes of the whole launch (`gather.slab`). A 2D `warp`
+takes the same slab along its first axis, H (lines z0 .. of zg), in its
+voxel body (C = 1) and its channel body (C = 36); its gradient stays the
+plain slab's (`plain_vjp`). Each slab launch records the body it took
+in `slab_bodies` (the forward's channel body of 16-byte quads or of
+single channels, or its voxel body, from its plan's `ch`, under "warp"
+or "warp_2d"; the df-cotangent's `<1>`, `<36>` or `<0>`, from the body
 `dfgrad_body` passes to its launch): a slab view off a 16-byte boundary
 takes the single-channel body, right but slower.
 
@@ -89,9 +93,9 @@ mgrad_launches = 0   # kernel launches of `warp_mgrad`
 cf_launches = 0      # kernel launches of `warp_cf`
 
 
-# slab launches by (kernel, body) since `reset_count`: ("warp", "ch4" | "ch1"
-# | "voxel"), ("warp_dfgrad", "<1>" | "<36>" | "<0>"), ("warp_cf", "quad" |
-# "voxel")
+# slab launches by (kernel, body) since `reset_count`: ("warp" or, in 2D,
+# "warp_2d", "ch4" | "ch1" | "voxel"), ("warp_dfgrad", "<1>" | "<36>" |
+# "<0>"), ("warp_cf", "quad" | "voxel")
 slab_bodies: dict[tuple[str, str], int] = {}
 
 
@@ -366,15 +370,14 @@ def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool
     [body,] [plan,] stream)` of kernel library `lib`, one I, O and f per
     spatial axis (the forward kernel and the df-cotangent, which walks the
     same output space, also take a tile plan: `plan`, whose zg is then the
-    whole output's depth for f0; the df-cotangent its `body`); `cf`: the
+    whole output's first axis for f0; the df-cotangent its `body`); `cf`: the
     shapes are channels-first."""
     b, c, s_in, s_out = _shapes(moving_shape, df.shape, cf)
     nd = len(s_in)
     whole = list(s_out)
     if plan is not None:
         check_rows(moving_shape, df.shape, cf)
-        if nd == 3:
-            whole[0] = plan["zg"]
+        whole[0] = plan["zg"]
     plan = [] if plan is None else [gather.plan_arg(plan)]
     body = [] if body is None else [body]
     f = [_factor(s_in[i], whole[i]) for i in range(nd)]
@@ -390,13 +393,13 @@ def _launch(lib: str, entry: str, ptrs, moving_shape, df: torch.Tensor, cf: bool
 
 
 def _slab(plan: dict, df: torch.Tensor, z0: int, zg) -> dict:
-    """`plan` as the slab launch of planes z0 .. of depth zg (whole
+    """`plan` as the slab launch of planes (2D: lines) z0 .. of zg (whole
     without zg)."""
     if zg is None:
         return plan
-    if df.dim() != 5 or not 0 <= z0 <= zg - df.shape[1]:
-        raise ValueError(f"a slab of planes {z0}.. of a depth of {zg} takes a 3D df of at most "
-                         f"{zg - z0} planes, got {tuple(df.shape)}")
+    if not 0 <= z0 <= zg - df.shape[1]:
+        raise ValueError(f"a slab from {z0} of an axis of {zg} takes a df of at most "
+                         f"{zg - z0} along it, got {tuple(df.shape)}")
     return gather.slab(plan, z0, zg)
 
 
@@ -416,7 +419,8 @@ def _warp_kernel(moving: torch.Tensor, df: torch.Tensor, z0: int = 0,
             [moving.data_ptr(), df.data_ptr(), out.data_ptr()], moving.shape, df,
             plan=_slab(plan, df, z0, zg))
     if zg is not None:
-        _record_slab("warp", f"ch{plan['ch']}" if plan["ch"] else "voxel")
+        _record_slab("warp_2d" if nd == 2 else "warp",
+                     f"ch{plan['ch']}" if plan["ch"] else "voxel")
     if nd == 2:
         launches_2d += 1
     else:
@@ -535,9 +539,8 @@ def warp(moving: torch.Tensor, df: torch.Tensor, z0: int = 0, zg=None) -> torch.
     tensors on the card, the plain versions for tensors on the CPU. A 2D
     warp (df (B_df, S0, S1, 2)) is differentiated as its plain version.
     With `zg`, a slab launch: df is planes z0 .. of a whole output of depth
-    zg (3D only)."""
+    zg (in 2D: lines z0 .. of zg)."""
     if df.shape[-1] == 2:
-        if zg is not None:
-            raise ValueError("a 2D warp takes no slab")
-        return plain_vjp.apply(_warp_kernel, warp_plain, moving, df)
+        return plain_vjp.apply(lambda m, d: _warp_kernel(m, d, z0, zg),
+                               lambda m, d: warp_plain(m, d, z0, zg), moving, df)
     return Warp.apply(moving, df, z0, zg)

@@ -21,8 +21,9 @@ posterior head, conv chain, narrow conv) are 3D: a 2D network runs the
 library convs, as the JAX package runs XLA's there.
 
 Under spatial sharding (parallel/spatial.py) a conv runs on this
-rank's depth slab with a halo, and the fused eval chains on a halo as
-deep as the chain (`spatial.conv`, `spatial.on_halo`); under the
+rank's depth slab (a 2D conv on its slab of lines) with a halo, and the
+fused eval chains on a halo as deep as the chain (`spatial.conv`,
+`spatial.on_halo`); under the
 output-channel split (parallel/tp.py) each eval unit computes its
 channel slice and the channels are all-gathered before the next conv
 (`tp.sequence`, `tp.velocity`).

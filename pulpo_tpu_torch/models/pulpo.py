@@ -60,7 +60,10 @@ posterior head runs on a 4-plane halo. At full_res the channels-first
 eval decode integrates each level's slab by slab launches of #3 and
 warps the full-res image by one slab launch of #8 over all levels' dfs;
 the train step stays channels-last, its batched warp a slab launch of
-#4 with L df rows a moving row (#6 in its backward).
+#4 with L df rows a moving row (#6 in its backward). A 2D network is
+sharded along H the same way: its library convs on a 1-line halo, its
+integration and warps by slab launches of the 2D kernels (whose
+gradients are the plain versions'); it launches no fused eval kernel.
 
 Remat under sharding equals the plain sharded step, as on one device:
 a checkpointed region's recomputation is a function of the region's

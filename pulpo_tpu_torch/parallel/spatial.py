@@ -17,9 +17,13 @@ consults `BatchNorm.synced`), and do each exchange themselves:
   slabs of 5 planes with odd boundaries) runs REPLICATED: each rank of the
   space column holds and computes the whole level, and a tensor enters it
   by an all-gather and leaves it by taking the rank's slab. This is a
-  stated design, not a fallback. Which level a tensor belongs to is read
-  from its (H, W) plane, unique to a level of the pyramid (`sharded`
-  refuses a configuration where it is not);
+  stated design, not a fallback. The 2D configuration is sharded the same
+  way along its first spatial axis, H (the JAX P("data", "space") of a
+  (B, H, W, C) image): a "plane" of a slice is one of its lines, every op
+  below takes 4-dim tensors as 5-dim ones, and the 2D kernels take the
+  same slab launches. Which level a tensor belongs to is read from its
+  plane ((H, W) of a volume, (W,) of a slice), unique to a level of the
+  pyramid (`sharded` refuses a configuration where it is not);
 - k = 3 convs (`conv`) run on the slab plus a 1-plane halo on each side
   toward the neighbours (`halo`; at the volume's own ends none, where the
   conv's zero padding is the volume's), cropped to the slab; the fused
@@ -36,7 +40,10 @@ consults `BatchNorm.synced`), and do each exchange themselves:
   along depth and the rank computes its own output slab by a slab launch
   (`kernels/gather.py:slab`); the squaring backward's share of the whole
   field's cotangent is summed over the space column, and each rank keeps
-  its slab (the backward of the all-gather). The channels-first fields of
+  its slab (the backward of the all-gather). A 2D integration launches
+  the 2D step's slabs and, as the whole 2D one, is differentiated as its
+  plain version (the plain slab steps on differentiable gathers; no
+  backward kernel), its warp likewise. The channels-first fields of
   the full_res eval decode (B, 3, d, H, W) are read by their plane too
   (`layout(x, cf=True)`) and gathered along their depth axis, 2:
   `integrate_svf_cf` slab-launches the CF step (#3) on each step's
@@ -91,9 +98,6 @@ the integration's per-step gathers, `BatchNorm.synced`'s moments), the
 same collectives in the same order on every rank; `traffic` counts them
 apart ("<kind>_recomputed"). Why a remat step equals the plain sharded
 step: models/pulpo.py's module doc.
-
-Out of scope: under `sharded`, the 2D configuration raises
-NotImplementedError (ROADMAP Queue 1).
 
 `make_spatial_forward(model, mesh)` returns this rank's slab of the
 level-0 final df and warped image; `make_spatial_train_step(model, tx,
@@ -191,7 +195,7 @@ def with_spatial_constraint(x, mesh: Mesh2D):
 @dataclasses.dataclass
 class _State:
     mesh: Mesh2D
-    grids: dict  # (H, W) of a level -> its depth
+    grids: dict  # the plane of a level ((H, W), or (W,) in 2D) -> its depth
 
 
 _state: _State | None = None
@@ -204,17 +208,11 @@ def active() -> bool:
     return _state is not None and not _suspended
 
 
-def _refuse(cfg) -> None:
-    if cfg.ndims != 3:
-        raise NotImplementedError(f"the 2D configuration: {QUEUE}")
-
-
 @contextlib.contextmanager
 def sharded(mesh: Mesh2D, cfg):
     """The ops inside run on this rank's block of every volume of the
     model of `cfg` (module doc)."""
     global _state
-    _refuse(cfg)
     grids: dict = {}
     for size in cfg.global_level_sizes.values():
         plane = tuple(size[1:])
@@ -277,14 +275,17 @@ def part(depth: int) -> tuple[int, int]:
 
 
 def layout(x: torch.Tensor, cf: bool = False) -> tuple[int, bool]:
-    """(whole depth, split) of a channels-last (B, d, H, W, C) tensor of
-    the sharded model, or with `cf` of a channels-first (B, C, d, H, W)
-    one, read from its plane; checks its planes."""
+    """(whole depth, split) of a channels-last (B, d, *plane, C) tensor of
+    the sharded model, or with `cf` of a channels-first (B, C, d, *plane)
+    one, read from its plane ((H, W) of a volume, (W,) of a 2D slice);
+    checks its planes."""
     z = 2 if cf else 1
-    plane = tuple(x.shape[z + 1:z + 3])
-    depth = _state.grids.get(plane) if x.dim() == 5 else None
+    nd = len(next(iter(_state.grids))) + 1  # the model's spatial axes
+    plane = tuple(x.shape[z + 1:z + nd])
+    depth = _state.grids.get(plane) if x.dim() == nd + 2 else None
     if depth is None:
-        what = "(B, C, d, H, W)" if cf else "(B, d, H, W, C)"
+        axes = ", ".join(["d", "H", "W"][3 - nd:])
+        what = f"(B, C, {axes})" if cf else f"(B, {axes}, C)"
         raise ValueError(f"no level of the sharded model has a {what} tensor of shape "
                          f"{tuple(x.shape)}")
     sp = split(depth)
@@ -590,7 +591,7 @@ def resize(x: torch.Tensor, out_size, scales=None) -> torch.Tensor:
             x = _rows(xh[:, b0 - start:b1 - start], m[o0:o0 + per_out, b0:b1],
                       key + (o0, b0, b1))
     with suspended():
-        return resize_linear(x, tuple(out_size[1:]), spatial_axes=(2, 3),
+        return resize_linear(x, tuple(out_size[1:]), spatial_axes=tuple(range(2, x.dim() - 1)),
                              scales=None if scales is None else tuple(scales[1:]))
 
 
@@ -644,10 +645,16 @@ class _IntegrateSlab(torch.autograd.Function):
 
 def integrate_svf(vec: torch.Tensor, nsteps: int) -> torch.Tensor:
     """`ops/warp.integrate_svf` on this rank's slab of a split field; a
-    replicated field integrates whole."""
+    replicated field integrates whole. A 2D field (B, h, W, 2) runs the
+    slab launches of the 2D step (#1's 2D arm) as `integrate_svf_cf`
+    runs the CF step's: its gradient is the plain version's, as the
+    whole 2D integration's is."""
     depth, sp = layout(vec)
     if not sp or nsteps == 0:
         return squaring.integrate_svf(vec, nsteps)
+    if vec.shape[-1] == 2:
+        return _integrate_gathered(vec, nsteps, part(depth)[0], 1, squaring.squaring_step,
+                                   squaring.squaring_step_plain)
     return _IntegrateSlab.apply(vec, nsteps, part(depth)[0])
 
 
@@ -661,26 +668,36 @@ def integrate_svf_cf(vec_cf: torch.Tensor, nsteps: int) -> torch.Tensor:
     depth, sp = layout(vec_cf, cf=True)
     if not sp or nsteps == 0:
         return squaring.integrate_svf_cf(vec_cf, nsteps)
-    z0, planes = part(depth)
+    return _integrate_gathered(vec_cf, nsteps, part(depth)[0], 2, squaring.squaring_step_cf,
+                               squaring.squaring_step_cf_plain)
+
+
+def _integrate_gathered(vec: torch.Tensor, nsteps: int, z0: int, dim: int, step,
+                        step_plain) -> torch.Tensor:
+    """Scaling and squaring of this rank's slab (from z0, along axis
+    `dim`) of a split field: each step all-gathers the field and launches
+    `step`'s slab; differentiated as `step_plain`'s slabs on
+    differentiable gathers (`plain_vjp`), which run alone on the CPU."""
+    planes = vec.shape[dim]
     scale = 1.0 / (2**nsteps)
 
     def plain(v):
         for k in range(nsteps):
-            whole = _GatherDepth.apply(v, "gather", 2)
-            v = squaring.squaring_step_cf_plain(whole * scale if k == 0 else whole, z0, planes)
+            whole = _GatherDepth.apply(v, "gather", dim)
+            v = step_plain(whole * scale if k == 0 else whole, z0, planes)
         return v
 
-    if vec_cf.device.type == "cpu":
-        return plain(vec_cf)
+    if vec.device.type == "cpu":
+        return plain(vec)
 
     def kernel(v):
         mesh = _space()
         for k in range(nsteps):
-            v = squaring.squaring_step_cf(_gather_depth(v.contiguous(), mesh, dim=2),
-                                          scale=scale if k == 0 else 1.0, z0=z0, depth=planes)
+            v = step(_gather_depth(v.contiguous(), mesh, dim=dim),
+                     scale=scale if k == 0 else 1.0, z0=z0, depth=planes)
         return v
 
-    return plain_vjp.apply(kernel, plain, vec_cf)
+    return plain_vjp.apply(kernel, plain, vec)
 
 
 def batched_level_warp_cf(moving: torch.Tensor, stacked_cf: torch.Tensor) -> torch.Tensor:
@@ -698,10 +715,10 @@ def batched_level_warp_cf(moving: torch.Tensor, stacked_cf: torch.Tensor) -> tor
 
 def whole_draw_shape(shape, samples: int) -> tuple[int, ...]:
     """The per-sample shape of the whole draw (global batch, whole depth)
-    of which a level's draws of local `shape` (S * B, d, H, W, z) are a
-    block."""
+    of which a level's draws of local `shape` (S * B, d, *plane, z) are
+    a block."""
     b = shape[0] // samples * _state.mesh.shape[0]
-    depth = _state.grids[tuple(shape[2:4])]
+    depth = _state.grids[tuple(shape[2:-1])]
     return (b, depth, *shape[2:])
 
 

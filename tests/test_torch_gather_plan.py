@@ -22,7 +22,10 @@ written once, 16-byte chunks only where aligned; the df-cotangent keeps
 the voxel plan at every C, walked at the same shapes.
 A slab launch (the depth-sharded model: `gather.slab`, the plan's z0
 and zg) is walked as the kernels map it: each local plane to its global
-plane z + z0, every plane of the slab once and none outside; and the
+plane z + z0, every plane of the slab once and none outside; a 2D slab
+runs along H, the plan's y, each local line to its global line y + z0
+(the voxel body, the channel body at C = 36 and the step, at the
+flagship-2d levels that split); and the
 plain versions of the warp, its df-cotangent, the squaring step and its
 backward at an offset are the matching slices of the whole (the step
 backward's share: the whole backward of the slab's cotangent).
@@ -136,12 +139,14 @@ def _path_shapes():
     return out
 
 
-def _admissible(plan, size, rows_per_moving, movings, row_elements):
+def _admissible(plan, size, rows_per_moving, movings, row_elements, flat=False):
     """The checks `gather::valid` and `gather::valid_slab` make before a
-    launch (a whole launch: z0 = 0, zg = its depth)."""
+    launch (a whole launch: z0 = 0, zg = its depth); `flat`: a 2D launch,
+    whose slab runs along y (zg = its lines)."""
     z_, y_, x_ = size
     strips = 1 << plan["log_strips"]
-    return (plan["z0"] >= 0 and plan["zg"] >= 1 and plan["z0"] + z_ <= plan["zg"]
+    e = y_ if flat else z_  # gather::slab_axis
+    return (plan["z0"] >= 0 and plan["zg"] >= 1 and plan["z0"] + e <= plan["zg"]
             and plan["v"] in (1, 4) and plan["tx"] * plan["ty"] * plan["tz"] <= gather.THREADS
             and plan["tx"] * plan["v"] * strips >= x_ and plan["ty"] * plan["tiles_y"] >= y_
             and plan["tz"] * plan["tiles_z"] >= z_
@@ -161,10 +166,12 @@ def test_plans_at_the_paths_shapes(moving, df, cf):
     size = gather.axes(spatial)
     z_, y_, x_ = size
     n = math.prod(spatial)
+    flat = len(spatial) == 2
     plan = warp.tile_plan(moving, df, cf)
     assert plan["v"] == (4 if cf and df[0] * n >= gather.WARP_CF_QUADS_FROM else 1)
     assert plan["v"] == (4 if cf else 1)
-    assert _admissible(plan, size, df[0] // moving[0], moving[0], n * max(3, moving[-1]))
+    assert (plan["z0"], plan["zg"]) == (0, spatial[0])
+    assert _admissible(plan, size, df[0] // moving[0], moving[0], n * max(3, moving[-1]), flat)
     w = plan["tx"] * plan["v"]
     strips = 1 << plan["log_strips"]
     assert w * strips >= x_ > w * (strips - 1) and w <= gather.STRIP
@@ -176,7 +183,8 @@ def test_plans_at_the_paths_shapes(moving, df, cf):
     field = df if not cf else (df[0], *spatial, 3)
     sq = squaring.tile_plan(df, cf) if cf else squaring.tile_plan(field)
     assert sq == squaring.tile_plan(field)
-    assert sq["v"] == 1 and sq["rows"] == 1 and _admissible(sq, size, 1, df[0], n * len(spatial))
+    assert sq["v"] == 1 and sq["rows"] == 1
+    assert _admissible(sq, size, 1, df[0], n * len(spatial), flat)
 
 
 def _quad_addresses(plan, size, k, base):
@@ -488,6 +496,67 @@ def test_slab_plans_walk_their_planes_once(whole, parts):
     assert not _admissible(bad, (per, y_, x_), 1, 2, whole * y_ * x_ * 3)
 
 
+# flagship-2d's levels that split at space 2 (160 x 192 and its 80 x 96,
+# 40 x 48 and 20 x 24: slabs of 80, 40, 20 and 10 lines; the depth-10
+# level runs replicated) and a ragged 4-way split
+SLABS_2D = [((160, 192), 2), ((80, 96), 2), ((40, 48), 2), ((20, 24), 2), ((16, 13), 4)]
+
+
+@pytest.mark.parametrize("whole,parts", SLABS_2D, ids=[f"{w[0]}x{w[1]}-{p}" for w, p in SLABS_2D])
+def test_2d_slab_plans_walk_their_lines_once(whole, parts):
+    """The 2D warp's voxel body (C = 1, 2 df rows a moving row) and the
+    2D step's slab launches along H, each slab's plan made over its own
+    lines: every pixel of every global line written by exactly one slab,
+    once (local line y -> y + z0); each plan passes the entry points'
+    checks with the slab along the plan's y; a slab past the whole is
+    refused."""
+    h, w = whole
+    per = h // parts
+    warp_total = np.zeros((2, h, w), np.int32)
+    step_total = np.zeros((2, h, w), np.int32)
+    for r in range(parts):
+        z0, size = r * per, (1, per, w)
+        wplan = gather.slab(warp.tile_plan((1, h, w, 1), (2, per, w, 2)), z0, h)
+        splan = gather.slab(squaring.tile_plan((2, per, w, 2)), z0, h)
+        assert wplan["ch"] == 0 and wplan["v"] == 1 and (wplan["z0"], wplan["zg"]) == (z0, h)
+        assert _admissible(wplan, size, 2, 1, h * w * 2, flat=True)
+        assert _admissible(splan, size, 1, 2, h * w * 2, flat=True)
+        warp_total[:, z0:z0 + per] += _walk(wplan, size, 1, 2)[0][:, 0]
+        step_total[:, z0:z0 + per] += _walk(splan, size, 2, 2)[0][:, 0]
+    assert (warp_total == 1).all() and (step_total == 1).all()
+    bad = gather.slab(squaring.tile_plan((2, per, w, 2)), h - per + 1, h)
+    assert not _admissible(bad, (1, per, w), 1, 2, h * w * 2, flat=True)
+
+
+@pytest.mark.parametrize("whole,per,rows", [((160, 192), 80, 1), ((160, 192), 80, 10),
+                                            ((20, 24), 10, 2), ((16, 13), 4, 3)])
+def test_2d_channel_slab_plans_write_every_channel_once(whole, per, rows):
+    """The 2D warp's channel body at C = 36 on slabs along H (the 2D
+    Dice step's one-hot maps; aligned, so 16-byte quads, 9 lanes a
+    pixel; single channels off a 16-byte boundary): the entry's checks
+    with the slab along y, every (row, line,
+    pixel, channel) of the whole written by one slab, once (walked block
+    by block below 20 x 24, by the per-axis decode at 160 x 192)."""
+    h, w = whole
+    total = np.zeros((rows, h, w, 36), np.int32)
+    lines = np.zeros(h, np.int32)
+    for z0 in range(0, h, per):
+        size = (1, per, w)
+        plan = gather.slab(warp.tile_plan((1, h, w, 36), (rows, per, w, 2)), z0, h)
+        assert plan["ch"] == 4 and gather.lanes(36, 4) == 9
+        assert warp.tile_plan((1, h, w, 36), (rows, per, w, 2), is_aligned=False)["ch"] == 1
+        assert _admissible_channels(plan, size, 36, rows, 1)
+        assert plan["z0"] >= 0 and plan["z0"] + per <= plan["zg"] == h
+        zc, yc, xc = _axis_counts(plan, size)
+        assert (zc == 1).all() and (yc == 1).all() and (xc == 1).all()
+        lines[z0:z0 + per] += yc
+        if h * w <= 20 * 24:
+            total[:, z0:z0 + per] += _channel_walk(plan, size, 36, 1, rows)[:, 0]
+    assert (lines == 1).all()
+    if h * w <= 20 * 24:
+        assert (total == 1).all()
+
+
 def test_squaring_bwd_slab_plan_covers_the_slab():
     """The step backward's slab plan: its chunks of tz planes cover the
     slab's planes, and the slab lies in the whole field."""
@@ -525,6 +594,23 @@ def test_plain_versions_at_an_offset_are_slices_of_the_whole(z0, planes):
     assert share.shape == v.shape
     assert torch.equal(share, squaring.squaring_step_bwd_plain(v, masked))
     assert torch.equal(squaring.squaring_step(v, z0=z0, depth=planes, scale=0.5),
+                       squaring.squaring_step(v * 0.5)[:, sl])
+
+
+@pytest.mark.parametrize("z0,lines", [(0, 4), (4, 4), (2, 3), (6, 2), (0, 8)])
+def test_2d_plain_versions_at_an_offset_are_slices_of_the_whole(z0, lines):
+    """In 2D the slab runs along H: the warp (C = 1 and 36) and the
+    squaring step of lines z0.. are the matching lines of the whole."""
+    rng = np.random.default_rng(91)
+    v = torch.from_numpy(rng.uniform(-2, 2, (2, 8, 7, 2)).astype(np.float32))
+    df = torch.from_numpy(rng.uniform(-3, 3, (4, 8, 7, 2)).astype(np.float32))
+    sl = slice(z0, z0 + lines)
+    for c in (1, 36):
+        moving = torch.from_numpy(rng.random((2, 11, 9, c), dtype=np.float32))
+        assert torch.equal(warp.warp(moving, df[:, sl], z0, 8), warp.warp_plain(moving, df)[:, sl])
+    assert torch.equal(squaring.squaring_step_plain(v, z0, lines),
+                       squaring.squaring_step_plain(v)[:, sl])
+    assert torch.equal(squaring.squaring_step(v, z0=z0, depth=lines, scale=0.5),
                        squaring.squaring_step(v * 0.5)[:, sl])
 
 

@@ -1581,3 +1581,94 @@ def test_cf_warp_slab_body_follows_the_df_alignment(cuda_device, monkeypatch, al
         assert warp.slab_bodies == {("warp_cf", "quad" if aligned else "voxel"): 1}
         assert torch.equal(got, whole_warp[:, :, z0:z0 + 10])
         assert torch.equal(got.cpu(), warp.warp_cf_plain(img.cpu(), d.cpu(), z0, 20))
+
+
+# flagship-2d's sizes that split in two along H (sharded 2D model), in slabs of half
+SLABS_2D = [((160, 192), 80), ((80, 96), 40), ((40, 48), 20), ((20, 24), 10)]
+SLAB_IDS_2D = [f"{s[0]}x{s[1]}" for s, _ in SLABS_2D]
+
+
+@pytest.mark.parametrize("size,per", SLABS_2D, ids=SLAB_IDS_2D)
+def test_2d_squaring_slab_launches_are_bit_equal_to_the_whole_launch(cuda_device, size, per):
+    """#1's 2D arm as a slab launch along H (lines z0.. of the whole 2D
+    field), with and without the first step's 1/128 scale: each slab
+    bit-equal to the matching lines of the whole launch and to the plain
+    version at its offset, one 2D launch a call."""
+    v = _field((2, *size, 2), 2.5, 42).to(cuda_device)
+    for scale in (1.0 / 2**7, 1.0):
+        whole = squaring.squaring_step(v, scale=scale)
+        for z0 in range(0, size[0], per):
+            before = squaring.launches_2d
+            step = squaring.squaring_step(v, scale=scale, z0=z0, depth=per)
+            torch.cuda.synchronize()
+            assert squaring.launches_2d == before + 1 and step.shape == (2, per, size[1], 2)
+            assert torch.equal(step, whole[:, z0:z0 + per])
+            assert torch.equal(step.cpu(), squaring.squaring_step_plain(v.cpu() * scale, z0, per))
+
+
+@pytest.mark.parametrize("size,per", SLABS_2D, ids=SLAB_IDS_2D)
+def test_2d_warp_slab_launches_are_bit_equal_to_the_whole_launch(cuda_device, size, per):
+    """The 2D warp at C = 1 as a slab launch along H (2 df rows of one
+    image): each slab bit-equal to the whole launch's lines and to the
+    plain version at its offset, in the voxel body, one 2D launch a
+    call; its gradients the plain slab's."""
+    rng = np.random.default_rng(43)
+    m = torch.from_numpy(rng.random((1, *size, 1), dtype=np.float32)).to(cuda_device)
+    df = _field((2, *size, 2), 3.0, 44).to(cuda_device)
+    whole = warp.warp(m, df)
+    for z0 in range(0, size[0], per):
+        d = df[:, z0:z0 + per].contiguous().requires_grad_(True)
+        warp.slab_bodies.clear()
+        before = warp.launches_2d
+        got = warp.warp(m, d, z0, size[0])
+        torch.cuda.synchronize()
+        assert warp.launches_2d == before + 1
+        assert warp.slab_bodies == {("warp_2d", "voxel"): 1}
+        assert torch.equal(got, whole[:, z0:z0 + per])
+        assert torch.equal(got.detach().cpu(), warp.warp_plain(m.cpu(), d.detach().cpu(), z0,
+                                                               size[0]))
+        g = torch.ones_like(got)
+        (gd,) = torch.autograd.grad(got, d, g)
+        dp = d.detach().clone().requires_grad_(True)
+        (ref,) = torch.autograd.grad(warp.warp_plain(m, dp, z0, size[0]), dp, g)
+        assert torch.equal(gd, ref)
+
+
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-16-bytes"])
+@pytest.mark.parametrize("size,per", [SLABS_2D[0], SLABS_2D[2], SLABS_2D[3]],
+                         ids=[SLAB_IDS_2D[0], SLAB_IDS_2D[2], SLAB_IDS_2D[3]])
+def test_2d_warp_slab_launches_at_36_channels(cuda_device, size, per, aligned):
+    """The 2D Dice step's C = 36 warp of its one-hot maps as a slab launch
+    along H (2 rows), at the sharded 2D OASIS shapes (160x192, 40x48,
+    20x24): each slab bit-equal to the whole launch's lines and to the
+    plain version at its offset; an aligned map takes the 16-byte channel
+    body (`ch4`), one 4 bytes past a 16-byte boundary the single-channel
+    body (`ch1`)."""
+    m = _onehot((2, *size), 36, 45).to(cuda_device)
+    df = _field((2, *size, 2), 3.0, 46).to(cuda_device)
+    whole = warp.warp(m, df)
+    mov = m if aligned else misaligned(m)
+    for z0 in range(0, size[0], per):
+        d = df[:, z0:z0 + per].contiguous()
+        warp.slab_bodies.clear()
+        got = warp.warp(mov, d, z0, size[0])
+        torch.cuda.synchronize()
+        assert warp.slab_bodies == {("warp_2d", "ch4" if aligned else "ch1"): 1}
+        assert torch.equal(got, whole[:, z0:z0 + per])
+        assert torch.equal(got.cpu(), warp.warp_plain(m.cpu(), d.cpu(), z0, size[0]))
+
+
+def test_2d_entries_refuse_a_slab_past_the_whole(cuda_device):
+    """The 2D entries check the slab along H (`gather::valid_slab` on the
+    plan's lines): a slab that runs past the whole field is refused."""
+    from pulpo_tpu_torch.kernels import gather
+
+    v = _field((1, 20, 24, 2), 1.0, 47).to(cuda_device)
+    m = torch.rand((1, 20, 24, 1), device=cuda_device)
+    d = v[:, :10].contiguous()
+    out = torch.empty((1, 10, 24, 1), device=cuda_device)
+    with pytest.raises(RuntimeError, match="pulpo_warp_2d"):
+        warp._launch("warp", "pulpo_warp_2d", [m.data_ptr(), d.data_ptr(), out.data_ptr()],
+                     m.shape, d, plan=gather.slab(warp.tile_plan(m.shape, d.shape), 11, 20))
+    with pytest.raises(ValueError, match="a slab"):
+        squaring.squaring_step(v, z0=11, depth=10)

@@ -334,6 +334,37 @@ def test_mesh_of_one_process():
                                   device="cpu", global_batch=6)
 
 
+DP_NAMES = """
+import sys
+import pulpo_tpu_torch.{first}
+from pulpo_tpu_torch import parallel
+from pulpo_tpu_torch.parallel import dp, make_dp_train_step, replicate_state
+assert make_dp_train_step is dp.make_dp_train_step and replicate_state is dp.replicate_state
+assert set(parallel.__all__) >= {{"make_dp_train_step", "replicate_state"}}
+print("matplotlib" in sys.modules)
+"""
+
+
+@pytest.mark.parametrize("first", ["models", "parallel"])
+def test_the_package_reexports_the_data_parallel_step(first):
+    """`pulpo_tpu_torch.parallel` gives `dp`'s `make_dp_train_step` and
+    `replicate_state` (as `pulpo_tpu.parallel` does), in a fresh
+    interpreter whichever of the model package and the parallel package
+    is imported first; importing the package alone loads no `dp`, no
+    model and no matplotlib."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    out = subprocess.run([sys.executable, "-c", DP_NAMES.format(first=first)], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "False", out.stderr[-2000:]
+    alone = subprocess.run(
+        [sys.executable, "-c", "import sys, pulpo_tpu_torch.parallel; print(sorted(m for m in "
+         "sys.modules if m.startswith(('pulpo_tpu_torch.parallel.dp', "
+         "'pulpo_tpu_torch.models', 'matplotlib'))))"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    assert alone.returncode == 0 and alone.stdout.strip() == "[]", alone.stderr[-2000:]
+
+
 def test_fold_in_gives_each_rank_its_own_seed():
     seeds = {fold_in(s, r) for s in (0, 1, 2**61) for r in range(8)}
     assert len(seeds) == 24 and all(0 <= s < 2**62 for s in seeds)

@@ -505,15 +505,18 @@ def test_partial_statistics_follow_the_weight_rule(ranks, shape, loss, level):
 
 @pytest.mark.parametrize("kw", [dict(recon_loss=("ncc", "dice")), dict(segs=True),
                                 dict(regularizer="jdet"), dict(df_resolution="full_res"),
-                                dict(remat=True), dict(remat_down=(0,))],
-                         ids=["dice", "segs", "jdet", "full_res", "remat", "remat_down"])
+                                dict(remat=True), dict(remat_down=(0,)),
+                                dict(input_size=(16, 14))],
+                         ids=["dice", "segs", "jdet", "full_res", "remat", "remat_down", "2D"])
 def test_segmentation_and_jdet_configurations_are_taken(kw):
     cfg = PULPoConfig(**{**dict(input_size=SIZE, total_levels=3, latent_levels=2, n0=2), **kw})
     with spatial.sharded(spatial.make_2d_mesh(1, 1), cfg):
         assert spatial.active()
 
 
-@pytest.mark.parametrize("kw,what", [(dict(input_size=(16, 14)), "2D")])
+# levels of 2 x 2 and 1 x 1 planes: at 16 x 2 x 2 the 8 x 1 x 1 and 4 x 1 x 1
+# levels share the plane (1, 1), by which a tensor's level is read
+@pytest.mark.parametrize("kw,what", [(dict(input_size=(16, 2, 2)), "share the plane")])
 def test_unsupported_configurations_raise(kw, what):
     cfg = PULPoConfig(**{**dict(input_size=SIZE, total_levels=3, latent_levels=2, n0=2), **kw})
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1") as err:

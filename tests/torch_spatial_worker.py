@@ -22,6 +22,9 @@ MODE `remat_fullres` (world 4): the deterministic and the sampled
 statistics, metrics and traffic of `spatial_compute_grads` for each case
 of INPUT["steps"] (the full_res step, the plain, `remat` and
 `remat_down` steps, the Dice step plain and under `remat`).
+MODE `spatial2d` (world 4): the same as `remat_fullres` on the 2D
+configurations (each image (B, H, W, C) sharded along H), a step case
+with "update" also taking one `make_spatial_train_step` step.
 MODE `tp` (world 2): the model split by `tp.shard_params` at model 2,
 its rules and `predict_deterministic` under `tp.sharded`, and the error
 a train forward raises there.
@@ -77,6 +80,14 @@ def run_steps(cases: list, mesh) -> dict:
                                                               noise=case["noise"])
         out[case["name"]] = dict(grads=grads, stats=stats, metrics=metrics,
                                  traffic=dict(spatial.traffic))
+        if case.get("update"):
+            tx = Adam(model.cfg.lr)
+            state = TrainState(step=0, model=model,
+                               opt_state=tx.init(dict(model.module.named_parameters())),
+                               rng=torch.Generator().manual_seed(0))
+            _, step_metrics = spatial.make_spatial_train_step(model, tx, mesh)(
+                state, batch, noise=case["noise"])
+            out[case["name"]].update(after=model.state_dict(), step_metrics=step_metrics)
     return out
 
 
@@ -146,7 +157,8 @@ def main(mode: str, rank: int, world: int, url: str, inp_path: str, out_dir: str
     torch.set_num_threads(1)
     inp = torch.load(inp_path, weights_only=False)
     multihost.initialize(url, world, rank, device="cpu")
-    out = {"spatial": run_spatial, "remat_fullres": run_remat_fullres, "tp": run_tp}[mode](inp)
+    out = {"spatial": run_spatial, "remat_fullres": run_remat_fullres,
+           "spatial2d": run_remat_fullres, "tp": run_tp}[mode](inp)
     torch.save(out, pathlib.Path(out_dir) / f"rank_{rank}.pt")
     multihost.shutdown()
 
