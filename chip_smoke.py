@@ -118,8 +118,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bit for bit;
 7c. `train_cli --ndims 2 --dataset oasis --segs --lms --recon_loss ncc
    dice` on an in-memory 2D OASIS store (160x192, 36 classes): 2 steps,
-   then the tables it writes (Dice, the landmark columns, N = 10), every
-   entry finite but the reference's NaNs, exact launch counts; and the
+   then the figures (`.npz` panels, each loader's three) and the tables
+   it writes (Dice, the landmark columns, N = 10), every entry finite
+   but the reference's NaNs, exact launch counts; and the
    `flagship-2d` model exported and served (its three entries, bit for
    bit against the live model);
 8. the OASIS path: the flagship with segmentations (`OASIS`: NCC +
@@ -256,6 +257,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `make_spatial_train_step` update; exact launch counts on each rank,
    each rank's time, peak and exchanged bytes beside the unsharded
    run's.
+11h. the training step and the 2D configuration under the output-channel
+   split at model 2 (parallel/tp.py): first the narrow conv (#12) at an
+   output-channel slice, 2 -> 16 at 160x192x224 and 3 -> 16 at each
+   latent level, bf16 and f32, each rank's slice held to the matching
+   channels of the whole 2 -> 32 / 3 -> 32 launch and to its plain
+   version (bf16 within one ulp at scale, whether bit-equal logged; f32
+   bit-equal) and timed beside the whole launch; then, in the torchrun
+   processes of 11a-11f and 11g (gloo), the flagship's B = 1 step in
+   bf16 and f32 under `tp.sharded` (each split leaf's gradient joined in
+   rank order, held to 11b's unsharded step as 11b holds its own, the
+   bf16 step also within twice the unsharded bf16 step's distance from
+   its f32 twin, as 11g's; the losses bit-equal on the ranks and equal
+   to the unsplit step's with each split unit run as its two channel
+   slices on one process; the replicated leaves' gradients as each rank
+   computed them within twice the unsharded step's run-to-run distance
+   on those leaves, and bit-equal after their average),
+   `create_train_state` on the split model and one `make_train_step`
+   update (the replicated weights bit-equal on the ranks after it); and
+   `flagship-2d`'s split forward (bf16, held as 11g's bf16 forward) and
+   bf16 B = 1 step (held as the flagship's) with one update; exact launch counts
+   on each rank, each rank's time, peak and exchanged bytes beside the
+   unsharded run's.
 
 Each path's launch counts are set to 0 just before it runs and read
 just after.
@@ -276,6 +299,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 N_SAMPLES = 32
 N_REQUESTS = 3
@@ -297,6 +321,7 @@ SI_RAMP = 16.0                 # voxels, toward the last slices
 DRIFT = 4.0                    # voxels, in plane
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 BF16_FLOP_PER_S = 989e12       # dense tensor-core peak, published
+F32_FLOP_PER_S = 67e12         # CUDA-core float32 peak, published
 
 # the full-resolution UQ request on the channels-first field layout: the
 # flagship network with full-res dfs and the default feedback less
@@ -2446,9 +2471,11 @@ def run_oasis_2d(dev, steps, n_samples, run_root):
     """Phase 7c: `train_cli --ndims 2 --dataset oasis --segs --lms
     --recon_loss ncc dice` (the CLI's default network, float32) on an
     in-memory 2D OASIS store at 160x192: `steps` steps with validation
-    after each, then the evaluation the CLI runs (the performance table
-    with Dice and the landmark columns, the N = 10 uncertainty table):
-    every entry finite but the reference's NaNs, exact launch counts."""
+    after each, then the evaluation the CLI runs (each loader's figures,
+    their `.npz` panels checked by `check_panel_files`; the performance
+    table with Dice and the landmark columns, the N = 10 uncertainty
+    table): every entry finite but the reference's NaNs, exact launch
+    counts."""
     import numpy as np
     import torch
 
@@ -2478,9 +2505,15 @@ def run_oasis_2d(dev, steps, n_samples, run_root):
     forwards = steps + OASIS_SPLITS[1] * steps  # validation after every step
     train = train_launches(cfg, steps, OASIS_SPLITS[1] * steps)
     train["warp_2d"] += K * forwards  # the one-hot map at each level of each forward
-    tables = table_launches(cfg, pairs, seg_pairs, rec.decodes)
-    expect(counts, {k: train.get(k, 0) + tables.get(k, 0) for k in set(train) | set(tables)},
-           f"oasis 2D train_cli and tables ({rec.decodes} decodes, chunks {rec.chunks})")
+    # the figures' requests come first (one a loader), then the tables'
+    loaders = ("train", "val", "test_seg", "test_lm")
+    fig_decodes = sum(rec.per_request[:len(loaders)])
+    figures = figure_launches(cfg, len(loaders), len(loaders) - 1, fig_decodes, len(loaders))
+    tables = table_launches(cfg, pairs, seg_pairs, rec.decodes - fig_decodes)
+    expect(counts, add_counts(train, figures, tables),
+           f"oasis 2D train_cli, figures and tables ({rec.decodes} decodes, chunks "
+           f"{rec.chunks})")
+    names = check_panel_files(run_dir / "evaluation" / "vis", loaders, n_samples, True, 2)
     perf = read_table(run_dir / "evaluation" / "loss" / "loss_table_deterministic.csv")
     unc = read_table(run_dir / "evaluation" / "uncertainty" / "loss_table.csv")
     lm_cols = ("LM_MAE", "LM_Euclid", "LM_VAR", "LM_NCC")
@@ -2490,8 +2523,8 @@ def run_oasis_2d(dev, steps, n_samples, run_root):
     if not np.isfinite(perf[("test_seg", "Dice")]).all():
         raise SystemExit("oasis 2D performance table: (test_seg, Dice) not finite")
     log(f"oasis 2D train_cli: {cfg.input_size} levels {cfg.total_levels}/{cfg.latent_levels} "
-        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.recon_loss}, {steps} steps with validation and "
-        f"the tables in {total_s:.2f} s; val total_loss "
+        f"n0 {cfg.n0} {cfg.compute_dtype} {cfg.recon_loss}, {steps} steps with validation, "
+        f"{len(names)} figures and the tables in {total_s:.2f} s; val total_loss "
         f"{' '.join(str(r['val/total_loss']) for r in rows)}")
     log("oasis 2D performance table:\n" + str(perf))
     log("oasis 2D uncertainty table:\n" + str(unc))
@@ -3364,6 +3397,9 @@ SPATIAL_FWD_REL = 1e-3     # of scale: the floor of the sharded forward's distan
 SPATIAL_LOSS_REL = 1e-5    # relative: the floor of the sharded step's losses' distance
 STEP_DTYPES = ("bfloat16", "float32")  # 11b: the flagship's step, and the same network in f32
 TP_REL = 1e-2              # of scale: the split forward against the replicated one
+# 11h: the training step under the output-channel split at model SPACE,
+# each held to the unsharded step of its dtype (11b's reference)
+TP_STEPS = tuple((f"tp step {d}", d) for d in STEP_DTYPES)
 SPATIAL_F32_REL = 1e-5     # of scale: the floor of the f32 sharded forward's distance (11a)
 # 11d: the OASIS configuration's segmentation (Dice) step and the
 # flagship step with the jdet regularizer: (name, keywords over the
@@ -3390,6 +3426,9 @@ FULLRES_STEP = "fullres step float32"
 # (Dice) step in bf16 at B = 2: (name, keywords over the phase's config,
 # dtype, batch rows)
 SPATIAL_2D_FORWARDS = tuple(f"2d forward {d}" for d in STEP_DTYPES)
+# 11h in 2D: the split forward (bf16) and the first of SPATIAL_2D_STEPS
+# under the output-channel split at model SPACE, with one update
+TP_2D_FORWARD, TP_2D_STEP = "tp 2d forward bfloat16", "tp 2d step bfloat16 B=1"
 SPATIAL_2D_STEPS = (("2d step bfloat16 B=1", {}, "bfloat16", 1),
                     ("2d step float32 B=1", {}, "float32", 1),
                     ("2d dice bfloat16 B=2", DICE_KW, "bfloat16", 2))
@@ -3662,6 +3701,78 @@ def check_slab_kernels_2d(dev, cfg, checks, seg_cfg, rows=2):
     return times, bodies
 
 
+def check_tp_narrow(dev, cfg, checks):
+    """Phase 11h's kernel: the narrow conv (#12) at an output-channel
+    slice, as the training step under the split at model SPACE launches
+    it (parallel/tp.py: each rank convolves the whole input by its
+    n0 / SPACE rows of the weight): 2 -> n0 / SPACE at the input size
+    (down_block_0's first conv) and zdim -> n0 / SPACE at each latent
+    level (the velocity heads' first convs), in bf16 (the flagship's step,
+    on the tensor cores) and f32 (its f32 twin, the CUDA cores). Each
+    rank's slice launch is held to the matching channels of the whole
+    launch (2 -> n0, zdim -> n0) and to its plain version: in bf16 within
+    one bf16 ulp at the output's scale, and whether it is bit-equal is
+    logged; in f32 bit-equal. Then each slice launch's device time
+    (`graph_ms`, the weights packed beforehand) beside the whole
+    launch's, its plain version's and cuDNN `conv3d`'s at the slice
+    shape, and its bound (the input read once and the slice written once
+    over 3.35 TB/s, or its operations at the dtype's peak). Returns
+    {case: timing record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    fmt = lambda size: "x".join(map(str, size))
+    half = cfg.n0 // SPACE
+    g = torch.Generator(device=dev).manual_seed(140)
+    out = {}
+    for i, (cin, size) in enumerate(narrow_shapes(FLAGSHIP)):
+        w = narrow_weight(cin, cfg.n0, 141 + i, dev)
+        for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            x = torch.randn((1, *size, cin), generator=g, device=dev).to(dt)
+            case = f"{name} {cin}->{half} {fmt(size)}"
+            with torch.no_grad():
+                whole = conv_narrow.conv_narrow(x, w)
+                exact = []
+                for r in range(SPACE):
+                    ws = w[r * half:(r + 1) * half]
+                    got = conv_narrow.conv_narrow(x, ws)
+                    plain = conv_narrow.conv_narrow_plain(x, ws)
+                    part = whole[..., r * half:(r + 1) * half]
+                    scale = max(1.0, float(plain.float().abs().max()))
+                    tol = 2.0 ** (math.floor(math.log2(scale)) - 7) if dt == torch.bfloat16 else 0.0
+                    checks.record("conv_narrow", f"{case} slice {r} vs whole", got, part, tol)
+                    checks.record("conv_narrow", f"{case} slice {r} vs plain", got, plain, tol)
+                    exact.append(torch.equal(got, part))
+                    del got, plain, part
+                nv = math.prod(size)
+                bytes_ = nv * (cin + half) * x.element_size()
+                flops = 2 * 27 * cin * half * nv
+                peak = BF16_FLOP_PER_S if dt == torch.bfloat16 else F32_FLOP_PER_S
+                packed = (conv_narrow.pack_weights if dt == torch.bfloat16
+                          else lambda t: conv_narrow._taps(t, torch.float32))
+                ws, pw, pwhole = w[:half], packed(w[:half]), packed(w)
+                xc, wl = x.permute(0, 4, 1, 2, 3), ws.to(dt)
+                t_ops, t_bytes = flops / peak * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+                out[case] = dict(
+                    ms=graph_ms(lambda: conv_narrow.conv_packed(x, pw, half)),
+                    whole_ms=graph_ms(lambda: conv_narrow.conv_packed(x, pwhole, cfg.n0)),
+                    plain_ms=time_ms(lambda: conv_narrow.conv_narrow_plain(x, ws), 1, warmup=1),
+                    library_ms=graph_ms(lambda: F.conv3d(xc, wl, padding=1)),
+                    bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    bit_equal_to_whole=all(exact))
+                r = out[case]
+                log(f"time conv_narrow slice {case}: {r['ms']:.5f} ms (whole {cfg.n0} channels "
+                    f"{r['whole_ms']:.5f} ms), plain {r['plain_ms']:.3f} ms, cuDNN "
+                    f"{r['library_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}); "
+                    f"{'bit-equal to' if all(exact) else 'within an ulp of'} the whole launch")
+                del x, whole, xc, wl, pw, pwhole
+            torch.cuda.empty_cache()
+    return out
+
+
 def fullres_forward_launches(cfg):
     """Launches of one full_res eval forward on the channels-first decode:
     a decode (`serving_launches`) and its encode's conv chains."""
@@ -3741,6 +3852,64 @@ def tp_launches(cfg):
     return {"conv_chain": units, "warp": K, "squaring": cfg.nsteps * K}
 
 
+def slice_width_losses(cfg, batch, noise, dev):
+    """Phase 11h's witness of where a split step's losses part from the
+    unsplit step's: the unsplit train forward's losses (no gradient) with
+    each ConvUnit whose conv `tp.shard_params` would split at model SPACE
+    run as its SPACE channel slices one after another on this one process
+    (the slice's conv weight, bias and BatchNorm, as a rank runs it), the
+    slices' outputs concatenated. That is the split step's forward
+    without its collectives, which only copy bits; cuDNN deterministic,
+    as in the split step."""
+    import torch
+
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.models.blocks import ConvUnit
+    from pulpo_tpu_torch.parallel import tp
+    from pulpo_tpu_torch.parallel.mesh import Mesh
+    from pulpo_tpu_torch.train.step import _batch_tensors, compute_losses
+
+    model = PULPoModel(cfg, device=dev)
+    model.init(0)
+    rules = tp.param_sharding_rules(model, Mesh(size=SPACE, rank=0))
+    split = {id(p) for n, p in model.module.named_parameters() if rules[n] == 0}
+    whole = ConvUnit.forward
+
+    def by_slices(unit, x, x2=None, train=False):
+        conv, bn = unit._op
+        if id(conv.weight) not in split:
+            return whole(unit, x, x2, train)
+        ts = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        kept, outs = [t.data for t in ts], []
+        try:
+            for r in range(SPACE):
+                for t, d in zip(ts, kept):
+                    t.data = d.chunk(SPACE, 0)[r]
+                bn.pending = None
+                outs.append(whole(unit, x, x2, train))
+        finally:
+            for t, d in zip(ts, kept):
+                t.data = d
+        return torch.cat(outs, -1)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    ConvUnit.forward = by_slices
+    try:
+        x, y, seg_x, seg_y = _batch_tensors(model, batch)
+        with torch.no_grad():
+            outs, _ = model.apply_train(x, y, seed=0, noise=noise)
+            metrics = compute_losses(cfg, outs, x, y, seg_x, seg_y)[1]
+        losses = {k: float(metrics[k]) for k in LOSS_KEYS}
+    finally:
+        ConvUnit.forward = whole
+        torch.backends.cudnn.deterministic = deterministic
+    del model, outs, metrics
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return losses
+
+
 def step_reference(cfg, batch, noise, dev, on_host=False):
     """The unsharded step a sharded one is held to, on the card: its
     gradients (on the host) and losses, again (its run-to-run distance)
@@ -3782,7 +3951,8 @@ def step_reference(cfg, batch, noise, dev, on_host=False):
         torch.cuda.empty_cache()
     loss = lambda m: {k: float(m[k]) for k in LOSS_KEYS}
     out = {"s": seconds, "peak": peak, "grads": grads, "losses": loss(metrics),
-           "again": loss(again_m), "ulp": loss(ulp_m), "rr": grad_spread(again, grads)[0],
+           "again": loss(again_m), "again_grads": again, "ulp": loss(ulp_m),
+           "rr": grad_spread(again, grads)[0],
            "moved": grad_spread(ulp, grads)[0]}
     out["yardsticks"] = {k: yardstick(out, g, loss(m)) for k, (g, m) in sticks.items()}
     return out
@@ -3845,6 +4015,8 @@ def spatial_references(dev, cfg, cfg_kw):
         del model
     for dtype in STEP_DTYPES:
         out[f"step {dtype}"] = step_reference(cfg.replace(compute_dtype=dtype), batch, noise, dev)
+        out[f"step {dtype}"]["slices"] = slice_width_losses(cfg.replace(compute_dtype=dtype),
+                                                            batch, noise, dev)
     out[FULLRES_STEP] = step_reference(fcfg.replace(compute_dtype="float32"), batch, noise, dev)
     del batch
     for name, kw, dtype, rows in SEG_STEPS:
@@ -3949,16 +4121,154 @@ def spatial_worker(out_dir, accelerator, cfg_json) -> int:
         model.init(0)
         tmesh = tp.make_model_mesh(SPACE)
         tp.shard_params(model, tmesh)
+        fresh_tp = lambda: (reset_counts(), tp.reset_traffic())
         with tp.sharded(tmesh):
             run = lambda: model.predict_deterministic(batch["x"], batch["y"])
-            (warped, dfs), seconds, peak = peak_of(run, reset_counts)
+            (warped, dfs), seconds, peak = peak_of(run, fresh_tp)
         out["tp"] = {"s": seconds, "peak": peak, "counts": read_counts(),
+                     "traffic": dict(tp.traffic),
                      "warped": {l: v.cpu() for l, v in warped.items()},
                      "dfs": {l: v.cpu() for l, v in dfs.items()}}
+        del model, warped, dfs
+        out.update(tp_steps(dev, cfg, batch, noise, tmesh, TP_STEPS, fresh_tp))
         torch.save(out, pathlib.Path(out_dir) / f"rank_{rank}.pt")
     finally:
         multihost.shutdown()
     return 0
+
+
+def tp_steps(dev, cfg, batch, noise, tmesh, names, fresh):
+    """Phase 11h on one rank: for each (name, dtype) of `names` the
+    training step's gradients and metrics (`compute_grads`) under
+    `tp.sharded(tmesh)`, the model split by `tp.shard_params` and
+    initialised from seed 0 (each rank's slice of the unsplit init), with
+    its launch counts, time, peak and exchanges; each rank keeps its
+    gradients (the split leaves' slices) on the host, and the replicated
+    leaves' gradients as it computed them, before `tp.mean_replicated`
+    averages them over the ranks ("local"). After the first,
+    the training step's entry points: `create_train_state` on the split
+    model and one `make_train_step` update made inside `tp.sharded` (its
+    counts, loss, NaN flag, whether the weights moved, and the replicated
+    weights after it, for the ranks to be compared)."""
+    import torch
+
+    from pulpo_tpu_torch.models import PULPoModel
+    from pulpo_tpu_torch.parallel import tp
+    from pulpo_tpu_torch.train.step import compute_grads, create_train_state, make_train_step
+
+    average, local = tp.mean_replicated, {}
+
+    def keep(grads, model):
+        local.update({n: g.detach().cpu() for n, g in grads.items()
+                      if n not in model.module.tp_split})
+        return average(grads, model)
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for i, (name, dtype) in enumerate(names):
+            model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
+            tp.shard_params(model, tmesh)
+            model.init(0)
+            local.clear()
+            with tp.sharded(tmesh), mock.patch.object(tp, "mean_replicated", keep):
+                (grads, _, metrics), seconds, peak = peak_of(
+                    lambda: compute_grads(model, batch, noise=noise), fresh)
+            out[name] = {"s": seconds, "peak": peak, "counts": read_counts(),
+                         "traffic": dict(tp.traffic), "split": model.module.tp_split,
+                         "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
+                         "grads": {n: v.cpu() for n, v in grads.items()},
+                         "local": dict(local)}
+            del grads, metrics
+            if i == 0:
+                state, tx = create_train_state(model)
+                before = {n: v.clone() for n, v in model.state_dict().items()}
+                fresh()
+                with tp.sharded(tmesh):
+                    (state, m), seconds = timed(
+                        lambda: make_train_step(model, tx)(state, batch, noise=noise))
+                after = model.state_dict()
+                out[f"{name} update"] = {
+                    "s": seconds, "counts": read_counts(), "traffic": dict(tp.traffic),
+                    "total_loss": float(m["total_loss"]), "nan_flag": float(m["nan_flag"]),
+                    "moved": any(not torch.equal(v, before[n]) for n, v in after.items()),
+                    "replicated": {n: v.cpu() for n, v in after.items()
+                                   if n not in model.module.tp_split}}
+                del state, before, after
+            del model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return out
+
+
+def joined_grads(ranks, name):
+    """Phase 11h: a split step's gradients as one unsplit step's, each
+    split leaf's slices joined in rank order."""
+    import torch
+
+    first = ranks[0][name]
+    return {n: torch.cat([r[name]["grads"][n] for r in ranks], 0) if n in first["split"] else g
+            for n, g in first["grads"].items()}
+
+
+def held_tp(name, ranks, ref, dtype, failures):
+    """Phase 11h: a split step (`tp_steps`) against the unsharded step
+    (`held_step` on its joined gradients); the ranks' losses bit-equal,
+    and equal to the unsplit step's run at the slices' widths on one
+    process (`slice_width_losses`, where `ref` holds it: the witness that
+    the losses part from the unsplit step's only where a unit runs at its
+    slice's width); the replicated leaves' gradients as each rank
+    computed them (before their average) within twice the unsharded
+    step's run-to-run distance on those leaves (relative L2: #2's
+    atomics; 0, bit-equal, where that step repeats itself bit for bit),
+    and after the average bit-equal; with an update, its loss finite, no
+    NaN flag, the weights moved and the replicated weights bit-equal on
+    the ranks. Returns the step's record of distances."""
+    import torch
+
+    first = ranks[0][name]
+    rep = sorted(first["local"])
+    rep_rr = grad_spread({n: ref["again_grads"][n] for n in rep}, {n: ref["grads"][n] for n in rep})
+    rep_apart = 0.0
+    for r in ranks[1:]:
+        if r[name]["losses"] != first["losses"]:
+            failures.append(f"{name}: the ranks' losses differ")
+        rep_apart = max(rep_apart, grad_spread(r[name]["local"], first["local"])[0])
+        odd = [n for n, g in first["grads"].items()
+               if n not in first["split"] and not torch.equal(g, r[name]["grads"][n])]
+        if odd:
+            failures.append(f"{name}: replicated gradients differ on the ranks: {odd}")
+    log(f"tp {name}: the {len(rep)} replicated leaves' gradients as each rank computed them "
+        f"{rep_apart:.3e} apart (relative L2, before their average); the unsharded step's "
+        f"run-to-run on them {rep_rr[0]:.3e} (worst leaf {rep_rr[1]:.3e} of its scale, "
+        f"{rep_rr[2]})")
+    if not rep_apart <= 2 * rep_rr[0]:
+        failures.append(f"{name}: replicated gradients {rep_apart:.3e} apart on the ranks "
+                        f"before their average, the unsharded step's run-to-run {rep_rr[0]:.3e}")
+    slices = ref.get("slices")
+    if slices is not None:
+        log(f"tp {name}: losses {first['losses']}; the unsplit step with each split unit run as "
+            f"its {SPACE} channel slices on one process {slices}; the unsplit step "
+            f"{ref['losses']}")
+        if first["losses"] != slices:
+            failures.append(f"{name}: losses {first['losses']}, the unsplit step at the "
+                            f"slices' widths {slices}")
+    info = held_step(name, {"grads": joined_grads(ranks, name), "losses": first["losses"]},
+                     ref, dtype, failures)
+    info.update(replicated_apart=rep_apart, replicated_rr=rep_rr[0], slices=slices)
+    update = ranks[0].get(f"{name} update")
+    if update is not None:
+        if not (math.isfinite(update["total_loss"]) and update["nan_flag"] == 0.0
+                and update["moved"]):
+            failures.append(f"{name} update: {update}")
+        for r in ranks[1:]:
+            other = r[f"{name} update"]["replicated"]
+            odd = [n for n, v in update["replicated"].items() if not torch.equal(v, other[n])]
+            if odd:
+                failures.append(f"{name} update: replicated weights differ on the ranks: {odd}")
+    return info
 
 
 def held_step(name, mine, theirs, dtype, failures):
@@ -4073,7 +4383,8 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
     steps = [f"step {d}" for d in STEP_DTYPES]
     segs = [name for name, *_ in SEG_STEPS]
     remats = [name for name, *_ in REMAT_STEPS]
-    phases = [*forwards, *steps, *segs, *remats, FULLRES_STEP, "tp"]
+    tps = [name for name, _ in TP_STEPS]
+    phases = [*forwards, *steps, *segs, *remats, FULLRES_STEP, "tp", *tps]
     failures = []
     errs = {f: {"df": 0.0, "warped": 0.0} for f in forwards}
     for r in ranks:
@@ -4101,6 +4412,10 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
             expected.append((name, add_counts(step_launches(scfg, 1, dice="dice" in kw.get(
                 "recon_loss", ())), remat_launches(scfg, 1))))
         expected.append((FULLRES_STEP, step_launches(fcfg, 1)))
+        # 11h: a split step launches the unsplit step's kernels on each rank
+        # (the narrow convs at the slice), and so does the update
+        expected += [(name, step_launches(cfg, 1)) for name in tps]
+        expected.append((f"{tps[0]} update", step_launches(cfg, 1)))
         for phase, want in expected:
             try:
                 expect(r[phase]["counts"], want, f"spatial {phase} rank {r['rank']}")
@@ -4156,12 +4471,35 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
                          / float(want.float().abs().max()))
     if tp_err > TP_REL:
         failures.append(f"tp forward: {tp_err:.3e} of scale from the replicated forward")
+    # 11h: a split step runs each unit at its slice's width, which in bf16
+    # moves the losses more than a one-ulp move of the inputs does; `held_tp`
+    # holds its losses equal to the unsplit step run at the slices' widths
+    # (the witness of that cause; which op of a unit rounds otherwise at
+    # that width is not measured). A bf16 split step is also held to twice
+    # the unsharded bf16 step's own bf16 error, its distance from the f32
+    # step on the same weights, batch and draws (as 11g holds its bf16 steps)
+    twin = ref["step float32"]
+    tp_ref = {"float32": twin, "bfloat16": dict(ref["step bfloat16"], yardsticks={
+        "f32": yardstick(ref["step bfloat16"], twin["grads"], twin["losses"])})}
+    tp_info = {name: held_tp(name, ranks, tp_ref[dtype], dtype, failures)
+               for name, dtype in TP_STEPS}
     for r in ranks:
         for phase in phases:
             x = r[phase]
             log(f"spatial {phase} rank {r['rank']}: {x['s']:.3f} s, peak {x['peak']:.3f} GiB"
                 + (f", exchanges {x['traffic']}" if "traffic" in x else "")
                 + (f", slab bodies {x['bodies']}" if x.get("bodies") else ""))
+        u = r[f"{tps[0]} update"]
+        log(f"tp {tps[0]} update (make_train_step) rank {r['rank']}: {u['s']:.3f} s, total_loss "
+            f"{u['total_loss']}, nan_flag {u['nan_flag']}, weights moved {u['moved']}")
+    for name, dtype in TP_STEPS:
+        log(f"tp (phase 11h) {name}: a rank " + ", ".join(
+            f"{r[name]['s']:.3f} s / {r[name]['peak']:.3f} GiB / exchanged "
+            f"{sum(v[1] for v in r[name]['traffic'].values()) / 1e6:.1f} MB in "
+            f"{sum(v[0] for v in r[name]['traffic'].values())} calls" for r in ranks)
+            + f"; the unsharded step {ref[f'step {dtype}']['s']:.3f} s / "
+            f"{ref[f'step {dtype}']['peak']:.3f} GiB; gradients {tp_info[name]['grad_rel']:.3e} "
+            "(relative L2)")
     for name in [*segs, *FULLRES_FORWARDS, FULLRES_STEP]:
         log(f"spatial {name}: a rank's peak " + ", ".join(
             f"{r[name]['peak']:.3f}" for r in ranks) + f" GiB, the unsharded run's "
@@ -4181,13 +4519,15 @@ def run_spatial_paths(dev, run_root, cfg_kw=FLAGSHIP):
     info = {"wall_s": wall, "errs": errs,
             "fwd_moved": {f: ref[f]["moved"] for f in forwards}, "tp_err": tp_err,
             "steps": step_info, "remat": remat_info, "remat_spread": remat_spread,
+            "tp_steps": tp_info,
             "ref": {k: ref[k] for k in ("tp_s", "tp_peak")}
             | {n: {k: ref[n][k] for k in ("s", "peak")}
                for n in [*forwards, *steps, *segs, FULLRES_STEP]},
             "ranks": [{p: {k: v for k, v in r[p].items()
                            if k in ("s", "peak", "traffic", "bodies")} for p in phases}
                       for r in ranks]}
-    counts = {p: add_counts(*(r[p]["counts"] for r in ranks)) for p in phases}
+    counts = {p: add_counts(*(r[p]["counts"] for r in ranks))
+              for p in [*phases, f"{tps[0]} update"]}
     return counts, info
 
 
@@ -4218,7 +4558,7 @@ def spatial_2d_worker(out_dir, accelerator, cfg_json) -> int:
     from pulpo_tpu_torch import PULPoConfig
     from pulpo_tpu_torch.kernels import warp
     from pulpo_tpu_torch.models import PULPoModel
-    from pulpo_tpu_torch.parallel import multihost, spatial
+    from pulpo_tpu_torch.parallel import multihost, spatial, tp
     from pulpo_tpu_torch.train.step import Adam, TrainState
 
     dev = torch.device("cuda" if accelerator == "gpu" else "cpu")
@@ -4274,6 +4614,23 @@ def spatial_2d_worker(out_dir, accelerator, cfg_json) -> int:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         torch.backends.cudnn.deterministic = False
+        # 11h: the split forward (bf16) and the bf16 B = 1 step at model SPACE
+        tmesh = tp.make_model_mesh(SPACE)
+        fresh_tp = lambda: (reset_counts(), tp.reset_traffic())
+        model = PULPoModel(cfg, device=dev)
+        tp.shard_params(model, tmesh)
+        model.init(0)
+        with tp.sharded(tmesh):
+            outs, seconds, peak = peak_of(
+                lambda: model.apply_eval(batch["x"], batch["y"], deterministic=True), fresh_tp)
+        out[TP_2D_FORWARD] = {"df": outs[6][0].cpu(), "warped": outs[7][0].cpu(), "s": seconds,
+                              "peak": peak, "counts": read_counts(),
+                              "traffic": dict(tp.traffic)}
+        del outs, model
+        name, scfg, rows, _ = spatial_2d_steps(cfg_kw)[0]
+        sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
+        out.update(tp_steps(dev, scfg, sbatch, snoise, tmesh, [(TP_2D_STEP, scfg.compute_dtype)],
+                            fresh_tp))
         torch.save(out, pathlib.Path(out_dir) / f"rank_{rank}.pt")
     finally:
         multihost.shutdown()
@@ -4325,6 +4682,8 @@ def run_spatial_2d(dev, run_root, cfg_kw=FLAGSHIP_2D):
         sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
         f32 = scfg.compute_dtype == "float32"
         ref[name] = step_reference(scfg, sbatch, snoise, dev, on_host=f32)
+        if name == steps[0][0]:  # 11h's split step is held to this one
+            ref[name]["slices"] = slice_width_losses(scfg, sbatch, snoise, dev)
         key = (rows, scfg.segs)
         if f32:
             twins[key] = ref[name]
@@ -4349,11 +4708,13 @@ def run_spatial_2d(dev, run_root, cfg_kw=FLAGSHIP_2D):
     ranks = [torch.load(out / f"rank_{r}.pt", weights_only=False) for r in range(SPACE)]
     per = cfg.input_size[0] // SPACE
     names = [name for name, *_ in steps]
-    phases = [*SPATIAL_2D_FORWARDS, *names]
+    phases = [*SPATIAL_2D_FORWARDS, *names, TP_2D_FORWARD, TP_2D_STEP]
     failures = []
     errs = {f: {"df": 0.0, "warped": 0.0} for f in SPATIAL_2D_FORWARDS}
     expected = {f: decode_launches(cfg, 1, 1) for f in SPATIAL_2D_FORWARDS}
     expected.update({name: want for name, _, _, want in steps})
+    expected.update({TP_2D_FORWARD: decode_launches(cfg, 1, 1), TP_2D_STEP: steps[0][3],
+                     f"{TP_2D_STEP} update": steps[0][3]})
     for r in ranks:
         sl = slice(r["rank"] * per, (r["rank"] + 1) * per)
         for fname in SPATIAL_2D_FORWARDS:
@@ -4390,25 +4751,47 @@ def run_spatial_2d(dev, run_root, cfg_kw=FLAGSHIP_2D):
         if any(r[name]["losses"] != ranks[0][name]["losses"] for r in ranks):
             failures.append(f"{name}: the ranks' losses differ")
         step_info[name] = held_step(name, ranks[0][name], ref[name], dtype, failures)
+    # 11h: the split forward against the unsharded one (as 11a's bf16), the
+    # split step as 11g's bf16 step
+    tp_fwd = ref[SPATIAL_2D_FORWARDS[0]]
+    tp_errs = {}
+    for k in ("df", "warped"):
+        got = ranks[0][TP_2D_FORWARD][k].float()
+        if any(not torch.equal(r[TP_2D_FORWARD][k], ranks[0][TP_2D_FORWARD][k]) for r in ranks):
+            failures.append(f"{TP_2D_FORWARD}: the ranks' {k} differ")
+        if got.shape != tp_fwd[k].shape or not bool(torch.isfinite(got).all()):
+            failures.append(f"{TP_2D_FORWARD}: {k} {tuple(got.shape)}")
+            continue
+        tp_errs[k] = float((got - tp_fwd[k].float()).abs().max()) / float(tp_fwd[k].abs().max())
+    log(f"tp {TP_2D_FORWARD}: {tp_errs} of scale from the unsharded forward; its own distance "
+        f"on inputs moved by one float32 ulp {tp_fwd['moved']}")
+    if any(v > max(2 * tp_fwd["moved"][k], SPATIAL_FWD_REL) for k, v in tp_errs.items()):
+        failures.append(f"{TP_2D_FORWARD}: {tp_errs} of scale from the unsharded forward")
+    step_info[TP_2D_STEP] = held_tp(TP_2D_STEP, ranks, ref[names[0]], "bfloat16", failures)
     for r in ranks:
         for phase in phases:
             x = r[phase]
             nbytes = sum(v[1] for v in x["traffic"].values())
+            unsharded = ref[{TP_2D_FORWARD: SPATIAL_2D_FORWARDS[0], TP_2D_STEP: names[0]}.get(
+                phase, phase)]
             log(f"spatial {phase} rank {r['rank']}: {x['s']:.4f} s, peak {x['peak']:.3f} GiB "
-                f"(unsharded {ref[phase]['s']:.4f} s, {ref[phase]['peak']:.3f} GiB), exchanged "
-                f"{nbytes / 1e6:.2f} MB {x['traffic']}, slab bodies {x['bodies']}")
+                f"(unsharded {unsharded['s']:.4f} s, {unsharded['peak']:.3f} GiB), exchanged "
+                f"{nbytes / 1e6:.2f} MB in {sum(v[0] for v in x['traffic'].values())} calls "
+                f"{x['traffic']}" + (f", slab bodies {x['bodies']}" if "bodies" in x else ""))
         log(f"spatial 2D make_spatial_train_step rank {r['rank']}: {r['train_step']}")
     log(f"spatial 2D (phase 11g): {SPACE} processes on one card (gloo), flagship-2d at "
         f"{cfg.input_size}; sharded forwards {errs} of scale; {wall:.1f} s with start-up")
     if failures:
         raise SystemExit(f"spatial 2D failed: {failures}")
-    info = {"wall_s": wall, "errs": errs,
+    info = {"wall_s": wall, "errs": errs, "tp_errs": tp_errs,
             "fwd_moved": {f: ref[f]["moved"] for f in SPATIAL_2D_FORWARDS}, "steps": step_info,
-            "ref": {p: {k: ref[p][k] for k in ("s", "peak")} for p in phases},
+            "ref": {p: {k: ref[p][k] for k in ("s", "peak")}
+                    for p in [*SPATIAL_2D_FORWARDS, *names]},
             "ranks": [{p: {k: v for k, v in r[p].items()
                            if k in ("s", "peak", "traffic", "bodies")} for p in phases}
                       for r in ranks]}
-    counts = {p: add_counts(*(r[p]["counts"] for r in ranks)) for p in phases}
+    counts = {p: add_counts(*(r[p]["counts"] for r in ranks))
+              for p in [*phases, f"{TP_2D_STEP} update"]}
     return counts, info
 
 
@@ -5137,6 +5520,8 @@ def main() -> int:
     slab2d_times, slab2d_bodies = check_slab_kernels_2d(
         dev, cfg_2d, checks, PULPoConfig(**dict(OASIS, input_size=cfg_2d.input_size)))
     slab_times.update(slab2d_times)
+    torch.cuda.empty_cache()
+    tp_narrow = check_tp_narrow(dev, cfg, checks)
     if checks.failures:
         raise SystemExit(f"slab checks failed: {checks.failures}")
     torch.cuda.empty_cache()
@@ -5251,6 +5636,8 @@ def main() -> int:
                    **{f"spatial_{n.replace(' ', '_')}": sp_counts[n][name]
                       for n in (*FULLRES_FORWARDS, FULLRES_STEP)},
                    "tp_forward": sp_counts["tp"][name],
+                   **{n.replace(" ", "_"): sp_counts[n][name]
+                      for n in (*(t for t, _ in TP_STEPS), f"{TP_STEPS[0][0]} update")},
                    **{f"spatial_{n.replace(' ', '_')}": c[name] for n, c in sp2d_counts.items()}}
         record = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5271,6 +5658,8 @@ def main() -> int:
             record["cl_twin_ms"] = r["cl_twin_ms"]
         if name in ("conv_narrow", "warp_dfgrad"):
             record["shapes"] = r["shapes"]
+        if name == "conv_narrow":
+            record["tp_slices"] = tp_narrow
         if name in seg_times:
             record[f"seg_c{SEG_CLASSES}"] = seg_times[name]
         if slab_times.get(name):
@@ -5349,6 +5738,12 @@ def main() -> int:
             f"rank {i}: " + ", ".join(f"{p} {x['s']:.3f} s / {x['peak']:.3f} GiB"
                                       for p, x in r.items())
             for i, r in enumerate(sp["ranks"])) + f"; {sp['wall_s']:.1f} s for {SPACE} processes")
+    log(f"tp (phase 11h; {card}): #12 slices " + ", ".join(
+        f"{c} {r['ms']:.5f} ms (whole {r['whole_ms']:.5f})" for c, r in tp_narrow.items())
+        + "; steps " + ", ".join(
+            f"{n} {x['grad_rel']:.3e} (relative L2)"
+            for n, x in (*sp["tp_steps"].items(), (TP_2D_STEP, sp2d["steps"][TP_2D_STEP])))
+        + f"; 2D split forward {sp2d['tp_errs']} of scale")
     log(f"slab bodies of the 2D warp (phase 11g; {card}): {slab2d_bodies}")
     log(f"spatial 2D (phase 11g; {card}): unsharded " + ", ".join(
             f"{n} {x['s']:.4f} s / {x['peak']:.3f} GiB" for n, x in sp2d["ref"].items())

@@ -5,13 +5,16 @@ convert_to_scientific and table_jdet, evaluate.py:531-602). The card's
 machine has no pandas, so a `Table` holds what the JAX package's
 DataFrame holds: a row index, columns as (set, metric) pairs and
 float64 values, rounded to 3 decimals where the JAX code rounds.
-`make_tables` writes `<name>.csv` and `<name>.tex`; the JAX package's
-SVG render of a table (matplotlib) is not written.
+`make_tables` writes `<name>.csv` and `<name>.tex`, and where matplotlib
+is installed `<name>.svg`, the JAX package's matplotlib table with the
+same cells; where it is not (the card's machine) nothing more, as
+`visualize.draw`'s figures.
 """
 
 from __future__ import annotations
 
 import csv
+import importlib.util
 import math
 import os
 from typing import Sequence
@@ -109,7 +112,8 @@ def _fmt(v: float) -> str:
 
 def make_tables(table: Table, output_dir, name: str | None = None,
                 show: bool = False) -> str:
-    """Write <name>.csv and <name>.tex; returns the LaTeX."""
+    """Write <name>.csv, <name>.tex and, where matplotlib is installed,
+    <name>.svg (`_draw_svg`); returns the LaTeX."""
     latex = table.to_latex()
     if show:
         print(latex)
@@ -118,7 +122,33 @@ def make_tables(table: Table, output_dir, name: str | None = None,
         table.to_csv(os.path.join(output_dir, f"{name}.csv"))
         with open(os.path.join(output_dir, f"{name}.tex"), "w") as f:
             f.write(latex)
+        if importlib.util.find_spec("matplotlib") is not None:
+            _draw_svg(table, os.path.join(output_dir, f"{name}.svg"))
     return latex
+
+
+def _draw_svg(table: Table, path) -> None:
+    """The JAX `make_tables`' matplotlib table (pulpo_tpu/eval/tables.py:
+    21-50), saved to `path`: each cell as the JAX package's DataFrame
+    shows it (`convert_to_scientific`, then `str`), the (set, metric)
+    columns and the index as their `str`. Imports matplotlib."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots()
+    fig.patch.set_visible(False)
+    ax.axis("off")
+    cells = [[str(convert_to_scientific(float(v))) for v in row] for row in table.values]
+    drawn = ax.table(cellText=cells, colLabels=[str(c) for c in table.columns],
+                     rowLabels=[str(i) for i in table.index], loc="center")
+    drawn.auto_set_font_size(False)
+    drawn.set_fontsize(4)
+    drawn.auto_set_column_width(col=list(range(len(table.columns))))
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
 
 
 def multiindex_table(mean_metrics: np.ndarray, loader_names: Sequence[str],

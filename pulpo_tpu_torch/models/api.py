@@ -25,6 +25,7 @@ from pulpo_tpu_torch.ops.warp import (
     resize_vecfield_cf,
     warp_image,
 )
+from pulpo_tpu_torch.parallel import tp
 
 LevelDict = dict[int, torch.Tensor]
 
@@ -147,14 +148,19 @@ class PULPoModel:
     def init(self, seed: int = 0) -> dict:
         """Re-initialise the weights from `seed`, as PyTorch initialises
         convs (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for kernel and bias) and
-        BatchNorm (scale 1, bias 0, mean 0, var 1). Returns the state_dict."""
+        BatchNorm (scale 1, bias 0, mean 0, var 1). On weights split by
+        `parallel.tp.shard_params` each rank keeps its slice of the
+        unsplit draw. Returns the state_dict."""
         g = torch.Generator().manual_seed(int(seed))
+        mesh = getattr(self.module, "tp_mesh", None)
         with torch.no_grad():
             for name, m in self.module.named_modules():
                 if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
                     bound = 1.0 / float(m.weight[0].numel()) ** 0.5
                     for p in (m.weight, m.bias):
-                        p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=g))
+                        whole = torch.empty(m.out_channels, *p.shape[1:])
+                        p.copy_(tp.own_slice(whole.uniform_(-bound, bound, generator=g), p,
+                                             mesh))
                 elif hasattr(m, "running_var"):
                     m.weight.fill_(1.0)
                     m.bias.zero_()

@@ -24,9 +24,10 @@ Under spatial sharding (parallel/spatial.py) a conv runs on this
 rank's depth slab (a 2D conv on its slab of lines) with a halo, and the
 fused eval chains on a halo as deep as the chain (`spatial.conv`,
 `spatial.on_halo`); under the
-output-channel split (parallel/tp.py) each eval unit computes its
-channel slice and the channels are all-gathered before the next conv
-(`tp.sequence`, `tp.velocity`).
+output-channel split (parallel/tp.py) each unit, eval or train, 3D or
+2D, computes its channel slice and the channels are all-gathered before
+the next conv (`tp.sequence`, `tp.velocity`; the 1x1 heads are never
+split).
 
 Not ported: the 96->128 channel pad and the tap-sum conv backward of
 the JAX `_RawConv` (TPU workarounds that compute the same function).
@@ -43,7 +44,7 @@ from torch import nn
 from pulpo_tpu_torch.kernels import conv_chain, conv_narrow
 from pulpo_tpu_torch.kernels.vel_head import bn_affine, eval_bn, leaky, velocity_head
 from pulpo_tpu_torch.parallel import spatial, tp
-from pulpo_tpu_torch.parallel.mesh import mean_over
+from pulpo_tpu_torch.parallel.mesh import in_recomputation, mean_over
 
 
 def conv_cl(x: torch.Tensor, w: torch.Tensor, pad: int) -> torch.Tensor:
@@ -95,8 +96,8 @@ class BatchNorm(nn.Module):
     does not touch the buffers: it leaves the running statistics' update
     ``0.9 * old + 0.1 * batch`` in `pending`, which the training step
     commits (or drops, when its NaN guard fires). A recomputation of the
-    forward in the backward (`replaying`, under remat) records nothing:
-    the forward recorded the update, from the same batch.
+    forward in the backward (parallel/mesh.py:`recomputing`, under remat)
+    records nothing: the forward recorded the update, from the same batch.
 
     Inside `synced(mesh)` (the data-parallel step) a train call averages
     its float32 ``E[x]`` and ``E[x^2]``, as one tensor, over the mesh's
@@ -107,18 +108,7 @@ class BatchNorm(nn.Module):
     unbiased variance."""
 
     momentum = 0.9
-    _replaying = False  # process-wide: autograd may recompute on its own thread
-    _mesh = None  # process-wide, as `_replaying`: the mesh of `synced`
-
-    @classmethod
-    @contextlib.contextmanager
-    def replaying(cls):
-        """Train BatchNorms inside record no running-statistics update."""
-        before, cls._replaying = cls._replaying, True
-        try:
-            yield
-        finally:
-            cls._replaying = before
+    _mesh = None  # the mesh of `synced`; process-wide: autograd may recompute on its own thread
 
     @classmethod
     @contextlib.contextmanager
@@ -149,7 +139,7 @@ class BatchNorm(nn.Module):
         if BatchNorm._mesh is not None:
             mean, mean2 = mean_over(torch.stack([mean, mean2]), BatchNorm._mesh).unbind(0)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
-        if not BatchNorm._replaying:
+        if not in_recomputation():
             assert self.pending is None, "a BatchNorm ran twice in one train forward"
             m = self.momentum
             self.pending = (m * self.running_mean + (1 - m) * mean.detach(),
@@ -246,8 +236,6 @@ class MuSigmaBlock(nn.Module):
         cm, cs = self._conv_mu, self._conv_sigma[0]
         mu = conv1x1_cl(x, cm.weight) + cm.bias.to(dt)
         sigma = conv1x1_cl(x, cs.weight) + cs.bias.to(dt)
-        if tp.active():
-            mu, sigma = tp.channels(mu, cm), tp.channels(sigma, cs)
         return mu, softplus(sigma)
 
 

@@ -69,10 +69,10 @@ Remat under sharding equals the plain sharded step, as on one device:
 a checkpointed region's recomputation is a function of the region's
 saved inputs, the module's weights and the sharding flags alone. The
 inputs are the ones its forward took; the flags are restored to its
-forward's (`spatial.replay`); its exchanges (halos, gathers, the
-resizes' sums, the integration's per-step gathers, BatchNorm.synced's
-all-reduce of the moments) are collectives of the same sizes in the same
-order on every rank, since every rank's autograd replays the same
+forward's (`spatial.restored`, `tp.sharded`); its exchanges (halos,
+gathers, the resizes' sums, the integration's per-step gathers,
+BatchNorm.synced's all-reduce of the moments) are collectives of the
+same sizes in the same order on every rank, since every rank's autograd replays the same
 graph, so each returns what it returned in the forward; no noise is
 drawn inside a region, and its BatchNorms record no update. Hence every
 activation it rebuilds equals the forward's, and so does every
@@ -88,7 +88,6 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from pulpo_tpu_torch.config import PULPoConfig
 from pulpo_tpu_torch.kernels import pos_head
 from pulpo_tpu_torch.models.blocks import (
-    BatchNorm,
     ConvSequence,
     MuSigmaBlock,
     VelocityField,
@@ -106,6 +105,7 @@ from pulpo_tpu_torch.ops.warp import (
     warp_image,
 )
 from pulpo_tpu_torch.parallel import spatial, tp
+from pulpo_tpu_torch.parallel.mesh import recomputing
 
 LevelDict = dict[int, torch.Tensor]
 
@@ -150,20 +150,22 @@ def draw_normal(seed: int, samples, level: int, per_shape, device) -> torch.Tens
 def remat(fn, *args):
     """fn(*args) with its activations recomputed in the backward
     (`torch.utils.checkpoint`, non-reentrant), as `nn.remat` in the JAX
-    package. The recomputation runs its BatchNorms `replaying`, and runs
-    the whole region (no early stop), so that each kernel in it launches
-    once more in the backward. Under spatial sharding it runs under the
-    sharding flags its forward saw (`spatial.replay`), so it issues the
-    forward's exchanges again, in the same order on every rank."""
+    package. The recomputation runs `recomputing` (parallel/mesh.py: its
+    BatchNorms record no update, its exchanges count apart), and runs the
+    whole region (no early stop), so that each kernel in it launches once
+    more in the backward. Under spatial sharding or the output-channel
+    split it runs under the flags and the mesh its forward saw
+    (`spatial.restored`, `tp.sharded`), so it issues the forward's
+    exchanges again, in the same order on every rank."""
     first = True
-    flags = spatial.snapshot()
+    flags, mesh = spatial.snapshot(), tp.snapshot()
 
     def run(*a):
         nonlocal first
         if first:
             first = False
             return fn(*a)
-        with BatchNorm.replaying(), spatial.replay(flags):
+        with recomputing(), spatial.restored(flags), tp.sharded(mesh):
             return fn(*a)
 
     with set_checkpoint_early_stop(False):

@@ -1,6 +1,6 @@
 """Separable linear resampling and ceil-mode average pooling.
 
-Port of pulpo_tpu/ops/resize.py:68-103. Each spatial axis is resampled
+Port of pulpo_tpu/ops/resize.py:68-111. Each spatial axis is resampled
 by a dense (out, in) matrix built with numpy, as the JAX package does,
 so both packages use bit-identical matrices:
 
@@ -110,3 +110,12 @@ def avg_pool_ceil(x: torch.Tensor, spatial_axes: tuple[int, ...] | None = None) 
     for ax in spatial_axes:
         x = _apply_axis_matrix(x, ("avgpool", x.shape[ax]), ax)
     return x
+
+
+def avg_pool_pyramid(x: torch.Tensor, num_levels: int) -> list[torch.Tensor]:
+    """[x, pool(x), pool(pool(x)), ...]: `num_levels` entries of
+    `avg_pool_ceil` (pulpo_tpu/ops/resize.py:106)."""
+    out = [x]
+    for _ in range(num_levels - 1):
+        out.append(avg_pool_ceil(out[-1]))
+    return out

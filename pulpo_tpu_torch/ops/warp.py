@@ -144,6 +144,19 @@ def resize_vecfield_cf(x: torch.Tensor, vel_resize: float,
     return out.permute(0, 4, 1, 2, 3)
 
 
+def resize_dfs(dfs: dict[int, torch.Tensor],
+               target_size: tuple[int, ...] | None = None) -> dict[int, torch.Tensor]:
+    """A per-level dict of dfs, each resized to level 0's size (or to
+    `target_size`) by `resize_vecfield` with the factor of axis 0
+    (pulpo_tpu/ops/warp.py:369; the reference helper's key loop,
+    `range(dfs.keys())`, fixed to iterate the keys: DIVERGENCES.md #7)."""
+    out = {}
+    for l, df in dfs.items():
+        ref_size = tuple(dfs[0].shape[1:-1]) if target_size is None else tuple(target_size)
+        out[l] = resize_vecfield(df, 1.0 / (ref_size[0] / df.shape[1]), out_size=ref_size)
+    return out
+
+
 def warp_landmarks(lm: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     """Warp landmarks (B, N, ndims) by a df (B, *spatial, ndims): the
     TRUNCATED landmark minus the df at it (pulpo_tpu/ops/warp.py:385-410)."""

@@ -10,6 +10,12 @@ of JAX's `pmean` does) and `bucket_mean` / `bucket_sum` (one flat
 float32 all-reduce for many tensors). Without an initialised process
 group the world is one rank and every collective is the identity.
 
+What the sharded models (spatial.py, tp.py) share: `Traffic`, the count
+of each exchange a rank makes, and `recomputing`, the one flag of a
+checkpointed region's recomputation in the backward
+(models/pulpo.py:remat), under which train BatchNorms record no running
+update and every exchange is counted apart.
+
 `make_2d_mesh(data, space)` (pulpo_tpu/parallel/spatial.py:23) puts
 rank r at (r // space, r % space) and holds a 1D mesh for each axis: its
 `space` column (the ranks that split one volume's depth: same data
@@ -20,6 +26,7 @@ collectives run over either axis or both.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -45,6 +52,38 @@ class Mesh:
         if dist.get_backend(self.group) == "nccl":
             return torch.device("cuda", torch.cuda.current_device())
         return like.device
+
+
+_recomputing = False  # process-wide: autograd may recompute on its own thread
+
+
+@contextlib.contextmanager
+def recomputing():
+    """A checkpointed region's recomputation in the backward: train
+    BatchNorms inside record no running-statistics update (the forward
+    recorded it, from the same batch), and each exchange counts apart in
+    its `Traffic`."""
+    global _recomputing
+    before, _recomputing = _recomputing, True
+    try:
+        yield
+    finally:
+        _recomputing = before
+
+
+def in_recomputation() -> bool:
+    return _recomputing
+
+
+class Traffic(dict):
+    """{kind: [calls, bytes]} of each exchange on this rank since `clear`;
+    one made while `recomputing` counts under "<kind>_recomputed"."""
+
+    def count(self, kind: str, nbytes: int) -> None:
+        if _recomputing:
+            kind = f"{kind}_recomputed"
+        calls, total = self.get(kind, [0, 0])
+        self[kind] = [calls + 1, total + nbytes]
 
 
 def world(group=None) -> tuple[int, int]:

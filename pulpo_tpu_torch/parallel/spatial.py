@@ -92,12 +92,13 @@ L summed over space and averaged over data is L (`statistic_weight`).
 
 Remat (`remat`, `remat_down`; models/pulpo.py:remat): a checkpointed
 region recomputes in the backward under the flags its forward saw
-(`snapshot`, `replay`), so it issues the forward's exchanges again (halo
-all-gathers, volume gathers, the resizes' and statistics' all-reduces,
-the integration's per-step gathers, `BatchNorm.synced`'s moments), the
-same collectives in the same order on every rank; `traffic` counts them
-apart ("<kind>_recomputed"). Why a remat step equals the plain sharded
-step: models/pulpo.py's module doc.
+(`snapshot`, `restored`), so it issues the forward's exchanges again
+(halo all-gathers, volume gathers, the resizes' and statistics'
+all-reduces, the integration's per-step gathers, `BatchNorm.synced`'s
+moments), the same collectives in the same order on every rank;
+`traffic` counts them apart ("<kind>_recomputed", mesh.py:
+`recomputing`). Why a remat step equals the plain sharded step:
+models/pulpo.py's module doc.
 
 `make_spatial_forward(model, mesh)` returns this rank's slab of the
 level-0 final df and warped image; `make_spatial_train_step(model, tx,
@@ -117,7 +118,8 @@ import torch.distributed as dist
 
 from pulpo_tpu_torch.kernels import plain_vjp, squaring
 from pulpo_tpu_torch.kernels import warp as warp_kernel
-from pulpo_tpu_torch.parallel.mesh import Mesh, Mesh2D, bucket_mean, bucket_sum, make_2d_mesh
+from pulpo_tpu_torch.parallel.mesh import (Mesh, Mesh2D, Traffic, bucket_mean, bucket_sum,
+                                            make_2d_mesh)
 
 __all__ = ["make_2d_mesh", "volume_batch_spec", "replicated", "shard_volume",
            "with_spatial_constraint", "sharded", "make_spatial_forward",
@@ -134,18 +136,12 @@ QUEUE = "not ported under spatial sharding yet (ROADMAP.md Queue 1)"
 # partial statistics and of their cotangents); bytes are the gathered or
 # reduced buffer's. A checkpointed region's recomputation in the backward
 # (remat) counts its exchanges again, apart: "<kind>_recomputed"
-traffic: dict[str, list[int]] = {}
-
-
-def reset_traffic() -> None:
-    traffic.clear()
+traffic = Traffic()
+reset_traffic = traffic.clear
 
 
 def _count(kind: str, t: torch.Tensor, n: int = 1) -> None:
-    if _replaying:
-        kind = f"{kind}_recomputed"
-    calls, nbytes = traffic.get(kind, [0, 0])
-    traffic[kind] = [calls + 1, nbytes + t.numel() * t.element_size() * n]
+    traffic.count(kind, t.numel() * t.element_size() * n)
 
 
 def splits(depth: int, space: int) -> bool:
@@ -200,7 +196,6 @@ class _State:
 
 _state: _State | None = None
 _suspended = False
-_replaying = False  # a checkpointed region's recomputation (`replay`)
 
 
 def active() -> bool:
@@ -239,25 +234,24 @@ def suspended():
 
 def snapshot() -> tuple:
     """The sharding flags in force (`sharded`'s state, `suspended`), for a
-    checkpointed region to recompute under (`replay`)."""
+    checkpointed region to recompute under (`restored`)."""
     return _state, _suspended
 
 
 @contextlib.contextmanager
-def replay(flags: tuple):
-    """A checkpointed region's recomputation in the backward
-    (models/pulpo.py:remat) under the flags its forward saw (`snapshot`).
-    The flags are process-wide, and autograd may recompute on its own
-    thread while the caller's thread waits in the backward, so this sets
-    them rather than trusting them. Its exchanges are counted apart in
-    `traffic`, under "<kind>_recomputed"."""
-    global _state, _suspended, _replaying
-    before = (_state, _suspended, _replaying)
-    (_state, _suspended), _replaying = flags, True
+def restored(flags: tuple):
+    """The flags a checkpointed region's forward saw (`snapshot`), for its
+    recomputation in the backward (models/pulpo.py:remat). The flags are
+    process-wide, and autograd may recompute on its own thread while the
+    caller's thread waits in the backward, so this sets them rather than
+    trusting them."""
+    global _state, _suspended
+    before = (_state, _suspended)
+    _state, _suspended = flags
     try:
         yield
     finally:
-        _state, _suspended, _replaying = before
+        _state, _suspended = before
 
 
 def _space() -> Mesh:

@@ -10,9 +10,10 @@ OASIS (`--segs` adds the one-hot segmentations for a `dice` loss),
 BraTS (the default; `--interpatient` pairs across patients), LungCT or
 synthetic pairs; `--ndims 2` trains the 2D configuration on OASIS
 slices or 64x64 synthetic ones. After training the run is evaluated
-(`Evaluate.run_one_model`: the performance and uncertainty tables)
-unless `--skip_eval` is given. Unlike the JAX CLI, it draws no figures
-there: `evaluate_cli` draws them.
+(`Evaluate.run_one_model` with its defaults, as the JAX CLI runs it:
+each loader's figures, as `.npz` panels and, where matplotlib is
+installed, `.png`, then the performance and uncertainty tables) unless
+`--skip_eval` is given.
 
 Data parallelism: one process a replica, under torchrun,
 
@@ -208,7 +209,7 @@ def main(args=None):
         ev = Evaluate(device=device)
         ev.load_model(trainer.run_dir)
         ev.run_one_model(segs=args.segs, lms=args.lms, mask=args.mask, N=10,
-                         task=args.dataset, data_path=args.data_path, visualize=False)
+                         task=args.dataset, data_path=args.data_path)
     return trainer.run_dir
 
 

@@ -753,6 +753,35 @@ def test_conv_narrow_gradient_matches_plain(cuda_device):
             torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * max(1.0, float(b.abs().max())))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [2, 3])
+def test_conv_narrow_at_an_output_channel_slice(cuda_device, dtype, cin):
+    """#12 at cout 16, each half of a 32-channel weight, as the training
+    step under the output-channel split at model 2 launches it
+    (parallel/tp.py): one launch each, against the matching channels of
+    the whole 32-channel launch and against the plain version; bit-equal
+    to both in f32, within one bf16 ulp at scale of both in bf16."""
+    from pulpo_tpu_torch.kernels import conv_narrow
+
+    w = _narrow_weight(cin, 32, 200 + cin).to(cuda_device)
+    x = torch.randn((1, 12, 20, 45, cin), device=cuda_device).to(dtype)
+    with torch.no_grad():
+        whole = conv_narrow.conv_narrow(x, w)
+        for r in range(2):
+            ws = w[16 * r:16 * (r + 1)]
+            before = conv_narrow.launches
+            got = conv_narrow.conv_narrow(x, ws)
+            torch.cuda.synchronize()
+            assert conv_narrow.launches == before + 1 and got.shape == (1, 12, 20, 45, 16)
+            for ref in (whole[..., 16 * r:16 * (r + 1)], conv_narrow.conv_narrow_plain(x, ws)):
+                if dtype == torch.float32:
+                    assert torch.equal(got, ref)
+                else:
+                    scale = max(1.0, float(ref.float().abs().max()))
+                    torch.testing.assert_close(got.float(), ref.float(), rtol=0,
+                                               atol=_bf16_ulp(scale))
+
+
 def test_conv_narrow_raises_for_shapes_it_does_not_take(cuda_device):
     from pulpo_tpu_torch.kernels import conv_narrow
 

@@ -37,16 +37,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(path):
 
 
 HOST_ONLY = ("pandas", "tensorboardX", "matplotlib")  # not on the card's machine
+# the functions that draw: a figure from its panels, a table as its SVG
+DRAWERS = {ROOT / "pulpo_tpu_torch" / "eval" / "visualize.py": "draw",
+           ROOT / "pulpo_tpu_torch" / "eval" / "tables.py": "_draw_svg"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_pandas_or_tensorboard_and_matplotlib_only_in_draw(path):
     """The card's machine has none of pandas, tensorboardX and
     matplotlib: no port module imports the first two, and matplotlib is
-    imported only inside `eval/visualize.draw`, the one function that
-    draws."""
+    imported only inside the functions that draw (`DRAWERS`:
+    `eval/visualize.draw` and `eval/tables._draw_svg`)."""
     tree = ast.parse(path.read_text(), filename=str(path))
-    allowed = path == ROOT / "pulpo_tpu_torch" / "eval" / "visualize.py"
+    drawer = DRAWERS.get(path)
 
     def walk(node, func):
         for child in ast.iter_child_nodes(node):
@@ -59,7 +62,7 @@ def test_port_imports_no_pandas_or_tensorboard_and_matplotlib_only_in_draw(path)
                 for n in names:
                     top = n.split(".")[0]
                     if top in HOST_ONLY:
-                        assert top == "matplotlib" and allowed and func == "draw", \
+                        assert top == "matplotlib" and func is not None and func == drawer, \
                             f"{path.name}:{child.lineno} imports {n} (in {func})"
             walk(child, func)
 

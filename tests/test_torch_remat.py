@@ -17,6 +17,7 @@ import torch
 from pulpo_tpu_torch import PULPoConfig
 from pulpo_tpu_torch.models import PULPoModel
 from pulpo_tpu_torch.models.blocks import BatchNorm
+from pulpo_tpu_torch.parallel.mesh import in_recomputation, recomputing
 from pulpo_tpu_torch.train import create_train_state, make_train_step
 from pulpo_tpu_torch.train.step import compute_grads
 from test_torch_threads import one_torch_thread  # noqa: F401
@@ -113,10 +114,10 @@ def test_remat_step_commits_what_the_plain_step_commits(plain_step, name):
 def test_replaying_records_nothing_and_restores_the_flag():
     bn = BatchNorm(3)
     x = torch.randn(2, 4, 5, 6, 3)
-    with BatchNorm.replaying():
+    with recomputing():
         y = bn(x, train=True)
         assert bn.pending is None
-    assert not BatchNorm._replaying
+    assert not in_recomputation()
     assert torch.equal(bn(x, train=True), y) and bn.pending is not None
     with pytest.raises(AssertionError, match="ran twice"):
         bn(x, train=True)

@@ -26,8 +26,13 @@ MODE `spatial2d` (world 4): the same as `remat_fullres` on the 2D
 configurations (each image (B, H, W, C) sharded along H), a step case
 with "update" also taking one `make_spatial_train_step` step.
 MODE `tp` (world 2): the model split by `tp.shard_params` at model 2,
-its rules and `predict_deterministic` under `tp.sharded`, and the error
-a train forward raises there.
+its rules, `predict_deterministic` and a train forward (`apply_train`)
+under `tp.sharded`, and `create_train_state`'s slices of the initial
+weights; `predict_deterministic` of each case of INPUT["forwards"] (the
+2D and the full_res configurations); for each case of INPUT["steps"]
+the gradients, statistics, metrics and traffic of `compute_grads` under
+`tp.sharded` (each rank's slices), and with "update" the state after
+one `make_train_step` step (Adam) made inside `tp.sharded`.
 Each rank writes OUT_DIR/rank_<r>.pt. Imports torch and the port only
 (no JAX).
 """
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import pathlib
 import sys
+from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -45,7 +51,13 @@ import torch  # noqa: E402
 from pulpo_tpu_torch import PULPoConfig  # noqa: E402
 from pulpo_tpu_torch.models import PULPoModel  # noqa: E402
 from pulpo_tpu_torch.parallel import multihost, spatial, tp  # noqa: E402
-from pulpo_tpu_torch.train.step import Adam, TrainState  # noqa: E402
+from pulpo_tpu_torch.train.step import (  # noqa: E402
+    Adam,
+    TrainState,
+    compute_grads,
+    create_train_state,
+    make_train_step,
+)
 
 
 def _model(case: dict) -> PULPoModel:
@@ -137,6 +149,20 @@ def run_rule(rule: dict) -> dict:
     return out
 
 
+def keeping_local(kept: dict):
+    """`tp.mean_replicated` patched to keep first, in `kept`, the
+    replicated leaves' gradients this rank computed (before their average
+    over the ranks)."""
+    average = tp.mean_replicated
+
+    def keep(grads, model):
+        split = model.module.tp_split
+        kept.update({n: g.detach().clone() for n, g in grads.items() if n not in split})
+        return average(grads, model)
+
+    return mock.patch.object(tp, "mean_replicated", keep)
+
+
 def run_tp(inp: dict) -> dict:
     mesh = tp.make_model_mesh(2)
     model = _model(inp)
@@ -144,13 +170,39 @@ def run_tp(inp: dict) -> dict:
     tp.shard_params(model, mesh)
     with tp.sharded(mesh):
         warped, dfs = model.predict_deterministic(inp["x"], inp["y"])
-        try:
-            model.apply_train(inp["x"], inp["y"])
-            refused = None
-        except NotImplementedError as e:
-            refused = str(e)
+        with torch.no_grad():
+            train_outs, train_stats = model.apply_train(inp["x"], inp["y"])
     shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
-    return {"rules": rules, "warped": warped, "dfs": dfs, "refused": refused, "shapes": shapes}
+    state, _ = create_train_state(model, seed=5)
+    out = {"rules": rules, "warped": warped, "dfs": dfs, "shapes": shapes,
+           "train_outs": train_outs, "train_stats": train_stats,
+           "init": model.state_dict(), "adam_shapes": {
+               n: tuple(m.shape) for n, m in state.opt_state.mu.items()}}
+    out["forwards"] = {}
+    for case in inp["forwards"]:
+        fmodel = tp.shard_params(_model(case), mesh)
+        with tp.sharded(mesh):
+            out["forwards"][case["name"]] = fmodel.predict_deterministic(case["x"], case["y"])
+    out["steps"] = {}
+    for case in inp["steps"]:
+        smodel = tp.shard_params(_model(case), mesh)
+        local = {}
+        with tp.sharded(mesh):
+            tp.reset_traffic()
+            with keeping_local(local):
+                grads, stats, metrics = compute_grads(smodel, case["batch"], noise=case["noise"])
+            rec = dict(grads=grads, stats=stats, metrics=metrics, traffic=dict(tp.traffic),
+                       split=smodel.module.tp_split, local=local)
+            if case.get("update"):
+                rec["before"] = {n: v.clone() for n, v in smodel.state_dict().items()}
+                tx = Adam(smodel.cfg.lr)
+                state = TrainState(step=0, model=smodel, opt_state=tx.init(
+                    dict(smodel.module.named_parameters())), rng=torch.Generator().manual_seed(0))
+                step = make_train_step(smodel, tx)
+                _, step_metrics = step(state, case["batch"], noise=case["noise"])
+                rec.update(after=smodel.state_dict(), step_metrics=step_metrics)
+        out["steps"][case["name"]] = rec
+    return out
 
 
 def main(mode: str, rank: int, world: int, url: str, inp_path: str, out_dir: str) -> None:
