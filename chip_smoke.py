@@ -16,8 +16,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3c. the same under LungCT's large displacements: a respiratory field
    (a superior-inferior ramp to 16 voxels and an in-plane drift to 4)
    at 192x192x208 for the warp and its df-cotangent (bit-equal), at the
-   level-0 size 96x96x104 for the moving-cotangent and the squaring
-   backward (1e-5 of scale, float32 atomics), a squaring integration
+   level-0 size 96x96x104 for the moving-cotangent (bit-equal) and the
+   squaring backward (1e-5 of scale; two launches bit-identical: both
+   sum their scatter order-free in fixed point), a squaring integration
    whose last step moves ~8 voxels (bit-equal), and the box sum at each
    LungCT level's size and window and the velocity head at its level 0
    (the tolerances of phase 3);
@@ -136,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    `remat_down=(0,)` and under `remat`, each twice: the loss and the
    BatchNorm statistics equal, the gradients no further from the plain
    step's (relative L2) than its own second run is (twice that, or
-   1e-5; the float atomics of the squaring backward), exact launch counts (a
+   1e-5; 0 where the plain step repeats itself), exact launch counts (a
    checkpointed region's kernels launch again in the backward), the
    remat peaks below the plain one;
 8c. BraTS: `train_cli` with its defaults (`--dataset brats`, float32)
@@ -188,7 +189,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    full width: `make_dp_train_step` against `make_train_step` on the
    same weights, batch and draws: losses and BatchNorm statistics equal
    bit for bit, gradients within the plain step's own run-to-run spread
-   (#2's float32 atomics), exact launch counts, the step time beside
+   (twice it, or 1e-5), exact launch counts, the step time beside
    phase 5b's;
 10d. `train_cli --data_parallel 2 --dist_backend gloo` as two torchrun
    processes on the one card (a BraTS store at 64x64x64, 3 levels, 2
@@ -270,9 +271,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    bf16 step also within twice the unsharded bf16 step's distance from
    its f32 twin, as 11g's; the losses bit-equal on the ranks and equal
    to the unsplit step's with each split unit run as its two channel
-   slices on one process; the replicated leaves' gradients as each rank
-   computed them within twice the unsharded step's run-to-run distance
-   on those leaves, and bit-equal after their average),
+   slices on one process; the replicated leaves' gradients, as each rank
+   computes them with no average over the ranks, bit-equal),
    `create_train_state` on the split model and one `make_train_step`
    update (the replicated weights bit-equal on the ranks after it); and
    `flagship-2d`'s split forward (bf16, held as 11g's bf16 forward) and
@@ -299,7 +299,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from unittest import mock
 
 N_SAMPLES = 32
 N_REQUESTS = 3
@@ -658,10 +657,13 @@ def check_vel_head(dev, level0, checks, g, rows=None):
 
 def check_backward_kernels(dev, cfg, checks):
     """The training path's kernels against their plain versions at its
-    shapes (B = 1). `warp_mgrad` and `squaring_bwd` scatter with float32
-    atomics, whose order is not fixed: 1e-5 of the output's scale.
-    `warp_dfgrad` (C = 1) repeats the plain version's operations and
-    `box_sum` adds in its order: both bit-equal."""
+    shapes (B = 1). `warp_mgrad` and `squaring_bwd` sum their scatter
+    order-free in 64-bit fixed point (csrc/fixed.cuh): `warp_mgrad` is
+    bit-equal to its plain version, which quantizes and sums the same
+    way; `squaring_bwd` is held to 1e-5 of the output's scale and a
+    second launch to the first's bits. `warp_dfgrad` (C = 1) repeats
+    the plain version's operations and `box_sum` adds in its order: both
+    bit-equal."""
     import torch
 
     from pulpo_tpu_torch.kernels import squaring, warp
@@ -704,10 +706,17 @@ def check_backward_kernels(dev, cfg, checks):
         cot = torch.randn((rows, *size, c), generator=g).to(dev)
         ref = warp.warp_mgrad_plain((1, *size, c), df, cot)
         record("warp_mgrad", f"C={c} {rows} rows {'x'.join(map(str, size))}",
-               warp.warp_mgrad((1, *size, c), df, cot), ref, scaled(ref, 1e-5))
+               warp.warp_mgrad((1, *size, c), df, cot), ref, 0.0)
     ref = warp.warp_mgrad_plain((1, *size, c), permuted(df), cot)
     record("warp_mgrad", "C=1 full res permuted-memory df",
-           warp.warp_mgrad((1, *size, c), permuted(df), cot), ref, scaled(ref, 1e-5))
+           warp.warp_mgrad((1, *size, c), permuted(df), cot), ref, 0.0)
+    # the full-size image's cotangent under 2 rows of a level-0 df (a
+    # cross-resolution warp, level_res)
+    df = smooth_field(2, level0, 3.0, seed=26, device=dev)
+    cot = torch.randn((2, *level0, 1), generator=g).to(dev)
+    ref = warp.warp_mgrad_plain((1, *full, 1), df, cot)
+    record("warp_mgrad", f"C=1 2 rows {'x'.join(map(str, level0))} df, full-res image",
+           warp.warp_mgrad((1, *full, 1), df, cot), ref, 0.0)
     del df, cot, ref
 
     # squaring backward at level 0: the 7 step inputs of one integration
@@ -720,8 +729,11 @@ def check_backward_kernels(dev, cfg, checks):
     cot = torch.randn((1, *level0, 3), generator=g).to(dev)
     for k, vk in enumerate(step_in):
         ref = squaring.squaring_step_bwd_plain(vk, cot)
-        record("squaring_bwd", f"step {k} |v|<={float(vk.abs().max()):.2f}",
-               squaring.squaring_step_bwd(vk, cot), ref, scaled(ref, 1e-5))
+        got = squaring.squaring_step_bwd(vk, cot)
+        record("squaring_bwd", f"step {k} |v|<={float(vk.abs().max()):.2f}", got, ref,
+               scaled(ref, 1e-5))
+        record("squaring_bwd", f"step {k} second launch, the first's bits",
+               squaring.squaring_step_bwd(vk, cot), got, 0.0)
     ref = squaring.squaring_step_bwd_plain(step_in[-1], cot)
     record("squaring_bwd", "step 6 permuted-memory field",
            squaring.squaring_step_bwd(permuted(step_in[-1]), cot), ref, scaled(ref, 1e-5))
@@ -732,7 +744,9 @@ def check_backward_kernels(dev, cfg, checks):
     vg = v.clone().requires_grad_(True)
     (got,) = torch.autograd.grad(squaring.integrate_svf(vg, cfg.nsteps), vg, cot)
     record("squaring_bwd", "IntegrateSVF backward, 7 steps", got, ref, scaled(ref, 1e-4))
-    del v, vg, step_in, cot, ref, got
+    (again,) = torch.autograd.grad(squaring.integrate_svf(vg, cfg.nsteps), vg, cot)
+    record("squaring_bwd", "IntegrateSVF backward again, same bits", again, got, 0.0)
+    del v, vg, step_in, cot, ref, got, again
     check_box_sums(dev, cfg, checks, g)
 
 
@@ -761,10 +775,11 @@ def check_box_sums(dev, cfg, checks, g):
 def check_large_displacement(dev, cfg, checks):
     """Phase 3c: the kernels of the LungCT path under its displacements
     and at its shapes. The warp and its df-cotangent repeat the plain
-    version's operations (bit-equal, tolerance 0); the moving-cotangent
-    and the squaring backward scatter with float32 atomics (1e-5 of
-    scale); the squaring integration is bit-equal; the box sums and the
-    velocity head are held as at the flagship's shapes."""
+    version's operations (bit-equal, tolerance 0), the moving-cotangent
+    its quantized sums (bit-equal); the squaring backward is held to
+    1e-5 of scale and a second launch to the first's bits; the squaring
+    integration is bit-equal; the box sums and the velocity head are
+    held as at the flagship's shapes."""
     import torch
 
     from pulpo_tpu_torch.kernels import squaring, warp
@@ -791,9 +806,9 @@ def check_large_displacement(dev, cfg, checks):
     cot = torch.randn((1, *level0, 3), generator=g).to(dev)
     shape = (1, *level0, 3)
     ref = warp.warp_mgrad_plain(shape, df, cot)
-    record("warp_mgrad", f"C=3 {tag0}", warp.warp_mgrad(shape, df, cot), ref, scaled(ref, 1e-5))
+    record("warp_mgrad", f"C=3 {tag0}", warp.warp_mgrad(shape, df, cot), ref, 0.0)
     record("warp_mgrad", f"C=3 {tag0} permuted-memory df",
-           warp.warp_mgrad(shape, permuted(df), cot), ref, scaled(ref, 1e-5))
+           warp.warp_mgrad(shape, permuted(df), cot), ref, 0.0)
 
     # an SVF whose last squaring step moves ~8 voxels: its 7 step inputs,
     # the integration (bit-equal) and the backward of each step
@@ -808,8 +823,11 @@ def check_large_displacement(dev, cfg, checks):
         step_in.append(squaring.squaring_step_plain(step_in[-1]))
     for k, vk in enumerate(step_in):
         ref = squaring.squaring_step_bwd_plain(vk, cot)
-        record("squaring_bwd", f"ramp step {k} |v|<={float(vk.abs().max()):.2f}",
-               squaring.squaring_step_bwd(vk, cot), ref, scaled(ref, 1e-5))
+        got = squaring.squaring_step_bwd(vk, cot)
+        record("squaring_bwd", f"ramp step {k} |v|<={float(vk.abs().max()):.2f}", got, ref,
+               scaled(ref, 1e-5))
+        record("squaring_bwd", f"ramp step {k} second launch, the first's bits",
+               squaring.squaring_step_bwd(vk, cot), got, 0.0)
     ref = squaring.squaring_step_bwd_plain(step_in[-1], cot)
     record("squaring_bwd", "ramp step 6 permuted-memory field",
            squaring.squaring_step_bwd(permuted(step_in[-1]), cot), ref, scaled(ref, 1e-5))
@@ -2345,9 +2363,9 @@ def run_remat_path(dev, cfg_kw, stores):
     launch counts, the remat peaks below the plain one, and the
     gradients no further from the plain step's (relative L2 over the
     network) than the plain step's own second run is (twice that, or
-    1e-5): the backward's float atomics (#2) change the last bits from
-    run to run, and in bfloat16 a last bit that moves a rounding moves a
-    gradient by more than that bit."""
+    1e-5; 0 where the plain step repeats itself bit for bit): in
+    bfloat16 a last bit that moves a rounding moves a gradient by more
+    than that bit."""
     import torch
 
     from pulpo_tpu_torch import PULPoConfig
@@ -3182,7 +3200,7 @@ def run_dp_world1(dev, cfg_kw, steps, plain_step_s):
     `make_train_step`, the flagship config at full width (B = 1), the
     same weights, batch and draws (`noise=`). With cuDNN deterministic,
     the DP gradients (`dp_compute_grads`) against the plain step's twice
-    (its own run-to-run spread: #2's float32 atomics): the loss and the
+    (its own run-to-run spread, 0 where it repeats itself): the loss and the
     BatchNorm statistics must be equal bit for bit, the gradients no
     further from the plain step's than its second run is (twice that, or
     1e-5 relative L2). Then 1 + `steps` steps of each from the same
@@ -3451,7 +3469,8 @@ def check_slab_kernels(dev, cfg, checks, seg_cfg):
     launch and to the plain version at its offset (the plain df-cotangent
     adds a corner's channels in order, as the kernel's bodies do); the
     step backward's (#2) share of each slab within 1e-5 of scale of the
-    whole backward of that slab's cotangent (float32 atomics), the
+    whole backward of that slab's cotangent (the slab's max |g| sets its
+    fixed-point scale), the
     shares' sum of the whole backward. Each slab launch's device time
     (CUDA-graph replay) beside the whole launch's, and the body each C =
     36 slab launch and each #8 slab launch took. Then the fused eval kernels on a slab with the
@@ -4024,6 +4043,12 @@ def spatial_references(dev, cfg, cfg_kw):
         sbatch, snoise = spatial_inputs(scfg, dev, rows, segs=scfg.segs)
         out[name] = step_reference(scfg, sbatch, snoise, dev)
         del sbatch
+    for name, r in out.items():
+        if isinstance(r, dict) and "rr" in r:
+            same = all(torch.equal(g, r["grads"][n]) for n, g in r["again_grads"].items())
+            log(f"run-to-run of the unsharded {name} under cudnn.deterministic: gradients "
+                f"{r['rr']:.3e} apart (relative L2; {'bit-equal' if same else 'not bit-equal'}), "
+                f"losses {'equal' if r['again'] == r['losses'] else 'DIFFER'}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
@@ -4143,9 +4168,8 @@ def tp_steps(dev, cfg, batch, noise, tmesh, names, fresh):
     `tp.sharded(tmesh)`, the model split by `tp.shard_params` and
     initialised from seed 0 (each rank's slice of the unsplit init), with
     its launch counts, time, peak and exchanges; each rank keeps its
-    gradients (the split leaves' slices) on the host, and the replicated
-    leaves' gradients as it computed them, before `tp.mean_replicated`
-    averages them over the ranks ("local"). After the first,
+    gradients (the split leaves' slices, and the replicated leaves' as it
+    computed them: no average over the ranks) on the host. After the first,
     the training step's entry points: `create_train_state` on the split
     model and one `make_train_step` update made inside `tp.sharded` (its
     counts, loss, NaN flag, whether the weights moved, and the replicated
@@ -4156,13 +4180,6 @@ def tp_steps(dev, cfg, batch, noise, tmesh, names, fresh):
     from pulpo_tpu_torch.parallel import tp
     from pulpo_tpu_torch.train.step import compute_grads, create_train_state, make_train_step
 
-    average, local = tp.mean_replicated, {}
-
-    def keep(grads, model):
-        local.update({n: g.detach().cpu() for n, g in grads.items()
-                      if n not in model.module.tp_split})
-        return average(grads, model)
-
     out = {}
     torch.backends.cudnn.deterministic = True
     try:
@@ -4170,15 +4187,13 @@ def tp_steps(dev, cfg, batch, noise, tmesh, names, fresh):
             model = PULPoModel(cfg.replace(compute_dtype=dtype), device=dev)
             tp.shard_params(model, tmesh)
             model.init(0)
-            local.clear()
-            with tp.sharded(tmesh), mock.patch.object(tp, "mean_replicated", keep):
+            with tp.sharded(tmesh):
                 (grads, _, metrics), seconds, peak = peak_of(
                     lambda: compute_grads(model, batch, noise=noise), fresh)
             out[name] = {"s": seconds, "peak": peak, "counts": read_counts(),
                          "traffic": dict(tp.traffic), "split": model.module.tp_split,
                          "losses": {k: float(metrics[k]) for k in LOSS_KEYS},
-                         "grads": {n: v.cpu() for n, v in grads.items()},
-                         "local": dict(local)}
+                         "grads": {n: v.cpu() for n, v in grads.items()}}
             del grads, metrics
             if i == 0:
                 state, tx = create_train_state(model)
@@ -4220,33 +4235,25 @@ def held_tp(name, ranks, ref, dtype, failures):
     process (`slice_width_losses`, where `ref` holds it: the witness that
     the losses part from the unsplit step's only where a unit runs at its
     slice's width); the replicated leaves' gradients as each rank
-    computed them (before their average) within twice the unsharded
-    step's run-to-run distance on those leaves (relative L2: #2's
-    atomics; 0, bit-equal, where that step repeats itself bit for bit),
-    and after the average bit-equal; with an update, its loss finite, no
+    computed them (no average over the ranks is taken) bit-equal; with an
+    update, its loss finite, no
     NaN flag, the weights moved and the replicated weights bit-equal on
     the ranks. Returns the step's record of distances."""
     import torch
 
     first = ranks[0][name]
-    rep = sorted(first["local"])
-    rep_rr = grad_spread({n: ref["again_grads"][n] for n in rep}, {n: ref["grads"][n] for n in rep})
+    rep = sorted(n for n in first["grads"] if n not in first["split"])
     rep_apart = 0.0
     for r in ranks[1:]:
         if r[name]["losses"] != first["losses"]:
             failures.append(f"{name}: the ranks' losses differ")
-        rep_apart = max(rep_apart, grad_spread(r[name]["local"], first["local"])[0])
-        odd = [n for n, g in first["grads"].items()
-               if n not in first["split"] and not torch.equal(g, r[name]["grads"][n])]
+        rep_apart = max(rep_apart, grad_spread({n: r[name]["grads"][n] for n in rep},
+                                               {n: first["grads"][n] for n in rep})[0])
+        odd = [n for n in rep if not torch.equal(first["grads"][n], r[name]["grads"][n])]
         if odd:
             failures.append(f"{name}: replicated gradients differ on the ranks: {odd}")
     log(f"tp {name}: the {len(rep)} replicated leaves' gradients as each rank computed them "
-        f"{rep_apart:.3e} apart (relative L2, before their average); the unsharded step's "
-        f"run-to-run on them {rep_rr[0]:.3e} (worst leaf {rep_rr[1]:.3e} of its scale, "
-        f"{rep_rr[2]})")
-    if not rep_apart <= 2 * rep_rr[0]:
-        failures.append(f"{name}: replicated gradients {rep_apart:.3e} apart on the ranks "
-                        f"before their average, the unsharded step's run-to-run {rep_rr[0]:.3e}")
+        f"(no average) {rep_apart:.3e} apart (relative L2; bit-equal required)")
     slices = ref.get("slices")
     if slices is not None:
         log(f"tp {name}: losses {first['losses']}; the unsplit step with each split unit run as "
@@ -4257,7 +4264,7 @@ def held_tp(name, ranks, ref, dtype, failures):
                             f"slices' widths {slices}")
     info = held_step(name, {"grads": joined_grads(ranks, name), "losses": first["losses"]},
                      ref, dtype, failures)
-    info.update(replicated_apart=rep_apart, replicated_rr=rep_rr[0], slices=slices)
+    info.update(replicated_apart=rep_apart, slices=slices)
     update = ranks[0].get(f"{name} update")
     if update is not None:
         if not (math.isfinite(update["total_loss"]) and update["nan_flag"] == 0.0
@@ -4275,10 +4282,10 @@ def held_step(name, mine, theirs, dtype, failures):
     """Phases 11b and 11d: a sharded step's losses and gradients (rank 0's)
     against the unsharded step's in the same dtype. The sharded step
     reorders float32 sums (halo convs, slab partial losses and
-    statistics, summed squaring cotangents), a perturbation of float32
+    statistics), a perturbation of float32
     rounding's size, so it is held to twice the unsharded step's own
     distance under such perturbations: the larger of its run-to-run
-    distance (#2's atomics) and its distance on inputs moved by one
+    distance and its distance on inputs moved by one
     float32 ulp, and where `theirs` holds them (its "yardsticks": phase
     11g's), in f32 its distance from the same step on the CPU ("cpu"),
     in bf16 from its f32 twin ("f32": its own bf16 rounding error), for
@@ -4994,10 +5001,13 @@ def time_backward_kernels(dev, cfg):
     at its shapes (B = 1; the df-cotangent: `time_training_shapes`). Bounds count
     each input read once and each output written once; every one of
     these kernels does far fewer float32 operations per byte than the
-    card's 67 TFLOP/s against 3.35 TB/s, so bytes bound them. The squaring
-    backward and the box sum take less device time than their wrappers'
-    host side: `ms` is their device time (`graph_ms`), `eager_ms` the
-    per-call time of a loop of eager calls."""
+    card's 67 TFLOP/s against 3.35 TB/s, so bytes bound them. These
+    kernels take less device time than their wrappers' host side (the
+    moving-cotangent and the squaring backward are four operations on
+    the stream each: a memset, the max pass, the scatter and the convert
+    pass): `ms` is their device time (`graph_ms`, which also shows that
+    the launches make no host sync), `eager_ms` the per-call time of a
+    loop of eager calls."""
     import torch
     import torch.nn.functional as F
 
@@ -5012,14 +5022,15 @@ def time_backward_kernels(dev, cfg):
     df = smooth_field(1, level0, 3.0, seed=32, device=dev)
     cot = torch.randn((1, *level0, 3), device=dev)
     shape = (1, *level0, 3)
-    ms = time_ms(lambda: warp.warp_mgrad(shape, df, cot), 20)
+    eager = time_ms(lambda: warp.warp_mgrad(shape, df, cot), 20)
+    ms = graph_ms(lambda: warp.warp_mgrad(shape, df, cot))
     plain = time_ms(lambda: warp.warp_mgrad_plain(shape, df, cot), 2, warmup=1)
     mov = torch.rand((1, 3, *level0), device=dev, requires_grad=True)
     out = F.grid_sample(mov, grid_for(df), mode="bilinear", padding_mode="border",
                         align_corners=False)
     gcf = cot.permute(0, 4, 1, 2, 3)
     lib = time_ms(lambda: torch.autograd.grad(out, mov, gcf, retain_graph=True), 20)
-    res["warp_mgrad"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+    res["warp_mgrad"] = dict(ms=ms, eager_ms=eager, plain_ms=plain, library_ms=lib,
                              bound_ms=nl * (12 + 12 + 12) / HBM_BYTES_PER_S * 1e3,
                              bound_by="bytes", shape=f"df/g/out (1,{fmt(level0)},3) f32")
     del df, cot, mov, out, gcf

@@ -37,14 +37,27 @@
 // may have different spatial shapes (the level_res cross-resolution warp).
 //
 // pulpo_warp_mgrad replaces _warp_halo_mgrad_pallas (and its cascade):
-// the moving-cotangent, the transpose of the gather. One thread per
-// (df row, output voxel) scatters W_k * g into its 8 source corners of
-// moving row r % B with float32 atomicAdd, which also sums the sample
-// rows that share a moving row. The order in which the adds land is
-// not fixed, so the result varies from run to run in its last bits;
-// it is held to a tolerance, not to bit-equality. (The TPU kernel
-// re-expresses the scatter as a bounded halo gather; a thread here has
-// no bound on where its corners are, so it scatters.)
+// the moving-cotangent, the transpose of the gather, which adds each
+// output voxel's W_k * g into its 8 source corners of moving row r % B
+// (the sample rows that share a moving row add into the same targets).
+// The TPU kernel re-expresses the scatter as a bounded halo gather, exact
+// within +-H voxels; a thread here has no bound on where its corners are,
+// so it scatters, order-free (csrc/fixed.cuh): each term is quantized to
+// a 64-bit fixed-point integer at the launch's scale and summed as an
+// integer, so the result does not depend on the order of the adds and
+// is bit-equal to the plain version (kernels/warp.py:warp_mgrad_plain).
+// It walks the squaring backward's march (fixed::March; the plan
+// kernels/gather.py:squaring_bwd_plan over the df's output space, one
+// df row a blockIdx.z): a thread takes a column of output voxels along
+// z, holds its upper-z corners' terms for the next plane and takes the
+// next lane's lower-x corners' terms by shuffles, so the terms of a
+// smooth field reach the buffer merged; CB channels a pass (3 where C is
+// a multiple of 3, else 1), the march repeated for each pass. Moving and
+// df may have different spatial shapes (the level_res cross-resolution
+// warp); the merges then find fewer shared cells, and the result is the
+// same function. The float32-atomic body it replaces (one thread a
+// (row, voxel), 8 x C global float atomics) ran at 0.07 of its byte
+// bound and summed in a different order on every run.
 //
 // Clamp convention: clip'(u) is taken as jax.grad takes it through
 // jnp.clip (maximum, then minimum): 1 strictly inside, 1/2 at a tie
@@ -54,8 +67,9 @@
 // Bound: memory. dfgrad reads df (12 B) and g (4C B) once per voxel and
 // writes 12 B, and the moving map (4C B a voxel) once; the corners of a
 // smooth field are the neighbours' voxels and come from L1/L2. mgrad reads df
-// and g and scatters into a volume that stays in L2 at level-0 sizes; the
-// atomics resolve in L2.
+// and g and writes the moving cotangent (4C B a voxel); its int64 targets
+// (8C B a moving voxel) stay in L2 at level-0 sizes, where the atomics
+// resolve.
 //
 // Numerics: built with -fmad=false, so the coordinate arithmetic rounds
 // as in the forward (a source coordinate one ulp off can land across a
@@ -68,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fixed.cuh"
 #include "gather.cuh"
 
 namespace {
@@ -93,40 +108,6 @@ __device__ __forceinline__ Axis axis_terms(int p, float d, float f, int s_in) {
   t.w = src - fl;
   t.dclip = dmax * dmin;
   return t;
-}
-
-struct Voxel {
-  long long row_base;  // offset of moving row r % B, in voxels
-  Axis ax[3];
-};
-
-__device__ __forceinline__ Voxel voxel_terms(const float* __restrict__ df,
-                                             long long idx, int B,
-                                             int I0, int I1, int I2,
-                                             int O0, int O1, int O2,
-                                             float f0, float f1, float f2) {
-  const long long n_out = (long long)O0 * O1 * O2;
-  const long long r = idx / n_out;
-  const long long v = idx - r * n_out;
-  const int x = (int)(v % O2);
-  const int y = (int)((v / O2) % O1);
-  const int z = (int)(v / ((long long)O1 * O2));
-  const float* d = df + idx * 3;
-  Voxel out;
-  out.row_base = (r % B) * ((long long)I0 * I1 * I2);
-  out.ax[0] = axis_terms(z, d[0], f0, I0);
-  out.ax[1] = axis_terms(y, d[1], f1, I1);
-  out.ax[2] = axis_terms(x, d[2], f2, I2);
-  return out;
-}
-
-__device__ __forceinline__ long long corner_offset(const Voxel& vx, int corner,
-                                                   int I1, int I2) {
-  const Axis* a = vx.ax;
-  const int z = (corner & 1) ? a[0].i1 : a[0].i0;
-  const int y = (corner & 2) ? a[1].i1 : a[1].i0;
-  const int x = (corner & 4) ? a[2].i1 : a[2].i0;
-  return vx.row_base + ((long long)z * I1 + y) * I2 + x;
 }
 
 __device__ __forceinline__ float axis_weight(const Axis& a, int hi) {
@@ -252,28 +233,83 @@ dfgrad_kernel(const float* __restrict__ mov, const float* __restrict__ df,
   }
 }
 
-__global__ void mgrad_kernel(const float* __restrict__ df,
-                             const float* __restrict__ g,
-                             float* __restrict__ out,
-                             int B, int C, int I0, int I1, int I2,
-                             int O0, int O1, int O2,
-                             float f0, float f1, float f2, long long total) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const Voxel vx = voxel_terms(df, idx, B, I0, I1, I2, O0, O1, O2, f0, f1, f2);
-  const float* gv = g + idx * C;
-#pragma unroll
-  for (int corner = 0; corner < 8; ++corner) {
-    const float w = axis_weight(vx.ax[0], corner & 1)
-                    * axis_weight(vx.ax[1], (corner >> 1) & 1)
-                    * axis_weight(vx.ax[2], (corner >> 2) & 1);
-    float* o = out + corner_offset(vx, corner, I1, I2) * C;
-    for (int ch = 0; ch < C; ++ch) atomicAdd(o + ch, w * gv[ch]);
-  }
-}
+// CB channels (c0 .. c0 + CB - 1 for each pass c0) of the moving-cotangent
+// of df row blockIdx.z into moving row blockIdx.z % B of the int64 targets.
+template <int CB>
+__global__ void __launch_bounds__(gather::THREADS)
+mgrad_kernel(const float* __restrict__ df, const float* __restrict__ g,
+             unsigned long long* __restrict__ acc, const unsigned* __restrict__ top, int clog,
+             int B, int C, int I0, int I1, int I2, int O0, int O1, int O2, float f0, float f1,
+             float f2, gather::Plan p) {
+  double up, down;
+  if (!fixed::scale_of(*top, clog, &up, &down)) return;  // nothing to add (the whole block)
+  const gather::Tile t = gather::tile_of<1>(p);
+  const int r = blockIdx.z;
+  const int n_out = O0 * O1 * O2;
+  const float* drow = df + (long long)r * n_out * 3;
+  const float* grow = g + (long long)r * n_out * C;
+  unsigned long long* arow = acc + (long long)(r % B) * I0 * I1 * I2 * C;
+  const int x = t.x0 + threadIdx.x, y = t.y0 + threadIdx.y;
+  const bool mine = x < O2 && y < O1;
+  const int z1 = min(t.z0 + p.tz, O0);
+  const int S[3] = {I0, I1, I2};
+  __shared__ fixed::Lines<CB> lines;
 
-unsigned int blocks_for(long long total, int threads) {
-  return (unsigned int)((total + threads - 1) / threads);
+  for (int c0 = 0; c0 < C; c0 += CB) {
+    auto send = [&](int cz, int cy, int cx, const long long (&v)[CB]) {
+      unsigned long long* o = arow + ((cz * I1 + cy) * I2 + cx) * C + c0;
+#pragma unroll
+      for (int j = 0; j < CB; ++j) fixed::add(o + j, v[j]);
+    };
+    fixed::March<CB> march(p.tx, p.ty);
+    // the df and g of plane z, loaded while the plane before is merged
+    float dn[3] = {0.0f, 0.0f, 0.0f}, gn[CB] = {};
+    auto load = [&](int z) {
+      if (z < z1 && mine) {
+        const int v = (z * O1 + y) * O2 + x;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) dn[a] = __ldcs(drow + v * 3 + a);
+#pragma unroll
+        for (int j = 0; j < CB; ++j) gn[j] = __ldcs(grow + (long long)v * C + c0 + j);
+      }
+    };
+    load(t.z0);
+    // iteration z: the voxel of output plane z (z < z1), then what is held
+    for (int z = t.z0; z <= z1; ++z) {  // the same for the whole block
+      const bool have = z < z1 && mine;
+      float d[3], gv[CB];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) d[a] = dn[a];
+#pragma unroll
+      for (int j = 0; j < CB; ++j) gv[j] = gn[j];
+      load(z + 1);
+      long long val[8][CB];
+      int i0[3] = {-1, -1, -1}, i1[3] = {-1, -1, -1};
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+#pragma unroll
+        for (int j = 0; j < CB; ++j) val[k][j] = 0;
+      if (have) {
+        Axis ax[3];
+        ax[0] = axis_terms(z, d[0], f0, I0);
+        ax[1] = axis_terms(y, d[1], f1, I1);
+        ax[2] = axis_terms(x, d[2], f2, I2);
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          i0[a] = ax[a].i0;
+          i1[a] = ax[a].i1;
+        }
+#pragma unroll
+        for (int corner = 0; corner < 8; ++corner) {
+          const float w = axis_weight(ax[0], corner & 1) * axis_weight(ax[1], (corner >> 1) & 1)
+                          * axis_weight(ax[2], (corner >> 2) & 1);
+#pragma unroll
+          for (int j = 0; j < CB; ++j) val[corner][j] = fixed::quantize(w * gv[j], up);
+        }
+      }
+      march.plane(have, i0, i1, val, S, lines, send);
+    }
+  }
 }
 
 }  // namespace
@@ -321,17 +357,43 @@ extern "C" int pulpo_warp_dfgrad(const void* mov, const void* df, const void* g,
   return (int)cudaGetLastError();
 }
 
-// gm (B, I0, I1, I2, C) += scatter of g (B_df, O.., C) by df (B_df, O.., 3).
-// The caller zeroes `out`. Returns cudaGetLastError().
-extern "C" int pulpo_warp_mgrad(const void* df, const void* g, void* out,
+// gm (B, I0, I1, I2, C) = scatter of g (B_df, O.., C) by df (B_df, O.., 3),
+// summed order-free (csrc/fixed.cuh); work: B * I0 * I1 * I2 * C + 1
+// int64 (the fixed-point targets and the header), zeroed here; plan: 12
+// ints, gather::Plan of the march over the df's output space
+// (kernels/gather.py:squaring_bwd_plan on B_df rows; no slab), refused
+// unless it covers the output. Returns the first CUDA error, or 0.
+extern "C" int pulpo_warp_mgrad(const void* df, const void* g, void* out, void* work,
                                 int B, int B_df, int C,
                                 int I0, int I1, int I2, int O0, int O1, int O2,
-                                float f0, float f1, float f2, void* stream) {
-  const long long total = (long long)B_df * O0 * O1 * O2;
-  if (total == 0) return 0;
-  const int threads = 256;
-  mgrad_kernel<<<blocks_for(total, threads), threads, 0, (cudaStream_t)stream>>>(
-      (const float*)df, (const float*)g, (float*)out,
-      B, C, I0, I1, I2, O0, O1, O2, f0, f1, f2, total);
-  return (int)cudaGetLastError();
+                                float f0, float f1, float f2, const int* plan, void* stream) {
+  const long long n_out = (long long)O0 * O1 * O2;
+  const long long n = (long long)B * I0 * I1 * I2 * C;
+  if (n == 0) return 0;
+  if (B < 1 || C < 1 || B_df % B != 0) return (int)cudaErrorInvalidValue;
+  const gather::Plan p = gather::read_plan(plan);
+  const long long in_row = (long long)I0 * I1 * I2 * C;
+  if (p.z0 != 0 || p.zg != O0 ||
+      (B_df > 0 && !fixed::valid_march(p, B_df, O0, O1, O2, n_out * (C > 3 ? C : 3))) ||
+      in_row >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int clog = fixed::ceil_log2((long long)B_df * n_out);
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = fixed::begin(work, n, (const float*)g, B_df * n_out * C, s);
+  if (err != cudaSuccess) return (int)err;
+  if (B_df > 0 && n_out > 0) {
+    const dim3 grid = fixed::march_grid(p, B_df), block(p.tx, p.ty);
+    auto launch = [&](auto kernel) {
+      kernel<<<grid, block, 0, s>>>((const float*)df, (const float*)g,
+                                    (unsigned long long*)work, fixed::header(work, n), clog, B,
+                                    C, I0, I1, I2, O0, O1, O2, f0, f1, f2, p);
+    };
+    if (C % 3 == 0)
+      launch(mgrad_kernel<3>);
+    else
+      launch(mgrad_kernel<1>);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)fixed::finish(work, (float*)out, n, clog, n, 0, 0, s);
 }

@@ -15,7 +15,10 @@ marches its tile of source voxels along z (`kernels/gather.py:
 squaring_bwd_plan`); a thread merges the terms its voxels send twice to
 one cell (the upper-z corners of a plane and the lower-z corners of the
 next) and takes the next lane's terms for its own cells, then adds them
-to the output with global float atomics.
+into an int64 buffer with global integer atomics: the data term is
+summed order-free in 64-bit fixed point (`csrc/fixed.cuh`, quantized as
+`warp_mgrad_plain` quantizes it), so the kernel repeats itself bit for
+bit.
 
 `integrate_svf` is the autograd Function `IntegrateSVF`: the
 1/2**nsteps scale folded into the first step, then one launch per step.
@@ -55,9 +58,12 @@ of the whole step (forward only in 2D, as the whole 2D step);
 field (B, 3, zg, S1, S2) into a contiguous (B, 3, depth, S1, S2) slab
 (the sharded full_res eval decode; forward only, as the whole CF step);
 `squaring_step_bwd(whole, g_slab, z0)` takes the cotangent of a 3D
-channels-last slab and returns its share of the whole field's cotangent
-(the caller sums the shares over the slabs). The plain versions take
-the same.
+channels-last slab and returns its share of the whole field's cotangent;
+with `column` (a sharded step's: the column's max |g| and an exchange of
+the fixed-point sums of the slab's planes) it returns the slab of the
+whole cotangent, bit-equal to the unsharded launch's planes; `reaches`
+gives the planes each slab's sums can reach. The plain versions take the
+same.
 
 Layout: (B, *S, nd) channels-last float32 (nd = 3, or 2 in 2D); the CF
 functions (B, 3, *S).
@@ -98,20 +104,42 @@ def squaring_step_plain(vec: torch.Tensor, z0: int = 0, depth: int | None = None
     return part + warp_plain(vec, part, z0, vec.shape[1])
 
 
-def squaring_step_bwd_plain(vec: torch.Tensor, g: torch.Tensor, z0: int = 0) -> torch.Tensor:
+def squaring_step_bwd_plain(vec: torch.Tensor, g: torch.Tensor, z0: int = 0,
+                            column=None) -> torch.Tensor:
     """The backward kernel's plain version: the VJP of
     ``vec + warp(vec, vec)`` for cotangent g, written out as
-    ``g + dfgrad(v, v, g) + mgrad(v, v, g)``. A g of fewer planes than vec
-    is the cotangent of a slab from z0: the result is then that slab's
-    share of the whole cotangent."""
-    if g.shape[1] == vec.shape[1]:
-        return (g.float() + warp_dfgrad_plain(vec, vec, g)
-                + warp_mgrad_plain(vec.shape, vec, g))
+    ``g + dfgrad(v, v, g) + mgrad(v, v, g)``: the voxel's own terms ``g +
+    dfgrad`` in float32, added to the data term's fixed-point sum
+    (`warp_mgrad_plain`) before that is rounded to float32, as the kernel
+    adds them. A g of fewer planes than vec is the cotangent of a slab
+    from z0: the result is then that slab's share of the whole cotangent,
+    or, with `column` (a sharded step's, `squaring_step_bwd`), the slab's
+    planes of the whole backward, bit-equal to those of the unsharded
+    one."""
     depth, zg = g.shape[1], vec.shape[1]
     part = vec[:, z0:z0 + depth]
     own = g.float() + warp_dfgrad_plain(vec, part, g, z0, zg)
-    out = warp_mgrad_plain(vec.shape, part, g, z0, zg)
-    out[:, z0:z0 + depth] = own + out[:, z0:z0 + depth]
+    top, exchange = column if column is not None else (None, None)
+    out = warp_mgrad_plain(vec.shape, part, g, z0, zg, own=own, top=top, exchange=exchange)
+    return out if column is None else out[:, z0:z0 + depth]
+
+
+def reaches(vec: torch.Tensor, depth: int) -> list[tuple[int, int]]:
+    """The planes [lo, hi) of the whole 3D field `vec` into which the data
+    term of the squaring backward's launch on each slab of `depth` planes
+    (in order) can add: the z corners of the slab's source coordinates
+    (csrc/squaring_bwd.cu: axis_terms), one plane wider on each side; all
+    the planes where a coordinate is not finite. A function of vec alone,
+    so every rank of a sharded step, holding the whole field, computes
+    every rank's alike. One host sync."""
+    zg = vec.shape[1]
+    z = torch.arange(zg, device=vec.device, dtype=torch.float32).view(1, zg, 1, 1)
+    src = ((z + vec[..., 0].float()) * _factors(vec)[0] - 0.5).clamp(0, zg - 1)
+    per = src.transpose(0, 1).reshape(zg // depth, -1)
+    out = []
+    for lo, hi in zip(*torch.stack([per.amin(1), per.amax(1)]).floor().tolist()):
+        finite = math.isfinite(lo) and math.isfinite(hi)
+        out.append((max(0, int(lo) - 1), min(zg, int(hi) + 3)) if finite else (0, zg))
     return out
 
 
@@ -266,35 +294,57 @@ def integrate_svf_cf(vec: torch.Tensor, nsteps: int = 7) -> torch.Tensor:
                            lambda v: integrate_svf_cf_plain(v, nsteps), vec)
 
 
-def squaring_step_bwd(vec: torch.Tensor, g: torch.Tensor, z0: int = 0) -> torch.Tensor:
+def squaring_step_bwd(vec: torch.Tensor, g: torch.Tensor, z0: int = 0,
+                      column=None) -> torch.Tensor:
     """The VJP of one step at `vec` for cotangent g: the CUDA kernel
-    (f32 atomics, so the summation order is not fixed) for tensors on
-    the card, the plain version on the CPU. A g of fewer planes than vec
-    is the cotangent of the slab launch from z0: the result (vec's shape)
-    is then that slab's share of the whole cotangent."""
+    (its scatter summed order-free in fixed point, so it repeats itself
+    bit for bit; no host sync) for tensors on the card, the plain version
+    on the CPU. A g of fewer planes than vec is the cotangent of the slab
+    launch from z0: the result (vec's shape) is then that slab's share of
+    the whole cotangent. With `column` = (top, exchange), a sharded
+    step's, whose ranks each launch one slab: top is the largest
+    `warp.abs_max_bits` of the column's slabs of g (the launch's scale),
+    and exchange(acc) adds into the launch's int64 sums (vec's shape) of
+    the slab's planes, in place, the other ranks' sums there (the launch
+    runs in three phases around it); the result is then the slab's
+    planes of the whole backward, bit-equal to the unsharded launch's."""
     if vec.device.type == "cpu":
-        return squaring_step_bwd_plain(vec, g, z0)
+        return squaring_step_bwd_plain(vec, g, z0, column)
     _check(vec, "squaring backward kernel")
     _check(g, "squaring backward kernel")
     depth = g.shape[1]
-    if (g.shape[0] != vec.shape[0] or g.shape[2:] != vec.shape[2:]
-            or not 0 <= z0 <= vec.shape[1] - depth or g.device != vec.device):
-        raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} is not planes {z0}.. of "
+    if g.shape[0] != vec.shape[0] or g.shape[2:] != vec.shape[2:] or z0 + depth > vec.shape[1]:
+        raise ValueError(f"squaring backward kernel: the cotangent {tuple(g.shape)} is not "
+                         f"a slab from z0={z0} of "
                          f"the field {tuple(vec.shape)} on {vec.device}")
     vec, g = vec.contiguous(), g.contiguous()
     out = torch.empty_like(vec, memory_format=torch.contiguous_format)
+    n = vec.numel()
+    work = torch.empty(n + 1, device=vec.device, dtype=torch.int64)
     b, s = vec.shape[0], (depth, *vec.shape[2:4])
     fn = _build.load("squaring_bwd").pulpo_squaring_step_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p] * 2)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     plan = gather.plan_arg(gather.slab(gather.squaring_bwd_plan(s, b), z0, vec.shape[1]))
     global bwd_launches
     with torch.cuda.device(vec.device):
-        rc = fn(vec.data_ptr(), g.data_ptr(), out.data_ptr(), b, *s, *_factors(vec), plan,
-                _build.stream_ptr(vec))
+        def launch(phases):
+            rc = fn(vec.data_ptr(), g.data_ptr(), out.data_ptr(), work.data_ptr(), b, *s,
+                    *_factors(vec), plan, phases, _build.stream_ptr(vec))
+            _build.check(rc, "squaring_step_bwd")
+
+        if column is None:
+            launch(7)
+        else:
+            top, exchange = column
+            launch(1)
+            work[n:] = top
+            launch(2)
+            exchange(work[:n].view(vec.shape))
+            launch(4)
+            out = out[:, z0:z0 + depth]
         bwd_launches += 1
-    _build.check(rc, "squaring_step_bwd")
     return out
 
 

@@ -16,7 +16,12 @@ The backward (`csrc/warp_bwd.cu`) replaces the df-cotangent
 moving-cotangent
 `_warp_halo_mgrad_pallas` (and their cascades, the XLA VJP of
 `ops/warp.py:warp_image` past them). `Warp` is the autograd Function
-that joins the three; `warp` goes through it on both devices.
+that joins the three; `warp` goes through it on both devices. The
+moving-cotangent is a scatter summed order-free (`csrc/fixed.cuh`):
+its terms are quantized to 64-bit fixed point at a scale fixed for the
+launch (`fixed_scale`) and added as integers, so the kernel repeats
+itself bit for bit and equals its plain version; it walks the squaring
+backward's march (`mgrad_plan`).
 
 Clamp convention of the backward: the source coordinate is
 ``clip(u, 0, S_in - 1)``; its derivative is taken as `jax.grad` takes
@@ -278,11 +283,78 @@ def warp_dfgrad_plain(moving: torch.Tensor, df: torch.Tensor,
     return torch.stack([gw[a] * dclip[a] for a in range(ndims)], dim=-1)
 
 
+def _ceil_log2(n: int) -> int:
+    return max(0, (int(n) - 1).bit_length())
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2**k as float64, from its bits (exact for -1022 <= k <= 1023)."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def abs_max_bits(g: torch.Tensor) -> torch.Tensor:
+    """The largest |g| as the bits of a non-negative float32, in a (1,)
+    int64 tensor (0 for an empty g), as the kernels' max pass writes it
+    into their workspace's header: a max over several tensors (ranks) is
+    the max of their bits, and a NaN or Inf in any of them stays at or
+    above 0x7f800000."""
+    if not g.numel():
+        return torch.zeros(1, dtype=torch.int64, device=g.device)
+    bits = g.float().abs().max().reshape(1).view(torch.int32) & 0x7FFFFFFF
+    return bits.to(torch.int64)
+
+
+def _exponent(top: torch.Tensor, count: int):
+    """(k, finite) of `fixed_scale`, as 0-dim tensors."""
+    bits = top.reshape(())
+    finite = bits < 0x7F800000
+    value = torch.where(finite, bits, torch.zeros_like(bits)).to(torch.int32).view(torch.float32)
+    return 62 - _ceil_log2(count) - torch.frexp(value).exponent.to(torch.int64), finite
+
+
+def fixed_scale(top: torch.Tensor, count: int):
+    """The order-free scatter's scale (`csrc/fixed.cuh`) from `top` (the
+    launch's largest |g|, `abs_max_bits`) over an output of `count` source
+    (row, voxel) pairs: (2**k, 2**-k, finite) as 0-dim tensors on top's
+    device, k = 62 - ceil(log2 count) - e with max|g| < 2**e (frexp's e),
+    so that no target's sum of terms ``round(w * g * 2**k)`` (|w| <= 1)
+    reaches 2**62; `finite` is False where max|g| is not finite. No host
+    sync."""
+    k, finite = _exponent(top, count)
+    return _pow2(k), _pow2(-k), finite
+
+
+def _factors_of(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """2**k as two float32 powers of two, 2**(k // 2) and 2**(k - k // 2)
+    (k lies in [-128, 210], so each lies in float32's normal range): a
+    float32 term times the one and then the other is its exact product
+    with 2**k wherever that is at least 2**-126, and a coarser product
+    (below 2**-126) rounds to the same integer, 0. So `round(t * a * b)`
+    in float32 is the kernels' `fixed::quantize` (exact in double
+    there)."""
+    half = torch.div(k, 2, rounding_mode="floor")
+    return _pow2(half).float(), _pow2(k - half).float()
+
+
 def warp_mgrad_plain(moving_shape, df: torch.Tensor, g: torch.Tensor, z0: int = 0,
-                     zg=None) -> torch.Tensor:
+                     zg=None, own: torch.Tensor | None = None, top: torch.Tensor | None = None,
+                     exchange=None) -> torch.Tensor:
     """The moving-cotangent of `warp_plain` written out: the gather's
     transpose, each output voxel's ``w_corner * g`` added into its 8
-    source corners of moving row r % B. Returns `moving_shape` float32."""
+    source corners of moving row r % B, summed as the kernel sums it
+    (`csrc/fixed.cuh`): each float32 term quantized to an int64 at the
+    launch's scale (`fixed_scale`, over the whole output's voxels: a slab
+    (z0, zg) is quantized as the whole launch at the same max), the
+    integers summed (in any order: the same bits), then converted to
+    float32; `own` (df's shape, float32: the squaring backward's own terms
+    of the df's planes) is added to those planes' sums in float64 before
+    that one rounding. A sharded step's slab (its column's ranks each
+    launch one slab of an output) passes `top`, the largest
+    `abs_max_bits` of the column's slabs of g, in place of its own, and
+    `exchange`, which adds into the int64 sums (`moving_shape`) of the
+    slab's planes, in place, the other ranks' sums there: those planes
+    are then the whole output's, bit for bit. A non-finite g gives NaN
+    everywhere. Returns `moving_shape` float32."""
     moving_shape = tuple(moving_shape)
     spatial = moving_shape[1:-1]
     ndims = len(spatial)
@@ -290,14 +362,22 @@ def warp_mgrad_plain(moving_shape, df: torch.Tensor, g: torch.Tensor, z0: int = 
     base, strides = _flat_index(moving_shape, df)
     c = moving_shape[-1]
     gflat = g.float().reshape(-1, c)
-    n = 1
-    for s in moving_shape[:-1]:
-        n *= s
-    out = torch.zeros((n, c), device=df.device, dtype=torch.float32)
+    count = df.shape[0] * math.prod((zg if zg is not None else df.shape[1], *df.shape[2:-1]))
+    k, finite = _exponent(abs_max_bits(gflat) if top is None else top, count)
+    gflat = torch.where(finite, gflat, gflat.new_zeros(()))
+    up, up2 = _factors_of(k)
+    acc = torch.zeros((math.prod(moving_shape[:-1]), c), device=df.device, dtype=torch.int64)
     for corner in range(2**ndims):
         idx, weight = _corner(ndims, corner, i0, i1, w, base, strides)
-        out.index_add_(0, idx.reshape(-1), gflat * weight.reshape(-1, 1))
-    return out.reshape(moving_shape)
+        terms = (gflat * weight.reshape(-1, 1)).mul_(up).mul_(up2).round_()
+        acc.index_add_(0, idx.reshape(-1), terms.to(torch.int64))
+    acc = acc.view(moving_shape)
+    if exchange is not None:
+        exchange(acc)
+    out = acc.double().mul_(_pow2(-k))
+    if own is not None:
+        out[:, z0:z0 + df.shape[1]] += own.double()
+    return out.float().masked_fill_(~finite, float("nan"))
 
 
 def _check(moving: torch.Tensor, df: torch.Tensor, ndims: int = 3) -> None:
@@ -488,12 +568,20 @@ def warp_dfgrad(moving: torch.Tensor, df: torch.Tensor, g: torch.Tensor, z0: int
     return out
 
 
+def mgrad_plan(df_shape) -> dict:
+    """The plan of the moving-cotangent kernel's launch: the squaring
+    backward's march (`kernels/gather.py:squaring_bwd_plan`) over the df's
+    output space, one df row a block row."""
+    return gather.squaring_bwd_plan(tuple(df_shape[1:-1]), df_shape[0])
+
+
 def warp_mgrad(moving_shape, df: torch.Tensor, g: torch.Tensor, z0: int = 0,
                zg=None) -> torch.Tensor:
     """moving-cotangent of the warp, of shape `moving_shape`: the CUDA
-    kernel (f32 atomics, so the summation order is not fixed) on the
-    card, the plain version on the CPU. The kernel takes no slab (no
-    path differentiates a warped image)."""
+    kernel on the card (an order-free fixed-point scatter, bit-equal to
+    the plain version and from run to run; no host sync), the plain
+    version on the CPU. The kernel takes no slab (no path differentiates
+    a warped image)."""
     if df.device.type == "cpu":
         return warp_mgrad_plain(moving_shape, df, g, z0, zg)
     if zg is not None:
@@ -505,10 +593,12 @@ def warp_mgrad(moving_shape, df: torch.Tensor, g: torch.Tensor, z0: int = 0,
                          f"moving's: moving {moving_shape}, df {tuple(df.shape)} {df.dtype}")
     _check_g(g, df, moving_shape[-1])
     df, g = df.contiguous(), g.contiguous()
-    out = torch.zeros(moving_shape, device=df.device, dtype=torch.float32)
+    out = torch.empty(moving_shape, device=df.device, dtype=torch.float32)
+    work = torch.empty(math.prod(moving_shape) + 1, device=df.device, dtype=torch.int64)
     global mgrad_launches
-    _launch("warp_bwd", "pulpo_warp_mgrad", [df.data_ptr(), g.data_ptr(), out.data_ptr()],
-            moving_shape, df)
+    _launch("warp_bwd", "pulpo_warp_mgrad",
+            [df.data_ptr(), g.data_ptr(), out.data_ptr(), work.data_ptr()], moving_shape, df,
+            plan=mgrad_plan(df.shape))
     mgrad_launches += 1
     return out
 

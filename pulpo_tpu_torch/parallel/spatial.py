@@ -38,9 +38,13 @@ consults `BatchNorm.synced`), and do each exchange themselves:
 - gathers whose reads cross slabs (the warp of a level image, each
   squaring step of an integration): the moving volume is all-gathered
   along depth and the rank computes its own output slab by a slab launch
-  (`kernels/gather.py:slab`); the squaring backward's share of the whole
-  field's cotangent is summed over the space column, and each rank keeps
-  its slab (the backward of the all-gather). A 2D integration launches
+  (`kernels/gather.py:slab`); the squaring backward's data term is summed
+  over the space column in fixed point (the column's max |g| rides on the
+  step's all-gather, and each rank sends each other rank the int64 sums
+  of the other's planes that its own terms reach, one all-to-all:
+  `_column`), so each rank gets its slab of the whole field's cotangent
+  bit for bit as the unsharded backward gives it (the backward of the
+  all-gather). A 2D integration launches
   the 2D step's slabs and, as the whole 2D one, is differentiated as its
   plain version (the plain slab steps on differentiable gathers; no
   backward kernel), its warp likewise. The channels-first fields of
@@ -63,11 +67,12 @@ consults `BatchNorm.synced`), and do each exchange themselves:
   noise of each level, as the unsharded model does from the same seed,
   and takes its block (`block`).
 
-Backends: the exchanges use all-gather and all-reduce only, which both
-gloo and NCCL take. NCCL gathers on the card; gloo's all-gather takes
-CPU tensors only, so a gloo rank stages its CUDA tensors through the
-host (two ranks sharing one card need gloo: NCCL refuses two ranks on
-one device). No collective's failure is caught.
+Backends: the exchanges use all-gather, all-reduce and (the squaring
+backward's sums) all-to-all, which both gloo and NCCL take. NCCL gathers
+on the card; gloo's all-gather and all-to-all take CPU tensors only, so
+a gloo rank stages its CUDA tensors through the host (two ranks sharing
+one card need gloo: NCCL refuses two ranks on one device). No
+collective's failure is caught.
 
 The weight of a term on reduced statistics. `spatial_compute_grads`
 sums the gradients over the space column and averages them over the data
@@ -370,6 +375,66 @@ def _sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return buf
 
 
+def _all_to_all(send: torch.Tensor, sizes_out: list[int], sizes_in: list[int],
+                mesh: Mesh) -> torch.Tensor:
+    """One all-to-all of flat `send` (sizes_in[r] elements to rank r, in
+    rank order) over `mesh`: what the ranks sent this one, sizes_out[r]
+    elements from rank r, in rank order."""
+    if dist.get_backend(mesh.group) == "nccl":
+        recv = send.new_empty(sum(sizes_out))
+        dist.all_to_all_single(recv, send, sizes_out, sizes_in, group=mesh.group)
+        return recv
+    host = send.cpu()  # gloo's all-to-all takes CPU tensors
+    recv = host.new_empty(sum(sizes_out))
+    dist.all_to_all_single(recv, host, sizes_out, sizes_in, group=mesh.group)
+    return recv.to(send.device)
+
+
+def _gather_field(x: torch.Tensor, g: torch.Tensor, mesh: Mesh):
+    """(the whole field from the column's slabs `x`, as `_gather_depth`;
+    the largest `warp.abs_max_bits` of the column's slabs `g`) in one
+    all-gather: each slab carries its g's bits as one more float32."""
+    _count("gather", x, mesh.size)
+    bits = warp_kernel.abs_max_bits(g).to(torch.int32).view(torch.float32)
+    parts = _gather_list(torch.cat([x.reshape(-1), bits]), mesh)
+    whole = torch.cat([p[:-1].view(x.shape) for p in parts], dim=1)
+    top = torch.stack([p[-1] for p in parts]).view(torch.int32).amax()
+    return whole, top.to(torch.int64).reshape(1)
+
+
+def _column(whole: torch.Tensor, g: torch.Tensor, top: torch.Tensor, mesh: Mesh):
+    """The `column` (top, exchange) of this rank's squaring backward slab
+    launch on `whole` for its slab g (`squaring.squaring_step_bwd`). The
+    exchange sends each other rank the int64 sums of the other's planes
+    that this rank's terms reach, and adds what it receives into its own
+    planes: one all-to-all, counted as "reduce" traffic by the bytes this
+    rank sends. Every rank takes every rank's reach from the whole field
+    (`squaring.reaches`), so the ranks agree on the sizes unasked."""
+    depth = g.shape[1]
+    reach = squaring.reaches(whole, depth)
+
+    def planes(src: int, dst: int) -> tuple[int, int]:
+        """The planes of dst's slab that src's terms reach (none for src = dst)."""
+        lo, hi = max(reach[src][0], dst * depth), min(reach[src][1], (dst + 1) * depth)
+        return (lo, hi) if src != dst and lo < hi else (0, 0)
+
+    def exchange(acc: torch.Tensor) -> None:
+        rows, plane, me = acc.shape[0], acc[0, 0].numel(), mesh.rank
+        sends = [planes(me, r) for r in range(mesh.size)]
+        recvs = [planes(r, me) for r in range(mesh.size)]
+        send = torch.cat([acc[:, lo:hi].reshape(-1) for lo, hi in sends])
+        _count("reduce", send)
+        if mesh.size == 1:
+            return
+        size = lambda p: rows * (p[1] - p[0]) * plane
+        recv = _all_to_all(send, [size(p) for p in recvs], [size(p) for p in sends], mesh)
+        for part, (lo, hi) in zip(recv.split([size(p) for p in recvs]), recvs):
+            if hi > lo:
+                acc[:, lo:hi] += part.view(rows, hi - lo, *acc.shape[2:])
+
+    return top, exchange
+
+
 def _gather_depth(x: torch.Tensor, mesh: Mesh, kind: str = "gather", dim: int = 1) -> torch.Tensor:
     """The whole volume from the slabs of `mesh`'s ranks, joined along
     the depth axis `dim` (1 channels-last, 2 channels-first; no
@@ -605,8 +670,11 @@ def warp_image(moving: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
 class _IntegrateSlab(torch.autograd.Function):
     """Scaling and squaring of a split field: each step all-gathers the
     field and launches the step's slab (#1). Keeps the steps' input slabs;
-    its backward gathers each again, launches the step backward's slab
-    (#2) and sums its share of the whole cotangent over the column."""
+    its backward gathers each again, with the column's max |g|
+    (`_gather_field`), and launches the step backward's slab (#2), whose
+    data term is summed over the column in fixed point (`_column`): the
+    slab of the whole cotangent, bit-equal to the unsharded step
+    backward's planes."""
 
     @staticmethod
     def forward(ctx, vec, nsteps, z0):
@@ -628,12 +696,11 @@ class _IntegrateSlab(torch.autograd.Function):
         inputs = ctx.saved_tensors
         g = g.float().contiguous()
         for k in reversed(range(ctx.nsteps)):
-            whole = _gather_depth(inputs[k].contiguous(), ctx.mesh)
+            whole, top = _gather_field(inputs[k].contiguous(), g, ctx.mesh)
             if k == 0:
                 whole = whole * scale
-            shares = squaring.squaring_step_bwd(whole, g, ctx.z0)
-            _count("reduce", shares)
-            g = _sum(shares, ctx.mesh)[:, ctx.z0:ctx.z0 + g.shape[1]].contiguous()
+            column = _column(whole, g, top, ctx.mesh)
+            g = squaring.squaring_step_bwd(whole, g, ctx.z0, column).contiguous()
         return g * scale, None, None
 
 

@@ -50,12 +50,12 @@ replicated consumers (the losses, the skip and feedback paths, the
 its input, a replicated consumer every rank the same whole one; the
 pair sums the partials alone (in `copy_in`, before the replicated terms
 join) and slices the whole cotangent of a gathered output, where a
-reduce-scatter would sum the replicated terms n times. After the
-backward the replicated leaves' gradients are averaged over the ranks
-(`mean_replicated`): on the card the ranks' own come apart in a float32
-step, as the unsharded step's do from run to run (the squaring
-backward's, #2's, float atomics; chip_smoke.py phase 11h measures both),
-and the weights must stay one.
+reduce-scatter would sum the replicated terms n times. The replicated
+leaves' gradients are not averaged over the ranks: every rank computes
+them from the same inputs by the same operations (#2's scatter is
+order-free), and they come out bit-equal, so the weights stay one;
+chip_smoke.py phase 11h and tests/test_torch_tp.py hold the ranks'
+replicated gradients and updated weights bit-equal.
 
 How the split trains (the JAX hook's use; no other entry point):
 
@@ -92,7 +92,7 @@ import torch.distributed as dist
 
 from pulpo_tpu_torch.kernels import conv_chain, conv_unit
 from pulpo_tpu_torch.kernels.vel_head import _conv_f32
-from pulpo_tpu_torch.parallel.mesh import Mesh, Traffic, _all_reduce_mean, bucket_mean, make_mesh
+from pulpo_tpu_torch.parallel.mesh import Mesh, Traffic, _all_reduce_mean, make_mesh
 
 __all__ = ["make_model_mesh", "param_sharding_rules", "shard_params", "sharded", "traffic",
            "reset_traffic"]
@@ -246,21 +246,6 @@ def channels(y: torch.Tensor, conv) -> torch.Tensor:
     if _mesh is None or not split(conv):
         return y
     return _GatherOut.apply(y, _mesh)
-
-
-def mean_replicated(grads: dict[str, torch.Tensor], model) -> dict[str, torch.Tensor]:
-    """The gradients with each replicated leaf's averaged over the ranks
-    (one flat all-reduce): the same on every rank. The split leaves' are
-    returned as they are."""
-    if _mesh is None or _mesh.size == 1:
-        return grads
-    split_names = getattr(_module(model), "tp_split", frozenset())
-    names = [n for n in grads if n not in split_names]
-    out = dict(grads)
-    if names:  # one float32 bucket
-        traffic.count("reduce", 4 * sum(grads[n].numel() for n in names))
-        out.update(zip(names, bucket_mean([grads[n] for n in names], _mesh)))
-    return out
 
 
 def _unit(x: torch.Tensor, unit, x2: torch.Tensor | None = None,

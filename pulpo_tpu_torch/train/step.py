@@ -35,7 +35,7 @@ from pulpo_tpu_torch.models.api import PULPoModel, _as_tensor, transform_segment
 from pulpo_tpu_torch.models.blocks import BatchNorm
 from pulpo_tpu_torch.models.pulpo import prior_like
 from pulpo_tpu_torch.ops import losses as L
-from pulpo_tpu_torch.parallel import spatial, tp
+from pulpo_tpu_torch.parallel import spatial
 from pulpo_tpu_torch.parallel.mesh import Mesh, bucket_mean, fold_in
 
 LevelDict = dict[int, torch.Tensor]
@@ -158,7 +158,7 @@ def compute_grads(model: PULPoModel, batch: dict, seed: int = 0,
     (uncommitted), metrics). A parameter the loss does not reach gets a
     zero gradient, as jax.grad gives. Under the output-channel split
     (parallel/tp.py) a split parameter's gradient is this rank's slice,
-    and a replicated one's the mean over the ranks."""
+    and a replicated one's the whole, the same bits on every rank."""
     cfg = model.cfg
     x, y, seg_x, seg_y = _batch_tensors(model, batch)
     outs, new_stats = model.apply_train(x, y, seed=seed, noise=noise)
@@ -167,7 +167,7 @@ def compute_grads(model: PULPoModel, batch: dict, seed: int = 0,
     grads = torch.autograd.grad(total, list(named.values()), allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(named.items(), grads)}
-    return tp.mean_replicated(grads, model), new_stats, metrics
+    return grads, new_stats, metrics
 
 
 def _flat_metrics(metrics: dict) -> list[tuple[tuple, torch.Tensor]]:

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the gather kernels (csrc/warp.cu, csrc/squaring.cu) and the
 training step's box sum, squaring backward, narrow conv and warp
-df-cotangent (csrc/box_sum.cu, csrc/squaring_bwd.cu, csrc/conv_narrow.cu,
-csrc/warp_bwd.cu) at the shapes the paths launch, at more than one tile
-plan, against another checkout.
+df-cotangent, and the warp's moving-cotangent (csrc/box_sum.cu,
+csrc/squaring_bwd.cu, csrc/conv_narrow.cu, csrc/warp_bwd.cu) at the
+shapes the paths launch, at more than one tile plan, against another
+checkout.
 
     python3 scripts/bench_gather.py [--parent DIR] [--json PATH] [--sass DIR]
                                     [--cases all|gather|training|seg]
@@ -15,7 +16,10 @@ warp; one squaring step at each flagship level, CL and CF, and the 2D
 step; the box sum at each level's size and window of the flagship,
 LungCT and flagship-2d steps; one squaring backward step at each
 flagship and LungCT level, and at level 0 also under a sub-voxel field,
-a 4-voxel one and the LungCT ramp; the bf16 narrow conv at the 5 shapes
+a 4-voxel one and the LungCT ramp; the moving-cotangent at C = 3 at the
+flagship's and LungCT's level 0 (its place in the squaring backward) and
+at C = 1 for the full-size image under 2 rows of a level-0 df; the bf16
+narrow conv at the 5 shapes
 a step launches of both configurations, 2 -> 32 at the input size and
 3 -> 32 at each latent level; the df-cotangent (C = 1) at the 4 shapes a
 step launches of both; the warp and the df-cotangent at C = 36, the
@@ -48,8 +52,11 @@ points of:
   wrong by construction and not compared.
 Every output is held equal, bit for bit, to `v1`'s (`new`'s), and
 `v1`'s to the plain version on the cases small enough to run it; the
-squaring backward, whose atomics fix no order, within 1e-5 of scale of
-the plain version on every side; the narrow conv within one bf16 ulp
+squaring backward within 1e-5 of scale of the plain version on every
+side, the moving-cotangent bit-equal to it (a parent that sums with
+float32 atomics, in no fixed order: both within 1e-5 of scale), and a
+second launch of each of the two scatters bit-equal to the first (they
+sum order-free in fixed point, csrc/fixed.cuh); the narrow conv within one bf16 ulp
 at the output's scale (the tensor cores sum in another order); the
 df-cotangent bit-equal at C = 1, within 1e-5 of scale at C = 36 (the
 channel sum's order differs by body). Times: CUDA events,
@@ -79,10 +86,12 @@ import sys
 HBM_BYTES_PER_S = 3.35e12
 
 
-# the parent checkout's C entry points that take a tile plan, and those
-# that take their body from the caller
+# the parent checkout's C entry points that take a tile plan, those that
+# take their body from the caller, and those that take a workspace (the
+# fixed-point scatters' int64 targets)
 PARENT_PLANS: set = set()
 PARENT_BODIES: set = set()
+PARENT_WORK: set = set()
 
 
 def entries_with(root: str, param: str) -> set:
@@ -185,21 +194,51 @@ def box_call(lib, x, out, win, plan=None, tmp=None):
     assert rc == 0, f"box_sum: CUDA error {rc}"
 
 
-def bwd_call(lib, v, g, out, plan=None):
+def bwd_call(lib, v, g, out, plan=None, work=None):
     """One launch of `lib`'s squaring backward on (v, g) with `plan`
-    (kernels/gather.py:squaring_bwd_plan); plan None: an entry without one."""
+    (kernels/gather.py:squaring_bwd_plan) and the int64 workspace `work`
+    (the fixed-point scatter's, whose entry also takes its phases: all
+    three); plan or work None: an entry without one."""
     import torch
 
     from pulpo_tpu_torch.kernels import gather, warp
 
     s = tuple(v.shape[1:4])
     fn = lib.pulpo_squaring_step_bwd
+    ptrs = [v.data_ptr(), g.data_ptr(), out.data_ptr()] + ([] if work is None else
+                                                           [work.data_ptr()])
     tail = [] if plan is None else [gather.plan_arg(plan)]
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                   + [ctypes.c_void_p] * (len(tail) + 1))
-    rc = fn(v.data_ptr(), g.data_ptr(), out.data_ptr(), v.shape[0], *s,
-            *[warp._factor(x, x) for x in s], *tail, torch.cuda.current_stream().cuda_stream)
+    phases = [] if work is None else [7]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] * len(tail) + [ctypes.c_int] * len(phases)
+                   + [ctypes.c_void_p])
+    rc = fn(*ptrs, v.shape[0], *s, *[warp._factor(x, x) for x in s], *tail, *phases,
+            torch.cuda.current_stream().cuda_stream)
     assert rc == 0, f"squaring_bwd: CUDA error {rc}"
+
+
+def mgrad_call(lib, moving_shape, df, g, out, plan=None, work=None):
+    """One launch of `lib`'s moving-cotangent of g by df into `out`
+    (`moving_shape`) with `plan` (kernels/warp.py:mgrad_plan) and the
+    int64 workspace `work`; plan or work None: an entry without one,
+    which adds into `out` (zeroed here first, as its wrapper did)."""
+    import torch
+
+    from pulpo_tpu_torch.kernels import gather, warp
+
+    b, c, s_in, s_out = warp._shapes(moving_shape, df.shape, False)
+    fn = lib.pulpo_warp_mgrad
+    if work is None:
+        out.zero_()
+    ptrs = [df.data_ptr(), g.data_ptr(), out.data_ptr()] + ([] if work is None else
+                                                            [work.data_ptr()])
+    tail = [] if plan is None else [gather.plan_arg(plan)]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                   + [ctypes.c_void_p] * (len(tail) + 1))
+    rc = fn(*ptrs, b, df.shape[0], c, *s_in, *s_out,
+            *[warp._factor(s_in[i], s_out[i]) for i in range(3)], *tail,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"warp_mgrad: CUDA error {rc}"
 
 
 def conv_call(lib, x, weights, cout, out, plan=None):
@@ -547,6 +586,20 @@ def training_cases(dev):
             w = narrow_weight(cin, 32, 400 + cin + size[0], dev)
             add(f"#12 conv_narrow {tag} {cin}->32 {'x'.join(map(str, size))}", "conv", (x, w),
                 2 * nv * (cin + 32), True, True, **{path: 1})
+        # the moving-cotangent (#7, no path launches it): level 0 at C = 3
+        # (its place in the squaring backward) under the path's field, and
+        # the full-size image under 2 rows of a level-0 df (level_res)
+        df = (smooth_field(1, levels[0], 3.0, seed=420, device=dev) if tag == "flagship"
+              else respiratory_field(levels[0], SI_RAMP / 2, DRIFT / 2, dev))
+        g = torch.randn((1, *levels[0], 3), device=dev)
+        add(f"#7 warp_mgrad {tag} level 0 {'x'.join(map(str, levels[0]))} C=3", "mgrad",
+            ((1, *levels[0], 3), df, g), 36 * math.prod(levels[0]), True, tag == "flagship")
+        if tag == "flagship":
+            df = smooth_field(2, levels[0], 3.0, seed=421, device=dev)
+            g = torch.randn((2, *levels[0], 1), device=dev)
+            add(f"#7 warp_mgrad flagship 2 rows {'x'.join(map(str, levels[0]))} df, "
+                f"{'x'.join(map(str, full))} image", "mgrad", ((1, *full, 1), df, g),
+                2 * math.prod(levels[0]) * 16 + 4 * math.prod(full), True, False)
         # the df-cotangent: each level's image by its df (level 0: the
         # input size), C = 1, under the path's field
         for l in range(4):
@@ -561,11 +614,13 @@ def training_cases(dev):
 
 
 def run_training_case(case: dict, libs: dict, dev) -> dict:
-    """A box-sum, squaring-backward, narrow-conv or df-cotangent case:
-    every side's output held to the plain version (bit-equal; 1e-5 of
-    scale for the squaring backward, one bf16 ulp at scale for the conv)
-    and to `new`'s, then timed in turns (parent, new, half, twice, twice,
-    half, new, parent, each where there is one)."""
+    """A box-sum, squaring-backward, narrow-conv, df-cotangent or
+    moving-cotangent case: every side's output held to the plain version
+    (bit-equal; 1e-5 of scale for the squaring backward and a
+    float32-atomic parent's scatter, one bf16 ulp at scale for the conv)
+    and to `new`'s, a scatter's second launch to its first, then timed in
+    turns (parent, new, half, twice, twice, half, new, parent, each where
+    there is one)."""
     import torch
 
     from chip_smoke import graph_ms, misaligned
@@ -622,6 +677,22 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
                                         *args.get(k, (m, df, g)), o, plans[k],
                                         k != "parent" or "pulpo_warp_dfgrad" in PARENT_BODIES)
         plain = lambda: warp.warp_dfgrad_plain(m, df, g)
+    elif kind == "mgrad":
+        shape, df, g = tensors
+        target = gather.BWD_TARGET_BLOCKS
+        plans = {}
+        for side, t in (("new", target), ("half", target // 2), ("twice", target * 2)):
+            gather.BWD_TARGET_BLOCKS = t
+            plans[side] = warp.mgrad_plan(df.shape)
+        gather.BWD_TARGET_BLOCKS = target
+        plans["parent"] = parent_plan("pulpo_warp_mgrad", plans["new"])
+        mk = lambda: torch.empty(shape, device=dev)
+        work = torch.empty(math.prod(shape) + 1, device=dev, dtype=torch.int64)
+        works = {k: None if k == "parent" and "pulpo_warp_mgrad" not in PARENT_WORK else work
+                 for k in sides}
+        call = lambda k, o: mgrad_call(libs["parent" if k == "parent" else "new"]["warp_bwd"],
+                                       shape, df, g, o, plans[k], works[k])
+        plain = lambda: warp.warp_mgrad_plain(shape, df, g)
     else:
         v, g = tensors
         target = gather.BWD_TARGET_BLOCKS
@@ -632,8 +703,11 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
         gather.BWD_TARGET_BLOCKS = target
         mk = lambda: torch.empty_like(v)
         plans["parent"] = parent_plan("pulpo_squaring_step_bwd", plans["new"])
+        work = torch.empty(v.numel() + 1, device=dev, dtype=torch.int64)
+        works = {k: None if k == "parent" and "pulpo_squaring_step_bwd" not in PARENT_WORK
+                 else work for k in sides}
         call = lambda k, o: bwd_call(libs["parent" if k == "parent" else "new"]["squaring_bwd"],
-                                     v, g, o, plans[k])
+                                     v, g, o, plans[k], works[k])
         plain = lambda: squaring.squaring_step_bwd_plain(v, g)
     outs = {}
     for k in sides:
@@ -645,8 +719,15 @@ def run_training_case(case: dict, libs: dict, dev) -> dict:
     scale = max(1.0, float(ref.abs().max()))
     err = {k: float((outs[k].float() - ref).abs().max()) for k in sides}
     tol = {"box": 0.0, "dfgrad": 1e-5 * scale if channels else 0.0, "bwd": 1e-5 * scale,
-           "conv": 2.0 ** (math.floor(math.log2(scale)) - 7)}[kind]
-    same = {k: err[k] <= tol for k in sides}
+           "mgrad": 0.0, "conv": 2.0 ** (math.floor(math.log2(scale)) - 7)}[kind]
+    # a float32-atomic parent sums in no fixed order: 1e-5 of scale
+    loose = {k: 1e-5 * scale for k in sides
+             if k == "parent" and kind in ("mgrad", "bwd") and k in works and works[k] is None}
+    same = {k: err[k] <= loose.get(k, tol) for k in sides}
+    if kind in ("mgrad", "bwd"):  # order-free: a second launch, the same bits
+        again = mk()
+        call("new", again)
+        same["new_again"] = torch.equal(again, outs["new"])
     order = [k for k in ("parent", "new", "half", "twice", "scalar") if k in sides]
     order += order[::-1]
     times = {}
@@ -803,6 +884,7 @@ def main() -> int:
         libs["parent"] = {k: build_parent(args.parent, k) for k in names}
         PARENT_PLANS.update(entries_with(args.parent, "plan"))
         PARENT_BODIES.update(entries_with(args.parent, "body"))
+        PARENT_WORK.update(entries_with(args.parent, "work"))
     libs["probes"] = build_probes(args.parent if "warp" in names else None)
 
     records = []

@@ -2,6 +2,7 @@
 """How far apart are two runs of the same Trainer steps on the card?
 
     python3 scripts/probe_trainer_spread.py [--runs 6] [--settings NAME,...] [--json PATH]
+    python3 scripts/probe_trainer_spread.py --pool A.json B.json ...
 
 Runs the two Trainer steps of tests/test_torch_gpu.py::
 test_trainer_on_the_card_matches_the_cpu (24x28x32, 3/2 levels, n0 = 8,
@@ -12,16 +13,20 @@ card in one process, under each of three settings:
 - `cudnn_deterministic`: `torch.backends.cudnn.deterministic = True`
   (and `benchmark = False`), so cuDNN takes deterministic algorithms;
 - `cudnn_deterministic_plain_bwd`: that, and the squaring step's
-  backward kernel (csrc/squaring_bwd.cu, float32 atomics) replaced by
-  its plain version run on the CPU, so that no float32 atomic of the
-  port's own kernels adds in the step (the moving-cotangent kernel is
-  not launched: the moving image needs no gradient).
-For each setting and logged metric it prints the largest relative
-difference between two card runs (the card-to-card spread) and between
-the card and the CPU. TF32 is off, as in the test. The test runs once a
-process, so run the script in several processes (a shell loop) and pool
-their JSON records to see the spread between processes too. Needs a
-CUDA device.
+  backward kernel (csrc/squaring_bwd.cu) replaced by its plain version
+  run on the CPU (the moving-cotangent kernel is not launched: the
+  moving image needs no gradient).
+The squaring backward sums its scatter order-free in 64-bit fixed point
+(csrc/fixed.cuh), so under `cudnn_deterministic` no add of the step
+depends on the order it lands in, and two card runs are expected to give
+the same bits (a float32-atomic scatter made them differ by up to
+1.04e-3). For each setting and logged metric it prints the largest
+relative difference between two card runs (the card-to-card spread) and
+between the card and the CPU. TF32 is off, as in the test. The test
+runs once a process, so run the script in several processes (a shell
+loop), each with --json, and pool their records with --pool: the spread
+between any two runs of all processes, per setting and metric. Needs a
+CUDA device (not for --pool).
 """
 
 from __future__ import annotations
@@ -69,13 +74,36 @@ def spread(rows: list[list[dict]], ref: list[dict]) -> dict:
     return out
 
 
+def pool(paths: list[str]) -> int:
+    """The card-to-card spread over the runs of several processes' JSON
+    records, per setting and metric, and its largest value per setting."""
+    records = []
+    for path in paths:
+        with open(path) as fh:
+            records.append(json.load(fh))
+    print(f"pooled {len(records)} processes; cards: {sorted({r['card'] for r in records})}")
+    for setting in records[0]["results"]:
+        worst = 0.0
+        for k in records[0]["results"][setting]:
+            vals = [v for r in records for v in r["results"][setting][k]["values"]]
+            d = max(rel(a, b) for a in vals for b in vals)
+            worst = max(worst, d)
+            print(f"  {setting} {k:28s} card-card {d:.3e} over {len(vals)} runs")
+        print(f"{setting}: card-to-card spread over all processes at most {worst:.3e}")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--runs", type=int, default=6)
     ap.add_argument("--settings", default="default,cudnn_deterministic,"
                     "cudnn_deterministic_plain_bwd")
     ap.add_argument("--json", default=None)
+    ap.add_argument("--pool", nargs="+", default=None,
+                    help="pool these JSON records (of --json) instead of running")
     args = ap.parse_args()
+    if args.pool:
+        return pool(args.pool)
 
     import torch
 

@@ -14,13 +14,15 @@ the kernels do:
   than the window, windows 3 .. 9 and a wider one (11); the tile's
   shared-memory layout holds every read of the H and W passes;
 - the squaring backward: a block's tile from blockIdx by shift and mask
-  and its march through a chunk of planes, with the merges the kernel
-  makes before it sends a term (a thread's upper-z corners held into the
-  next plane's lower-z corners, the next lane's lower-x corners into a
-  lane's upper-x ones): every source voxel is scattered exactly once,
-  each of its 9 terms (8 corners and its own cell) is sent exactly once,
-  in an entry whose cell is the term's own, at displacements under a
-  voxel and past it and in a smooth field, where most terms merge;
+  and its march through a chunk of planes (csrc/fixed.cuh), with the
+  merges the kernel makes before it sends a term (a thread's upper-z
+  corners held into the next plane's lower-z corners, the next lane's
+  lower-x corners into a lane's upper-x ones, the next line's lower-y
+  corners into a thread's upper-y ones): every source voxel is scattered
+  exactly once, each of its 9 terms (8 corners, sent, and its own cell,
+  stored) is delivered exactly once, in an entry whose cell is the
+  term's own, at displacements under a voxel and past it and in a smooth
+  field, where most terms merge;
 - the plans of every shape the flagship, LungCT and 2D steps launch pass
   the checks the C entry points make.
 No JAX and no card are needed.
@@ -187,18 +189,20 @@ def _sources(v):
     return src, i0, i1
 
 
-def _walk_bwd(v, plan):
-    """Walk csrc/squaring_bwd.cu's launch on field v (B, S0, S1, S2, 3) with
-    its merges, an entry being the list of terms (row, voxel, corner;
-    corner 8: its own cell) it carries: returns how often each voxel is
-    scattered, how often each term is sent, and the number of sends (an
-    entry whose terms all have a zero weight, a corner past a clamped
+def _walk_march(i0, i1, w, movings, plan, own=True):
+    """Walk a launch of the march of csrc/fixed.cuh (the squaring backward,
+    and with `own` False the moving-cotangent) over source voxels of
+    shape (B, S0, S1, S2) whose corners along axis a are i0[a] / i1[a]
+    with upper weight w[a], row r sending into target row r % `movings`,
+    with the kernel's merges, an entry being the list of terms (row,
+    voxel, corner; corner 8: its own cell, stored by the squaring
+    backward, not sent) it carries: returns how often each voxel is
+    scattered, how often each term is delivered, and the number of sends
+    (an entry whose terms all have a zero weight, a corner past a clamped
     coordinate, is not sent, as the kernel sends no zeros), checking that
     every entry's terms are of the entry's cell."""
-    b_, s0, s1, s2, _ = v.shape
+    b_, s0, s1, s2 = i0[0].shape
     tx, ty, tz = plan["tx"], plan["ty"], plan["tz"]
-    src, i0, i1 = _sources(v)
-    w = [c - np.floor(c) for c in src]
     scattered = np.zeros((b_, s0, s1, s2), np.int32)
     sent = {}
     sends = 0
@@ -207,17 +211,17 @@ def _walk_bwd(v, plan):
         r, z, y, x, corner = term
         if corner == 8:
             return (r, z, y, x)
-        return (r,) + tuple(int((i1 if (corner >> a) & 1 else i0)[a][r, z, y, x])
-                            for a in range(3))
+        return (r % movings,) + tuple(int((i1 if (corner >> a) & 1 else i0)[a][r, z, y, x])
+                                      for a in range(3))
 
     def zero(term):
         r, z, y, x, corner = term
         return corner != 8 and any((corner >> a) & 1 and w[a][r, z, y, x] == 0 for a in range(3))
 
-    def send(entry, cell):
+    def deliver(entry, cell, atomic=True):
         nonlocal sends
         if entry:
-            sends += not all(zero(term) for term in entry)
+            sends += atomic and not all(zero(term) for term in entry)
             for term in entry:
                 assert cell_of(term) == cell, "a term sent to another cell"
                 sent[term] = sent.get(term, 0) + 1
@@ -231,7 +235,7 @@ def _walk_bwd(v, plan):
                 z1 = min(z0 + tz, s0)
                 held = [None] * n  # per thread: (cells, entries) of its upper-z corners
                 for z in range(z0, z1 + 1):
-                    have, base = [False] * n, [None] * n
+                    have, base, top = [False] * n, [None] * n, [None] * n
                     val = [[[] for _ in range(8)] for _ in range(n)]
                     for tid in range(n):
                         x, y = x0 + tid % tx, y0 + tid // tx
@@ -239,8 +243,10 @@ def _walk_bwd(v, plan):
                             have[tid] = True
                             scattered[r, z, y, x] += 1
                             base[tid] = [int(i0[a][r, z, y, x]) for a in range(3)]
+                            top[tid] = int(i1[1][r, z, y, x])
                             val[tid] = [[(r, z, y, x, k)] for k in range(8)]
-                            send([(r, z, y, x, 8)], (r, z, y, x))
+                            if own:
+                                deliver([(r, z, y, x, 8)], (r, z, y, x), atomic=False)
                         if held[tid] is not None:
                             cells, entries = held[tid]
                             if have[tid] and list(cells[0][1:]) == base[tid]:
@@ -248,12 +254,12 @@ def _walk_bwd(v, plan):
                                     val[tid][2 * k] += entries[k]
                             else:
                                 for k in range(4):
-                                    send(entries[k], cells[k])
+                                    deliver(entries[k], cells[k])
                             held[tid] = None
                     # the x merge: lane i takes lane i + 1's lower-x corners
                     take = [have[t] and have[t + 1] and t % 32 < 31 and t % tx + 1 < tx
                             and base[t + 1][:2] == base[t][:2]
-                            and base[t + 1][2] == min(base[t][2] + 1, s2 - 1)
+                            and base[t + 1][2] == int(i1[2][r, z, y0 + t // tx, x0 + t % tx])
                             for t in range(n - 1)] + [False]
                     for t in range(n - 1):
                         if take[t]:
@@ -263,15 +269,34 @@ def _walk_bwd(v, plan):
                         if take[t - 1]:
                             for k in range(4):
                                 val[t][k] = []
+                    # the y merge: a thread takes the next line's lower-y corners
+                    take = [t // tx + 1 < ty and have[t] and have[t + tx]
+                            and base[t + tx] == [base[t][0], top[t], base[t][2]]
+                            for t in range(n)]
+                    for t in range(n):
+                        if take[t]:
+                            for k in (0, 1, 4, 5):
+                                val[t][k + 2] += val[t + tx][k]
+                    for t in range(tx, n):
+                        if take[t - tx]:
+                            for k in (0, 1, 4, 5):
+                                val[t][k] = []
                     for t in range(n):
                         if have[t]:
                             x, y = x0 + t % tx, y0 + t // tx
                             for k in range(4):
-                                send(val[t][2 * k], cell_of((r, z, y, x, 2 * k)))
+                                deliver(val[t][2 * k], cell_of((r, z, y, x, 2 * k)))
                             held[t] = ([cell_of((r, z, y, x, 2 * k + 1)) for k in range(4)],
                                        [val[t][2 * k + 1] for k in range(4)])
                 assert all(h is None for h in held)
     return scattered, sent, sends
+
+
+def _walk_bwd(v, plan):
+    """`_walk_march` of csrc/squaring_bwd.cu's launch on field v (B, S0,
+    S1, S2, 3)."""
+    src, i0, i1 = _sources(v)
+    return _walk_march(i0, i1, [c - np.floor(c) for c in src], v.shape[0], plan)
 
 
 def _bwd_fields():
@@ -290,11 +315,11 @@ def _bwd_fields():
 @pytest.mark.parametrize("blocks", [None, 1, 10**6])
 @pytest.mark.parametrize("name,v", _bwd_fields())
 def test_squaring_bwd_walk(monkeypatch, name, v, blocks):
-    """Every source voxel scattered once and each of its 9 terms sent once,
-    to its own cell, with z in the plan's chunks, in one chunk (`blocks`
-    1) and one plane a chunk (10**6); in the smooth fields, with more than
-    one plane a chunk, the merges leave fewer than 5 sends a voxel (9
-    without them)."""
+    """Every source voxel scattered once and each of its 9 terms delivered
+    once (its 8 corners sent, its own cell stored), to its own cell, with
+    z in the plan's chunks, in one chunk (`blocks` 1) and one plane a chunk
+    (10**6); in the smooth fields, with more than one plane a chunk, the
+    merges leave fewer than 2.5 sends a voxel (8 without them)."""
     if blocks is not None:
         monkeypatch.setattr(gather, "BWD_TARGET_BLOCKS", blocks)
     plan = gather.squaring_bwd_plan(v.shape[1:4], v.shape[0])
@@ -302,7 +327,7 @@ def test_squaring_bwd_walk(monkeypatch, name, v, blocks):
     assert (scattered == 1).all()
     assert len(sent) == 9 * scattered.size and set(sent.values()) == {1}
     if name.startswith("smooth") and plan["tz"] > 1:
-        assert sends < 5 * scattered.size
+        assert sends < 2.5 * scattered.size
 
 
 def _bwd_admissible(plan, b, s0, s1, s2):

@@ -6,10 +6,11 @@ without the JAX-pinning conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 
-TF32 is off in every comparison. The backward kernels that scatter with
-float32 atomics (`warp_mgrad`, `squaring_step_bwd`) sum in an order
-that changes from run to run, so they are held to 1e-5 of their scale,
-not to bit-equality.
+TF32 is off in every comparison. The backward kernels that scatter
+(`warp_mgrad`, `squaring_step_bwd`) sum their terms order-free in 64-bit
+fixed point (csrc/fixed.cuh), so each repeats itself bit for bit;
+`warp_mgrad` is bit-equal to its plain version, which quantizes and sums
+the same way, and `squaring_step_bwd` is held to 1e-5 of its scale.
 """
 
 import numpy as np
@@ -250,9 +251,93 @@ def test_warp_mgrad_kernel_matches_plain(cuda_device, c, rows, mag):
     got = warp.warp_mgrad((2, 20, 24, 28, c), d, g)
     torch.cuda.synchronize()
     assert warp.mgrad_launches == before + 1
-    _close_scaled(got, warp.warp_mgrad_plain((2, 20, 24, 28, c), d, g), 1e-5)
-    _close_scaled(warp.warp_mgrad((2, 40, 48, 56, c), d, g),
-                  warp.warp_mgrad_plain((2, 40, 48, 56, c), d, g), 1e-5)
+    torch.testing.assert_close(got, warp.warp_mgrad_plain((2, 20, 24, 28, c), d, g),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(warp.warp_mgrad((2, 40, 48, 56, c), d, g),
+                               warp.warp_mgrad_plain((2, 40, 48, 56, c), d, g), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c,moving,df", [
+    (3, (1, 20, 24, 28), (1, 20, 24, 28)), (1, (2, 40, 48, 56), (4, 20, 24, 28)),
+    (2, (1, 13, 17, 19), (2, 13, 17, 19)), (36, (1, 8, 9, 10), (2, 8, 9, 10))])
+def test_fixed_scatters_repeat_themselves_bit_for_bit(cuda_device, c, moving, df):
+    """Ten launches of the moving-cotangent (#7: C = 3, a cross-resolution
+    C = 1 with 2 df rows a moving row, C = 2 and C = 36, whose passes take
+    one and three channels) and of the squaring backward (#2, whole and as
+    two slabs' shares): the same bits every time, #7 also the plain
+    version's."""
+    d = _field((df[0], *df[1:], 3), 3.0, 34).to(cuda_device)
+    g = torch.randn((df[0], *df[1:], c), device=cuda_device)
+    shape = (*moving, c)
+    first = warp.warp_mgrad(shape, d, g)
+    assert torch.equal(first, warp.warp_mgrad_plain(shape, d, g))
+    for _ in range(9):
+        assert torch.equal(warp.warp_mgrad(shape, d, g), first)
+    v = _field((1, 20, 24, 28, 3), 4.0, 35).to(cuda_device)
+    g3 = torch.randn((1, 20, 24, 28, 3), device=cuda_device)
+    whole = squaring.squaring_step_bwd(v, g3)
+    shares = [squaring.squaring_step_bwd(v, g3[:, z0:z0 + 10].contiguous(), z0)
+              for z0 in (0, 10)]
+    _close_scaled(whole, squaring.squaring_step_bwd_plain(v, g3), 1e-5)
+    for _ in range(9):
+        assert torch.equal(squaring.squaring_step_bwd(v, g3), whole)
+        for z0, share in zip((0, 10), shares):
+            assert torch.equal(squaring.squaring_step_bwd(v, g3[:, z0:z0 + 10].contiguous(),
+                                                          z0), share)
+
+
+def test_sharded_squaring_backward_on_the_card_is_the_whole_one(cuda_device):
+    """The squaring backward's slab launches of a sharded step (two ranks
+    simulated by threads; the launch's three phases around the column's
+    max and the exchange of its sums): the slabs of the whole backward,
+    bit for bit, and of its plain version."""
+    import threading
+
+    v = _field((1, 20, 24, 28, 3), 4.0, 37).to(cuda_device)
+    g = torch.randn((1, 20, 24, 28, 3), device=cuda_device)
+    top = torch.maximum(warp.abs_max_bits(g[:, :10]), warp.abs_max_bits(g[:, 10:]))
+    barrier, slots, outs = threading.Barrier(2), [None, None], [None, None]
+
+    def exchange_of(rank):
+        def exchange(acc):
+            slots[rank] = acc.clone()
+            barrier.wait()
+            acc[:, 10 * rank:10 * (rank + 1)] += slots[1 - rank][:, 10 * rank:10 * (rank + 1)]
+            barrier.wait()
+        return exchange
+
+    def run(r):
+        outs[r] = squaring.squaring_step_bwd(
+            v, g[:, 10 * r:10 * (r + 1)].contiguous(), 10 * r, (top, exchange_of(r)))
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got = torch.cat(outs, dim=1)
+    assert torch.equal(got, squaring.squaring_step_bwd(v, g))
+    assert torch.equal(got, squaring.squaring_step_bwd_plain(v, g))
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf"), -float("inf")])
+def test_fixed_scatters_give_nan_for_a_non_finite_cotangent(cuda_device, bad):
+    """One non-finite cotangent entry makes every output of #7 and #2 NaN,
+    as in their plain versions (the launch's scale is not finite); an
+    all-zero cotangent gives zeros, and #2 then its own terms."""
+    d = _field((2, 10, 12, 14, 3), 2.0, 36).to(cuda_device)
+    g = torch.randn((2, 10, 12, 14, 3), device=cuda_device)
+    g[1, 3, 4, 5, 2] = bad
+    got = warp.warp_mgrad((1, 10, 12, 14, 3), d, g)
+    assert bool(torch.isnan(got).all())
+    assert bool(torch.isnan(warp.warp_mgrad_plain((1, 10, 12, 14, 3), d, g)).all())
+    v = d[:1].contiguous()
+    assert bool(torch.isnan(squaring.squaring_step_bwd(v, g[1:].contiguous())).all())
+    zero = torch.zeros_like(g)
+    assert torch.equal(warp.warp_mgrad((1, 10, 12, 14, 3), d, zero),
+                       torch.zeros((1, 10, 12, 14, 3), device=cuda_device))
+    assert torch.equal(squaring.squaring_step_bwd(v, zero[:1].contiguous()),
+                       squaring.squaring_step_bwd_plain(v, zero[:1]))
 
 
 @pytest.mark.parametrize("mag", [0.3, 3.0, 40.0])
@@ -420,8 +505,8 @@ def test_mgrad_and_squaring_under_large_displacement(cuda_device, si):
     shape = (19, 15, 21)  # ragged
     d = respiratory_field(shape, si, 4.0, cuda_device)
     g = torch.from_numpy(rng.standard_normal((1, *shape, 3)).astype(np.float32)).to(cuda_device)
-    _close_scaled(warp.warp_mgrad((1, *shape, 3), d, g),
-                  warp.warp_mgrad_plain((1, *shape, 3), d, g), 1e-5)
+    torch.testing.assert_close(warp.warp_mgrad((1, *shape, 3), d, g),
+                               warp.warp_mgrad_plain((1, *shape, 3), d, g), rtol=0, atol=0)
     v = respiratory_field(shape, si / 2, 2.0, cuda_device)
     torch.testing.assert_close(squaring.integrate_svf(v, 7), squaring.integrate_svf_plain(v, 7),
                                rtol=0, atol=0)
@@ -443,15 +528,48 @@ def _cpu_draws(monkeypatch):
                         plain(seed, samples, level, shape, "cpu").to(device))
 
 
+def test_trainer_on_the_card_repeats_itself_bit_for_bit(cuda_device, monkeypatch, tmp_path):
+    """The Trainer test's two steps (validation, checkpoints and logging
+    after each) twice on the card under cuDNN's deterministic algorithms:
+    every logged value the same bits. The port's only scatters (#7, #2)
+    sum order-free, so nothing of the step depends on the order of its
+    adds."""
+    from pulpo_tpu_torch import PULPoConfig
+    from pulpo_tpu_torch.data.loader import DataLoader
+    from pulpo_tpu_torch.data.synthetic import SyntheticDataset
+    from pulpo_tpu_torch.train.loop import Trainer
+    from pulpo_tpu_torch.train.metrics import read_metrics
+
+    _cpu_draws(monkeypatch)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    cfg = PULPoConfig(input_size=(24, 28, 32), total_levels=3, latent_levels=2, n0=8,
+                      log_every_n_steps=1, dataset="synthetic")
+    ds = SyntheticDataset(shape=cfg.input_size, n=4, seed=3)
+    runs = []
+    for i in range(2):
+        trainer = Trainer(cfg, run_dir=tmp_path, experiment=f"run{i}", device=cuda_device)
+        state = trainer.fit(DataLoader(ds, 1, shuffle=True, seed=0),
+                            DataLoader(ds, 1, seed=1), max_steps=2)
+        trainer.close()
+        assert state.step == 2 and not state.nan_flag
+        runs.append(read_metrics(trainer.run_dir))
+    assert [r["step"] for r in runs[0]] == [1, 2]
+    assert runs[0] == runs[1]
+
+
 # The Trainer test's two steps on an NVIDIA H100 80GB HBM3 at 700 W
 # (scripts/probe_trainer_spread.py: 72 runs under cuDNN's deterministic
 # algorithms, in 14 processes over 3 machines). CARD_SPREAD: the largest
 # relative difference between two runs in one process (30 runs;
 # 2/val/regularization_loss; 1.35e-3 between any two of the 72), from the
-# squaring step's backward, which adds its scatter with float32 atomics in
-# an order that changes from run to run. CPU_GAP: with that backward
-# replaced by its plain version too, the runs were bit-identical and at
-# most 3.77e-4 from the CPU (step 2; 3.3e-4 at step 1).
+# squaring step's backward when it added its scatter with float32 atomics
+# in an order that changed from run to run; it now sums order-free in
+# fixed point, and two card runs give the same bits
+# (test_trainer_on_the_card_repeats_itself_bit_for_bit). CPU_GAP: with
+# that backward replaced by its plain version too, the runs were
+# bit-identical and at most 3.77e-4 from the CPU (step 2; 3.3e-4 at
+# step 1).
 CARD_SPREAD = 1.037e-3
 CPU_GAP = 3.8e-4
 

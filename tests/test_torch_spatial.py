@@ -71,9 +71,10 @@ Tolerances:
 - against the port's unsharded step: losses rtol 1e-5, gradients within
   2e-5 of each leaf's scale plus the unsharded step's own float32 error
   on that leaf (its distance from the float64 JAX gradient), the rule of
-  tests/test_torch_parallel.py at twice its 1e-5: the slabs' halo convs,
-  partial losses and summed squaring cotangents reorder more float32
-  sums than the data-parallel split does. The leaves that move most are
+  tests/test_torch_parallel.py at twice its 1e-5: the slabs' halo convs
+  and partial losses reorder more float32 sums than the data-parallel
+  split does (the squaring backward's slabs sum exactly, in fixed
+  point, to the unsharded one's). The leaves that move most are
   the conv biases that feed a train BatchNorm, whose exact gradient is 0
   (their scale is 1 % of the largest leaf's); measured 1.7e-5 at most.
   Running statistics within 1e-5 of scale;
@@ -103,6 +104,7 @@ from pulpo_tpu.parallel.spatial import volume_batch_spec as jax_volume_batch_spe
 from pulpo_tpu.train.step import TrainState as JaxTrainState
 from pulpo_tpu_torch import PULPoConfig
 from pulpo_tpu_torch.compat import from_jax_variables
+from pulpo_tpu_torch.kernels import squaring
 from pulpo_tpu_torch.models import PULPoModel
 from pulpo_tpu_torch.ops import losses
 from pulpo_tpu_torch.parallel import spatial
@@ -272,6 +274,20 @@ def rule_inputs() -> dict:
     return out
 
 
+INTEGRATE_STEPS = 4
+
+
+def integrate_inputs() -> dict:
+    """The sharded integration's field (voxels, up to 2.5: its steps'
+    terms reach across slabs) and cotangent, at the weight rule's split
+    level."""
+    rng = np.random.default_rng(21)
+    shape = (2, *RULE_LEVELS["split"], 3)
+    v = rng.uniform(-2.5, 2.5, shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    return {"v": torch.from_numpy(v), "g": torch.from_numpy(g)}
+
+
 @pytest.fixture(scope="module")
 def ranks(jax_forward, jax_step, jax_seg_steps, tmp_path_factory):
     """The four ranks' outputs, from the JAX weights, inputs and draws."""
@@ -290,7 +306,9 @@ def ranks(jax_forward, jax_step, jax_seg_steps, tmp_path_factory):
                   "noise": tensors(jax_seg_steps[name]["noise"])}
                  for name, kw in SEG_STEPS.items()]
     rule = {"cfg": RULE_CFG, "meshes": RULE_MESHES, "inputs": rule_inputs()}
-    torch.save({"forward": forward, "step": step, "seg_steps": seg_steps, "rule": rule}, inp)
+    integrate = dict(integrate_inputs(), cfg=RULE_CFG, meshes=RULE_MESHES, nsteps=INTEGRATE_STEPS)
+    torch.save({"forward": forward, "step": step, "seg_steps": seg_steps, "rule": rule,
+                "integrate": integrate}, inp)
     return _run_workers(tmp, inp, "spatial", WORLD)
 
 
@@ -497,6 +515,28 @@ def test_partial_statistics_follow_the_weight_rule(ranks, shape, loss, level):
     (ref_grad,) = torch.autograd.grad(ref, xr)
     assert abs(value - float(ref)) <= 1e-6 * abs(float(ref)), (value, float(ref))
     _close(grad, ref_grad, 1e-6, "gradient")
+
+
+@pytest.mark.parametrize("shape", RULE_MESHES, ids=["2x2", "1x4"])
+def test_sharded_integration_backward_is_the_whole_one(ranks, shape):
+    """The sharded scaling and squaring's slabs joined are the unsharded
+    integration and its input gradient bit for bit (each step backward's
+    fixed-point sums exchanged over the column, `spatial._column`), and a
+    rank sends fewer bytes for them than one float32 all-reduce of the
+    whole field a step would move (the planes its terms reach only)."""
+    inp = integrate_inputs()
+    v = inp["v"].clone().requires_grad_(True)
+    ref = squaring.integrate_svf(v, INTEGRATE_STEPS)
+    (ref_grad,) = torch.autograd.grad(ref, v, inp["g"])
+    y, grad = torch.zeros_like(ref), torch.zeros_like(ref_grad)
+    for r, out in enumerate(ranks):
+        ys, gs, sent = out["integrate"][shape]
+        rows, planes = spatial.volume_batch_spec(spatial.Mesh2D(shape, r, *(None,) * 3), v.shape)
+        y[rows, planes], grad[rows, planes] = ys, gs
+        whole = ys.numel() * shape[1]
+        assert 0 < sent < INTEGRATE_STEPS * 4 * whole, (r, sent)
+    assert torch.equal(y, ref.detach())
+    assert torch.equal(grad, ref_grad)
 
 
 # ----------------------------------------------------------------------

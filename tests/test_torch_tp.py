@@ -50,8 +50,8 @@ Tolerances:
   leaf, 1.8e-6 at most against a spread of 2.7e-6 there; statistics 1e-5
   of scale, losses rtol 1e-5;
 - the two ranks: bit-equal outputs, losses and metrics, replicated
-  leaves' gradients (each rank's own, before `mean_replicated` averages
-  them, and after), and replicated weights after the Adam update;
+  leaves' gradients (each rank's own: no average over the ranks is
+  taken), and replicated weights after the Adam update;
 - `create_train_state` on the split model: each rank's slices joined in
   rank order equal the unsplit init bit for bit.
 """
@@ -351,14 +351,13 @@ def test_split_2d_step_matches_the_port_unsplit_step(tp_input, ranks):
 
 @pytest.mark.parametrize("name", ["step", "remat", "2d"])
 def test_the_ranks_agree_bit_for_bit_on_the_steps(ranks, name):
-    """The replicated leaves' gradients (as each rank computed them, before
-    their average over the ranks, and after it), every metric and, after
-    the Adam update made inside `tp.sharded`, the replicated weights."""
+    """The replicated leaves' gradients (as each rank computed them: no
+    average over the ranks is taken), every metric and, after the Adam
+    update made inside `tp.sharded`, the replicated weights."""
     a, b = (r["steps"][name] for r in ranks)
     assert a["split"] == b["split"] and a["split"]
     replicated = [n for n in a["grads"] if n not in a["split"]]
-    assert replicated and sorted(a["local"]) == sorted(replicated)
-    assert all(torch.equal(a["local"][n], b["local"][n]) for n in replicated)
+    assert replicated
     assert all(torch.equal(a["grads"][n], b["grads"][n]) for n in replicated)
     for k, v in a["metrics"].items():
         for l, t in (v.items() if isinstance(v, dict) else [(None, v)]):

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import pathlib
 import sys
-from unittest import mock
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -126,6 +125,25 @@ def run_spatial(inp: dict) -> dict:
     out.update(after=model.state_dict(), step_metrics=step_metrics)
     out["seg_steps"] = run_steps(inp["seg_steps"], mesh)
     out["rule"] = run_rule(inp["rule"])
+    out["integrate"] = run_integrate(inp["integrate"])
+    return out
+
+
+def run_integrate(case: dict) -> dict:
+    """{mesh: (this rank's slab of the integrated field, its gradient for
+    the slab of the cotangent, the "reduce" bytes it sent)}: the sharded
+    scaling and squaring (`spatial.integrate_svf`) and its backward."""
+    cfg = PULPoConfig(**case["cfg"])
+    out = {}
+    for shape in case["meshes"]:
+        mesh = spatial.make_2d_mesh(*shape)
+        v = spatial.shard_volume(case["v"], mesh).clone().requires_grad_(True)
+        g = spatial.shard_volume(case["g"], mesh)
+        spatial.reset_traffic()
+        with spatial.sharded(mesh, cfg):
+            y = spatial.integrate_svf(v, case["nsteps"])
+        (grad,) = torch.autograd.grad(y, v, g)
+        out[shape] = (y.detach(), grad, spatial.traffic.get("reduce", [0, 0])[1])
     return out
 
 
@@ -147,20 +165,6 @@ def run_rule(rule: dict) -> dict:
             (grad,) = torch.autograd.grad(term, xb)
             out[(shape, name, level)] = (term.detach(), grad)
     return out
-
-
-def keeping_local(kept: dict):
-    """`tp.mean_replicated` patched to keep first, in `kept`, the
-    replicated leaves' gradients this rank computed (before their average
-    over the ranks)."""
-    average = tp.mean_replicated
-
-    def keep(grads, model):
-        split = model.module.tp_split
-        kept.update({n: g.detach().clone() for n, g in grads.items() if n not in split})
-        return average(grads, model)
-
-    return mock.patch.object(tp, "mean_replicated", keep)
 
 
 def run_tp(inp: dict) -> dict:
@@ -186,13 +190,11 @@ def run_tp(inp: dict) -> dict:
     out["steps"] = {}
     for case in inp["steps"]:
         smodel = tp.shard_params(_model(case), mesh)
-        local = {}
         with tp.sharded(mesh):
             tp.reset_traffic()
-            with keeping_local(local):
-                grads, stats, metrics = compute_grads(smodel, case["batch"], noise=case["noise"])
+            grads, stats, metrics = compute_grads(smodel, case["batch"], noise=case["noise"])
             rec = dict(grads=grads, stats=stats, metrics=metrics, traffic=dict(tp.traffic),
-                       split=smodel.module.tp_split, local=local)
+                       split=smodel.module.tp_split)
             if case.get("update"):
                 rec["before"] = {n: v.clone() for n, v in smodel.state_dict().items()}
                 tx = Adam(smodel.cfg.lr)
